@@ -1,0 +1,19 @@
+"""kaldi_tpu_torch — the PyTorch/CUDA port of kaldi_tpu for NVIDIA Hopper.
+
+The layout mirrors ``kaldi_tpu``: ``features/`` (framing, mel banks,
+fbank), ``ops/`` (kernel wrappers and their plain PyTorch versions),
+``csrc/`` (CUDA C++ kernel sources, built with nvcc on first use),
+``am/`` (acoustic models), ``decoder/`` (the batched lattice beam
+decoder) and ``pipelines/`` (task builders, scoring, wav → lattice).
+
+Host-only modules with no JAX dependency (``kaldi_tpu.fst``,
+``kaldi_tpu.lattice``, ``kaldi_tpu.native``, ``kaldi_tpu.am.topology``,
+``am.tree``, ``am.transitions``, ``core.logging``) are imported from
+``kaldi_tpu`` rather than copied.  Nothing in this package imports JAX.
+
+Every wrapper of a CUDA kernel runs its plain PyTorch version for a
+tensor on the CPU and launches the kernel (or raises) for a CUDA
+tensor; there is no silent fallback between the two.
+"""
+
+__version__ = "0.1.0"
