@@ -10,7 +10,9 @@ Phases (each prints lines; any failure raises and exits non-zero):
      task at the headline operating point, checked against the port's
      own CPU decode, with the frame loop run under
      torch.cuda.set_sync_debug_mode("error");
-  5. wav → fbank kernel → TDNN-F → lattice decode on 8 seeded waveforms.
+  5. wav → fbank kernel → TDNN-F → lattice decode on 8 seeded waveforms,
+     then the kernel against its plain version on each waveform's frames
+     and the TDNN-F on the card against its CPU forward.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a
 CUDA device the script exits non-zero before printing any result.
@@ -19,7 +21,6 @@ CUDA device the script exits non-zero before printing any result.
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -29,28 +30,6 @@ import torch
 SEED = 20261016
 SAMP_FREQ = 16000
 OUT_SCALE = 0.04
-
-
-def card_info() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call of ``fn`` over ``iters`` calls, by
-    CUDA events (after one warm call)."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def random_tdnn_state(model, rng: np.random.Generator):
@@ -100,9 +79,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from kaldi_tpu import native
     from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnConfig
-    from kaldi_tpu_torch.decoder.beam import BeamDecoder, BeamDecoderConfig
+    from kaldi_tpu_torch.decoder.beam import (BeamDecoder, BeamDecoderConfig,
+                                              host_lattice_backend)
     from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
     from kaldi_tpu_torch.features.mel import MelBanksOptions
     from kaldi_tpu_torch.features.window import preprocess_frames
@@ -114,6 +93,7 @@ def main() -> int:
                                                       sample_eval_set,
                                                       synth_loglikes)
     from kaldi_tpu_torch.pipelines.score import compute_wer
+    from kaldi_tpu_torch.tools.timing import card_info, cuda_ms
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -171,8 +151,7 @@ def main() -> int:
           f"{csr.num_emitting_arcs}+{csr.num_eps_arcs} arcs, "
           f"{task.num_pdfs} pdfs (built in "
           f"{time.perf_counter() - t0:.1f} s)")
-    print(f"decode: host lattice library: "
-          f"{'native C++' if native.get_lib() is not None else 'numpy'}")
+    print(f"decode: host lattice library: {host_lattice_backend()}")
     cfg = BeamDecoderConfig(beam=13.0, max_active=7000, acoustic_scale=1.0,
                             lattice_beam=7.0, arc_budget=4096,
                             token_capacity=2048, arc_block=8,
@@ -273,6 +252,25 @@ def main() -> int:
     print(f"wav: end to end {w_wall:.3f} s = {wav_s / w_wall:.1f} "
           f"audio-s/s {tag}")
 
+    # the kernel against its plain version at the main path's shapes:
+    # every waveform's frames, most of them ending in a partial tile
+    # (launches here are not counted)
+    wav_err, wav_frames = 0.0, []
+    for w in waves:
+        x, _ = preprocess_frames(torch.from_numpy(fbank.frames(w)).to(dev),
+                                 fopts.frame_opts)
+        x = x.contiguous()
+        d = (kern(x) - fbank_reference(x, kern.window, kern.cos, kern.sin,
+                                       kern.mel)).abs().max()
+        wav_err = max(wav_err, float(d))
+        wav_frames.append(x.shape[0])
+    print(f"fbank: kernel vs plain on each waveform's frames "
+          f"({wav_frames}): max |diff| "
+          f"{wav_err:.3e} log-mel (limit 2e-3)")
+    if not wav_err <= 2e-3:
+        raise AssertionError(f"fbank kernel disagrees on the wav path: "
+                             f"{wav_err}")
+
     # stage breakdown (launches here are not counted)
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -282,23 +280,26 @@ def main() -> int:
         scores = [model(f[None])[0] for f in feats]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        ref = model_cpu(feats[0].cpu()[None])[0]
     decode_scores(scores, dec, 8)
     t3 = time.perf_counter()
+    print(f"wav: stages fbank {t1 - t0:.3f} s, tdnn {t2 - t1:.3f} s, "
+          f"decode+lattice {t3 - t2:.3f} s {tag}")
+
+    with torch.no_grad():
+        ref = model_cpu(feats[0].cpu()[None])[0]
     rel = float((scores[0].cpu() - ref).abs().max() / ref.abs().max())
     print(f"wav: TDNN-F on the card vs CPU float32 forward: max |diff| / "
           f"max |cpu| = {rel:.3e} (limit 1e-3); output "
           f"{tuple(scores[0].shape)}, std {float(scores[0].std()):.3f}")
     if not rel <= 1e-3:
         raise AssertionError(f"TDNN output disagrees: {rel}")
-    print(f"wav: stages fbank {t1 - t0:.3f} s, tdnn {t2 - t1:.3f} s, "
-          f"decode+lattice {t3 - t2:.3f} s {tag}")
 
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
-        "launches": fbank_launches, "max_abs_err": fb_err,
+        "launches": fbank_launches,
+        "max_abs_err": max(fb_err, wav_err),
         "ms": fb_ms, "plain_ms": fb_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,9 +19,8 @@
 // thread owns one DFT bin and keeps the tile's re/im sums in
 // registers, so each cos/sin table value read from L2 is reused for
 // FBANK_TILE frames; frame samples are read four at a time, one float4
-// shared-memory broadcast per frame (1.47x faster than scalar reads,
-// PERF.md).
-// The power spectrum goes to shared memory, then threads over
+// shared-memory broadcast per frame, instead of one scalar read per
+// sample.  The power spectrum goes to shared memory, then threads over
 // (frame, mel bin) reduce it against the dense mel matrix.  All
 // arithmetic is FP32 FMA on the CUDA cores.
 //

@@ -92,6 +92,14 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def host_lattice_backend() -> str:
+    """Which library the host lattice build and determinize run on:
+    "native C++" when ``kaldi_tpu.native`` built and loaded, else
+    "numpy"."""
+    from kaldi_tpu import native
+    return "native C++" if native.get_lib() is not None else "numpy"
+
+
 class BeamDecoder:
     """Decoder bound to one graph; the packed arc table lives on
     ``device`` once and every decode reuses it."""

@@ -5,7 +5,9 @@ Port of ``FbankOptions`` / ``Fbank`` from kaldi_tpu/features/compute.py
 the host (numpy); DC removal, raw log-energy and pre-emphasis run as
 tensor ops on the computer's device; window → power spectrum → mel →
 log runs in the fused fbank kernel (ops/fbank.py ``CudaFbank``), whose
-DFT is by products, like the TPU kernel it replaces.
+DFT is by products, like the TPU kernel it replaces.  The kernel
+computes log power-mel, and the energy column (``use_energy``) is the
+raw log-energy of each frame before pre-emphasis and windowing.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kaldi_tpu.core.logging import KaldiError
 from kaldi_tpu_torch.features.mel import MelBanksOptions
 from kaldi_tpu_torch.features.window import (FrameExtractionOptions,
                                              extract_frames,
@@ -33,9 +34,6 @@ class FbankOptions:
         default_factory=lambda: MelBanksOptions(num_bins=23))
     use_energy: bool = False
     energy_floor: float = 0.0
-    raw_energy: bool = True
-    use_log_fbank: bool = True
-    use_power: bool = True
 
 
 class Fbank:
@@ -44,10 +42,6 @@ class Fbank:
     def __init__(self, opts: FbankOptions = None,
                  device: torch.device | str = "cpu"):
         opts = opts or FbankOptions()
-        if not (opts.use_power and opts.use_log_fbank):
-            # the fused kernel computes log power-mel only
-            raise KaldiError("Fbank: only use_power=True, "
-                             "use_log_fbank=True are supported")
         self.opts = opts
         self.frame_opts = opts.frame_opts
         self.device = torch.device(device)

@@ -1,0 +1,114 @@
+"""Profile of the port's slice on one CUDA card.
+
+    python -m kaldi_tpu_torch.tools.profile_slice
+
+1. The fbank kernel against its plain PyTorch version at the main
+   path's per-utterance frame counts and at batched ones: ms per call by
+   CUDA events, each side timed twice in the order plain, kernel,
+   kernel, plain, the best of each kept.
+2. One ``_decode_batch`` of the chip_smoke decode setup (20k-word task,
+   32 utterances, beam 13, max-active 7000, lattice-beam 7) under
+   torch.profiler, with the device β-prune on and off: kernels launched
+   per frame, device kernel time against the profiled wall (the busy
+   share), and the top entries by device time.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaldi_tpu_torch.decoder.beam import BeamDecoder, BeamDecoderConfig
+    from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
+    from kaldi_tpu_torch.features.mel import MelBanksOptions
+    from kaldi_tpu_torch.features.window import preprocess_frames
+    from kaldi_tpu_torch.ops.fbank import fbank_reference
+    from kaldi_tpu_torch.pipelines.largevocab import (make_largevocab_task,
+                                                      sample_eval_set,
+                                                      synth_loglikes)
+    from kaldi_tpu_torch.tools.timing import card_info, cuda_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tag = f"[{card_info()}]"
+    print(f"card: {tag}")
+
+    fb = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=40)),
+               device=dev)
+    k = fb.kernel
+    rng = np.random.default_rng(1)
+    for n in (300, 598, 4096, 32768, 131072):
+        raw = torch.from_numpy((1000 * rng.standard_normal((n, 400)))
+                               .astype(np.float32)).to(dev)
+        x, _ = preprocess_frames(raw, fb.frame_opts)
+        x = x.contiguous()
+
+        def plain():
+            return fbank_reference(x, k.window, k.cos, k.sin, k.mel)
+
+        err = float((k(x) - plain()).abs().max())
+        t = {"plain": [], "kernel": []}
+        for w in ("plain", "kernel", "kernel", "plain"):
+            t[w].append(cuda_ms(plain if w == "plain" else lambda: k(x), 30))
+        print(f"fbank {n} frames: kernel {min(t['kernel']):.4f} ms, plain "
+              f"{min(t['plain']):.4f} ms, max |diff| {err:.2e} {tag}")
+
+    task = make_largevocab_task(vocab_size=20000, order=3, seed=7,
+                                closure=False)
+    cfg = BeamDecoderConfig(beam=13.0, max_active=7000, acoustic_scale=1.0,
+                            lattice_beam=7.0, arc_budget=4096,
+                            token_capacity=2048, arc_block=8,
+                            escalate_budget=16384, escalate_deficit=4.0,
+                            lattice_arcs_per_frame=4096,
+                            record_capacity=16384)
+    dec = BeamDecoder(task.graph.csr, task.tm.tid_to_pdf_array, cfg,
+                      device=dev)
+    ev = sample_eval_set(task, 32, max_words=6, seed=99)
+    lrng = np.random.default_rng(1234)
+    lls = [synth_loglikes(task, ev[u], lrng, noise=0.5) for u in sorted(ev)]
+    lens = np.array([len(x) for x in lls], np.int64)
+    T_pad = int(np.ceil(lens.max() / 32) * 32)
+    X = np.zeros((len(lls), T_pad, task.num_pdfs), np.float32)
+    for b, ll in enumerate(lls):
+        X[b, :len(ll)] = ll
+    Xd = torch.from_numpy(X).to(dev)
+    nd = torch.from_numpy(lens).to(dev)
+    for name, d in (("beta on", dec),
+                    ("beta off", dec.with_overrides(device_beta_prune=False))):
+        d._decode_batch(Xd, nd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d._decode_batch(Xd, nd)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            d._decode_batch(Xd, nd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        busy = sum(e.device_time for e in kernels) / 1e3
+        print(f"decode {name}: T_pad {T_pad}; unprofiled wall "
+              f"{plain_wall * 1e3:.1f} ms; profiled wall {wall * 1e3:.1f} "
+              f"ms, device kernel time {busy:.1f} ms "
+              f"({100 * busy / (wall * 1e3):.1f}% busy), {len(kernels)} "
+              f"kernels = {len(kernels) / T_pad:.1f} per frame {tag}")
+        print(prof.key_averages().table(sort_by="device_time_total",
+                                        row_limit=12,
+                                        max_name_column_width=50))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -147,6 +147,14 @@ def test_native_lattice_matches_numpy(small_graph, monkeypatch):
         assert lat_native.num_arcs == lat_numpy.num_arcs
 
 
+def test_host_lattice_backend_names_the_library(monkeypatch):
+    from kaldi_tpu import native
+    want = "numpy" if native.get_lib() is None else "native C++"
+    assert tbeam.host_lattice_backend() == want
+    monkeypatch.setenv("KALDI_TPU_NO_NATIVE", "1")
+    assert tbeam.host_lattice_backend() == "numpy"
+
+
 @pytest.mark.parametrize("seed", range(5))
 def test_beam_matches_simple_random_loglikes(seed):
     """Mirrors tests/test_decoder.py: an unpruned port decode equals

@@ -9,6 +9,8 @@ mode (atol 2e-3, the repo's own bound for that kernel); the port's
 atol 2e-3 on non-silent frames.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,10 +158,23 @@ def test_fbank_compute_matches_jax(use_energy):
     np.testing.assert_allclose(got[loud], want[loud], atol=2e-3, rtol=0)
 
 
-def test_fbank_rejects_unsupported_options():
-    from kaldi_tpu.core.logging import KaldiError
-    with pytest.raises(KaldiError):
-        tcompute.Fbank(tcompute.FbankOptions(use_power=False))
+def test_fbank_energy_floor_matches_jax():
+    rng = np.random.default_rng(12)
+    wave = _speechlike(rng, 1.3)
+    floor = math.exp(20.0)
+    jf = jcompute.Fbank(jcompute.FbankOptions(
+        mel_opts=jmel.MelBanksOptions(num_bins=40), use_energy=True,
+        energy_floor=floor))
+    tf = tcompute.Fbank(tcompute.FbankOptions(
+        mel_opts=tmel.MelBanksOptions(num_bins=40), use_energy=True,
+        energy_floor=floor))
+    want = jf.compute(wave, np.random.default_rng(3))
+    got = tf.compute(wave, np.random.default_rng(3)).numpy()
+    floored = got[:, 0] == np.float32(20.0)
+    assert 0 < floored.sum() < len(got)
+    np.testing.assert_allclose(got[:, 0], want[:, 0], atol=1e-4, rtol=0)
+    loud = want[:, 1:].min(axis=1) > 1.0
+    np.testing.assert_allclose(got[loud], want[loud], atol=2e-3, rtol=0)
 
 
 @pytest.mark.gpu
