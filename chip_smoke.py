@@ -4,15 +4,33 @@
 
 Phases (each prints lines; any failure raises and exits non-zero):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN;
-  2. build: nvcc build of the fbank kernel (kaldi_tpu_torch/csrc/fbank.cu);
-  3. kernel vs its plain PyTorch version on the card, 4096 frames;
+  2. build: nvcc builds of every kernel (kaldi_tpu_torch/csrc/*.cu), all
+     started together;
+  3. the fbank kernel vs its plain PyTorch version on the card, 4096
+     frames, at the TDNN-F's 40 bins and at the MFCC configurations
+     (16 kHz with 23 bins, 8 kHz with 15 bins);
   4. batched lattice decode of synthetic log-likelihoods on the 20k-word
      task at the headline operating point, checked against the port's
      own CPU decode, with the frame loop run under
      torch.cuda.set_sync_debug_mode("error");
   5. wav → fbank kernel → TDNN-F → lattice decode on 8 seeded waveforms,
      then the kernel against its plain version on each waveform's frames
-     and the TDNN-F on the card against its CPU forward.
+     and the TDNN-F on the card against its CPU forward;
+  6. the GMM decode path (gmm-latgen-faster):
+     a. the GMM kernel vs its plain version at the mini_librispeech
+        tri3b width (2500 pdfs, 15,000 Gaussians, D = 40) at 300, 1000
+        and 4096 frames, with both times;
+     b. wav → MFCC → CMVN → Δ+ΔΔ → GMM kernel → the latgen BeamDecoder
+        branch on the 20k-word task (above the dense limit), 8
+        waveforms, checked against the port's CPU decode on 4;
+     c. wav → MFCC → CMVN → splice ±3 → LDA+MLLT → GMM kernel → the
+        latgen DenseDecoder branch on a 300-word task: one-best batch
+        of 8 (frame loop under sync debug mode "error") and lattices
+        of 4, checked against the port's CPU decode.
+     The waveforms of b and c are seeded sentences of each task
+     rendered as speech-like audio, and the GMMs are drawn around the
+     features of each pdf's frames (kaldi_tpu_torch/tools/synth.py), so
+     the WER of the path is a check too.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a
 CUDA device the script exits non-zero before printing any result.
@@ -30,6 +48,13 @@ import torch
 SEED = 20261016
 SAMP_FREQ = 16000
 OUT_SCALE = 0.04
+# the GMM kernel's parity bar with its plain version (both float32 FMA
+# on the card, summed in different orders; log-likelihoods are O(100))
+GMM_TOL = 1e-4
+# the GMM path recognizes what its synthesized speech says (WER 0 in
+# both branches, PERF.md); 10% leaves room for near-homophones of the
+# 20k-word task, and a broken path is far above it
+MAX_WER = 10.0
 
 
 def random_tdnn_state(model, rng: np.random.Generator):
@@ -74,6 +99,279 @@ def synth_waveforms(rng: np.random.Generator, n: int):
     return waves
 
 
+def speech_set(task, n: int, seed: int):
+    """n seeded sentences of ``task`` rendered as 16 kHz speech-like
+    waveforms (tools/synth.py): (waveforms, frame-level pdf alignments,
+    reference word lists)."""
+    from kaldi_tpu_torch.pipelines.largevocab import (sample_eval_set,
+                                                      synth_alignment)
+    from kaldi_tpu_torch.tools.synth import pdf_signatures, synth_speech
+    rng = np.random.default_rng(seed)
+    freqs, amps = pdf_signatures(rng, task.num_pdfs,
+                                 {task.fwd_pdf["SIL"], task.slf_pdf["SIL"]})
+    sents = sample_eval_set(task, n, max_words=12, seed=seed)
+    refs = [sents[u] for u in sorted(sents)]
+    aligns = [synth_alignment(task, r, rng, frames_per_phone=(6, 13))
+              for r in refs]
+    return [synth_speech(a, freqs, amps, rng) for a in aligns], aligns, refs
+
+
+def delta_feats(mfcc, wave):
+    """The mono/tri1 features: MFCC → per-utterance CMVN → Δ+ΔΔ."""
+    from kaldi_tpu_torch.features import (add_deltas, apply_cmvn,
+                                          compute_cmvn_stats)
+    raw = mfcc.compute(wave)
+    return add_deltas(apply_cmvn(raw, compute_cmvn_stats(raw)))
+
+
+def lda_feats(mfcc, wave, mat):
+    """The tri2b/tri3b features: MFCC → per-utterance CMVN → splice ±3
+    → the LDA+MLLT matrix."""
+    from kaldi_tpu_torch.am.transforms import apply_transform
+    from kaldi_tpu_torch.features import (apply_cmvn, compute_cmvn_stats,
+                                          splice_frames)
+    raw = mfcc.compute(wave)
+    return apply_transform(
+        splice_frames(apply_cmvn(raw, compute_cmvn_stats(raw)), 3, 3), mat)
+
+
+def same_best(got, want, what: str) -> None:
+    """(words, tids, cost) or (tids, words, cost) pairs: the same label
+    sequences, costs within 1e-3."""
+    for b, (g, w) in enumerate(zip(got, want)):
+        if g[0] != w[0] or g[1] != w[1] or abs(g[2] - w[2]) > 1e-3:
+            raise AssertionError(f"{what} utt {b}: GPU {g[0]} {g[2]} vs "
+                                 f"CPU {w[0]} {w[2]}")
+
+
+def gmm_kernel_check(dev, tag: str, num_pdfs: int = 2500,
+                     num_gauss: int = 15000, sizes=(300, 1000, 4096)):
+    """6a: the GMM kernel against its plain version at the tri3b width
+    (steps/train_sat.sh 2500 15000 on 40 LDA+MLLT dims).  Returns
+    (max |diff|, kernel ms, plain ms at the last size)."""
+    from kaldi_tpu_torch.tools.synth import tri3b_gmm
+    from kaldi_tpu_torch.tools.timing import cuda_ms
+    rng = np.random.default_rng(SEED + 6)
+    am = tri3b_gmm(rng, num_pdfs, num_gauss).to(dev)
+    if am.num_gauss() != num_gauss:
+        raise AssertionError(f"tri3b model has {am.num_gauss()} Gaussians")
+    k = am.device_params()
+    print(f"gmm: tri3b width: {am.num_pdfs} pdfs, {am.num_gauss()} "
+          f"Gaussians in {am.max_mix} slots per pdf, D={am.dim}")
+    err = 0.0
+    for T in sizes:
+        x = torch.from_numpy(rng.standard_normal((T, 40)).astype(
+            np.float32)).to(dev)
+        got, want = k(x), k.reference(x)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        ok = bool((diff <= GMM_TOL + GMM_TOL * want.abs()).all())
+        err = max(err, float(diff.max()))
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[which].append(cuda_ms(
+                (lambda: k.reference(x)) if which == "plain"
+                else (lambda: k(x)), 20))
+        ms, plain_ms = min(times["kernel"]), min(times["plain"])
+        print(f"gmm: {T} frames: kernel vs plain max |diff| "
+              f"{float(diff.max()):.3e} (limit {GMM_TOL:g} + "
+              f"{GMM_TOL:g}·|plain|, values in [{float(want.min()):.1f}, "
+              f"{float(want.max()):.1f}]); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (best of 2 × 20) {tag}")
+        if not ok:
+            raise AssertionError(f"GMM kernel disagrees at T={T}")
+    return err, ms, plain_ms
+
+
+def check_path_loglikes(am, feats, lls, what: str) -> float:
+    """The GMM kernel's output on the path against its plain version on
+    the same features (these plain runs launch nothing)."""
+    k = am.device_params()
+    err = 0.0
+    for f, ll in zip(feats, lls):
+        want = k.reference(f)
+        diff = (ll - want).abs()
+        if not bool((diff <= GMM_TOL + GMM_TOL * want.abs()).all()):
+            raise AssertionError(f"{what}: GMM kernel disagrees on the path")
+        err = max(err, float(diff.max()))
+    print(f"{what}: GMM kernel vs plain on each utterance's features: max "
+          f"|diff| {err:.3e} (limit {GMM_TOL:g} + {GMM_TOL:g}·|plain|)")
+    return err
+
+
+def check_path_fbank(mfcc, waves, what: str) -> float:
+    """The fbank kernel at the MFCC's configuration against its plain
+    version on each waveform's frames (launches here are not counted)."""
+    from kaldi_tpu_torch.features.window import preprocess_frames
+    from kaldi_tpu_torch.ops.fbank import fbank_reference
+    k, n = mfcc.kernel, mfcc.kernel.launches
+    err = 0.0
+    for w in waves:
+        x = preprocess_frames(torch.from_numpy(mfcc.frames(w)).to(k.device),
+                              mfcc.frame_opts)[0].contiguous()
+        err = max(err, float((k(x) - fbank_reference(
+            x, k.window, k.cos, k.sin, k.mel)).abs().max()))
+    k.launches = n
+    print(f"{what}: fbank kernel ({k.n_mel} bins) vs plain on each "
+          f"waveform's frames: max |diff| {err:.3e} log-mel (limit 2e-3)")
+    if not err <= 2e-3:
+        raise AssertionError(f"{what}: fbank kernel disagrees: {err}")
+    return err
+
+
+def words_of(task, wids):
+    return [task.words.find(w) for w in wids]
+
+
+def gmm_beam_branch(dev, task, mfcc, tag: str):
+    """6b: the latgen BeamDecoder branch (the 20k-word graph is above
+    dense_limit; the CSR goes to the decoder as it is, with no VectorFst
+    round trip).  Returns (GMM launches, fbank launches, max |diff| of
+    the GMM and the fbank kernel on the path)."""
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder
+    from kaldi_tpu_torch.pipelines.score import compute_wer
+    from kaldi_tpu_torch.tools.synth import aligned_gmm, mix_counts
+    csr, tm = task.graph.csr, task.tm
+    waves, aligns, refs = speech_set(task, 8, SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    feats = [delta_feats(mfcc, w) for w in waves]
+    am = aligned_gmm(rng, [f.cpu().numpy() for f in feats], aligns,
+                     mix_counts(rng, task.num_pdfs, 1000, 12, 13))
+    am.to(dev)
+    t0 = time.perf_counter()
+    dec = _LatgenDecoder(csr, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
+                         max_active=7000, device=dev)
+    print(f"gmm-beam: {csr.num_states} states > dense_limit → "
+          f"BeamDecoder={dec._compact} (built in "
+          f"{time.perf_counter() - t0:.1f} s); GMM {am.num_pdfs} pdfs, "
+          f"{am.num_gauss()} Gaussians, {am.max_mix} slots, D={am.dim}")
+    dec.decode_to_clat(am.loglikes(feats[0][:100]))            # warm
+    torch.cuda.synchronize()
+    k = am.device_params()
+    mfcc.kernel.launches = k.launches = 0
+    t0 = time.perf_counter()
+    feats = [delta_feats(mfcc, w) for w in waves]
+    lls = [am.loglikes(f) for f in feats]
+    best = [dec.decode_to_clat(ll).best_path() for ll in lls]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (k.launches, mfcc.kernel.launches)
+    audio_s = sum(len(w) for w in waves) / SAMP_FREQ
+    if [len(f) for f in feats] != [len(a) for a in aligns] or \
+            not all(math.isfinite(b[2]) for b in best):
+        raise AssertionError(f"bad output: {[b[2] for b in best]}")
+    wer = compute_wer(dict(enumerate(refs)),
+                      {b: words_of(task, bp[0]) for b, bp in enumerate(best)})
+    if not wer.wer <= MAX_WER:
+        raise AssertionError(f"gmm-beam: {wer}")
+    print(f"gmm-beam: {len(waves)} waveforms, {audio_s:.2f} s audio, "
+          f"{sum(len(f) for f in feats)} frames of {feats[0].shape[1]} "
+          f"dims; {wer}; GMM launches {launches[0]}, fbank launches "
+          f"{launches[1]}")
+    print(f"gmm-beam: end to end {wall:.3f} s = {audio_s / wall:.1f} "
+          f"audio-s/s {tag}")
+    err = check_path_loglikes(am, feats, lls, "gmm-beam")
+    fb_err = check_path_fbank(mfcc, waves, "gmm-beam")
+    t0 = time.perf_counter()
+    cpu = _LatgenDecoder(csr, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
+                         max_active=7000, device="cpu")
+    same_best(best[:4], [cpu.decode_to_clat(ll.cpu()).best_path()
+                         for ll in lls[:4]], "gmm-beam")
+    print(f"gmm-beam: GPU best paths equal the port's CPU decode on 4 utts "
+          f"(words equal, costs within 1e-3; CPU side "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return launches + (err, fb_err)
+
+
+def gmm_dense_branch(dev, task, mfcc, tag: str):
+    """6c: the latgen DenseDecoder branch on a graph under dense_limit.
+    Returns (GMM launches, fbank launches, max |diff| of the GMM kernel
+    on the path)."""
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder
+    from kaldi_tpu_torch.pipelines.score import compute_wer
+    from kaldi_tpu_torch.tools.synth import aligned_gmm, mix_counts
+    csr, tm, P = task.graph.csr, task.tm, task.num_pdfs
+    waves, aligns, refs = speech_set(task, 8, SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    mat = (rng.standard_normal((40, 92)) / math.sqrt(91)).astype(np.float32)
+    feats = [lda_feats(mfcc, w, mat) for w in waves]
+    am = aligned_gmm(rng, [f.cpu().numpy() for f in feats], aligns,
+                     mix_counts(rng, P, 5 * P, 4, 6))
+    am.to(dev)
+    t0 = time.perf_counter()
+    ldec = _LatgenDecoder(csr, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
+                          device=dev)
+    dense = ldec._dec
+    g = dense.graph
+    print(f"gmm-dense: {csr.num_states} states ≤ dense_limit → "
+          f"DenseDecoder={not ldec._compact} (built in "
+          f"{time.perf_counter() - t0:.1f} s; in-degree emit "
+          f"{g.e_src.shape[1]}, ε {g.n_src.shape[1]}, ε-depth "
+          f"{g.eps_depth}); GMM {am.num_pdfs} pdfs, {am.num_gauss()} "
+          f"Gaussians, {am.max_mix} slots, D={am.dim}")
+    k = am.device_params()
+    mfcc.kernel.launches = k.launches = 0
+    t0 = time.perf_counter()
+    feats = [lda_feats(mfcc, w, mat) for w in waves]
+    lls = [am.loglikes(f) for f in feats]
+    lens = np.array([len(ll) for ll in lls], np.int64)
+    X = torch.zeros((len(lls), int(lens.max()), P), device=dev)
+    for b, ll in enumerate(lls):
+        X[b, :len(ll)] = ll
+    nf = torch.from_numpy(lens).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    dense._decode_device(X, nf)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    one_best = dense.decode_batch(X, lens)
+    t2 = time.perf_counter()
+    raws = [dense.decode_lattice(ll) for ll in lls[:4]]
+    best = [ldec.determinize(lat).best_path() for lat, _ in raws]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = (k.launches, mfcc.kernel.launches)
+    if not all(math.isfinite(b[2]) for b in one_best + best):
+        raise AssertionError("non-finite best path")
+    audio_s = sum(len(w) for w in waves) / SAMP_FREQ
+    wer = compute_wer(dict(enumerate(refs)),
+                      {b: words_of(task, bp[1])
+                       for b, bp in enumerate(one_best)})
+    if not wer.wer <= MAX_WER:
+        raise AssertionError(f"gmm-dense: {wer}")
+    print(f"gmm-dense: frame loop of {len(lls)} utts (T_pad "
+          f"{int(lens.max())}) ran under sync debug mode 'error': no host "
+          f"sync; one-best {wer}; GMM launches {launches[0]}, fbank "
+          f"launches {launches[1]}")
+    print(f"gmm-dense: {audio_s:.2f} s audio: features + GMM + sync-checked "
+          f"loop {t1 - t0:.3f} s, one-best batch of {len(lls)} "
+          f"{t2 - t1:.3f} s, 4 lattices {t3 - t2:.3f} s; lattice states "
+          f"{[lat.num_states for lat, _ in raws]} {tag}")
+    err = check_path_loglikes(am, feats, lls, "gmm-dense")
+    t0 = time.perf_counter()
+    cpu = _LatgenDecoder(csr, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
+                         device="cpu")
+    same_best(one_best[:4], cpu._dec.decode_batch(X[:4].cpu(), lens[:4]),
+              "gmm-dense one-best")
+    cbest = []
+    for b, ll in enumerate(lls[:4]):
+        lat, cost = cpu._dec.decode_lattice(ll.cpu())
+        glat, gcost = raws[b]
+        shape = (lat.num_states, sum(len(a) for a in lat.arcs))
+        gshape = (glat.num_states, sum(len(a) for a in glat.arcs))
+        if shape != gshape or abs(cost - gcost) > 1e-3:
+            raise AssertionError(f"gmm-dense lattice utt {b}: GPU {gshape} "
+                                 f"{gcost} vs CPU {shape} {cost}")
+        cbest.append(cpu.determinize(lat).best_path())
+    same_best(best, cbest, "gmm-dense lattice")
+    print(f"gmm-dense: GPU equals the port's CPU decode: one-best on 4 "
+          f"utts, and 4 lattices (same states and arcs, best paths' words "
+          f"equal, costs within 1e-3; CPU side "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return launches + (err,)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -82,9 +380,11 @@ def main() -> int:
     from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnConfig
     from kaldi_tpu_torch.decoder.beam import (BeamDecoder, BeamDecoderConfig,
                                               host_lattice_backend)
-    from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
+    from kaldi_tpu_torch.features.compute import (Fbank, FbankOptions, Mfcc,
+                                                  MfccOptions)
     from kaldi_tpu_torch.features.mel import MelBanksOptions
-    from kaldi_tpu_torch.features.window import preprocess_frames
+    from kaldi_tpu_torch.features.window import (FrameExtractionOptions,
+                                                 preprocess_frames)
     from kaldi_tpu_torch.ops import build
     from kaldi_tpu_torch.ops.fbank import fbank_reference
     from kaldi_tpu_torch.pipelines.decode import (decode_scores,
@@ -105,13 +405,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build the fbank kernel
+    # 2. build every kernel, one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.load_library("kt_fbank", ["fbank.cu"])
-    print(f"build: fbank.cu with nvcc in {time.perf_counter() - t0:.2f} s")
-    for line in build.BUILD_LOG.get("kt_fbank", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: ptxas {line.strip()}")
+    build.load_all()
+    print(f"build: {', '.join(s for v in build.KERNELS.values() for s in v)}"
+          f" with nvcc in {time.perf_counter() - t0:.2f} s")
+    for name in build.KERNELS:
+        for line in build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name}: ptxas {line.strip()}")
 
     # 3. fbank kernel vs its plain version, 4096 frames
     fopts = FbankOptions(mel_opts=MelBanksOptions(num_bins=40))
@@ -141,6 +443,27 @@ def main() -> int:
     fb_ms, fb_plain_ms = min(times["kernel"]), min(times["plain"])
     print(f"fbank: 4096 frames kernel {fb_ms:.4f} ms, plain "
           f"{fb_plain_ms:.4f} ms (best of 2 × 50 launches) {tag}")
+    # the MFCC configurations of the GMM path (launches here are not
+    # counted): 16 kHz with 23 bins, 8 kHz with 15 bins (window 200,
+    # n_fft 256)
+    mfcc16 = Mfcc(MfccOptions(mel_opts=MelBanksOptions(num_bins=23),
+                              num_ceps=13, use_energy=False), device=dev)
+    mfcc8 = Mfcc(MfccOptions(
+        frame_opts=FrameExtractionOptions(samp_freq=8000.0),
+        mel_opts=MelBanksOptions(num_bins=15), num_ceps=10), device=dev)
+    for m in (mfcc16, mfcc8):
+        mk = m.kernel
+        raw = torch.from_numpy((1000.0 * rng.standard_normal(
+            (4096, mk.win_size))).astype(np.float32)).to(dev)
+        xm = preprocess_frames(raw, m.frame_opts)[0].contiguous()
+        err = float((mk(xm) - fbank_reference(xm, mk.window, mk.cos, mk.sin,
+                                              mk.mel)).abs().max())
+        print(f"fbank: {m.frame_opts.samp_freq:.0f} Hz, {mk.n_mel} bins "
+              f"(window {mk.win_size}, {mk.n_bins} DFT bins): kernel vs "
+              f"plain on 4096 frames: max |diff| {err:.3e} (limit 2e-3)")
+        if not err <= 2e-3:
+            raise AssertionError(f"fbank kernel disagrees: {err}")
+        fb_err = max(fb_err, err)
 
     # 4. decode synthetic log-likelihoods on the 20k task
     t0 = time.perf_counter()
@@ -294,13 +617,30 @@ def main() -> int:
     if not rel <= 1e-3:
         raise AssertionError(f"TDNN output disagrees: {rel}")
 
+    # 6. the GMM decode path
+    gmm_err, gmm_ms, gmm_plain_ms = gmm_kernel_check(dev, tag)
+    b_gmm, b_fb, b_err, b_fb_err = gmm_beam_branch(dev, task, mfcc16, tag)
+    task300 = make_largevocab_task(vocab_size=300, order=3, seed=7,
+                                   closure=False, corpus_sentences=600)
+    d_gmm, d_fb, d_err = gmm_dense_branch(dev, task300, mfcc16, tag)
+    if min(b_gmm, b_fb, d_gmm, d_fb) <= 0:
+        raise AssertionError(f"GMM path launches: beam branch GMM {b_gmm} "
+                             f"fbank {b_fb}, dense branch GMM {d_gmm} "
+                             f"fbank {d_fb}")
+
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
-        "launches": fbank_launches,
-        "max_abs_err": max(fb_err, wav_err),
-        "ms": fb_ms, "plain_ms": fb_plain_ms}]}))
+        "launches": fbank_launches + b_fb + d_fb,
+        "max_abs_err": max(fb_err, wav_err, b_fb_err),
+        "ms": fb_ms, "plain_ms": fb_plain_ms}, {
+        "name": "gmm_loglikes", "route": "cuda",
+        "source": "kaldi_tpu_torch/csrc/gmm.cu",
+        "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
+        "launches": b_gmm + d_gmm,
+        "max_abs_err": max(gmm_err, b_err, d_err),
+        "ms": gmm_ms, "plain_ms": gmm_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -15,15 +15,20 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kaldi_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# every kernel library of the port: name → sources under csrc/
+KERNELS: Dict[str, Tuple[str, ...]] = {"kt_fbank": ("fbank.cu",),
+                                       "kt_gmm": ("gmm.cu",)}
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register / shared-memory report) of each build
 BUILD_LOG: Dict[str, str] = {}
@@ -39,8 +44,11 @@ def nvcc_path() -> str:
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile ``sources`` (file names under csrc/) into
-    lib<name>.so unless an up-to-date build exists, then load it."""
+    lib<name>.so unless an up-to-date build exists, then load it.
+    Libraries of different names build concurrently."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -59,3 +67,12 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
         return lib
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Build (one nvcc per library, all started together) and load
+    every kernel library."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        futs = {n: pool.submit(load_library, n, s)
+                for n, s in KERNELS.items()}
+        return {n: f.result() for n, f in futs.items()}

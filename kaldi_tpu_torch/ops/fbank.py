@@ -46,7 +46,7 @@ def fbank_reference(frames: torch.Tensor, window: torch.Tensor,
 
 
 def _load():
-    lib = build.load_library("kt_fbank", ["fbank.cu"])
+    lib = build.load_library("kt_fbank", build.KERNELS["kt_fbank"])
     fn = lib.kt_fbank_logmel
     if fn.argtypes is None:
         # pointers and the stream as c_void_p: undeclared, ctypes would
@@ -83,6 +83,9 @@ class CudaFbank:
         self.cos = dev(cosm[:self.win_size])
         self.sin = dev(sinm[:self.win_size])
         self.mel = dev(mel)
+        # "cuda" → "cuda:<current>", so that it compares equal to the
+        # device of a tensor moved there
+        self.device = self.mel.device
         self.launches = 0
 
     def __call__(self, frames: torch.Tensor) -> torch.Tensor:

@@ -125,16 +125,12 @@ def make_largevocab_task(vocab_size: int = 20000,
                           fwd_pdf=fwd_pdf, slf_pdf=slf_pdf)
 
 
-def synth_loglikes(task: LargeVocabTask, sent: Sequence[str],
-                   rng: np.random.Generator,
-                   noise: float = 0.5,
-                   peak: float = 6.0,
-                   sil_prob: float = 0.3,
-                   frames_per_phone: Tuple[int, int] = (2, 5)
-                   ) -> np.ndarray:
-    """(T, P) synthetic acoustic log-likelihoods for a sentence, peaked
-    on the true pdf sequence, with Gaussian noise on top (the WER
-    knob)."""
+def synth_alignment(task: LargeVocabTask, sent: Sequence[str],
+                    rng: np.random.Generator, sil_prob: float = 0.3,
+                    frames_per_phone: Tuple[int, int] = (2, 5)
+                    ) -> List[int]:
+    """The pdf of every frame of a sentence: optional silences between
+    words, each phone ``frames_per_phone`` frames long."""
     pdfs: List[int] = []
     prev = [0]          # left-phone id carried across words/silences
 
@@ -153,6 +149,20 @@ def synth_loglikes(task: LargeVocabTask, sent: Sequence[str],
             emit_phone(p)
         if rng.random() < sil_prob:
             emit_phone("SIL")
+    return pdfs
+
+
+def synth_loglikes(task: LargeVocabTask, sent: Sequence[str],
+                   rng: np.random.Generator,
+                   noise: float = 0.5,
+                   peak: float = 6.0,
+                   sil_prob: float = 0.3,
+                   frames_per_phone: Tuple[int, int] = (2, 5)
+                   ) -> np.ndarray:
+    """(T, P) synthetic acoustic log-likelihoods for a sentence, peaked
+    on the true pdf sequence, with Gaussian noise on top (the WER
+    knob)."""
+    pdfs = synth_alignment(task, sent, rng, sil_prob, frames_per_phone)
     T = len(pdfs)
     P = task.num_pdfs
     ll = np.full((T, P), -peak, np.float32)

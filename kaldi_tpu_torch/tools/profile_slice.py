@@ -6,7 +6,10 @@
    path's per-utterance frame counts and at batched ones: ms per call by
    CUDA events, each side timed twice in the order plain, kernel,
    kernel, plain, the best of each kept.
-2. One ``_decode_batch`` of the chip_smoke decode setup (20k-word task,
+2. The GMM kernel against its plain version at the mini_librispeech
+   tri3b width (2500 pdfs, 15,000 Gaussians, D = 40) from 300 to 32,768
+   frames, timed the same way.
+3. One ``_decode_batch`` of the chip_smoke decode setup (20k-word task,
    32 utterances, beam 13, max-active 7000, lattice-beam 7) under
    torch.profiler, with the device β-prune on and off: kernels launched
    per frame, device kernel time against the profiled wall (the busy
@@ -36,6 +39,7 @@ def main() -> int:
     from kaldi_tpu_torch.pipelines.largevocab import (make_largevocab_task,
                                                       sample_eval_set,
                                                       synth_loglikes)
+    from kaldi_tpu_torch.tools.synth import tri3b_gmm
     from kaldi_tpu_torch.tools.timing import card_info, cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -61,6 +65,20 @@ def main() -> int:
         for w in ("plain", "kernel", "kernel", "plain"):
             t[w].append(cuda_ms(plain if w == "plain" else lambda: k(x), 30))
         print(f"fbank {n} frames: kernel {min(t['kernel']):.4f} ms, plain "
+              f"{min(t['plain']):.4f} ms, max |diff| {err:.2e} {tag}")
+
+    gk = tri3b_gmm(np.random.default_rng(2)).to(dev).device_params()
+    for n in (300, 1000, 4096, 16384, 32768):
+        x = torch.from_numpy(rng.standard_normal((n, 40)).astype(
+            np.float32)).to(dev)
+        err = float((gk(x) - gk.reference(x)).abs().max())
+        t = {"plain": [], "kernel": []}
+        for w in ("plain", "kernel", "kernel", "plain"):
+            t[w].append(cuda_ms((lambda: gk.reference(x)) if w == "plain"
+                                else (lambda: gk(x)), 20))
+        flop = 4.0 * n * gk.num_pdfs * gk.max_mix * gk.dim
+        print(f"gmm {n} frames: kernel {min(t['kernel']):.4f} ms "
+              f"({flop / min(t['kernel']) / 1e9:.1f} TFLOP/s), plain "
               f"{min(t['plain']):.4f} ms, max |diff| {err:.2e} {tag}")
 
     task = make_largevocab_task(vocab_size=20000, order=3, seed=7,

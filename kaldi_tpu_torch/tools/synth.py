@@ -1,0 +1,111 @@
+"""Seeded audio and acoustic models for smoke runs and profiles.
+
+The GMMs here stand in for trained ones at a published width.  Their
+parameters are drawn from a seed, with mixture counts as uneven as
+mix-up leaves them, so that the padded slots of the GMM kernel's layout
+are exercised.  ``synth_speech`` renders a frame-level pdf alignment as
+a waveform in which each pdf has its own spectrum, and ``aligned_gmm``
+draws a GMM around the features of each pdf's frames: a decode of that
+audio then behaves like a trained model's on real speech (a dominant
+best path, small lattices), which a GMM drawn around global statistics
+does not.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+from kaldi_tpu_torch.am.gmm import AmDiagGmm
+
+
+def mix_counts(rng: np.random.Generator, num_pdfs: int, total: int,
+               lo: int, hi: int) -> np.ndarray:
+    """Seeded Gaussians per pdf, each in [lo, hi], summing to ``total``:
+    uneven, as mix-up leaves them."""
+    counts = np.full(num_pdfs, lo)
+    appetite = rng.gamma(0.7, size=num_pdfs)
+    extra = total - lo * num_pdfs
+    while extra > 0:
+        w = appetite * (counts < hi)
+        add = np.minimum(rng.multinomial(extra, w / w.sum()), hi - counts)
+        counts += add
+        extra -= int(add.sum())
+    return counts
+
+
+def seeded_gmm(rng: np.random.Generator, counts: np.ndarray,
+               mean: np.ndarray, var: np.ndarray,
+               spread: float) -> AmDiagGmm:
+    """An AmDiagGmm with counts[p] live slots for pdf p, padded to the
+    largest count with zero-weight slots.  ``mean`` and ``var`` are (D,)
+    or per pdf (P, D): slot means are drawn ``spread`` standard
+    deviations around the mean, variances 0.5–1.5 times ``var``."""
+    P, M, D = len(counts), int(counts.max()), np.shape(mean)[-1]
+    mean = np.broadcast_to(mean, (P, D))[:, None, :]
+    var = np.broadcast_to(var, (P, D))[:, None, :]
+    live = np.arange(M)[None, :] < counts[:, None]
+    w = np.where(live, rng.uniform(0.5, 1.5, (P, M)), 0.0)
+    w /= w.sum(axis=1, keepdims=True)
+    means = mean + spread * np.sqrt(var) * rng.standard_normal((P, M, D))
+    variances = var * rng.uniform(0.5, 1.5, (P, M, D))
+    return AmDiagGmm(w, means, variances)
+
+
+def tri3b_gmm(rng: np.random.Generator, num_pdfs: int = 2500,
+              num_gauss: int = 15000, dim: int = 40) -> AmDiagGmm:
+    """A GMM at the mini_librispeech tri3b width (egs/mini_librispeech/
+    s5/run.sh: steps/train_sat.sh 2500 15000, on 40 LDA+MLLT dims): 2–10
+    Gaussians per pdf, for features of zero mean and unit variance."""
+    return seeded_gmm(rng, mix_counts(rng, num_pdfs, num_gauss, 2, 10),
+                      np.zeros(dim), np.ones(dim), spread=3.0)
+
+
+def pdf_signatures(rng: np.random.Generator, num_pdfs: int,
+                   silent: Sequence[int], partials: int = 4):
+    """Each pdf's spectrum: ``partials`` sinusoids at seeded frequencies
+    (100–4000 Hz) and amplitudes; the ``silent`` pdfs have none."""
+    freqs = rng.uniform(100.0, 4000.0, (num_pdfs, partials))
+    amps = rng.uniform(300.0, 3000.0, (num_pdfs, partials))
+    amps[list(silent)] = 0.0
+    return freqs, amps
+
+
+def synth_speech(pdfs: Sequence[int], freqs: np.ndarray, amps: np.ndarray,
+                 rng: np.random.Generator, samp_freq: float = 16000.0,
+                 window: int = 400, shift: int = 160,
+                 noise: float = 100.0) -> np.ndarray:
+    """A waveform whose feature frames (``window`` samples every
+    ``shift``, snip-edges) are centred on their pdf's segment, one frame
+    per entry of ``pdfs``: phase-continuous sinusoids at the pdf's
+    frequencies over white noise, at int16 amplitude."""
+    T = len(pdfs)
+    n = shift * T + window - shift
+    seg = np.clip((np.arange(n) - (window - shift) // 2) // shift, 0, T - 1)
+    which = np.asarray(pdfs)[seg]
+    phase = 2.0 * np.pi * np.cumsum(freqs[which] / samp_freq, axis=0)
+    x = (amps[which] * np.sin(phase)).sum(axis=1)
+    x += noise * rng.standard_normal(n)
+    return np.clip(x, -32768, 32767).astype(np.float32)
+
+
+def aligned_gmm(rng: np.random.Generator, feats: Sequence[np.ndarray],
+                aligns: Sequence[Sequence[int]],
+                counts: np.ndarray) -> AmDiagGmm:
+    """A GMM drawn around the features of each pdf's frames (half a
+    standard deviation of spread); a pdf with fewer than 2 frames gets
+    the global statistics.  Variances are floored at a hundredth of
+    the global variance."""
+    X = np.concatenate([np.asarray(f, np.float64) for f in feats])
+    A = np.concatenate([np.asarray(a) for a in aligns])
+    gmean, gvar = X.mean(axis=0), X.var(axis=0)
+    P = len(counts)
+    mean = np.tile(gmean, (P, 1))
+    var = np.tile(gvar, (P, 1))
+    for p in range(P):
+        sel = X[A == p]
+        if len(sel) >= 2:
+            mean[p] = sel.mean(axis=0)
+            var[p] = np.maximum(sel.var(axis=0), 0.01 * gvar)
+    return seeded_gmm(rng, counts, mean, var, spread=0.5)

@@ -191,3 +191,120 @@ def test_fbank_kernel_matches_reference_on_card():
     torch.cuda.synchronize()
     assert k.launches == 1
     assert float((got - want).abs().max()) <= 2e-3
+
+
+# -- MFCC, CMVN, deltas, splicing and transforms (the GMM feature path) --
+
+def test_dct_and_lifter_equal_jax():
+    np.testing.assert_array_equal(tcompute.compute_dct_matrix(13, 23),
+                                  jcompute.compute_dct_matrix(13, 23))
+    np.testing.assert_array_equal(tcompute.compute_lifter_coeffs(22.0, 13),
+                                  jcompute.compute_lifter_coeffs(22.0, 13))
+
+
+@pytest.mark.parametrize("lifter", [0.0, 22.0])
+@pytest.mark.parametrize("use_energy", [False, True])
+@pytest.mark.parametrize("samp_freq,num_bins,num_ceps",
+                         [(8000.0, 15, 10), (16000.0, 23, 13)])
+def test_mfcc_compute_matches_jax(samp_freq, num_bins, num_ceps,
+                                  use_energy, lifter):
+    """Tolerance: log-mel is held at 2e-3 (DFT by products vs an FFT);
+    the orthonormal DCT keeps that error's RMS, and the lifter scales
+    cepstrum k by its coefficient (up to 1 + Q/2 = 12 at Q = 22), so
+    column k is held at 2e-3 · lifter_k.  The energy column is the raw
+    log-energy, computed the same way on both sides (1e-4)."""
+    n = int(1.3 * samp_freq)
+    t = np.arange(n) / samp_freq
+    wave = (200.0 * np.random.default_rng(11).standard_normal(n)
+            + 3000.0 * np.sin(2 * np.pi * 140.0 * t) * (1 + np.sin(3 * t))
+            ).astype(np.float32)
+    kw = dict(num_ceps=num_ceps, use_energy=use_energy,
+              cepstral_lifter=lifter)
+    jm = jcompute.Mfcc(jcompute.MfccOptions(
+        frame_opts=jwindow.FrameExtractionOptions(samp_freq=samp_freq),
+        mel_opts=jmel.MelBanksOptions(num_bins=num_bins), **kw))
+    tm = tcompute.Mfcc(tcompute.MfccOptions(
+        frame_opts=twindow.FrameExtractionOptions(samp_freq=samp_freq),
+        mel_opts=tmel.MelBanksOptions(num_bins=num_bins), **kw))
+    want = jm.compute(wave, np.random.default_rng(2))
+    got = tm.compute(wave, np.random.default_rng(2)).numpy()
+    assert got.shape == want.shape == (128, num_ceps) == (128, tm.dim)
+    scale = (tcompute.compute_lifter_coeffs(lifter, num_ceps) if lifter
+             else np.ones(num_ceps, np.float32))
+    tol = np.broadcast_to(2e-3 * scale, got.shape).copy()
+    if use_energy:
+        tol[:, 0] = 1e-4
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max(0)
+    assert tm.kernel.launches == 0
+
+
+@pytest.mark.parametrize("norm_vars", [False, True])
+def test_cmvn_matches_jax(norm_vars):
+    from kaldi_tpu.features import cmvn as jcmvn
+    from kaldi_tpu_torch.features import cmvn as tcmvn
+    rng = np.random.default_rng(4)
+    utts = [(rng.standard_normal((n, 13)) * 3 + 5).astype(np.float32)
+            for n in (50, 71, 33)]
+    want_stats = [jcmvn.compute_cmvn_stats(u) for u in utts]
+    got_stats = [tcmvn.compute_cmvn_stats(torch.from_numpy(u))
+                 for u in utts]
+    for g, w in zip(got_stats, want_stats):
+        assert g.dtype == torch.float64 and g.shape == (2, 14)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12)
+    spk_w = jcmvn.sum_cmvn_stats(want_stats)
+    spk_g = tcmvn.sum_cmvn_stats(got_stats)
+    np.testing.assert_allclose(spk_g.numpy(), spk_w, rtol=1e-12)
+    for u in utts:
+        want = jcmvn.apply_cmvn(u, spk_w, norm_vars=norm_vars)
+        got = tcmvn.apply_cmvn(torch.from_numpy(u), spk_g,
+                               norm_vars=norm_vars)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("order,window,T", [(2, 2, 40), (1, 3, 17),
+                                            (2, 2, 3), (2, 2, 1)])
+def test_add_deltas_matches_jax(order, window, T):
+    from kaldi_tpu.features import functions as jfun
+    from kaldi_tpu_torch.features import functions as tfun
+    x = np.random.default_rng(T).standard_normal((T, 13)).astype(
+        np.float32)
+    for a, b in zip(tfun.delta_scales(tfun.DeltaFeaturesOptions(order,
+                                                                window)),
+                    jfun.delta_scales(jfun.DeltaFeaturesOptions(order,
+                                                                window))):
+        np.testing.assert_array_equal(a, b)
+    want = np.asarray(jfun.add_deltas(
+        jnp.asarray(x), jfun.DeltaFeaturesOptions(order, window)))
+    got = tfun.add_deltas(torch.from_numpy(x),
+                          tfun.DeltaFeaturesOptions(order, window))
+    assert got.shape == want.shape == (T, 13 * (order + 1))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("left,right,T", [(3, 3, 30), (4, 2, 5), (0, 1, 1)])
+def test_splice_frames_matches_jax(left, right, T):
+    from kaldi_tpu.features import functions as jfun
+    from kaldi_tpu_torch.features import functions as tfun
+    x = np.random.default_rng(T).standard_normal((T, 13)).astype(
+        np.float32)
+    want = np.asarray(jfun.splice_frames(jnp.asarray(x), left, right))
+    got = tfun.splice_frames(torch.from_numpy(x), left, right)
+    assert got.shape == want.shape == (T, 13 * (left + right + 1))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_apply_transform_matches_jax(affine):
+    from kaldi_tpu.am import transforms as jtr
+    from kaldi_tpu_torch.am import transforms as ttr
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((60, 91)).astype(np.float32)
+    mat = (rng.standard_normal((40, 92 if affine else 91)) / 10).astype(
+        np.float32)
+    want = jtr.apply_transform(x, mat)
+    got = ttr.apply_transform(torch.from_numpy(x), mat)
+    assert got.dtype == torch.float32 and got.shape == (60, 40)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    with pytest.raises(Exception, match="transform shape"):
+        ttr.apply_transform(torch.from_numpy(x), mat[:, :50])

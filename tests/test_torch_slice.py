@@ -143,15 +143,44 @@ wave = np.random.default_rng(0).standard_normal(8000).astype(np.float32)
 lats = decode_waveforms([wave * 1000], Fbank(FbankOptions(
     mel_opts=MelBanksOptions(num_bins=40))), model.eval(), dec, 1)
 assert np.isfinite(lats[0].best_path()[2])
+# the GMM decode path: MFCC → CMVN → Δ+ΔΔ → GMM → both latgen branches
+from kaldi_tpu.fst.csr import csr_to_vector_fst
+from kaldi_tpu_torch.am.gmm import AmDiagGmm
+from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+from kaldi_tpu_torch.am.transforms import apply_transform
+from kaldi_tpu_torch.cli.latgen import _LatgenDecoder, gmm_latgen_faster
+from kaldi_tpu_torch.decoder.dense import DenseDecoder
+from kaldi_tpu_torch.features import (Mfcc, MfccOptions, add_deltas,
+                                      apply_cmvn, compute_cmvn_stats,
+                                      splice_frames)
+from kaldi_tpu_torch.ops.gmm import CudaGmm
+from kaldi_tpu_torch.pipelines.decode import decode_gmm, decode_gmm_lattice
+from kaldi_tpu_torch.tools.synth import aligned_gmm, synth_speech
+raw = Mfcc(MfccOptions()).compute(wave * 1000)
+feats = add_deltas(apply_cmvn(raw, compute_cmvn_stats(raw)))
+spliced = apply_transform(splice_frames(raw, 1, 1), np.eye(39, 40))
+assert spliced.shape == feats.shape
+rng = np.random.default_rng(1)
+P = task.num_pdfs
+am = AmDiagGmm(np.full((P, 2), 0.5), rng.standard_normal((P, 2, 39)),
+               np.ones((P, 2, 39)))
+write_mdl("hygiene.mdl", task.tm, am)
+tm, am = read_mdl("hygiene.mdl")
+fst = csr_to_vector_fst(task.graph.csr)
+for limit in (20000, 0):
+    clat = _LatgenDecoder(fst, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
+                          dense_limit=limit).decode_to_clat(
+        am.loglikes(feats))
+    assert np.isfinite(clat.best_path()[2])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
 assert not bad, bad
 print("no-jax-ok")
 """
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO,
+    res = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=tmp_path,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
