@@ -9,11 +9,14 @@ batched lattice beam decoder and the dense Viterbi decoder),
 ``pipelines/`` (task builders, scoring, wav → lattice, GMM decodes) and
 ``cli/`` (``gmm-latgen-faster``).
 
-Host-only modules with no JAX dependency (``kaldi_tpu.fst``,
-``kaldi_tpu.lattice``, ``kaldi_tpu.native``, ``kaldi_tpu.am.topology``,
-``am.tree``, ``am.transitions``, ``core.io``, ``core.table``,
-``core.options``, ``core.logging``) are imported from ``kaldi_tpu``
-rather than copied.  Nothing in this package imports JAX.
+The host modules the paths share with the JAX package (``core/``,
+``fst/``, ``lattice/``, ``native/``, ``am/topology.py``,
+``am/transitions.py``, ``am/tree.py``) are this package's own copies of
+kaldi_tpu's, each naming its original on its first line.  Nothing in
+this package imports JAX or ``kaldi_tpu``.
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; without a card they raise.
 
 Every wrapper of a CUDA kernel runs its plain PyTorch version for a
 tensor on the CPU and launches the kernel (or raises) for a CUDA

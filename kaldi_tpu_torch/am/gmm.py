@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.ops.gmm import NEG, CudaGmm
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -37,12 +38,12 @@ class AmDiagGmm:
     bound to one device, where ``loglikes`` runs."""
 
     def __init__(self, weights: np.ndarray, means: np.ndarray,
-                 variances: np.ndarray, device: torch.device | str = "cpu"):
+                 variances: np.ndarray, device: torch.device | str = "cuda"):
         """weights (P, M) with zero rows padding; means/vars (P, M, D)."""
         self.weights = weights.astype(np.float64)
         self.means = means.astype(np.float64)
         self.vars = variances.astype(np.float64)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._kernel = None
 
     @property
@@ -85,7 +86,7 @@ class AmDiagGmm:
     def to(self, device: torch.device | str) -> "AmDiagGmm":
         """Bind the model to ``device`` (in place; returns self).  The
         device tables are rebuilt only when the device changes."""
-        device = torch.device(device)
+        device = resolve_device(device)
         if device != self.device:
             self.device = device
             self.refresh()

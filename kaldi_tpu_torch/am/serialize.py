@@ -7,7 +7,8 @@ Copied from kaldi_tpu/am/serialize.py (``read_topology`` /
 ``write_mdl``): that module imports ``kaldi_tpu.am.gmm``, and through
 it JAX.  The wire format is the original's, so a model written by
 either package reads back bit for bit in the other; the GMM part comes
-back as the port's ``AmDiagGmm`` (on the CPU until ``.to(device)``).
+back as the port's ``AmDiagGmm``, bound to ``device`` (the card unless
+the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -16,12 +17,12 @@ from typing import BinaryIO, Dict, List, Tuple
 
 import numpy as np
 
-from kaldi_tpu.am.topology import HmmState, HmmTopology
-from kaldi_tpu.am.transitions import TransitionModel
-from kaldi_tpu.am.tree import (MonophoneContextDependency,
-                               TreeContextDependency, TreeNode)
-from kaldi_tpu.core import io as kio
-from kaldi_tpu.core.logging import KaldiError
+from kaldi_tpu_torch.am.topology import HmmState, HmmTopology
+from kaldi_tpu_torch.am.transitions import TransitionModel
+from kaldi_tpu_torch.am.tree import (MonophoneContextDependency,
+                                     TreeContextDependency, TreeNode)
+from kaldi_tpu_torch.core import io as kio
+from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.am.gmm import AmDiagGmm
 
 
@@ -180,7 +181,7 @@ def write_am_diag_gmm(f: BinaryIO, am: AmDiagGmm) -> None:
                      dtype="float64")
 
 
-def read_am_diag_gmm(f: BinaryIO) -> AmDiagGmm:
+def read_am_diag_gmm(f: BinaryIO, device="cuda") -> AmDiagGmm:
     kio.expect_token(f, "<DIMENSION>")
     dim = kio.read_basic_int32(f)
     kio.expect_token(f, "<NUMPDFS>")
@@ -195,7 +196,7 @@ def read_am_diag_gmm(f: BinaryIO) -> AmDiagGmm:
     kio.expect_token(f, "<VARS>")
     variances = kio.read_matrix(f).astype(np.float64).reshape(num_pdfs,
                                                               max_mix, dim)
-    return AmDiagGmm(weights, means, variances)
+    return AmDiagGmm(weights, means, variances, device=device)
 
 
 def write_mdl(path: str, tm: TransitionModel, am: AmDiagGmm) -> None:
@@ -206,10 +207,10 @@ def write_mdl(path: str, tm: TransitionModel, am: AmDiagGmm) -> None:
         write_am_diag_gmm(f, am)
 
 
-def read_mdl(path: str) -> Tuple[TransitionModel, AmDiagGmm]:
+def read_mdl(path: str, device="cuda") -> Tuple[TransitionModel, AmDiagGmm]:
     with kio.open_rxfilename(path) as f:
         if not kio.init_kaldi_input_stream(f):
             raise KaldiError("expected binary .mdl")
         tm = read_transition_model(f)
-        am = read_am_diag_gmm(f)
+        am = read_am_diag_gmm(f, device)
         return tm, am

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from kaldi_tpu.core.logging import KaldiError
+from kaldi_tpu_torch.core.logging import KaldiError
 
 
 def apply_transform(feats: torch.Tensor, mat) -> torch.Tensor:

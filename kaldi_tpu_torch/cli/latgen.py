@@ -6,8 +6,9 @@ kaldi_tpu/cli/tools.py.  It reads a ``.mdl`` and an ``HCLG.fst`` that
 either package wrote and a feature table, computes GMM log-likelihoods
 on ``--device`` (the GMM kernel on a CUDA card) and writes determinized
 CompactLattices and, optionally, the best-path words, through
-``kaldi_tpu.core.table``.  Graphs up to 20,000 states decode with the
-dense decoder, larger ones with the beam decoder, as in the original.
+``kaldi_tpu_torch.core.table``.  Graphs up to 20,000 states decode with
+the dense decoder, larger ones with the beam decoder, as in the
+original.
 
     python -m kaldi_tpu_torch.cli.latgen [opts] <model> <fst> \\
         <feats-rspec> <lattice-wspec> [<words-wspec>]
@@ -20,9 +21,10 @@ import sys
 
 import torch
 
-from kaldi_tpu.core.logging import get_logger
-from kaldi_tpu.core.options import ParseOptions
-from kaldi_tpu.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.core.logging import get_logger
+from kaldi_tpu_torch.core.options import ParseOptions
+from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.device import resolve_device
 
 log = get_logger(__name__)
 
@@ -30,11 +32,11 @@ log = get_logger(__name__)
 # Copied from kaldi_tpu/cli/tools.py _load_hclg.
 def _load_hclg(path: str):
     """Text or binary OpenFst vector/const file → VectorFst."""
-    from kaldi_tpu.fst.fst import VectorFst
+    from kaldi_tpu_torch.fst.fst import VectorFst
     with open(path, "rb") as fh:
         is_binary = fh.read(4) == struct.pack("<i", 2125659606)
     if is_binary:
-        from kaldi_tpu.fst.openfst_io import read_fst_path
+        from kaldi_tpu_torch.fst.openfst_io import read_fst_path
         return read_fst_path(path)
     return VectorFst.read_text(path)
 
@@ -78,10 +80,11 @@ class _LatgenDecoder:
                  acoustic_scale, max_active=7000, dense_limit=20000,
                  arc_budget=4096, escalate_budget=16384,
                  escalate_deficit=4.0, arc_block=8,
-                 device: torch.device | str = "cpu"):
-        from kaldi_tpu.fst.csr import CsrGraph
+                 device: torch.device | str = "cuda"):
+        from kaldi_tpu_torch.fst.csr import CsrGraph
+        device = resolve_device(device)
         if HCLG.num_states > dense_limit:
-            from kaldi_tpu.fst.csr import pack_fst
+            from kaldi_tpu_torch.fst.csr import pack_fst
             from kaldi_tpu_torch.decoder.beam import (BeamDecoder,
                                                       BeamDecoderConfig)
             cap = max(max_active, 512)
@@ -99,7 +102,7 @@ class _LatgenDecoder:
                      "path; arc_budget %d, escalate %d)",
                      HCLG.num_states, arc_budget, escalate_budget)
         else:
-            from kaldi_tpu.fst.csr import csr_to_vector_fst
+            from kaldi_tpu_torch.fst.csr import csr_to_vector_fst
             from kaldi_tpu_torch.decoder.dense import (DenseDecoder,
                                                        DenseDecoderConfig)
             if isinstance(HCLG, CsrGraph):
@@ -119,7 +122,7 @@ class _LatgenDecoder:
 
     def determinize(self, lat):
         """The dense branch's raw Lattice → CompactLattice."""
-        from kaldi_tpu.lattice.determinize import \
+        from kaldi_tpu_torch.lattice.determinize import \
             determinize_lattice_pruned
         # blowup → prune with halved beams and retry (the
         # DeterminizeLatticePhonePrunedWrapper contract)
@@ -144,8 +147,7 @@ def gmm_latgen_faster(argv=None) -> int:
     if len(args) not in (4, 5):
         po.print_usage()
         return 1
-    tm, am = read_mdl(args[0])
-    am.to(po["device"])
+    tm, am = read_mdl(args[0], device=po["device"])
     HCLG = _load_hclg(args[1])
     dec = _LatgenDecoder(HCLG, tm.tid_to_pdf_array, po["beam"],
                          po["lattice-beam"], po["acoustic-scale"],
@@ -153,7 +155,7 @@ def gmm_latgen_faster(argv=None) -> int:
                          **latgen_kwargs(po))
     words_tab = None
     if po["word-symbol-table"]:
-        from kaldi_tpu.fst.fst import SymbolTable
+        from kaldi_tpu_torch.fst.fst import SymbolTable
         words_tab = SymbolTable.read(po["word-symbol-table"])
     wwriter = (TableWriter(args[4], holder="text")
                if len(args) > 4 else None)

@@ -33,8 +33,9 @@ CompactLattices:
 
 The host side (records → raw lattice → determinized CompactLattice,
 escalation policy) is copied from the original and calls
-``kaldi_tpu.native`` and ``kaldi_tpu.lattice.determinize`` exactly as
-it does.
+the port's copies of ``kaldi_tpu.native`` and
+``kaldi_tpu.lattice.determinize`` (``kaldi_tpu_torch.native``,
+``kaldi_tpu_torch.lattice.determinize``) exactly as it does.
 """
 
 from __future__ import annotations
@@ -47,9 +48,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from kaldi_tpu.core.logging import KaldiError, get_logger
-from kaldi_tpu.fst.csr import CsrGraph
-from kaldi_tpu.lattice.lattice import Lattice, LatticeArc
+from kaldi_tpu_torch.core.logging import KaldiError, get_logger
+from kaldi_tpu_torch.device import resolve_device
+from kaldi_tpu_torch.fst.csr import CsrGraph
+from kaldi_tpu_torch.lattice.lattice import Lattice, LatticeArc
 
 log = get_logger(__name__)
 
@@ -94,9 +96,9 @@ def _f32(x: float) -> float:
 
 def host_lattice_backend() -> str:
     """Which library the host lattice build and determinize run on:
-    "native C++" when ``kaldi_tpu.native`` built and loaded, else
+    "native C++" when ``kaldi_tpu_torch.native`` built and loaded, else
     "numpy"."""
-    from kaldi_tpu import native
+    from kaldi_tpu_torch import native
     return "native C++" if native.get_lib() is not None else "numpy"
 
 
@@ -109,12 +111,12 @@ class BeamDecoder:
 
     def __init__(self, graph: CsrGraph, tid_to_pdf: np.ndarray,
                  config: BeamDecoderConfig = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
         if graph.num_eps_arcs:
-            from kaldi_tpu.fst.biglang import eps_precompose
+            from kaldi_tpu_torch.fst.biglang import eps_precompose
             graph = eps_precompose(graph)
         self.graph = graph
-        self.device = torch.device(device)
         self.config = config or BeamDecoderConfig()
         cap = self.config.token_capacity or self.config.max_active
         self.K = max(1, min(cap, graph.num_states))
@@ -735,7 +737,7 @@ class BeamDecoder:
         return tids, ols, best_cost
 
     def _expand_ol(self, ol: int):
-        from kaldi_tpu.fst.csr import expand_olabel
+        from kaldi_tpu_torch.fst.csr import expand_olabel
         return expand_olabel(ol, self._ol_seqs)
 
     # -- lattice assembly (vectorized, no per-arc Python) ------------------
@@ -781,7 +783,7 @@ class BeamDecoder:
     def _expand_arc_ols(self, ks, kd, kil, kol, kgw, kac, n_states):
         """Split arcs whose olabel is sequence-encoded into chains of
         plain word olabels before determinization."""
-        from kaldi_tpu.fst.csr import OLSEQ_BASE
+        from kaldi_tpu_torch.fst.csr import OLSEQ_BASE
         if not self._ol_seqs or not len(kol):
             return ks, kd, kil, kol, kgw, kac, n_states
         enc = np.nonzero(np.asarray(kol) >= OLSEQ_BASE)[0]
@@ -815,9 +817,9 @@ class BeamDecoder:
         """Records → determinized CompactLattice through the native
         build + determinize passes; falls back to _build_lattice +
         determinize_lattice when the native library is unavailable."""
-        from kaldi_tpu import native
-        from kaldi_tpu.lattice.determinize import (compact_from_arrays,
-                                                   determinize_lattice)
+        from kaldi_tpu_torch import native
+        from kaldi_tpu_torch.lattice.determinize import (
+            compact_from_arrays, determinize_lattice)
         (counts, r_prev, r_dst, r_il, r_ol, r_gw, r_ac,
          init_slots, init_costs, init_ols) = \
             self._decode_records(host, T, loglikes)
@@ -849,7 +851,7 @@ class BeamDecoder:
         offs = np.zeros(T + 1, np.int64)
         np.cumsum(counts, out=offs[1:])
 
-        from kaldi_tpu import native
+        from kaldi_tpu_torch import native
         res = native.build_lattice_native(
             counts, r_prev, r_dst, r_il, r_ol, r_gw, r_ac,
             init_slots, init_costs, init_ols, host["tok_final"], beam)

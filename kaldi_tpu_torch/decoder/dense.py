@@ -33,9 +33,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from kaldi_tpu.core.logging import KaldiError
-from kaldi_tpu.fst.csr import _eps_depth
-from kaldi_tpu.fst.fst import EPS, VectorFst
+from kaldi_tpu_torch.core.logging import KaldiError
+from kaldi_tpu_torch.device import resolve_device
+from kaldi_tpu_torch.fst.csr import _eps_depth
+from kaldi_tpu_torch.fst.fst import EPS, VectorFst
 from kaldi_tpu_torch.decoder.beam import _f32
 
 
@@ -199,7 +200,8 @@ class DenseDecoder:
 
     def __init__(self, graph, tid_to_pdf: np.ndarray,
                  config: DenseDecoderConfig = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
         self._fst = None
         if isinstance(graph, VectorFst):
             self._fst = graph
@@ -207,7 +209,6 @@ class DenseDecoder:
         self.graph = graph
         self.tid_to_pdf = np.asarray(tid_to_pdf)
         self.config = config or DenseDecoderConfig()
-        self.device = torch.device(device)
         g = graph
         self.c = {k: self._dev(v) for k, v in dict(
             e_src=g.e_src, e_il=g.e_il, e_ol=g.e_ol, e_w=g.e_w,
@@ -406,7 +407,7 @@ class DenseDecoder:
         cost).  Raw-lattice arcs are pruned by α(src) + arc + β(dst) ≤
         best + lattice_beam — exactly the extra-cost criterion of
         PruneActiveTokens."""
-        from kaldi_tpu.lattice.lattice import Lattice, LatticeArc
+        from kaldi_tpu_torch.lattice.lattice import Lattice, LatticeArc
         self._ensure_lattice_tables()
         ll_dev = torch.as_tensor(loglikes, dtype=torch.float32).to(
             self.device)

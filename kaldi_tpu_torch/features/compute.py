@@ -77,8 +77,8 @@ class _LogMelBase:
     def __init__(self, opts, dim: int, device: torch.device | str):
         self.opts = opts
         self.frame_opts = opts.frame_opts
-        self.device = torch.device(device)
-        self.kernel = CudaFbank(opts.frame_opts, opts.mel_opts, self.device)
+        self.kernel = CudaFbank(opts.frame_opts, opts.mel_opts, device)
+        self.device = self.kernel.device
         self.dim = dim
 
     def frames(self, waveform: np.ndarray,
@@ -108,7 +108,7 @@ class Fbank(_LogMelBase):
     """Offline fbank computer bound to one device."""
 
     def __init__(self, opts: FbankOptions = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         opts = opts or FbankOptions()
         super().__init__(opts, opts.mel_opts.num_bins
                          + (1 if opts.use_energy else 0), device)
@@ -125,7 +125,7 @@ class Mfcc(_LogMelBase):
     """Offline MFCC computer bound to one device."""
 
     def __init__(self, opts: MfccOptions = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         opts = opts or MfccOptions()
         super().__init__(opts, opts.num_ceps, device)
         self.dct = torch.from_numpy(np.ascontiguousarray(compute_dct_matrix(

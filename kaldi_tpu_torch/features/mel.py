@@ -13,7 +13,7 @@ import dataclasses
 
 import numpy as np
 
-from kaldi_tpu.core.logging import KaldiError
+from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.features.window import FrameExtractionOptions
 
 

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from kaldi_tpu.core.logging import KaldiError
+from kaldi_tpu_torch.core.logging import KaldiError
 
 
 @dataclasses.dataclass

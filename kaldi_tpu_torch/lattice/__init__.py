@@ -1,0 +1,15 @@
+# From kaldi_tpu/lattice/__init__.py, down to the copied modules.
+"""Lattices: raw and compact lattices, determinization and pruning
+(copied from kaldi_tpu/lattice/: lattice.py, determinize.py, io.py)."""
+
+from kaldi_tpu_torch.lattice.lattice import (
+    CompactArc,
+    CompactLattice,
+    Lattice,
+    LatticeArc,
+)
+from kaldi_tpu_torch.lattice.determinize import (determinize_lattice,
+                                                 prune_lattice)
+
+__all__ = ["CompactArc", "CompactLattice", "Lattice", "LatticeArc",
+           "determinize_lattice", "prune_lattice"]

@@ -4,13 +4,16 @@ Each kernel source in ``kaldi_tpu_torch/csrc/`` exposes a plain C
 function.  On first use it is compiled with nvcc for sm_90a into a
 shared library under ``build/kaldi_tpu_torch/`` at the repository root
 (listed in .gitignore) and loaded with ctypes, the way
-``kaldi_tpu.native`` loads its C++.  A failed build raises: there is no
-fallback for a CUDA tensor.
+``kaldi_tpu_torch.native`` loads its C++.  The headers in csrc/
+(``*.cuh``) count as sources of every library: an edit to one rebuilds
+them all.  A failed build raises: there is no fallback for a CUDA
+tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -53,9 +56,10 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         if lib is not None:
             return lib
         srcs = [os.path.join(CSRC_DIR, s) for s in sources]
+        deps = srcs + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if (not os.path.exists(so)
-                or os.path.getmtime(so) < max(map(os.path.getmtime, srcs))):
+                or os.path.getmtime(so) < max(map(os.path.getmtime, deps))):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs],

@@ -1,10 +1,17 @@
 """Fused log-mel fbank: the CUDA kernel's wrapper and its plain version.
 
 Port of kaldi_tpu/ops/pallas_frontend.py.  ``CudaFbank`` holds the
-constant tables (window, DFT cos/sin, mel) on one device.  Called on a
-CUDA tensor it launches ``kt_fbank_logmel`` (csrc/fbank.cu) on the
-current stream; called on a CPU tensor it runs ``fbank_reference``, the
-same math as PyTorch products.  There is no fallback between the two.
+constant tables (window, DFT cos/sin, mel) and the kernel's layout of
+them on one device.  Called on a CUDA tensor it launches
+``kt_fbank_logmel`` (csrc/fbank.cu) on the current stream; called on a
+CPU tensor it runs ``fbank_reference``, the same math as PyTorch
+products.  There is no fallback between the two.
+
+The kernel splits the work by mel filter group (``mel_groups``): a group
+is a run of filters whose nonzero DFT bins, together, span about
+``GROUP_BINS`` bins, and it reads the interleaved cos/sin columns of
+those bins only (``group_tables``), split into TF32 hi/lo halves in
+mma.sync fragment order (ops/tf32.py).
 """
 
 from __future__ import annotations
@@ -15,12 +22,20 @@ import math
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.features.mel import MelBanks, MelBanksOptions
-from kaldi_tpu_torch.ops import build
 from kaldi_tpu_torch.features.window import (FrameExtractionOptions,
                                              feature_window_function)
+from kaldi_tpu_torch.ops import build
+from kaldi_tpu_torch.ops.tf32 import fragment_order
 
 _EPS = float(np.finfo(np.float32).tiny)
+# target DFT bins per mel filter group: 8 groups at n_fft 512, 4 at 256
+GROUP_BINS = 32
+# csrc/fbank.cu FB_MAX_TILES: a group spans at most 16 n-tiles of 4 bins
+MAX_GROUP_TILES = 16
+# csrc/fbank.cu FB_MELW: a group's filters have at most 128 weights
+MAX_GROUP_WEIGHTS = 128
 
 
 def dft_matrices(n_fft: int, n_bins: int):
@@ -45,6 +60,81 @@ def fbank_reference(frames: torch.Tensor, window: torch.Tensor,
     return torch.log(torch.clamp_min(power @ mel, logfloor))
 
 
+def filter_ranges(mel: np.ndarray) -> np.ndarray:
+    """(n_bins, n_mel) mel matrix → (n_mel, 2) int32: each filter's
+    nonzero DFT bins [lo, hi) (contiguous for a triangular filter; an
+    all-zero filter gets an empty range)."""
+    nz = mel != 0
+    out = np.zeros((mel.shape[1], 2), np.int32)
+    for m in range(mel.shape[1]):
+        idx = np.flatnonzero(nz[:, m])
+        if len(idx):
+            out[m] = idx[0], idx[-1] + 1
+    return out
+
+
+def filter_weights(mel: np.ndarray, franges: np.ndarray):
+    """Each filter's weights over its nonzero bins, one run after
+    another in filter order: (flat float32, (n_mel,) int32 offsets)."""
+    runs = [mel[lo:hi, m] for m, (lo, hi) in enumerate(franges)]
+    offsets = np.cumsum([0] + [len(r) for r in runs[:-1]]).astype(np.int32)
+    return np.concatenate(runs).astype(np.float32), offsets
+
+
+def mel_groups(franges: np.ndarray, target_bins: int = GROUP_BINS
+               ) -> np.ndarray:
+    """Split the filters into runs whose bin ranges balance bins, not
+    filters: filter m goes to group ⌊(centre_m − lo) · G / span⌋ of G
+    equal slices of the spectrum, G the span over ``target_bins`` (more
+    if a group would pass MAX_GROUP_TILES or MAX_GROUP_WEIGHTS).  → (G,
+    4) int32 rows (first bin, n-tiles of 4 bins, first filter, end
+    filter)."""
+    lo, hi = franges[:, 0], franges[:, 1]
+    live = hi > lo
+    start, stop = int(lo[live].min()), int(hi[live].max())
+    span = stop - start
+    centre = np.where(live, (lo + hi) / 2.0, start)
+    G = max(1, int(round(span / target_bins)))
+    while True:
+        gi = np.minimum(((centre - start) * G / span).astype(np.int64),
+                        G - 1)
+        rows = []
+        for g in np.unique(gi):
+            ms = np.flatnonzero(gi == g)
+            m0, m1 = int(ms[0]), int(ms[-1]) + 1
+            sel = live[m0:m1]
+            k0 = int(lo[m0:m1][sel].min()) if sel.any() else start
+            k1 = int(hi[m0:m1][sel].max()) if sel.any() else start
+            rows.append((k0, max(1, -(-(k1 - k0) // 4)), m0, m1,
+                         int((hi[m0:m1] - lo[m0:m1]).sum())))
+        if (max(r[1] for r in rows) <= MAX_GROUP_TILES
+                and max(r[4] for r in rows) <= MAX_GROUP_WEIGHTS):
+            return np.array([r[:4] for r in rows], np.int32)
+        G += 1
+
+
+def group_tables(cosm: np.ndarray, sinm: np.ndarray, groups: np.ndarray,
+                 kp: int):
+    """The DFT tables the kernel reads: for each group, the (kp × 8·nt)
+    matrix whose column 2c is cos and 2c + 1 sin of bin k0 + c (rows
+    past the window and bins past the last are zero), in fragment order.
+    → (flat float32 tables, (G,) int32 offsets in floats)."""
+    win, n_bins = cosm.shape
+    pad = 4 * MAX_GROUP_TILES
+    cs = np.zeros((kp, n_bins + pad, 2), np.float32)
+    cs[:win, :n_bins, 0] = cosm
+    cs[:win, :n_bins, 1] = sinm
+    parts, offsets, off = [], [], 0
+    for k0, nt, _, _ in groups:
+        b = torch.from_numpy(np.ascontiguousarray(
+            cs[:, k0:k0 + 4 * nt].reshape(kp, 8 * nt)))
+        f = fragment_order(b).reshape(-1)
+        parts.append(f)
+        offsets.append(off)
+        off += f.numel()
+    return torch.cat(parts), np.array(offsets, np.int32)
+
+
 def _load():
     lib = build.load_library("kt_fbank", build.KERNELS["kt_fbank"])
     fn = lib.kt_fbank_logmel
@@ -52,7 +142,7 @@ def _load():
         # pointers and the stream as c_void_p: undeclared, ctypes would
         # pass each Python int as a 32-bit int and cut the address
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
     return fn
 
@@ -63,30 +153,50 @@ class CudaFbank:
 
     def __init__(self, frame_opts: FrameExtractionOptions = None,
                  mel_opts: MelBanksOptions = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         fo = frame_opts or FrameExtractionOptions()
         mo = mel_opts or MelBanksOptions()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.win_size = fo.window_size
+        self.kp = -(-self.win_size // 8) * 8
         n_fft = fo.padded_window_size
         self.n_bins = n_fft // 2 + 1
         # frames are zero-padded from window_size to n_fft, so only the
         # first window_size rows of the DFT tables ever multiply data
         cosm, sinm = dft_matrices(n_fft, self.n_bins)
+        cosm, sinm = cosm[:self.win_size], sinm[:self.win_size]
         mel = MelBanks(mo, fo).matrix.T                 # (n_bins, n_mel)
         self.n_mel = mel.shape[1]
+        self.franges = filter_ranges(mel)
+        melw, woff = filter_weights(mel, self.franges)
+        groups = mel_groups(self.franges)
+        tables, offsets = group_tables(cosm, sinm, groups, self.kp)
+        self.groups = np.concatenate([groups, offsets[:, None]], axis=1)
 
         def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            if isinstance(a, np.ndarray):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            return a.to(self.device)
 
         self.window = dev(feature_window_function(fo))
-        self.cos = dev(cosm[:self.win_size])
-        self.sin = dev(sinm[:self.win_size])
+        self.cos = dev(cosm)
+        self.sin = dev(sinm)
         self.mel = dev(mel)
+        self.tables = dev(tables)
+        self.groups_dev = dev(self.groups)
+        # per filter (lo, hi, offset of its weights in melw)
+        self.franges_dev = dev(np.concatenate([self.franges, woff[:, None]],
+                                              axis=1))
+        self.melw = dev(melw)
         # "cuda" → "cuda:<current>", so that it compares equal to the
         # device of a tensor moved there
         self.device = self.mel.device
         self.launches = 0
+
+    def reference(self, frames: torch.Tensor) -> torch.Tensor:
+        """The plain version on this computer's tables."""
+        return fbank_reference(frames, self.window, self.cos, self.sin,
+                               self.mel)
 
     def __call__(self, frames: torch.Tensor) -> torch.Tensor:
         if frames.dim() != 2 or frames.shape[1] != self.win_size:
@@ -98,8 +208,7 @@ class CudaFbank:
             raise ValueError(f"frames on {frames.device}, tables on "
                              f"{self.device}")
         if frames.device.type == "cpu":
-            return fbank_reference(frames, self.window, self.cos, self.sin,
-                                   self.mel)
+            return self.reference(frames)
         if frames.device.type != "cuda":
             raise ValueError(f"unsupported device {frames.device}")
         if not frames.is_contiguous():
@@ -110,9 +219,10 @@ class CudaFbank:
                           device=frames.device)
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         rc = fn(frames.data_ptr(), self.window.data_ptr(),
-                self.cos.data_ptr(), self.sin.data_ptr(),
-                self.mel.data_ptr(), out.data_ptr(),
-                n, self.win_size, self.n_bins, self.n_mel, stream)
+                self.tables.data_ptr(), self.groups_dev.data_ptr(),
+                self.franges_dev.data_ptr(), self.melw.data_ptr(),
+                out.data_ptr(), n, self.win_size, self.kp,
+                len(self.groups), self.n_mel, stream)
         if rc != 0:
             raise RuntimeError(f"kt_fbank_logmel failed: cudaError {rc}")
         self.launches += 1

@@ -4,8 +4,10 @@ version.
 Port of kaldi_tpu/ops/pallas_gmm.py.  ``CudaGmm`` holds one model's
 natural parameters on one device.  Called on a CUDA tensor it launches
 ``kt_gmm_loglikes`` (csrc/gmm.cu) on the current stream, reading the
-kernel's m-major layout that the constructor built once; called on a CPU
-tensor it runs ``gmm_loglikes_reference``.  There is no fallback
+layout that the constructor built once (``kernel_layout``: per pdf tile
+and slot, the parameters split into TF32 hi/lo in the order the kernel's
+tensor-core products read them); called on a CPU tensor it runs
+``gmm_loglikes_reference``.  There is no fallback
 between the two.
 """
 
@@ -16,12 +18,16 @@ import ctypes
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.ops import build
+from kaldi_tpu_torch.ops.tf32 import split_tf32
 
 # the sentinel gconst of unused mixture slots (kaldi_tpu.am.gmm _NEG_INF)
 NEG = -1.0e30
-# csrc/gmm.cu stages (frames, D) tiles in shared memory up to this D
+# csrc/gmm.cu GMM_DMAX: the largest feature dimension the kernel takes
 MAX_DIM = 64
+# csrc/gmm.cu GMM_PT: pdfs per block
+TILE_P = 64
 
 
 def gmm_loglikes_reference(x: torch.Tensor, gconst: torch.Tensor,
@@ -40,16 +46,29 @@ def gmm_loglikes_reference(x: torch.Tensor, gconst: torch.Tensor,
 
 def kernel_layout(gconst: torch.Tensor, mean_invvar: torch.Tensor,
                   inv_var: torch.Tensor):
-    """The kernel's parameter layout: a = μ/σ² and b = −½/σ² as
-    (M, Dp, P) with D zero-padded to Dp (a multiple of 4), and gconst as
-    (M, P); each contiguous, on the parameters' device."""
+    """The kernel's parameter layout, built once per model.  Per tile of
+    TILE_P pdfs and slot m, W_m = [a_m; b_m] (K × TILE_P) with a = μ/σ²
+    and b = −½/σ² (D zero-padded to Dp, a multiple of 8; K = 2·Dp; pdfs
+    past P zero), split into TF32 hi/lo; per k-step of 8 the hi tile then
+    the lo tile, each as wgmma's K-major core matrices: [pdf group of 8]
+    [k half of 4][pdf][k] (csrc/tf32x3.cuh).  w (P_tiles, M, K/8 · 1024).
+    g (P_tiles, M, TILE_P) is gconst, NEG past P.  Both contiguous, on the
+    parameters' device."""
     P, M, D = mean_invvar.shape
-    Dp = -(-D // 4) * 4
-    a = mean_invvar.new_zeros((M, Dp, P))
-    b = mean_invvar.new_zeros((M, Dp, P))
-    a[:, :D] = mean_invvar.permute(1, 2, 0)
-    b[:, :D] = (-0.5 * inv_var).permute(1, 2, 0)
-    return a, b, gconst.T.contiguous()
+    Dp = -(-D // 8) * 8
+    NPT = -(-P // TILE_P)
+    W = mean_invvar.new_zeros((M, 2 * Dp, NPT * TILE_P))
+    W[:, :D, :P] = mean_invvar.permute(1, 2, 0)
+    W[:, Dp:Dp + D, :P] = (-0.5 * inv_var).permute(1, 2, 0)
+    # (M, k-step, k half, k, pdf tile, pdf group, pdf) → (pdf tile, M,
+    # k-step, pdf group, k half, pdf, k)
+    W = W.reshape(M, Dp // 4, 2, 4, NPT, TILE_P // 8, 8) \
+        .permute(4, 0, 1, 5, 2, 6, 3)
+    hi, lo = split_tf32(W)
+    w = torch.stack([hi, lo], dim=3).reshape(NPT, M, -1).contiguous()
+    g = gconst.new_full((M, NPT * TILE_P), NEG)
+    g[:, :P] = gconst.T
+    return w, g.reshape(M, NPT, TILE_P).permute(1, 0, 2).contiguous()
 
 
 def _load():
@@ -58,7 +77,7 @@ def _load():
     if fn.argtypes is None:
         # pointers and the stream as c_void_p (see ops/fbank.py)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
     return fn
 
@@ -68,15 +87,15 @@ class CudaGmm:
     ``launches`` counts kernel launches."""
 
     def __init__(self, gconst: np.ndarray, mean_invvar: np.ndarray,
-                 inv_var: np.ndarray, device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+                 inv_var: np.ndarray, device: torch.device | str = "cuda"):
         P, M, D = mean_invvar.shape
         if gconst.shape != (P, M) or inv_var.shape != (P, M, D):
             raise ValueError(f"parameter shapes {gconst.shape}, "
                              f"{mean_invvar.shape}, {inv_var.shape}")
-        if self.device.type == "cuda" and D > MAX_DIM:
+        if torch.device(device).type == "cuda" and D > MAX_DIM:
             raise ValueError(f"the GMM kernel takes feature dims up to "
                              f"{MAX_DIM}, got {D}")
+        self.device = resolve_device(device)
 
         def dev(arr):
             return torch.from_numpy(np.ascontiguousarray(
@@ -89,10 +108,10 @@ class CudaGmm:
         # "cuda" → "cuda:<current>", so that it compares equal to the
         # device of a tensor moved there
         self.device = self.gconst.device
-        self.a = self.b = self.g = None
+        self.w = self.g = None
         if self.device.type == "cuda":
-            self.a, self.b, self.g = kernel_layout(
-                self.gconst, self.mean_invvar, self.inv_var)
+            self.w, self.g = kernel_layout(self.gconst, self.mean_invvar,
+                                           self.inv_var)
         self.launches = 0
 
     def reference(self, x: torch.Tensor) -> torch.Tensor:
@@ -120,9 +139,9 @@ class CudaGmm:
         out = torch.empty((T, self.num_pdfs), dtype=torch.float32,
                           device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), self.a.data_ptr(), self.b.data_ptr(),
-                self.g.data_ptr(), out.data_ptr(), T, self.dim,
-                self.a.shape[1], self.num_pdfs, self.max_mix, stream)
+        rc = fn(x.data_ptr(), self.w.data_ptr(), self.g.data_ptr(),
+                out.data_ptr(), T, self.dim, -(-self.dim // 8) * 8,
+                self.num_pdfs, self.max_mix, stream)
         if rc != 0:
             raise RuntimeError(f"kt_gmm_loglikes failed: cudaError {rc}")
         self.launches += 1

@@ -20,10 +20,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from kaldi_tpu.am.transitions import TransitionModel
-from kaldi_tpu.core.logging import get_logger
-from kaldi_tpu.fst.fst import VectorFst
-from kaldi_tpu.fst.lang import Lang
+from kaldi_tpu_torch.am.transitions import TransitionModel
+from kaldi_tpu_torch.core.logging import get_logger
+from kaldi_tpu_torch.fst.fst import VectorFst
+from kaldi_tpu_torch.fst.lang import Lang
 from kaldi_tpu_torch.am.gmm import AmDiagGmm
 from kaldi_tpu_torch.am.tdnn import TdnnChain
 from kaldi_tpu_torch.decoder.beam import BeamDecoder, BeamDecoderConfig
@@ -83,10 +83,10 @@ def decode_gmm_lattice(feats: Dict[str, np.ndarray], am: AmDiagGmm,
                        beam: float = 16.0, lattice_beam: float = 8.0,
                        acoustic_scale: float = 0.1,
                        refs: Optional[Dict[str, List[str]]] = None,
-                       device: torch.device | str = "cpu") -> DecodeResult:
+                       device: torch.device | str = "cuda") -> DecodeResult:
     """gmm-latgen-faster equivalent on ``device``: decode with
     CompactLattice output.  ``am`` is moved to ``device``."""
-    from kaldi_tpu.lattice import determinize_lattice
+    from kaldi_tpu_torch.lattice import determinize_lattice
 
     am.to(device)
     dec = DenseDecoder(HCLG, tm.tid_to_pdf_array,
@@ -115,7 +115,7 @@ def decode_gmm(feats: Dict[str, np.ndarray], am: AmDiagGmm,
                config: BeamDecoderConfig = None,
                refs: Optional[Dict[str, List[str]]] = None,
                batch_size: int = 8,
-               device: torch.device | str = "cpu") -> DecodeResult:
+               device: torch.device | str = "cuda") -> DecodeResult:
     """One-best GMM decode on ``device``, ``batch_size`` utterances per
     dense-decoder batch.  ``am`` is moved to ``device``."""
     cfg = config or BeamDecoderConfig(beam=16.0, max_active=2000,

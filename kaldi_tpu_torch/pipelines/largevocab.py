@@ -18,15 +18,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from kaldi_tpu.am.topology import HmmTopology
-from kaldi_tpu.am.transitions import TransitionModel
-from kaldi_tpu.am.tree import MonophoneContextDependency
-from kaldi_tpu.core.logging import Timer, get_logger
-from kaldi_tpu.core.options import ParseOptions
-from kaldi_tpu.fst.arpa import ArpaModel, estimate_arpa
-from kaldi_tpu.fst.biglang import (BigGraph, build_big_graph, eps_close,
+from kaldi_tpu_torch.am.topology import HmmTopology
+from kaldi_tpu_torch.am.transitions import TransitionModel
+from kaldi_tpu_torch.am.tree import MonophoneContextDependency
+from kaldi_tpu_torch.core.logging import Timer, get_logger
+from kaldi_tpu_torch.core.options import ParseOptions
+from kaldi_tpu_torch.fst.arpa import ArpaModel, estimate_arpa
+from kaldi_tpu_torch.fst.biglang import (BigGraph, build_big_graph, eps_close,
                                    make_symbol_tables)
-from kaldi_tpu.fst.fst import SymbolTable
+from kaldi_tpu_torch.fst.fst import SymbolTable
 
 log = get_logger(__name__)
 

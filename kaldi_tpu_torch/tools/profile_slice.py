@@ -2,13 +2,19 @@
 
     python -m kaldi_tpu_torch.tools.profile_slice
 
-1. The fbank kernel against its plain PyTorch version at the main
-   path's per-utterance frame counts and at batched ones: ms per call by
-   CUDA events, each side timed twice in the order plain, kernel,
-   kernel, plain, the best of each kept.
-2. The GMM kernel against its plain version at the mini_librispeech
-   tri3b width (2500 pdfs, 15,000 Gaussians, D = 40) from 300 to 32,768
-   frames, timed the same way.
+Every line ends with the card's name and power limit (nvidia-smi).
+
+1. The fbank kernel against its plain PyTorch version at the paths'
+   per-utterance frame counts (300, 598) and at batched ones (4096 to
+   131,072), 40 bins: the kernel's time on the card alone (calls queued
+   behind a spin, CUDA events), its time per call issued back to back
+   (the host's issue time where that is longer; the kernels' earlier
+   timings were taken so), the plain version's time on the card, the
+   bound (tools/timing.py fbank_bound) and the kernel's share of it.
+   Kernel and plain are timed in the order plain, kernel, kernel, plain;
+   the best of each is kept.
+2. The GMM kernel the same way at the mini_librispeech tri3b width
+   (2500 pdfs, 15,000 Gaussians, D = 40) from 300 to 32,768 frames.
 3. One ``_decode_batch`` of the chip_smoke decode setup (20k-word task,
    32 utterances, beam 13, max-active 7000, lattice-beam 7) under
    torch.profiler, with the device β-prune on and off: kernels launched
@@ -25,6 +31,15 @@ import numpy as np
 import torch
 
 
+def _best(fn_plain, fn_kernel, timer, iters):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain; best of each."""
+    t = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(timer(fn_plain if which == "plain" else fn_kernel,
+                              iters))
+    return min(t["kernel"]), min(t["plain"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
@@ -35,12 +50,12 @@ def main() -> int:
     from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
     from kaldi_tpu_torch.features.mel import MelBanksOptions
     from kaldi_tpu_torch.features.window import preprocess_frames
-    from kaldi_tpu_torch.ops.fbank import fbank_reference
     from kaldi_tpu_torch.pipelines.largevocab import (make_largevocab_task,
                                                       sample_eval_set,
                                                       synth_loglikes)
     from kaldi_tpu_torch.tools.synth import tri3b_gmm
-    from kaldi_tpu_torch.tools.timing import card_info, cuda_ms
+    from kaldi_tpu_torch.tools.timing import (card_info, cuda_ms, device_ms,
+                                              fbank_bound, gmm_bound)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -56,30 +71,38 @@ def main() -> int:
                                .astype(np.float32)).to(dev)
         x, _ = preprocess_frames(raw, fb.frame_opts)
         x = x.contiguous()
+        iters = 30 if n < 32768 else 10
+        err = float((k(x) - k.reference(x)).abs().max())
+        ms, plain = _best(lambda: k.reference(x), lambda: k(x), device_ms,
+                          iters)
+        call = cuda_ms(lambda: k(x), iters)
+        bnd, by = fbank_bound(k, n)
+        print(f"fbank {n} frames: kernel {ms:.4f} ms on the card, "
+              f"{call:.4f} ms per call; "
+              f"plain {plain:.4f} ms; bound {bnd:.4f} ms by {by}, "
+              f"{100 * bnd / ms:.1f}% of it; max |diff| {err:.2e} {tag}")
 
-        def plain():
-            return fbank_reference(x, k.window, k.cos, k.sin, k.mel)
-
-        err = float((k(x) - plain()).abs().max())
-        t = {"plain": [], "kernel": []}
-        for w in ("plain", "kernel", "kernel", "plain"):
-            t[w].append(cuda_ms(plain if w == "plain" else lambda: k(x), 30))
-        print(f"fbank {n} frames: kernel {min(t['kernel']):.4f} ms, plain "
-              f"{min(t['plain']):.4f} ms, max |diff| {err:.2e} {tag}")
-
-    gk = tri3b_gmm(np.random.default_rng(2)).to(dev).device_params()
+    gk = tri3b_gmm(np.random.default_rng(2), device=dev).device_params()
     for n in (300, 1000, 4096, 16384, 32768):
         x = torch.from_numpy(rng.standard_normal((n, 40)).astype(
             np.float32)).to(dev)
-        err = float((gk(x) - gk.reference(x)).abs().max())
-        t = {"plain": [], "kernel": []}
-        for w in ("plain", "kernel", "kernel", "plain"):
-            t[w].append(cuda_ms((lambda: gk.reference(x)) if w == "plain"
-                                else (lambda: gk(x)), 20))
-        flop = 4.0 * n * gk.num_pdfs * gk.max_mix * gk.dim
-        print(f"gmm {n} frames: kernel {min(t['kernel']):.4f} ms "
-              f"({flop / min(t['kernel']) / 1e9:.1f} TFLOP/s), plain "
-              f"{min(t['plain']):.4f} ms, max |diff| {err:.2e} {tag}")
+        want = gk.reference(x)
+        d = (gk(x) - want).abs()
+        ok = bool((d <= 1e-4 + 1e-4 * want.abs()).all())
+        del want
+        iters = 20 if n <= 4096 else 5
+        ms, plain = _best(lambda: gk.reference(x), lambda: gk(x), device_ms,
+                          iters)
+        call = cuda_ms(lambda: gk(x), iters)
+        bnd, by = gmm_bound(gk, n)
+        padded = 4.0 * n * gk.num_pdfs * gk.max_mix * gk.dim
+        print(f"gmm {n} frames: kernel {ms:.4f} ms on the card, "
+              f"{call:.4f} ms per call; plain "
+              f"{plain:.4f} ms; bound {bnd:.4f} ms by {by}, "
+              f"{100 * bnd / ms:.1f}% of it; float32 work over all slots "
+              f"{padded / ms / 1e9:.1f} TFLOP/s, {3 * padded / ms / 1e9:.1f} "
+              f"of TF32 products; max |diff| "
+              f"{float(d.max()):.2e} within 1e-4 + 1e-4·|plain|: {ok} {tag}")
 
     task = make_largevocab_task(vocab_size=20000, order=3, seed=7,
                                 closure=False)

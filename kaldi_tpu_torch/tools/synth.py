@@ -37,11 +37,12 @@ def mix_counts(rng: np.random.Generator, num_pdfs: int, total: int,
 
 def seeded_gmm(rng: np.random.Generator, counts: np.ndarray,
                mean: np.ndarray, var: np.ndarray,
-               spread: float) -> AmDiagGmm:
+               spread: float, device="cuda") -> AmDiagGmm:
     """An AmDiagGmm with counts[p] live slots for pdf p, padded to the
     largest count with zero-weight slots.  ``mean`` and ``var`` are (D,)
     or per pdf (P, D): slot means are drawn ``spread`` standard
-    deviations around the mean, variances 0.5–1.5 times ``var``."""
+    deviations around the mean, variances 0.5–1.5 times ``var``; the
+    model is bound to ``device``."""
     P, M, D = len(counts), int(counts.max()), np.shape(mean)[-1]
     mean = np.broadcast_to(mean, (P, D))[:, None, :]
     var = np.broadcast_to(var, (P, D))[:, None, :]
@@ -50,16 +51,18 @@ def seeded_gmm(rng: np.random.Generator, counts: np.ndarray,
     w /= w.sum(axis=1, keepdims=True)
     means = mean + spread * np.sqrt(var) * rng.standard_normal((P, M, D))
     variances = var * rng.uniform(0.5, 1.5, (P, M, D))
-    return AmDiagGmm(w, means, variances)
+    return AmDiagGmm(w, means, variances, device=device)
 
 
 def tri3b_gmm(rng: np.random.Generator, num_pdfs: int = 2500,
-              num_gauss: int = 15000, dim: int = 40) -> AmDiagGmm:
+              num_gauss: int = 15000, dim: int = 40,
+              device="cuda") -> AmDiagGmm:
     """A GMM at the mini_librispeech tri3b width (egs/mini_librispeech/
     s5/run.sh: steps/train_sat.sh 2500 15000, on 40 LDA+MLLT dims): 2–10
     Gaussians per pdf, for features of zero mean and unit variance."""
     return seeded_gmm(rng, mix_counts(rng, num_pdfs, num_gauss, 2, 10),
-                      np.zeros(dim), np.ones(dim), spread=3.0)
+                      np.zeros(dim), np.ones(dim), spread=3.0,
+                      device=device)
 
 
 def pdf_signatures(rng: np.random.Generator, num_pdfs: int,
@@ -92,7 +95,7 @@ def synth_speech(pdfs: Sequence[int], freqs: np.ndarray, amps: np.ndarray,
 
 def aligned_gmm(rng: np.random.Generator, feats: Sequence[np.ndarray],
                 aligns: Sequence[Sequence[int]],
-                counts: np.ndarray) -> AmDiagGmm:
+                counts: np.ndarray, device="cuda") -> AmDiagGmm:
     """A GMM drawn around the features of each pdf's frames (half a
     standard deviation of spread); a pdf with fewer than 2 frames gets
     the global statistics.  Variances are floored at a hundredth of
@@ -108,4 +111,4 @@ def aligned_gmm(rng: np.random.Generator, feats: Sequence[np.ndarray],
         if len(sel) >= 2:
             mean[p] = sel.mean(axis=0)
             var[p] = np.maximum(sel.var(axis=0), 0.01 * gvar)
-    return seeded_gmm(rng, counts, mean, var, spread=0.5)
+    return seeded_gmm(rng, counts, mean, var, spread=0.5, device=device)

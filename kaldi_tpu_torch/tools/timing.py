@@ -1,10 +1,21 @@
-"""Card identity and CUDA-event timing."""
+"""Card identity, CUDA-event timing and the kernels' bounds."""
 
 from __future__ import annotations
 
+import math
 import subprocess
+import time
 
 import torch
+
+# the H100 SXM's memory rate, and its float32-equivalent rate through
+# 3xTF32: the H100 SXM's 495 TFLOP/s of dense TF32 over the 3 products,
+# the least-time route that keeps float32 accuracy
+HBM_BYTES_PER_S = 3.35e12
+F32_VIA_3XTF32_FLOP_PER_S = 495e12 / 3
+# cycles per second of torch.cuda._sleep's spin on an H100 (its SM clock
+# runs at up to 1.98 GHz); a longer spin than needed only costs time
+_SLEEP_HZ = 2.0e9
 
 
 def card_info() -> str:
@@ -17,8 +28,10 @@ def card_info() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call of ``fn`` over ``iters`` calls, by
-    CUDA events (after one warm call)."""
+    """Mean milliseconds per call of ``fn`` over ``iters`` calls issued
+    back to back, by CUDA events (after one warm call).  Where the host
+    takes longer to issue a call than the card to run it, this is the
+    host's issue time."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -28,3 +41,61 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the card alone: the calls
+    are queued behind a spin kernel long enough for the host to issue
+    all of them, so the events time only the card's work (warm L2, as
+    for a model's tables that stay resident)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * issue * iters + 1e-3, 2.0) * _SLEEP_HZ))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flop: float, nbytes: float):
+    """(least ms the card could take for this work, "operations" or
+    "bytes": whichever bounds it)."""
+    t_ops = flop / F32_VIA_3XTF32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def fbank_bound(k, n: int):
+    """The fbank function's own bound at n frames on CudaFbank k, not
+    that of the kernel's algorithm: frames, window and the mel filters'
+    nonzero weights read once, output written once; per frame a real FFT
+    of n_fft points (2.5·n_fft·log2 n_fft operations), the window
+    multiply, the power (3 a bin), the nonzero mel weights (2 each) and
+    the log.  The kernel's dense DFT product does ~35× the FFT's
+    operations; its tables are the design's, not the function's."""
+    n_fft = 2 * (k.n_bins - 1)
+    nnz = k.melw.numel()
+    flop = n * (2.5 * n_fft * math.log2(n_fft) + k.win_size
+                + 3.0 * k.n_bins + 2.0 * nnz + k.n_mel)
+    nbytes = 4.0 * (n * k.win_size + k.win_size + nnz + n * k.n_mel)
+    return bound_ms(flop, nbytes)
+
+
+def gmm_bound(k, T: int):
+    """The GMM's bound at T frames on CudaGmm k: 4·D operations per
+    (frame, live Gaussian) (padded slots carry the sentinel gconst and
+    are no work the function needs); features, live parameters and
+    output moved once."""
+    live = int((k.gconst > -1e29).sum())
+    flop = 4.0 * T * live * k.dim
+    nbytes = 4.0 * (T * k.dim + live * (2 * k.dim + 1) + T * k.num_pdfs)
+    return bound_ms(flop, nbytes)

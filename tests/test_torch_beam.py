@@ -5,41 +5,68 @@ native vs numpy lattice build, binding arc budget, with_overrides) and
 holds the port to the JAX decoder on a small large-vocabulary task
 with the device β-prune on and off, escalation included.  Costs agree
 within 1e-3 (the same float32 operations in the same order; the host
-lattice passes are shared code).
+lattice passes are the port's copies of the original's).  Each side
+decodes a graph built by its own package from the same seed and
+parameters; the port runs on the CPU (``device="cpu"``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from kaldi_tpu.am import HmmTopology, MonophoneContextDependency, \
-    TransitionModel
+import kaldi_tpu.am as jam
+import kaldi_tpu.fst as jfst
+import kaldi_tpu_torch.am.topology as ttopo
+import kaldi_tpu_torch.am.transitions as ttrans
+import kaldi_tpu_torch.am.tree as ttree
+import kaldi_tpu_torch.fst as tfst
 from kaldi_tpu.decoder import SimpleDecoder
 from kaldi_tpu.decoder import beam as jbeam
-from kaldi_tpu.fst import ArpaModel, Lang, Lexicon, arpa_to_fst, \
-    make_unigram_arpa, mkgraph
-from kaldi_tpu.fst.arpa import estimate_arpa
-from kaldi_tpu.fst.biglang import build_big_graph, make_symbol_tables
-from kaldi_tpu.fst.csr import csr_to_vector_fst, pack_fst
+from kaldi_tpu.fst import arpa as jarpa
+from kaldi_tpu.fst import biglang as jbig
+from kaldi_tpu.fst import csr as jcsr
 from kaldi_tpu.pipelines import largevocab as jlv
+from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.decoder import beam as tbeam
+from kaldi_tpu_torch.fst import arpa as tarpa
+from kaldi_tpu_torch.fst import biglang as tbig
+from kaldi_tpu_torch.fst import csr as tcsr
 from kaldi_tpu_torch.pipelines import largevocab as tlv
 
 torch.set_num_threads(1)
 
+# each package's own graph-building modules: (HmmTopology,
+# MonophoneContextDependency, TransitionModel, fst package, arpa, biglang,
+# csr)
+JAX = (jam.HmmTopology, jam.MonophoneContextDependency, jam.TransitionModel,
+       jfst, jarpa, jbig, jcsr)
+PORT = (ttopo.HmmTopology, ttree.MonophoneContextDependency,
+        ttrans.TransitionModel, tfst, tarpa, tbig, tcsr)
+
+
+def yesno_graph(side, topology, **mkgraph_kw):
+    """(lang, transition model, HCLG) of the yes/no task, built by one
+    package (``JAX`` or ``PORT``)."""
+    Topo, Tree, TM, fst = side[:4]
+    lang = fst.Lang(fst.Lexicon(entries=[("YES", ["Y", "EH", "S"]),
+                                         ("NO", ["N", "OW"])]))
+    phones = lang.phone_list()
+    topo = getattr(Topo, topology)(phones)
+    tm = TM(topo, Tree(phones, topo))
+    arpa = fst.ArpaModel.parse(fst.make_unigram_arpa({"YES": 1.0,
+                                                      "NO": 1.0}))
+    return lang, tm, fst.mkgraph(lang, tm, fst.arpa_to_fst(arpa, lang.words),
+                                 **mkgraph_kw)
+
 
 @pytest.fixture(scope="module")
 def small_graph():
-    lex = Lexicon(entries=[("YES", ["Y", "EH", "S"]), ("NO", ["N", "OW"])])
-    lang = Lang(lex)
-    phones = lang.phone_list()
-    topo = HmmTopology.chain(phones)
-    tree = MonophoneContextDependency(phones, topo)
-    tm = TransitionModel(topo, tree)
-    arpa = ArpaModel.parse(make_unigram_arpa({"YES": 1.0, "NO": 1.0}))
-    HCLG = mkgraph(lang, tm, arpa_to_fst(arpa, lang.words),
-                   self_loop_scale=1.0)
-    return lang, tm, pack_fst(HCLG)
+    """{side: (lang, tm, CsrGraph)} for the chain-topology yes/no task."""
+    out = {}
+    for name, side in (("jax", JAX), ("port", PORT)):
+        lang, tm, HCLG = yesno_graph(side, "chain", self_loop_scale=1.0)
+        out[name] = (lang, tm, side[6].pack_fst(HCLG))
+    return out
 
 
 def _all_paths(csr, loglikes, pdf_of, eps_bound=8):
@@ -101,12 +128,14 @@ def test_lattice_exact_within_beam(small_graph, seed):
     """Every graph path within lattice_beam of the best is in the port's
     raw lattice at its exact cost, and the within-beam path set equals
     the JAX decoder's."""
-    lang, tm, csr = small_graph
+    lang, tm, csr = small_graph["port"]
+    _, jtm, jcsr_ = small_graph["jax"]
     ll = np.random.default_rng(seed).standard_normal(
         (6, tm.num_pdfs)).astype(np.float32)
     lb = 6.0
     got = _lattice_paths(tbeam.BeamDecoder(
-        csr, tm.tid_to_pdf_array, _exact_cfg(tbeam, csr)).decode_lattice(ll))
+        csr, tm.tid_to_pdf_array, _exact_cfg(tbeam, csr),
+        device="cpu").decode_lattice(ll))
     truth = _all_paths(csr, ll, tm.tid_to_pdf_array)
     best = min(truth.values())
     assert abs(min(got.values()) - best) < 1e-3
@@ -118,7 +147,8 @@ def test_lattice_exact_within_beam(small_graph, seed):
         assert key in truth
         assert c >= truth[key] - 1e-3
     want = _lattice_paths(jbeam.BeamDecoder(
-        csr, tm.tid_to_pdf_array, _exact_cfg(jbeam, csr)).decode_lattice(ll))
+        jcsr_, jtm.tid_to_pdf_array,
+        _exact_cfg(jbeam, jcsr_)).decode_lattice(ll))
     assert set(got) == set(want)
     for key in want:
         assert abs(got[key] - want[key]) < 1e-3
@@ -127,12 +157,13 @@ def test_lattice_exact_within_beam(small_graph, seed):
 def test_native_lattice_matches_numpy(small_graph, monkeypatch):
     """The native C++ raw-lattice build and the copied numpy pass give
     the same lattice through the port's decoder."""
-    from kaldi_tpu import native
+    from kaldi_tpu_torch import native
     if native.get_lib() is None:
         pytest.skip("no native toolchain")
-    lang, tm, csr = small_graph
+    lang, tm, csr = small_graph["port"]
     rng = np.random.default_rng(5)
-    dec = tbeam.BeamDecoder(csr, tm.tid_to_pdf_array, _exact_cfg(tbeam, csr))
+    dec = tbeam.BeamDecoder(csr, tm.tid_to_pdf_array, _exact_cfg(tbeam, csr),
+                            device="cpu")
     for _ in range(3):
         ll = rng.standard_normal((10, tm.num_pdfs)).astype(np.float32)
         lat_native = dec.decode_lattice(ll)
@@ -148,7 +179,7 @@ def test_native_lattice_matches_numpy(small_graph, monkeypatch):
 
 
 def test_host_lattice_backend_names_the_library(monkeypatch):
-    from kaldi_tpu import native
+    from kaldi_tpu_torch import native
     want = "numpy" if native.get_lib() is None else "native C++"
     assert tbeam.host_lattice_backend() == want
     monkeypatch.setenv("KALDI_TPU_NO_NATIVE", "1")
@@ -159,21 +190,16 @@ def test_host_lattice_backend_names_the_library(monkeypatch):
 def test_beam_matches_simple_random_loglikes(seed):
     """Mirrors tests/test_decoder.py: an unpruned port decode equals
     SimpleDecoder on a three-state-topology yes/no graph."""
-    lex = Lexicon(entries=[("YES", ["Y", "EH", "S"]), ("NO", ["N", "OW"])])
-    lang = Lang(lex)
-    topo = HmmTopology.three_state(lang.phone_list())
-    tm = TransitionModel(topo, MonophoneContextDependency(
-        lang.phone_list(), topo))
-    HCLG = mkgraph(lang, tm, arpa_to_fst(ArpaModel.parse(
-        make_unigram_arpa({"YES": 1.0, "NO": 1.0})), lang.words))
+    _, jtm, jHCLG = yesno_graph(JAX, "three_state")
+    _, tm, HCLG = yesno_graph(PORT, "three_state")
     ll = np.random.default_rng(seed).standard_normal(
         (40, tm.num_pdfs)).astype(np.float32)
-    ref = SimpleDecoder(HCLG, acoustic_scale=0.1).decode(
-        ll, tm.tid_to_pdf_array)
+    ref = SimpleDecoder(jHCLG, acoustic_scale=0.1).decode(
+        ll, jtm.tid_to_pdf_array)
     tids, ols, cost = tbeam.BeamDecoder(
-        pack_fst(HCLG), tm.tid_to_pdf_array,
+        tcsr.pack_fst(HCLG), tm.tid_to_pdf_array,
         tbeam.BeamDecoderConfig(beam=1e9, max_active=10 ** 9,
-                                acoustic_scale=0.1)).decode(ll)
+                                acoustic_scale=0.1), device="cpu").decode(ll)
     assert abs(cost - ref[2]) < 1e-3
     assert tids == ref[0]
     assert ols == ref[1]
@@ -197,15 +223,23 @@ def test_arc_budget_cutoff_prefers_best_tokens():
     texts = [[ws[int(k)] for k in rng.integers(0, len(ws),
                                                int(rng.integers(1, 8)))]
              for _ in range(300)]
-    arpa = estimate_arpa(texts, order=2, prune_count=1, vocab=ws)
-    words, ptab = make_symbol_tables(entries)
-    pl = [ptab[p] for p in sorted(
-        {p for _, pron in entries for p in pron} | {"SIL"})]
-    topo = HmmTopology.chain(pl)
-    tree = MonophoneContextDependency(pl, topo)
-    tm = TransitionModel(topo, tree)
-    big = build_big_graph(entries, arpa, tm, words, ptab,
-                          self_loop_scale=1.0)
+
+    def build(side):
+        Topo, Tree, TM, _, arpa_mod, big_mod, _ = side
+        arpa = arpa_mod.estimate_arpa(texts, order=2, prune_count=1,
+                                      vocab=ws)
+        words, ptab = big_mod.make_symbol_tables(entries)
+        pl = [ptab[p] for p in sorted(
+            {p for _, pron in entries for p in pron} | {"SIL"})]
+        topo = Topo.chain(pl)
+        tree = Tree(pl, topo)
+        tm = TM(topo, tree)
+        return (big_mod.build_big_graph(entries, arpa, tm, words, ptab,
+                                        self_loop_scale=1.0),
+                topo, tree, tm, ptab)
+
+    jbig_, _, _, jtm, _ = build(JAX)
+    big, topo, tree, tm, ptab = build(PORT)
     pron_of = dict(entries)
     pdfs = []
     for w in texts[0][:4]:
@@ -217,19 +251,19 @@ def test_arc_budget_cutoff_prefers_best_tokens():
     T = len(pdfs)
     ll = np.full((T, tree.num_pdfs), -8.0, np.float32)
     ll[np.arange(T), pdfs] = 0.0
-    ref = SimpleDecoder(csr_to_vector_fst(big.csr),
-                        acoustic_scale=1.0).decode(ll, tm.tid_to_pdf_array)
+    ref = SimpleDecoder(jcsr.csr_to_vector_fst(jbig_.csr),
+                        acoustic_scale=1.0).decode(ll, jtm.tid_to_pdf_array)
 
     kw = dict(beam=20.0, max_active=1500, acoustic_scale=1.0,
               arc_budget=2048, arc_block=4)
     dec = tbeam.BeamDecoder(big.csr, tm.tid_to_pdf_array,
-                            tbeam.BeamDecoderConfig(**kw))
+                            tbeam.BeamDecoderConfig(**kw), device="cpu")
     tids, ols, cost = dec.decode(ll)
     host = dec._decode_host(ll[None], [T])[0]
     assert int(host["dropped_arcs"]) > 0, "budget did not bind"
     assert ols == ref[1]
     assert abs(cost - ref[2]) < 1e-2
-    jdec = jbeam.BeamDecoder(big.csr, tm.tid_to_pdf_array,
+    jdec = jbeam.BeamDecoder(jbig_.csr, jtm.tid_to_pdf_array,
                              jbeam.BeamDecoderConfig(**kw))
     jt, jo, jc = jdec.decode(ll)
     assert (tids, ols) == (jt, jo) and abs(cost - jc) < 1e-3
@@ -241,16 +275,17 @@ def test_arc_budget_cutoff_prefers_best_tokens():
 def test_with_overrides_matches_fresh_decoder(small_graph):
     """A with_overrides sibling (shared packed graph, wider budget) is
     indistinguishable from a fresh decoder at that budget."""
-    from kaldi_tpu.core.logging import KaldiError
-    lang, tm, csr = small_graph
+    lang, tm, csr = small_graph["port"]
     rng = np.random.default_rng(41)
     kw = dict(beam=16.0, max_active=200, acoustic_scale=1.0,
               lattice_beam=6.0, arc_block=4, lattice_arcs_per_frame=512)
     base = tbeam.BeamDecoder(csr, tm.tid_to_pdf_array,
-                             tbeam.BeamDecoderConfig(arc_budget=64, **kw))
+                             tbeam.BeamDecoderConfig(arc_budget=64, **kw),
+                             device="cpu")
     clone = base.with_overrides(arc_budget=4096)
     fresh = tbeam.BeamDecoder(csr, tm.tid_to_pdf_array,
-                              tbeam.BeamDecoderConfig(arc_budget=4096, **kw))
+                              tbeam.BeamDecoderConfig(arc_budget=4096, **kw),
+                              device="cpu")
     assert clone.M == fresh.M and clone.MB == fresh.MB
     assert clone._g is base._g
     for _ in range(3):
@@ -274,6 +309,7 @@ def lv_task():
     kw = dict(vocab_size=300, order=3, seed=7, closure=False,
               corpus_sentences=600)
     task = tlv.make_largevocab_task(**kw)
+    jtask = jlv.make_largevocab_task(**kw)
     ev = tlv.sample_eval_set(task, 4, max_words=6, seed=99)
     rng = np.random.default_rng(1234)
     lls = [tlv.synth_loglikes(task, ev[u], rng, noise=0.5)
@@ -283,12 +319,11 @@ def lv_task():
                   task.num_pdfs), np.float32)
     for b, x in enumerate(lls):
         X[b, :len(x)] = x
-    return task, X, lens, kw
+    return task, jtask, X, lens, kw
 
 
 def test_largevocab_builders_match_jax(lv_task):
-    task, X, lens, kw = lv_task
-    jtask = jlv.make_largevocab_task(**kw)
+    task, jtask, X, lens, kw = lv_task
     a, b = task.graph.csr, jtask.graph.csr
     for f in ("e_offsets", "e_ilabel", "e_olabel", "e_weight",
               "e_nextstate", "n_offsets", "n_weight", "final_costs"):
@@ -307,18 +342,20 @@ def test_largevocab_batch_matches_jax(lv_task, beta, arc_budget):
     """decode_compact_batch: same best-path words, costs within 1e-3,
     and the same escalation count and dropped arcs as the JAX decoder
     (arc_budget 128 makes escalation fire)."""
-    task, X, lens, _ = lv_task
+    task, jtask, X, lens, _ = lv_task
     kw = dict(beam=13.0, max_active=7000, acoustic_scale=1.0,
               lattice_beam=7.0, arc_budget=arc_budget, token_capacity=256,
               arc_block=8, escalate_budget=2048, escalate_deficit=4.0,
               lattice_arcs_per_frame=512, record_capacity=16384,
               device_beta_prune=beta)
     args = (task.graph.csr, task.tm.tid_to_pdf_array)
-    tdec = tbeam.BeamDecoder(*args, tbeam.BeamDecoderConfig(**kw))
+    jargs = (jtask.graph.csr, jtask.tm.tid_to_pdf_array)
+    tdec = tbeam.BeamDecoder(*args, tbeam.BeamDecoderConfig(**kw),
+                             device="cpu")
     assert tdec._use_beta(*X.shape[:2]) == beta
     ts, js = {}, {}
     got = tdec.decode_compact_batch(X, lens, stats=ts)
-    want = jbeam.BeamDecoder(*args, jbeam.BeamDecoderConfig(**kw)) \
+    want = jbeam.BeamDecoder(*jargs, jbeam.BeamDecoderConfig(**kw)) \
         .decode_compact_batch(X, lens, stats=js)
     for g, w in zip(got, want):
         gw, gt, gc = g.best_path()
@@ -337,13 +374,14 @@ def test_largevocab_batch_matches_jax(lv_task, beta, arc_budget):
 def test_host_methods_in_step_with_original(lv_task, beta):
     """The copied host methods give the original's outputs on the same
     host dict (taken from the JAX decoder's fetch)."""
-    task, X, lens, _ = lv_task
+    task, jtask, X, lens, _ = lv_task
     kw = dict(beam=13.0, max_active=300, acoustic_scale=1.0,
               lattice_beam=7.0, token_capacity=256, arc_budget=1024,
               lattice_arcs_per_frame=512, device_beta_prune=beta)
-    args = (task.graph.csr, task.tm.tid_to_pdf_array)
-    tdec = tbeam.BeamDecoder(*args, tbeam.BeamDecoderConfig(**kw))
-    jdec = jbeam.BeamDecoder(*args, jbeam.BeamDecoderConfig(**kw))
+    tdec = tbeam.BeamDecoder(task.graph.csr, task.tm.tid_to_pdf_array,
+                             tbeam.BeamDecoderConfig(**kw), device="cpu")
+    jdec = jbeam.BeamDecoder(jtask.graph.csr, jtask.tm.tid_to_pdf_array,
+                             jbeam.BeamDecoderConfig(**kw))
     T = int(lens[0])
     ll = X[0]
     host = jdec._fetch(jdec._decode_jit(jdec._graph_arrays(), ll,
@@ -363,7 +401,8 @@ def test_host_methods_in_step_with_original(lv_task, beta):
                     jdec._decode_records(host, T, ll)):
         np.testing.assert_array_equal(np.sort(a), np.sort(b))
     # sequence-encoded olabels split into the same chains
-    from kaldi_tpu.fst.csr import OLSEQ_BASE
+    OLSEQ_BASE = tcsr.OLSEQ_BASE
+    assert OLSEQ_BASE == jcsr.OLSEQ_BASE
     seqs = [[5, 6, 7], [8, 9]]
     tdec._ol_seqs = jdec._ol_seqs = seqs
     arcs = (np.array([0, 1, 1], np.int32), np.array([1, 2, 3], np.int32),

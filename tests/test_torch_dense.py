@@ -6,6 +6,8 @@ alignments and word sequences, costs within 1e-3 (the same float32
 operations in the same order), the same tie-breaking (first minimum;
 an ε-sweep keeps its own token on a tie), and raw lattices equal arc
 for arc, so that the path sets within ``lattice_beam`` are equal.
+Each side decodes a graph built by its own package from the same
+parameters; the port runs on the CPU (``device="cpu"``).
 """
 
 import jax.numpy as jnp
@@ -13,53 +15,65 @@ import numpy as np
 import pytest
 import torch
 
-from kaldi_tpu.am import HmmTopology, MonophoneContextDependency, \
-    TransitionModel
 from kaldi_tpu.decoder import SimpleDecoder
 from kaldi_tpu.decoder import align as jalign
 from kaldi_tpu.decoder import dense as jdense
-from kaldi_tpu.fst import ArpaModel, Lang, Lexicon, arpa_to_fst, \
-    make_unigram_arpa, mkgraph
-from kaldi_tpu.fst.csr import csr_to_vector_fst
-from kaldi_tpu.lattice import determinize_lattice
+from kaldi_tpu.fst import csr as jcsr
+from kaldi_tpu.lattice import determinize_lattice as jdeterminize
+from kaldi_tpu.pipelines import largevocab as jlv
 from kaldi_tpu_torch.decoder import dense as tdense
+from kaldi_tpu_torch.fst import csr as tcsr
+from kaldi_tpu_torch.lattice import determinize_lattice as tdeterminize
 from kaldi_tpu_torch.pipelines import largevocab as tlv
+from test_torch_beam import JAX, PORT, yesno_graph
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
 def graph():
-    lex = Lexicon(entries=[("YES", ["Y", "EH", "S"]), ("NO", ["N", "OW"])])
-    lang = Lang(lex)
-    phones = lang.phone_list()
-    topo = HmmTopology.three_state(phones)
-    tree = MonophoneContextDependency(phones, topo)
-    tm = TransitionModel(topo, tree)
-    arpa = ArpaModel.parse(make_unigram_arpa({"YES": 1.0, "NO": 1.0}))
-    HCLG = mkgraph(lang, tm, arpa_to_fst(arpa, lang.words))
-    return lang, tm, HCLG
+    """{side: (lang, tm, HCLG)}: the three-state yes/no graph, built by
+    each package."""
+    return {"jax": yesno_graph(JAX, "three_state"),
+            "port": yesno_graph(PORT, "three_state")}
 
 
 @pytest.fixture(scope="module")
 def lv_graph():
     """A small large-vocabulary HCLG: ε-depth 3, hundreds of ε in-arcs
-    into the back-off states."""
-    task = tlv.make_largevocab_task(vocab_size=60, order=3, seed=7,
-                                    closure=False, corpus_sentences=200)
-    fst = csr_to_vector_fst(task.graph.csr)
+    into the back-off states; {side: (task, VectorFst)} and the
+    log-likelihoods."""
+    kw = dict(vocab_size=60, order=3, seed=7, closure=False,
+              corpus_sentences=200)
+    task = tlv.make_largevocab_task(**kw)
+    jtask = jlv.make_largevocab_task(**kw)
     sents = tlv.sample_eval_set(task, 3, max_words=3, seed=5)
     rng = np.random.default_rng(6)
     lls = [tlv.synth_loglikes(task, sents[u], rng, noise=0.5)
            for u in sorted(sents)]
-    return task, fst, lls
+    return ({"port": (task, tcsr.csr_to_vector_fst(task.graph.csr)),
+             "jax": (jtask, jcsr.csr_to_vector_fst(jtask.graph.csr))}, lls)
 
 
-def _both(HCLG, tm, **cfg):
-    return (tdense.DenseDecoder(HCLG, tm.tid_to_pdf_array,
-                                tdense.DenseDecoderConfig(**cfg)),
-            jdense.DenseDecoder(HCLG, tm.tid_to_pdf_array,
+def _both(graphs, **cfg):
+    """The port's and the JAX package's DenseDecoder, each on its own
+    side's (HCLG, tm) pair."""
+    (tHCLG, ttm), (jHCLG, jtm) = graphs
+    return (tdense.DenseDecoder(tHCLG, ttm.tid_to_pdf_array,
+                                tdense.DenseDecoderConfig(**cfg),
+                                device="cpu"),
+            jdense.DenseDecoder(jHCLG, jtm.tid_to_pdf_array,
                                 jdense.DenseDecoderConfig(**cfg)))
+
+
+def _pairs(graph):
+    return ((graph["port"][2], graph["port"][1]),
+            (graph["jax"][2], graph["jax"][1]))
+
+
+def _lv_pairs(lv):
+    (task, fst), (jtask, jfst) = lv["port"], lv["jax"]
+    return (fst, task.tm), (jfst, jtask.tm)
 
 
 def _same(got, want):
@@ -70,14 +84,16 @@ def _same(got, want):
 
 @pytest.mark.parametrize("seed", range(5))
 def test_dense_matches_simple(graph, seed):
-    lang, tm, HCLG = graph
+    _, jtm, jHCLG = graph["jax"]
+    lang, tm, HCLG = graph["port"]
     ll = np.random.default_rng(seed).standard_normal(
         (40, tm.num_pdfs)).astype(np.float32)
-    ref = SimpleDecoder(HCLG, acoustic_scale=0.1).decode(
-        ll, tm.tid_to_pdf_array)
+    ref = SimpleDecoder(jHCLG, acoustic_scale=0.1).decode(
+        ll, jtm.tid_to_pdf_array)
     dec = tdense.DenseDecoder(tdense.pack_reverse(HCLG), tm.tid_to_pdf_array,
                               tdense.DenseDecoderConfig(beam=1e9,
-                                                        acoustic_scale=0.1))
+                                                        acoustic_scale=0.1),
+                              device="cpu")
     tids, ols, cost = dec.decode(ll)
     assert abs(cost - ref[2]) < 1e-3
     assert tids == ref[0]
@@ -85,15 +101,16 @@ def test_dense_matches_simple(graph, seed):
 
 
 def test_dense_batch(graph):
-    lang, tm, HCLG = graph
+    _, jtm, jHCLG = graph["jax"]
+    tm = graph["port"][1]
     rng = np.random.default_rng(7)
-    tdec, jdec = _both(HCLG, tm, beam=1e9, acoustic_scale=0.1)
-    simple = SimpleDecoder(HCLG, acoustic_scale=0.1)
+    tdec, jdec = _both(_pairs(graph), beam=1e9, acoustic_scale=0.1)
+    simple = SimpleDecoder(jHCLG, acoustic_scale=0.1)
     T_pad, P = 48, tm.num_pdfs
     lls, lens, refs = [], [], []
     for T in [48, 21, 9]:
         ll = rng.standard_normal((T, P)).astype(np.float32)
-        refs.append(simple.decode(ll, tm.tid_to_pdf_array))
+        refs.append(simple.decode(ll, jtm.tid_to_pdf_array))
         pad = np.zeros((T_pad, P), np.float32)
         pad[:T] = ll
         lls.append(pad)
@@ -106,10 +123,10 @@ def test_dense_batch(graph):
 
 
 def test_dense_beam_pruning_still_decodes(graph):
-    lang, tm, HCLG = graph
+    tm = graph["port"][1]
     ll = np.random.default_rng(3).standard_normal(
         (30, tm.num_pdfs)).astype(np.float32)
-    tdec, jdec = _both(HCLG, tm, beam=8.0, acoustic_scale=0.1)
+    tdec, jdec = _both(_pairs(graph), beam=8.0, acoustic_scale=0.1)
     got = tdec.decode(ll)
     assert len(got[0]) == 30
     assert np.isfinite(got[2])
@@ -132,25 +149,26 @@ def test_dense_ties_match_jax(graph):
     """All-equal log-likelihoods on a graph whose two words weigh the
     same: every frame has tied candidates and the ε-sweeps tie with the
     token already there; the port picks the JAX decoder's path."""
-    lang, tm, HCLG = graph
+    tm = graph["port"][1]
     ll = np.zeros((25, tm.num_pdfs), np.float32)
-    tdec, jdec = _both(HCLG, tm, beam=1e9, acoustic_scale=0.1)
+    tdec, jdec = _both(_pairs(graph), beam=1e9, acoustic_scale=0.1)
     _same(tdec.decode(ll), jdec.decode(ll))
 
 
 def test_pack_dense_and_degrees_equal_jax(lv_graph):
-    _, fst, _ = lv_graph
-    assert tdense.degrees(fst) == jalign.degrees(fst)
+    lv, _ = lv_graph
+    fst, jfst = lv["port"][1], lv["jax"][1]
+    assert tdense.degrees(fst) == jalign.degrees(jfst)
     ae, an = tdense.degrees(fst)
     got = tdense.pack_dense(fst, fst.num_states + 3, ae + 1, an)
-    want = jalign.pack_dense(fst, fst.num_states + 3, ae + 1, an)
+    want = jalign.pack_dense(jfst, fst.num_states + 3, ae + 1, an)
     for name in ("e_il", "e_ol", "e_w", "e_ns", "n_ol", "n_w", "n_ns",
                  "final"):
         np.testing.assert_array_equal(getattr(got, name),
                                       getattr(want, name))
     assert (got.num_states, got.start, got.eps_depth) == \
         (want.num_states, want.start, want.eps_depth)
-    rev_t, rev_j = tdense.pack_reverse(fst), jdense.pack_reverse(fst)
+    rev_t, rev_j = tdense.pack_reverse(fst), jdense.pack_reverse(jfst)
     for name in ("e_src", "e_il", "e_ol", "e_w", "n_src", "n_ol", "n_w",
                  "final"):
         np.testing.assert_array_equal(getattr(rev_t, name),
@@ -159,10 +177,10 @@ def test_pack_dense_and_degrees_equal_jax(lv_graph):
 
 
 def test_dense_batch_matches_jax_on_largevocab(lv_graph):
-    task, fst, lls = lv_graph
-    tdec, jdec = _both(fst, task.tm, beam=13.0, acoustic_scale=1.0)
+    lv, lls = lv_graph
+    tdec, jdec = _both(_lv_pairs(lv), beam=13.0, acoustic_scale=1.0)
     lens = np.array([len(x) for x in lls])
-    X = np.zeros((len(lls), int(lens.max()), task.num_pdfs), np.float32)
+    X = np.zeros((len(lls), int(lens.max()), lls[0].shape[1]), np.float32)
     for b, x in enumerate(lls):
         X[b, :len(x)] = x
     got = tdec.decode_batch(X, lens)
@@ -202,10 +220,10 @@ def _same_lattice(got, want):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_decode_lattice_matches_jax(graph, seed):
-    lang, tm, HCLG = graph
+    tm = graph["port"][1]
     ll = np.random.default_rng(seed).standard_normal(
         (7, tm.num_pdfs)).astype(np.float32)
-    tdec, jdec = _both(HCLG, tm, beam=16.0, lattice_beam=3.0,
+    tdec, jdec = _both(_pairs(graph), beam=16.0, lattice_beam=3.0,
                        acoustic_scale=1.0)
     glat, gbest = tdec.decode_lattice(ll)
     wlat, wbest = jdec.decode_lattice(ll)
@@ -216,20 +234,20 @@ def test_decode_lattice_matches_jax(graph, seed):
     for key in want:
         assert abs(got[key] - want[key]) < 1e-3
     assert abs(min(got.values()) - gbest) < 1e-3
-    gw, gt, gc = determinize_lattice(glat).best_path()
-    ww, wt, wc = determinize_lattice(wlat).best_path()
+    gw, gt, gc = tdeterminize(glat).best_path()
+    ww, wt, wc = jdeterminize(wlat).best_path()
     assert (gw, gt) == (ww, wt) and abs(gc - wc) < 1e-3
 
 
 def test_decode_lattice_matches_jax_on_largevocab(lv_graph):
-    task, fst, lls = lv_graph
-    tdec, jdec = _both(fst, task.tm, beam=13.0, lattice_beam=4.0,
+    lv, lls = lv_graph
+    tdec, jdec = _both(_lv_pairs(lv), beam=13.0, lattice_beam=4.0,
                        acoustic_scale=1.0)
     for ll in lls[:2]:
         glat, gbest = tdec.decode_lattice(ll)
         wlat, wbest = jdec.decode_lattice(ll)
         assert abs(gbest - wbest) < 1e-3
         _same_lattice(glat, wlat)
-        gw, gt, gc = determinize_lattice(glat).best_path()
-        ww, wt, wc = determinize_lattice(wlat).best_path()
+        gw, gt, gc = tdeterminize(glat).best_path()
+        ww, wt, wc = jdeterminize(wlat).best_path()
         assert gw and (gw, gt) == (ww, wt) and abs(gc - wc) < 1e-3

@@ -6,7 +6,16 @@ plain PyTorch version must match ``fbank_xla`` (same products, float32
 summation order differs: atol 1e-4) and the Pallas kernel in interpret
 mode (atol 2e-3, the repo's own bound for that kernel); the port's
 ``Fbank`` (DFT by products) must match the JAX ``Fbank`` (rfft) at
-atol 2e-3 on non-silent frames.
+atol 2e-3 on non-silent frames.  The port runs on the CPU
+(``device="cpu"``).
+
+The kernel's own arithmetic is checked in numpy: TF32 rounding by a bit
+mask (to nearest, ties away, as ``cvt.rna``), the 3xTF32 sum
+hi·hi + hi·lo + lo·hi on the path's waveforms within 2e-3 log-mel of
+the float32 plain version, where one TF32 product alone is not; and its
+layout: mel filter groups that cover every nonzero of the mel matrix,
+and an fbank computed group by group from the interleaved, split tables
+equal to ``fbank_reference``.
 """
 
 import math
@@ -24,8 +33,10 @@ from kaldi_tpu.ops.pallas_frontend import (PallasFbank, _dft_matrices,
 from kaldi_tpu_torch.features import compute as tcompute
 from kaldi_tpu_torch.features import mel as tmel
 from kaldi_tpu_torch.features import window as twindow
+from kaldi_tpu_torch.ops import fbank as tfbank
 from kaldi_tpu_torch.ops.fbank import CudaFbank, dft_matrices, \
     fbank_reference
+from kaldi_tpu_torch.ops.tf32 import from_fragment_order, round_tf32
 
 torch.set_num_threads(1)
 
@@ -117,7 +128,7 @@ def test_fbank_reference_matches_xla_and_pallas(num_bins):
     np.testing.assert_allclose(got.numpy(), pallas, atol=2e-3, rtol=0)
     # the wrapper on a CPU tensor is the plain version on its own tables
     k = CudaFbank(twindow.FrameExtractionOptions(dither=0.0),
-                  tmel.MelBanksOptions(num_bins=num_bins))
+                  tmel.MelBanksOptions(num_bins=num_bins), device="cpu")
     np.testing.assert_array_equal(k(torch.from_numpy(frames)).numpy(),
                                   got.numpy())
     assert k.launches == 0
@@ -125,7 +136,7 @@ def test_fbank_reference_matches_xla_and_pallas(num_bins):
 
 def test_fbank_wrapper_rejects_bad_input():
     k = CudaFbank(twindow.FrameExtractionOptions(),
-                  tmel.MelBanksOptions(num_bins=40))
+                  tmel.MelBanksOptions(num_bins=40), device="cpu")
     with pytest.raises(ValueError):
         k(torch.zeros((4, 399)))
     with pytest.raises(TypeError):
@@ -147,7 +158,8 @@ def test_fbank_compute_matches_jax(use_energy):
     jf = jcompute.Fbank(jcompute.FbankOptions(
         mel_opts=jmel.MelBanksOptions(num_bins=40), use_energy=use_energy))
     tf = tcompute.Fbank(tcompute.FbankOptions(
-        mel_opts=tmel.MelBanksOptions(num_bins=40), use_energy=use_energy))
+        mel_opts=tmel.MelBanksOptions(num_bins=40), use_energy=use_energy),
+        device="cpu")
     want = jf.compute(wave, np.random.default_rng(2))
     got = tf.compute(wave, np.random.default_rng(2)).numpy()
     assert got.shape == want.shape == (128, 40 + use_energy)
@@ -167,7 +179,7 @@ def test_fbank_energy_floor_matches_jax():
         energy_floor=floor))
     tf = tcompute.Fbank(tcompute.FbankOptions(
         mel_opts=tmel.MelBanksOptions(num_bins=40), use_energy=True,
-        energy_floor=floor))
+        energy_floor=floor), device="cpu")
     want = jf.compute(wave, np.random.default_rng(3))
     got = tf.compute(wave, np.random.default_rng(3)).numpy()
     floored = got[:, 0] == np.float32(20.0)
@@ -191,6 +203,162 @@ def test_fbank_kernel_matches_reference_on_card():
     torch.cuda.synchronize()
     assert k.launches == 1
     assert float((got - want).abs().max()) <= 2e-3
+
+
+# -- the kernel's layout and arithmetic, on the CPU --------------------
+
+# the three configurations the paths run: the TDNN-F's 40 bins, the MFCC
+# of mini_librispeech (16 kHz, 23 bins) and of the yes/no recipe (8 kHz,
+# 15 bins)
+CONFIGS = [(16000.0, 40), (16000.0, 23), (8000.0, 15)]
+
+
+def _kernel_of(samp_freq, num_bins):
+    return CudaFbank(twindow.FrameExtractionOptions(samp_freq=samp_freq,
+                                                    dither=0.0),
+                     tmel.MelBanksOptions(num_bins=num_bins), device="cpu")
+
+
+def tf32(a):
+    """float32 → TF32 in numpy: round to nearest, ties away from zero
+    (``cvt.rna``), by adding half of the dropped 13 bits and masking."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split(a):
+    hi = tf32(a)
+    return hi, tf32(a - hi)
+
+
+def product_3xtf32(a, b):
+    """a·b as the kernels take it: hi·hi + (hi·lo + lo·hi), float32."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def product_tf32(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def test_round_tf32_is_cvt_rna():
+    """The port's torch rounding equals the numpy bit mask; ties go away
+    from zero, and the result keeps 10 stored mantissa bits."""
+    x = np.random.default_rng(0).standard_normal(10000).astype(np.float32)
+    x = np.concatenate([x * 1e3, x * 1e-3, np.float32([0.0, -0.0, 1.0])])
+    got = round_tf32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), tf32(x).view(np.uint32))
+    assert not (got.view(np.uint32) & np.uint32(0x1FFF)).any()
+    tie = np.float32(1.0 + 2.0 ** -11)      # exactly half a TF32 ulp up
+    np.testing.assert_array_equal(tf32(np.float32([tie, -tie])),
+                                  np.float32([1.0 + 2.0 ** -10,
+                                              -1.0 - 2.0 ** -10]))
+    assert np.abs(x - got).max() <= 2.0 ** -11 * np.abs(x).max()
+
+
+def _path_frames(samp_freq, k, rng):
+    """Pre-processed frames of the paths' waveforms: harmonic voiced
+    segments over noise (the wav path's) at 16 kHz, speech rendered
+    from a pdf alignment (the GMM path's) at both rates."""
+    from kaldi_tpu_torch.tools.synth import pdf_signatures, synth_speech
+    fo = twindow.FrameExtractionOptions(samp_freq=samp_freq, dither=0.0)
+    waves = []
+    if samp_freq == 16000.0:
+        waves.append(_speechlike(rng, 1.3))
+    freqs, amps = pdf_signatures(rng, 10, silent=[0])
+    shift = int(samp_freq / 100)
+    waves.append(synth_speech(np.repeat(rng.integers(0, 10, 20), 6), freqs,
+                              amps, rng, samp_freq=samp_freq,
+                              window=k.win_size, shift=shift))
+    frames = [twindow.extract_frames(w, fo) for w in waves]
+    return twindow.preprocess_frames(
+        torch.from_numpy(np.concatenate(frames)), fo)[0]
+
+
+@pytest.mark.parametrize("samp_freq,num_bins", CONFIGS)
+def test_fbank_3xtf32_holds_where_tf32_does_not(samp_freq, num_bins):
+    k = _kernel_of(samp_freq, num_bins)
+    x = _path_frames(samp_freq, k, np.random.default_rng(num_bins))
+    want = k.reference(x).numpy()
+    xw = (x * k.window).numpy()
+    tables = np.stack([k.cos.numpy(), k.sin.numpy()], -1).reshape(
+        k.win_size, 2 * k.n_bins)           # interleaved: cos_k, sin_k
+    err = {}
+    for name, product in (("3xtf32", product_3xtf32), ("tf32", product_tf32)):
+        y = product(xw, tables)
+        power = y[:, 0::2] ** 2 + y[:, 1::2] ** 2
+        got = np.log(np.maximum(power @ k.mel.numpy(), tfbank._EPS))
+        err[name] = float(np.abs(got - want).max())
+    assert err["3xtf32"] <= 2e-3, err
+    assert err["tf32"] > 2e-3, err
+
+
+@pytest.mark.parametrize("samp_freq,num_bins", CONFIGS)
+def test_mel_groups_cover_the_filters(samp_freq, num_bins):
+    """Groups are runs of filters in order; each filter's nonzero bins
+    lie inside its group's n-tiles; groups stay within the kernel's
+    limits (16 n-tiles, 128 mel weights) and balance bins."""
+    k = _kernel_of(samp_freq, num_bins)
+    mel = k.mel.numpy()
+    nz = mel != 0
+    assert (k.groups[1:, 2] == k.groups[:-1, 3]).all()
+    assert k.groups[0, 2] == 0 and k.groups[-1, 3] == k.n_mel
+    assert len(k.groups) == {257: 8, 129: 4}[k.n_bins]
+    spans = []
+    for k0, nt, m0, m1, _ in k.groups:
+        assert 1 <= nt <= tfbank.MAX_GROUP_TILES
+        for m in range(m0, m1):
+            lo, hi = k.franges[m]
+            assert k0 <= lo and hi <= k0 + 4 * nt
+            assert not nz[:lo, m].any() and not nz[hi:, m].any()
+            assert nz[lo:hi, m].all()
+        assert (k.franges[m0:m1, 1] - k.franges[m0:m1, 0]).sum() <= \
+            tfbank.MAX_GROUP_WEIGHTS
+        spans.append(4 * nt)
+    assert max(spans) <= 2 * min(spans) + 8
+    melw, woff = tfbank.filter_weights(mel, k.franges)
+    for m, (lo, hi) in enumerate(k.franges):
+        np.testing.assert_array_equal(melw[woff[m]:woff[m] + hi - lo],
+                                      mel[lo:hi, m])
+
+
+@pytest.mark.parametrize("samp_freq,num_bins", CONFIGS)
+def test_fbank_by_groups_from_split_tables_is_the_reference(samp_freq,
+                                                            num_bins):
+    """Per group, the tables in fragment order recompose to the
+    interleaved cos/sin columns of its bins, split exactly as
+    round_tf32 splits; the fbank computed group by group from them in
+    plain torch equals fbank_reference."""
+    k = _kernel_of(samp_freq, num_bins)
+    x = _path_frames(samp_freq, k, np.random.default_rng(7))
+    want = k.reference(x)
+    ks = k.kp // 8
+    fw = torch.zeros((x.shape[0], k.kp))
+    fw[:, :k.win_size] = x * k.window
+    got = torch.empty_like(want)
+    for k0, nt, m0, m1, off in k.groups:
+        hi, lo = from_fragment_order(
+            k.tables[off:off + ks * nt * 128].reshape(ks, nt, 32, 4))
+        b = torch.zeros((k.kp, 4 * nt, 2))
+        n = min(4 * nt, k.n_bins - k0)
+        b[:k.win_size, :n, 0] = k.cos[:, k0:k0 + n]
+        b[:k.win_size, :n, 1] = k.sin[:, k0:k0 + n]
+        b = b.reshape(k.kp, 8 * nt)
+        assert torch.equal(hi, round_tf32(b))
+        assert torch.equal(lo, round_tf32(b - hi))
+        y = fw @ (hi + lo)
+        power = y[:, 0::2] ** 2 + y[:, 1::2] ** 2
+        for m in range(m0, m1):
+            lo_, hi_ = k.franges[m]
+            e = power[:, lo_ - k0:hi_ - k0] @ k.mel[lo_:hi_, m]
+            got[:, m] = torch.log(torch.clamp_min(e, tfbank._EPS))
+    # hi + lo carries the tables to 2^-22; summation order alone moves
+    # log-mel by ~1e-4 on the lowest filter, just above the DC-removed
+    # floor (the bound of fbank_reference against fbank_xla above); a
+    # wrong bin or filter index would be off by O(1)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
 
 
 # -- MFCC, CMVN, deltas, splicing and transforms (the GMM feature path) --
@@ -225,7 +393,8 @@ def test_mfcc_compute_matches_jax(samp_freq, num_bins, num_ceps,
         mel_opts=jmel.MelBanksOptions(num_bins=num_bins), **kw))
     tm = tcompute.Mfcc(tcompute.MfccOptions(
         frame_opts=twindow.FrameExtractionOptions(samp_freq=samp_freq),
-        mel_opts=tmel.MelBanksOptions(num_bins=num_bins), **kw))
+        mel_opts=tmel.MelBanksOptions(num_bins=num_bins), **kw),
+        device="cpu")
     want = jm.compute(wave, np.random.default_rng(2))
     got = tm.compute(wave, np.random.default_rng(2)).numpy()
     assert got.shape == want.shape == (128, num_ceps) == (128, tm.dim)

@@ -10,7 +10,9 @@ same words with costs within 1e-3 from the same feature archive (the
 log-likelihoods differ at ~1e-5; a path sums a few hundred of them at
 acoustic scale 0.1).  Features the port computes from the .wav files
 differ from the archive's at ~1e-4, so that decode is held to the
-recipe's own contract instead: WER 0.
+recipe's own contract instead: WER 0.  The files cross between the
+packages; each side reads them, and builds its lexicon, with its own
+modules.  The port runs on the CPU (``device="cpu"``).
 """
 
 import os
@@ -30,6 +32,11 @@ from kaldi_tpu.pipelines.data import yesno_lexicon
 from kaldi_tpu.pipelines.datadir import read_data_dir
 from kaldi_tpu_torch.am import serialize as tser
 from kaldi_tpu_torch.cli import latgen as tlatgen
+from kaldi_tpu_torch.core.logging import KaldiError
+from kaldi_tpu_torch.core.table import \
+    SequentialTableReader as TSequentialTableReader
+from kaldi_tpu_torch.fst import Lang as TLang
+from kaldi_tpu_torch.fst import Lexicon as TLexicon
 from kaldi_tpu_torch.features import (DeltaFeaturesOptions, MelBanksOptions,
                                       Mfcc, MfccOptions, add_deltas,
                                       apply_cmvn, compute_cmvn_stats,
@@ -61,15 +68,20 @@ def recipe(tmp_path_factory):
     return paths, feats
 
 
-def _best_paths(lat_ark):
+def _best_paths(lat_ark, reader=SequentialTableReader):
     return {u: clat.best_path() for u, clat in
-            SequentialTableReader(f"ark:{lat_ark}", holder="clat")}
+            reader(f"ark:{lat_ark}", holder="clat")}
+
+
+def _port_lang():
+    """The port's Lang of the recipe's lexicon."""
+    return TLang(TLexicon(entries=yesno_lexicon().entries))
 
 
 def test_read_mdl_matches_jax(recipe, tmp_path):
     paths, _ = recipe
     jtm, jam = jser.read_mdl(paths["mdl"])
-    ttm, tam = tser.read_mdl(paths["mdl"])
+    ttm, tam = tser.read_mdl(paths["mdl"], device="cpu")
     np.testing.assert_array_equal(ttm.tid_to_pdf_array, jtm.tid_to_pdf_array)
     np.testing.assert_array_equal(ttm.log_probs, jtm.log_probs)
     for name in ("weights", "means", "vars"):
@@ -90,7 +102,7 @@ def test_read_mdl_matches_jax(recipe, tmp_path):
 def test_am_loglikes_match_jax_on_recipe_model(recipe):
     paths, feats = recipe
     _, jam = jser.read_mdl(paths["mdl"])
-    _, tam = tser.read_mdl(paths["mdl"])
+    _, tam = tser.read_mdl(paths["mdl"], device="cpu")
     for u in sorted(feats)[:3]:
         want = np.asarray(jam.loglikes(feats[u]))
         got = tam.loglikes(feats[u]).numpy()
@@ -118,7 +130,8 @@ def test_latgen_cli_matches_jax(recipe, tmp_path):
         f"--word-symbol-table={paths['words']}", paths["mdl"], paths["fst"],
         f"scp:{paths['feats']}", f"ark:{lat}", f"ark,t:{tra}"])
     assert rc == 0
-    _same_decodes(_best_paths(lat), _best_paths(paths["lat"]))
+    _same_decodes(_best_paths(lat, TSequentialTableReader),
+                  _best_paths(paths["lat"]))
     with open(tra) as a, open(paths["tra"]) as b:
         assert a.read() == b.read()
 
@@ -128,13 +141,13 @@ def test_latgen_beam_branch_matches_jax(recipe):
     sides (the CLI has no option for it)."""
     paths, feats = recipe
     jtm, jam = jser.read_mdl(paths["mdl"])
-    ttm, tam = tser.read_mdl(paths["mdl"])
-    HCLG = tlatgen._load_hclg(paths["fst"])
+    ttm, tam = tser.read_mdl(paths["mdl"], device="cpu")
     kw = dict(max_active=7000, dense_limit=0)
-    jdec = jtools._LatgenDecoder(HCLG, jtm.tid_to_pdf_array, 16.0, 6.0, 0.1,
-                                 **kw)
-    tdec = tlatgen._LatgenDecoder(HCLG, ttm.tid_to_pdf_array, 16.0, 6.0,
-                                  0.1, device="cpu", **kw)
+    jdec = jtools._LatgenDecoder(jtools._load_hclg(paths["fst"]),
+                                 jtm.tid_to_pdf_array, 16.0, 6.0, 0.1, **kw)
+    tdec = tlatgen._LatgenDecoder(tlatgen._load_hclg(paths["fst"]),
+                                  ttm.tid_to_pdf_array, 16.0, 6.0, 0.1,
+                                  device="cpu", **kw)
     assert tdec._compact and jdec._compact
     utts = sorted(feats)[:3]
     got = {u: tdec.decode_to_clat(tam.loglikes(feats[u])).best_path()
@@ -148,18 +161,20 @@ def test_latgen_beam_branch_matches_jax(recipe):
 def test_decode_gmm_pipelines_match_jax(recipe):
     paths, feats = recipe
     jtm, jam = jser.read_mdl(paths["mdl"])
-    ttm, tam = tser.read_mdl(paths["mdl"])
+    ttm, tam = tser.read_mdl(paths["mdl"], device="cpu")
+    jHCLG = jtools._load_hclg(paths["fst"])
     HCLG = tlatgen._load_hclg(paths["fst"])
-    lang = Lang(yesno_lexicon())
+    jlang, lang = Lang(yesno_lexicon()), _port_lang()
     refs = read_data_dir(paths["test"]).text
-    want = jdecode.decode_gmm_lattice(feats, jam, jtm, HCLG, lang, refs=refs)
+    want = jdecode.decode_gmm_lattice(feats, jam, jtm, jHCLG, jlang,
+                                      refs=refs)
     got = tdecode.decode_gmm_lattice(feats, tam, ttm, HCLG, lang, refs=refs,
                                      device="cpu")
     assert got.hyps == want.hyps and got.alignments == want.alignments
     for u in want.costs:
         assert abs(got.costs[u] - want.costs[u]) < 1e-3
     assert got.wer.wer == want.wer.wer == 0.0
-    want1 = jdecode.decode_gmm(feats, jam, jtm, HCLG, lang, batch_size=4)
+    want1 = jdecode.decode_gmm(feats, jam, jtm, jHCLG, jlang, batch_size=4)
     got1 = tdecode.decode_gmm(feats, tam, ttm, HCLG, lang, batch_size=4,
                               device="cpu")
     assert got1.hyps == want1.hyps and got1.alignments == want1.alignments
@@ -174,9 +189,9 @@ def test_port_features_from_wavs_decode_with_wer0(recipe):
     d = read_data_dir(paths["test"])
     mfcc = Mfcc(MfccOptions(
         frame_opts=FrameExtractionOptions(samp_freq=8000.0, dither=0.0),
-        mel_opts=MelBanksOptions(num_bins=15), num_ceps=10))
+        mel_opts=MelBanksOptions(num_bins=15), num_ceps=10), device="cpu")
     raw = {}
-    for u, (wave, rate) in SequentialTableReader(
+    for u, (wave, rate) in TSequentialTableReader(
             f"scp:{os.path.join(paths['test'], 'wav.scp')}", holder="wav"):
         assert rate == 8000
         raw[u] = mfcc.compute(wave)
@@ -187,11 +202,10 @@ def test_port_features_from_wavs_decode_with_wer0(recipe):
     for u in feats:
         assert port[u].shape == feats[u].shape
         np.testing.assert_allclose(port[u], feats[u], atol=5e-3, rtol=0)
-    ttm, tam = tser.read_mdl(paths["mdl"])
+    ttm, tam = tser.read_mdl(paths["mdl"], device="cpu")
     res = tdecode.decode_gmm_lattice(
-        port, tam, ttm, tlatgen._load_hclg(paths["fst"]),
-        Lang(yesno_lexicon()), beam=16.0, lattice_beam=6.0,
-        refs=d.text, device="cpu")
+        port, tam, ttm, tlatgen._load_hclg(paths["fst"]), _port_lang(),
+        beam=16.0, lattice_beam=6.0, refs=d.text, device="cpu")
     assert res.wer.wer == 0.0
     assert compute_wer(d.text, res.hyps).wer == 0.0
 
@@ -199,7 +213,6 @@ def test_port_features_from_wavs_decode_with_wer0(recipe):
 def test_latgen_cli_usage():
     """Wrong argument counts print the usage and return 1; an unknown
     option is refused, as by the JAX tool's ParseOptions."""
-    from kaldi_tpu.core.logging import KaldiError
     assert "gmm-latgen-faster" in TOOLS
     assert tlatgen.gmm_latgen_faster(["--device=cpu", "only.mdl"]) == 1
     with pytest.raises(KaldiError, match="Unknown option"):

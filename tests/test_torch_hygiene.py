@@ -1,0 +1,216 @@
+"""The port stands alone and runs on the card unless asked otherwise.
+
+* No module of ``kaldi_tpu_torch`` and not ``chip_smoke.py`` imports
+  ``kaldi_tpu``, ``jax`` or ``flax``, at top level or inside a function
+  (an AST walk of every file).
+* The host modules the port copied from the JAX package name their
+  original, and build the same graphs: the port's and the JAX package's
+  builders give equal CSR arrays on seeded tasks.
+* Every entry point defaults to ``device="cuda"``; without a card it
+  raises before doing any work.
+* ``ops/build.py`` rebuilds a kernel library when a shared header
+  changes.
+"""
+
+import ast
+import dataclasses
+import glob
+import inspect
+import os
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "kaldi_tpu_torch", "**", "*.py"),
+              recursive=True)) + ["chip_smoke.py"]
+FORBIDDEN = ("kaldi_tpu", "jax", "flax")
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_imports_nothing_of_jax_or_the_jax_package(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [(node.lineno, n) for n in names
+                if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path}: {bad}"
+
+
+COPIED = {
+    "core/logging.py", "core/options.py", "core/io.py", "core/table.py",
+    "core/__init__.py", "fst/fst.py", "fst/csr.py", "fst/biglang.py",
+    "fst/arpa.py", "fst/lang.py", "fst/hclg.py", "fst/ops.py",
+    "fst/openfst_io.py", "fst/__init__.py", "lattice/lattice.py",
+    "lattice/determinize.py", "lattice/io.py", "am/topology.py",
+    "am/transitions.py", "am/tree.py", "native/__init__.py",
+    "native/lattice_build.cpp", "native/lattice_det.cpp"}
+
+
+@pytest.mark.parametrize("rel", sorted(COPIED))
+def test_copied_module_names_its_original(rel):
+    with open(os.path.join(REPO, "kaldi_tpu_torch", rel)) as f:
+        first = f.readline()
+    assert f"Copied from kaldi_tpu/{rel}" in first, first
+    assert os.path.isfile(os.path.join(REPO, "kaldi_tpu", rel))
+
+
+def _same_csr(a, b):
+    for field in dataclasses.fields(a):
+        x, y = getattr(a, field.name), getattr(b, field.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=field.name)
+        else:
+            assert x == y, field.name
+
+
+@pytest.mark.parametrize("order,closure", [(2, True), (3, False)])
+def test_copied_graph_builders_give_equal_csr(order, closure):
+    """The guard on the copies: biglang + csr (make_largevocab_task) and
+    lang + arpa + hclg + ops (mkgraph + pack_fst) give the JAX package's
+    CSR arrays, field for field, on one seeded task each."""
+    from kaldi_tpu.pipelines import largevocab as jlv
+    from kaldi_tpu_torch.pipelines import largevocab as tlv
+    kw = dict(vocab_size=120, order=order, seed=11, closure=closure,
+              corpus_sentences=300)
+    _same_csr(tlv.make_largevocab_task(**kw).graph.csr,
+              jlv.make_largevocab_task(**kw).graph.csr)
+    from test_torch_beam import JAX, PORT, yesno_graph
+    topology = "three_state" if closure else "chain"
+    graphs = [side[6].pack_fst(yesno_graph(side, topology)[2])
+              for side in (PORT, JAX)]
+    _same_csr(*graphs)
+
+
+def _entry_points():
+    from kaldi_tpu_torch.am.gmm import AmDiagGmm
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder
+    from kaldi_tpu_torch.decoder.beam import BeamDecoder
+    from kaldi_tpu_torch.decoder.dense import DenseDecoder
+    from kaldi_tpu_torch.features.compute import Fbank, Mfcc
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    from kaldi_tpu_torch.ops.gmm import CudaGmm
+    from kaldi_tpu_torch.pipelines.decode import decode_gmm, decode_gmm_lattice
+    return dict(BeamDecoder=BeamDecoder, DenseDecoder=DenseDecoder,
+                _LatgenDecoder=_LatgenDecoder, Fbank=Fbank, Mfcc=Mfcc,
+                AmDiagGmm=AmDiagGmm, CudaGmm=CudaGmm, CudaFbank=CudaFbank,
+                decode_gmm_lattice=decode_gmm_lattice, decode_gmm=decode_gmm,
+                read_mdl=read_mdl)
+
+
+ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
+                "Mfcc", "AmDiagGmm", "CudaGmm", "CudaFbank",
+                "decode_gmm_lattice", "decode_gmm", "read_mdl"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_defaults_to_the_card(name):
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cli_defaults_to_the_card(capsys):
+    """Both CLIs print their options on a wrong argument count: the
+    device option defaults to cuda."""
+    from kaldi_tpu_torch.cli import latgen
+    assert latgen.gmm_latgen_faster(["only.mdl"]) == 1
+    line = [ln for ln in capsys.readouterr().err.splitlines()
+            if "--device" in ln]
+    assert line and line[0].rstrip().endswith("default = cuda)")
+    from kaldi_tpu_torch.pipelines import largevocab
+    assert inspect.signature(largevocab.run).parameters[
+        "device"].default == "cuda"
+
+
+def test_without_a_card_construction_raises(monkeypatch):
+    """With no card (as on this host, or forced), the default device
+    stops every entry point at once with a clear error; nothing goes on
+    on the CPU."""
+    from kaldi_tpu_torch.core.logging import KaldiError
+    from test_torch_beam import PORT, yesno_graph
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eps = _entry_points()
+    lang, tm, HCLG = yesno_graph(PORT, "three_state")
+    csr = PORT[6].pack_fst(HCLG)
+    P, tid = tm.num_pdfs, tm.tid_to_pdf_array
+    w, m, v = np.ones((P, 1)), np.zeros((P, 1, 3)), np.ones((P, 1, 3))
+    calls = [lambda: eps["BeamDecoder"](csr, tid),
+             lambda: eps["DenseDecoder"](HCLG, tid),
+             lambda: eps["_LatgenDecoder"](HCLG, tid, 13.0, 6.0, 0.1),
+             lambda: eps["Fbank"](), lambda: eps["Mfcc"](),
+             lambda: eps["AmDiagGmm"](w, m, v),
+             lambda: eps["CudaGmm"](np.zeros((P, 1), np.float32),
+                                    m.astype(np.float32),
+                                    v.astype(np.float32)),
+             lambda: eps["CudaFbank"](),
+             lambda: eps["decode_gmm_lattice"](
+                 {}, eps["AmDiagGmm"](w, m, v, device="cpu"), tm, HCLG, lang),
+             lambda: eps["decode_gmm"](
+                 {}, eps["AmDiagGmm"](w, m, v, device="cpu"), tm, HCLG, lang)]
+    for call in calls:
+        with pytest.raises(KaldiError, match="no CUDA card"):
+            call()
+
+
+def test_build_counts_headers_in_its_mtime_check(tmp_path, monkeypatch):
+    """A library builds once, is reused while it is newer than its
+    sources and csrc/*.cuh, and rebuilds when a header changes."""
+    from kaldi_tpu_torch.ops import build
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    (csrc / "shared.cuh").write_text("// header\n")
+    log = tmp_path / "nvcc.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho x >> %s\nwhile [ $# -gt 0 ]; do "
+                    "if [ \"$1\" = -o ]; then touch \"$2\"; fi; shift; "
+                    "done\n" % log)
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(build, "_LIBS", {})
+
+    def builds():
+        build._LIBS.clear()
+        build.load_library("kt_probe", ("k.cu",))
+        return len(log.read_text().split()) if log.exists() else 0
+
+    assert builds() == 1
+    assert builds() == 1                    # up to date: no rebuild
+    so = out / "libkt_probe.so"
+    later = os.path.getmtime(so) + 10
+    os.utime(csrc / "shared.cuh", (later, later))
+    assert builds() == 2                    # the header changed
+
+
+def test_native_builds_under_a_per_process_name(tmp_path, monkeypatch):
+    """The port's native library builds into build/kaldi_tpu_torch/ at
+    the repository root, under a temporary name of its own process, so
+    that test workers building at once do not race."""
+    from kaldi_tpu_torch import native
+    assert native._BUILD_DIR == os.path.join(REPO, "build",
+                                             "kaldi_tpu_torch")
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(cmd[cmd.index("-o") + 1])
+        raise OSError("no compiler here")
+
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    assert native._build_and_load() is None      # the numpy fallback
+    assert seen == [os.path.join(str(tmp_path),
+                                 f"libkt_native.so.{os.getpid()}.tmp")]
