@@ -33,7 +33,29 @@ Phases (each prints lines; any failure raises and exits non-zero):
      The waveforms of b and c are seeded sentences of each task
      rendered as speech-like audio, and the GMMs are drawn around the
      features of each pdf's frames (kaldi_tpu_torch/tools/synth.py), so
-     the WER of the path is a check too.
+     the WER of the path is a check too;
+  7. the streaming decode path (online2-wav-nnet3-latgen-faster):
+     a. OnlineBeamDecoder on phase 4's task and decoder: 12 of its
+        utterances in chunks of 6 frames (180 ms of audio), every
+        advance under sync debug mode "error"; advance p50/p99 (host
+        ms), first partial, finalize p50/p99 and the slowest finalize's
+        parts; each final best path equals phase 4's offline lattice,
+        and on 2 streams the card equals the port's CPU decoder;
+     b. MultiStreamBeamDecoder: lane throughput of 8 lanes × 480
+        frames, then 8 utterances through 4 lanes with staggered starts
+        and resets, each final lattice equal to the offline one;
+     c. phase 5's waveforms in 0.18 s chunks through
+        OnlineFeaturePipeline (the 40-bin fbank kernel, dither 0) →
+        OnlineNnetScorer (36 frames of context: the model's receptive
+        field is ±34) → OnlineBeamDecoder: streamed scores equal the
+        offline forward on the same features (relative 1e-4), words
+        equal the offline path's with the same computer, and the kernel
+        holds against its plain version on the chunks' frames;
+     d. `python -m kaldi_tpu_torch.cli.online2 --device=cuda` on 2 of
+        phase 6c's waveforms, with the 300-word task's .mdl and HCLG.fst
+        and a 13-layer raw nnet3 TDNN-F (13 MFCC inputs, seeded), all
+        written by the port: the dense SingleUtteranceDecoder branch;
+        its words equal the library path's on the same files.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths, the largest difference from
@@ -393,6 +415,337 @@ def gmm_dense_branch(dev, task, mfcc, tag: str):
     return launches + (err,)
 
 
+STREAM_CHUNK = 6            # decoder frames per advance: 180 ms of audio
+WAV_CHUNK = 2880            # samples per accept_waveform: 0.18 s at 16 kHz
+
+
+def pctl(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def stream_beam(dec, cpu_dec, lls, best, tag: str) -> None:
+    """7a: OnlineBeamDecoder on phase 4's decoder, 12 utterances in
+    chunks of STREAM_CHUNK frames."""
+    from kaldi_tpu_torch.decoder.online_beam import OnlineBeamDecoder
+    n = 12
+    ob = OnlineBeamDecoder(dec, chunk_frames=STREAM_CHUNK, max_frames=1024)
+    lls_dev = [torch.from_numpy(ll).to(dec.device) for ll in lls[:n]]
+    adv_ms, first_ms, fin_ms, parts, got = [], [], [], [], []
+    n_esc = 0
+    torch.cuda.synchronize()
+    for ll in lls_dev:
+        ob.reset()
+        for a in range(0, ll.shape[0], STREAM_CHUNK):
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            ob.advance(ll[a:a + STREAM_CHUNK])
+            dt = (time.perf_counter() - t0) * 1e3
+            torch.cuda.set_sync_debug_mode(0)
+            if a == 0:
+                t0 = time.perf_counter()
+                ob.partial()
+                first_ms.append(dt + (time.perf_counter() - t0) * 1e3)
+            else:
+                adv_ms.append(dt)
+        t0 = time.perf_counter()
+        clat = ob.finalize()
+        fin_ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append(dict(ob.last_finalize_breakdown))
+        n_esc += int(dec.deficit_fires(float(ob._deficit)))
+        got.append(clat.best_path())
+    same_best(got, best[:n], "stream")
+    frames = sum(ll.shape[0] for ll in lls_dev)
+    print(f"stream: {n} utts, {frames} frames in chunks of {STREAM_CHUNK} "
+          f"({STREAM_CHUNK * 30} ms of audio); every advance ran under sync "
+          f"debug mode 'error': no host sync; final best paths equal phase "
+          f"4's offline lattices (words and tids equal, costs within 1e-3); "
+          f"n_escalated {n_esc}")
+    worst = parts[int(np.argmax(fin_ms))]
+    print(f"stream: advance p50 {pctl(adv_ms, 50):.3f} ms, p99 "
+          f"{pctl(adv_ms, 99):.3f} ms (host, {len(adv_ms)} advances); first "
+          f"partial {np.median(first_ms):.3f} ms (median of {n}: first "
+          f"advance + partial); finalize p50 {pctl(fin_ms, 50):.3f} ms, p99 "
+          f"{pctl(fin_ms, 99):.3f} ms; slowest finalize "
+          f"{ {k: round(v, 3) for k, v in worst.items()} } {tag}")
+    t0 = time.perf_counter()
+    cpu_ob = OnlineBeamDecoder(cpu_dec, chunk_frames=STREAM_CHUNK,
+                               max_frames=1024)
+    cpu = []
+    for ll in lls[:2]:
+        cpu_ob.reset()
+        for a in range(0, ll.shape[0], STREAM_CHUNK):
+            cpu_ob.advance(ll[a:a + STREAM_CHUNK])
+        cpu.append(cpu_ob.finalize().best_path())
+    same_best(got[:2], cpu, "stream GPU vs CPU")
+    print(f"stream: GPU equals the port's CPU OnlineBeamDecoder on 2 streams "
+          f"(CPU side {time.perf_counter() - t0:.1f} s)")
+
+
+def round_robin(ms, lls, chunk: int):
+    """Utterances through ``ms``'s lanes: lane c takes its first one at
+    step c and the next one as soon as it frees.  → {utt: final
+    lattice}."""
+    queue, active, done, step = list(range(len(lls))), {}, {}, 0
+    while queue or active:
+        for c in range(ms.N):
+            if c not in active and queue and step >= c:
+                active[c] = (queue.pop(0), 0)
+        chunks = [None] * ms.N
+        for c, (u, pos) in active.items():
+            chunks[c] = lls[u][pos:pos + chunk]
+        ms.advance(chunks)
+        for c in list(active):
+            u, pos = active[c]
+            pos += chunks[c].shape[0]
+            if pos >= lls[u].shape[0]:
+                done[u] = ms.finalize_channel(c)
+                ms.reset_channel(c)
+                del active[c]
+            else:
+                active[c] = (u, pos)
+        step += 1
+    return done
+
+
+def multistream(dec, lls, best, tag: str) -> None:
+    """7b: MultiStreamBeamDecoder lane throughput, then staggered
+    utterances through 4 lanes."""
+    from kaldi_tpu_torch.decoder.online_beam import MultiStreamBeamDecoder
+    N, Tms, c = 8, 480, STREAM_CHUNK
+    ms = MultiStreamBeamDecoder(dec, n_channels=N, chunk_frames=c,
+                                max_frames=512)
+    llm = [torch.from_numpy(np.concatenate([lls[i % len(lls)]] * 8)[:Tms])
+           .to(dec.device) for i in range(N)]
+    for a in range(0, 2 * c, c):                                # warm
+        ms.advance([x[a:a + c] for x in llm])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    for a in range(2 * c, Tms, c):
+        ms.advance([x[a:a + c] for x in llm])
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"multistream: {N} lanes × {Tms} frames in chunks of {c}: "
+          f"{steps} steps in {wall:.3f} s = "
+          f"{N * steps * c * 0.03 / wall:.1f} audio-s/s {tag}")
+    ms4 = MultiStreamBeamDecoder(dec, n_channels=4, chunk_frames=c,
+                                 max_frames=512)
+    done = round_robin(ms4, [torch.from_numpy(ll).to(dec.device)
+                             for ll in lls[:8]], c)
+    same_best([done[u].best_path() for u in range(8)], best[:8],
+              "multistream")
+    print("multistream: 8 utts through 4 lanes (staggered starts, resets): "
+          "each final lattice's best path equals phase 4's offline one")
+
+
+def feed(pipe, sc, online, wave):
+    """The online2 tool's loop over one waveform (cli/online2.py):
+    WAV_CHUNK pieces into the feature pipeline, ready frames into the
+    scorer, ready scores into the decoder, then the end of input.  →
+    (the score chunks, the host time just before the last piece)."""
+    fed, outs = 0, []
+
+    def pull(finish=False):
+        nonlocal fed
+        ready = pipe.num_frames_ready()
+        if ready > fed:
+            sc.accept_features(pipe.get_frames(fed, ready))
+            fed = ready
+        if finish:
+            sc.input_finished()
+        s = sc.read_new()
+        if s.numel():
+            outs.append(s)
+            online.advance_decoding(s)
+
+    for i in range(0, len(wave), WAV_CHUNK):
+        t_last = time.perf_counter()
+        pipe.accept_waveform(wave[i:i + WAV_CHUNK])
+        pull()
+    pipe.input_finished()
+    pull(finish=True)
+    return outs, t_last
+
+
+def check_stream_fbank(fb, waves, chunk: int):
+    """The fbank kernel against its plain version on the frames each
+    streaming chunk completes, as OnlineFeaturePipeline computes them
+    (launches here are not counted).  → (max |diff|, frame counts)."""
+    from kaldi_tpu_torch.features.window import num_frames, preprocess_frames
+    k, n0 = fb.kernel, fb.kernel.launches
+    opts = fb.frame_opts
+    err, sizes = 0.0, set()
+    for w in waves:
+        have = 0
+        for end in list(range(chunk, len(w), chunk)) + [len(w)]:
+            total = num_frames(end, opts)
+            if total > have:
+                fr = fb.frames(w[have * opts.window_shift:end])
+                x = preprocess_frames(torch.from_numpy(fr).to(k.device),
+                                      opts)[0].contiguous()
+                err = max(err, float((k(x) - k.reference(x)).abs().max()))
+                sizes.add(x.shape[0])
+                have = total
+    k.launches = n0
+    return err, sorted(sizes)
+
+
+def stream_wav(dev, waves, model, dec, tag: str):
+    """7c: waveforms in WAV_CHUNK pieces → OnlineFeaturePipeline (fbank
+    kernel) → OnlineNnetScorer → OnlineBeamDecoder.  → (fbank launches,
+    max |diff| of the kernel on the chunks' frames)."""
+    from kaldi_tpu_torch.decoder.online_beam import OnlineBeamDecoder
+    from kaldi_tpu_torch.decoder.online_nnet import OnlineNnetScorer
+    from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
+    from kaldi_tpu_torch.features.mel import MelBanksOptions
+    from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    from kaldi_tpu_torch.pipelines.decode import decode_waveforms
+    # dither 0: the computer draws dither afresh on each call, so only
+    # without it do streamed and offline features agree
+    fb = Fbank(FbankOptions(frame_opts=FrameExtractionOptions(dither=0.0),
+                            mel_opts=MelBanksOptions(num_bins=40)),
+               device=dev)
+    ref = [lat.best_path()
+           for lat in decode_waveforms(waves, fb, model, dec, batch_size=8)]
+    ob = OnlineBeamDecoder(dec, chunk_frames=STREAM_CHUNK, max_frames=1024)
+    got, scores, feats, last_ms = [], [], [], []
+    torch.cuda.synchronize()
+    fb.kernel.launches = 0
+    t0 = time.perf_counter()
+    for w in waves:
+        pipe = OnlineFeaturePipeline(fb)
+        sc = OnlineNnetScorer(model, left_context=36, right_context=36,
+                              device=dev)
+        ob.reset()
+        outs, t_last = feed(pipe, sc, ob, w)
+        got.append(ob.finalize().best_path())
+        last_ms.append((time.perf_counter() - t_last) * 1e3)
+        scores.append(torch.cat(outs))
+        feats.append(pipe.get_frames(0, pipe.num_frames_ready()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fb.kernel.launches
+    audio_s = sum(len(w) for w in waves) / SAMP_FREQ
+    rel = 0.0
+    with torch.no_grad():
+        for s, f in zip(scores, feats):
+            off = model(f[None])[0]
+            if s.shape != off.shape:
+                raise AssertionError(f"streamed {tuple(s.shape)} vs offline "
+                                     f"{tuple(off.shape)}")
+            rel = max(rel, float((s - off).abs().max() / off.abs().max()))
+    if not rel <= 1e-4:
+        raise AssertionError(f"streamed scores differ from offline: {rel}")
+    if [g[0] for g in got] != [r[0] for r in ref]:
+        raise AssertionError(f"streamed words {[g[0] for g in got]} vs "
+                             f"offline {[r[0] for r in ref]}")
+    if launches <= 0:
+        raise AssertionError("the streaming path did not launch the fbank "
+                             "kernel")
+    dcost = max(abs(g[2] - r[2]) for g, r in zip(got, ref))
+    print(f"wav-stream: {len(waves)} waveforms, {audio_s:.2f} s audio in "
+          f"{WAV_CHUNK}-sample chunks; streamed scores vs offline forward on "
+          f"the same features: max |diff| / max |offline| {rel:.3e} (limit "
+          f"1e-4); words equal the offline path's (largest cost difference "
+          f"{dcost:.2e}); fbank launches {launches}")
+    print(f"wav-stream: wall {wall:.3f} s, RTF {wall / audio_s:.4f}; last "
+          f"chunk → final lattice p50 {pctl(last_ms, 50):.2f} ms, max "
+          f"{max(last_ms):.2f} ms {tag}")
+    err, sizes = check_stream_fbank(fb, waves, WAV_CHUNK)
+    print(f"wav-stream: fbank kernel vs plain on each chunk's frames "
+          f"({sizes} frames per launch): max |diff| {err:.3e} log-mel "
+          f"(limit 2e-3)")
+    if not err <= 2e-3:
+        raise AssertionError(f"fbank kernel disagrees on the chunks: {err}")
+    return launches, err
+
+
+def online2_cli(dev, task, tag: str) -> int:
+    """7d: the online2 tool on the card, against the library path on the
+    same files.  → the tool's fbank launches (its log's count)."""
+    import re
+    import subprocess
+    from kaldi_tpu_torch.am.gmm import AmDiagGmm
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.am.serialize import write_mdl
+    from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnConfig
+    from kaldi_tpu_torch.cli.online2 import _load_tdnn
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    from kaldi_tpu_torch.decoder.dense import DenseDecoder, DenseDecoderConfig
+    from kaldi_tpu_torch.decoder.online import SingleUtteranceDecoder
+    from kaldi_tpu_torch.decoder.online_nnet import OnlineNnetScorer
+    from kaldi_tpu_torch.features.compute import Mfcc, MfccOptions
+    from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    from kaldi_tpu_torch.fst.csr import csr_to_vector_fst
+    from kaldi_tpu_torch.fst.openfst_io import write_fst_path
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_online2")
+    os.makedirs(d, exist_ok=True)
+    P = task.num_pdfs
+    # the tool reads only the transition model of the .mdl
+    write_mdl(os.path.join(d, "final.mdl"), task.tm,
+              AmDiagGmm(np.ones((P, 1)), np.zeros((P, 1, 13)),
+                        np.ones((P, 1, 13)), device=dev))
+    HCLG = csr_to_vector_fst(task.graph.csr)
+    write_fst_path(os.path.join(d, "HCLG.fst"), HCLG)
+    cfg = TdnnConfig(feat_dim=13, num_pdfs=P, hidden_dim=1024,
+                     bottleneck_dim=128, num_layers=13)
+    sd = random_tdnn_state(TdnnChain(cfg), np.random.default_rng(SEED + 9))
+    # outputs 5× phase 5's spread: at that spread the dense decoder's
+    # best path holds no word on these waveforms
+    sd["output_affine.weight"] *= 5.0
+    write_raw_model(os.path.join(d, "final.raw"), sd, cfg)
+    waves = [np.clip(w, -32768, 32767).astype(np.int16)
+             for w in speech_set(task, 8, SEED + 8)[0][:2]]
+    with TableWriter(f"ark:{os.path.join(d, 'wav.ark')}", holder="wav") as w:
+        for i, x in enumerate(waves):
+            w[f"utt{i}"] = (x, SAMP_FREQ)
+    files = [os.path.join(d, f) for f in ("final.mdl", "final.raw",
+                                          "HCLG.fst")]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli.online2", "--device=cuda",
+         *files, f"ark:{os.path.join(d, 'wav.ark')}",
+         f"ark,t:{os.path.join(d, 'words.txt')}"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"online2 failed ({res.returncode}):\n"
+                             f"{res.stderr[-3000:]}")
+    m = re.search(r"fbank kernel launches (\d+)", res.stderr)
+    launches = int(m.group(1)) if m else 0
+    cli = dict(SequentialTableReader(f"ark,t:{os.path.join(d, 'words.txt')}",
+                                     holder="text"))
+    # the library path on the same files, with the tool's settings
+    mfcc = Mfcc(MfccOptions(frame_opts=FrameExtractionOptions(dither=0.0),
+                            num_ceps=13), device=dev)
+    _, net = _load_tdnn(files[1], 3, dev)
+    dense = DenseDecoder(HCLG, task.tm.tid_to_pdf_array,
+                         DenseDecoderConfig(beam=15.0, acoustic_scale=1.0),
+                         device=dev)
+    lib = {}
+    for i, x in enumerate(waves):
+        online = SingleUtteranceDecoder(dense)
+        feed(OnlineFeaturePipeline(mfcc), OnlineNnetScorer(net, device=dev),
+             online, x.astype(np.float32))
+        lib[f"utt{i}"] = [str(o) for o in
+                          online.get_best_path(use_final_probs=True)[1]]
+    if cli != lib or launches <= 0:
+        raise AssertionError(f"online2 words {cli} vs library {lib}; fbank "
+                             f"launches {launches}")
+    print(f"online2: python -m kaldi_tpu_torch.cli.online2 --device=cuda on "
+          f"2 waveforms ({sum(len(x) for x in waves) / SAMP_FREQ:.2f} s) of "
+          f"the 300-word task ({task.graph.csr.num_states} states: "
+          f"SingleUtteranceDecoder), 13-layer raw nnet3 TDNN-F: words "
+          f"{[len(v) for v in cli.values()]} per utt equal the library "
+          f"path's; wall {wall:.2f} s (process start, graph and model "
+          f"load); fbank launches {launches} {tag}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -654,13 +1007,21 @@ def main() -> int:
                              f"fbank {b_fb}, dense branch GMM {d_gmm} "
                              f"fbank {d_fb}")
 
+    # 7. the streaming decode path
+    t0 = time.perf_counter()
+    stream_beam(dec, cpu_dec, lls, best, tag)
+    multistream(dec, lls, best, tag)
+    s_fb, s_err = stream_wav(dev, waves, model, dec, tag)
+    c_fb = online2_cli(dev, task300, tag)
+    print(f"stream: phase 7 took {time.perf_counter() - t0:.1f} s")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
-        "launches": fbank_launches + b_fb + d_fb,
-        "max_abs_err": max(fb_err, wav_err, b_fb_err),
+        "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb,
+        "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err),
         "ms": fb_ms, "plain_ms": fb_plain_ms,
         "bound_ms": fb_bound[0], "bound_by": fb_bound[1],
         "library_ms": None}, {

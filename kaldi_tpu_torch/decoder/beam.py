@@ -187,6 +187,9 @@ class BeamDecoder:
         }
         self._g = {k: torch.from_numpy(v).to(self.device)
                    for k, v in self._g_host.items()}
+        # the Viterbi row of an identity (inactive) frame: each slot is
+        # its own predecessor
+        self._idn = torch.arange(K, dtype=torch.int64, device=self.device)
         self._esc = None
 
     def _set_budget(self):
@@ -395,6 +398,38 @@ class BeamDecoder:
             chunk = torch.cat([chunk, cbc[:, :, None]], dim=-1)
         return new_tok, vit, chunk, dropped, diag
 
+    def _frame_step(self, tok, loglike, act, with_cost=False):
+        """One frame for a batch, an identity step where ``act`` (B,) is
+        false: tok = (state, cost, off, cnt), each (B, K); loglike (B,
+        P).  Returns (new tok, Viterbi rows (prev, aidx), record chunk
+        (B, L, w) | None, α (B, K), dropped (B,), (arcs_demand, n_heads,
+        eff_beam)).  With ``with_cost`` the chunk carries the cost column
+        the β pass reads and an inactive frame's chunk is all invalid;
+        α is the source tokens' costs, the β pass's other input."""
+        new_tok, vit, chunk, drop, diag = self._sweep(tok, loglike,
+                                                      with_cost=with_cost)
+        act2 = act[:, None]
+        new_tok = tuple(torch.where(act2, n, o) for n, o in zip(new_tok, tok))
+        vit = (torch.where(act2, vit[0], self._idn),
+               torch.where(act2, vit[1], -1))
+        diag = (torch.where(act, diag[0], 0), torch.where(act, diag[1], 0),
+                torch.where(act, diag[2], _f32(self.config.beam)))
+        if chunk is not None and with_cost:
+            chunk[..., 0] = torch.where(act2, chunk[..., 0], -1)
+        return (new_tok, vit, chunk, tok[1], torch.where(act, drop, 0),
+                diag)
+
+    def _finals(self, fs, fc):
+        """Final tokens (state, cost), each (B, K) → (each token's final
+        cost, live mask, any_final (B, 1), use): ``use`` is the cost with
+        the final cost added where any token is final, else without."""
+        okf = fs >= 0
+        fin = self._g["final"][fs.clamp_min(0)]
+        total = torch.where(okf, fc + fin, INF)
+        any_final = torch.isfinite(total).any(1, keepdim=True)
+        use = torch.where(any_final, total, torch.where(okf, fc, INF))
+        return fin, okf, any_final, use
+
     def _decode_batch(self, loglikes: torch.Tensor,
                       num_frames: torch.Tensor) -> Dict:
         """(B, T_pad, P) float32 + (B,) int64, both on the decoder's
@@ -413,7 +448,6 @@ class BeamDecoder:
                g["init_cost"].expand(B, K),
                g["init_off"].to(i64).expand(B, K),
                g["init_cnt"].to(i64).expand(B, K))
-        idn = torch.arange(K, dtype=i64, device=dev).expand(B, K)
         vit_prev = torch.empty((B, T_pad, K), dtype=i32, device=dev)
         vit_aidx = torch.empty((B, T_pad, K), dtype=i32, device=dev)
         dropped = torch.zeros((B, T_pad), dtype=i64, device=dev)
@@ -430,34 +464,24 @@ class BeamDecoder:
 
         for t in range(T_pad):
             act = active[:, t]
-            act2 = act[:, None]
-            new_tok, vit, chunk, drop, diag = self._sweep(
-                tok, loglikes[:, t], with_cost=use_beta)
+            tok, vit, chunk, alpha, drop, diag = self._frame_step(
+                tok, loglikes[:, t], act, with_cost=use_beta)
             if use_beta:
-                alphas[:, t] = tok[1]
-            # identity step for padded frames
-            tok = tuple(torch.where(act2, n, o) for n, o in zip(new_tok, tok))
-            vit_prev[:, t] = torch.where(act2, vit[0], idn)
-            vit_aidx[:, t] = torch.where(act2, vit[1], -1)
-            dropped[:, t] = torch.where(act, drop, 0)
-            arcs_demand[:, t] = torch.where(act, diag[0], 0)
-            n_heads[:, t] = torch.where(act, diag[1], 0)
-            eff_beam[:, t] = torch.where(act, diag[2], _f32(c.beam))
+                alphas[:, t] = alpha
+            vit_prev[:, t] = vit[0]
+            vit_aidx[:, t] = vit[1]
+            dropped[:, t] = drop
+            arcs_demand[:, t] = diag[0]
+            n_heads[:, t] = diag[1]
+            eff_beam[:, t] = diag[2]
             if chunk is not None:
-                if use_beta:
-                    # inactive frames: all-invalid chunk for the β pass
-                    chunk[..., 0] = torch.where(act2, chunk[..., 0], -1)
-                else:
+                if not use_beta:
                     counts[:, t] = torch.where(
                         act, (chunk[..., 0] >= 0).sum(1), 0)
                 chunks[:, t] = chunk
 
         fs, fc = tok[0], tok[1]
-        okf = fs >= 0
-        fin = g["final"][fs.clamp_min(0)]
-        total = torch.where(okf, fc + fin, INF)
-        any_final = torch.isfinite(total).any(1, keepdim=True)
-        use = torch.where(any_final, total, torch.where(okf, fc, INF))
+        fin, okf, any_final, use = self._finals(fs, fc)
         best_idx = use.argmin(1)
         best_cost = use.gather(1, best_idx[:, None])[:, 0]
 
@@ -488,25 +512,31 @@ class BeamDecoder:
             "rec_reversed": 1 if use_beta else 0,
         }
         if use_beta:
-            bound = best_cost + _f32(c.lattice_beam + c.beta_prune_margin)
-            beta0 = torch.where(okf, torch.where(any_final, fin, 0.0), INF)
-            chunks, counts = self._beta_pass(chunks, alphas, active, bound,
-                                             beta0)
+            chunks, counts = self._beta_pass(chunks, alphas, active, fs, fc)
         if L:
             out["rec_chunks"] = chunks
             out["rec_counts"] = counts
         return out
 
-    def _beta_pass(self, chunks, alphas, active, bound, beta):
-        """Reverse (β) pass: per frame keep the records on complete
-        paths within ``bound`` (packed to a prefix, original order) and
+    def _beta_pass(self, chunks, alphas, active, fs, fc):
+        """Reverse (β) pass over stored records: chunks (B, T, L, w+1)
+        with the cost column, α (B, T, K), the frame mask (B, T) and the
+        final tokens (state, cost), each (B, K), of an offline batch or
+        of a stream (decoder/online_beam.py).  Per frame keep the
+        records on complete paths within best + lattice_beam +
+        beta_prune_margin (packed to a prefix, original order) and
         propagate β[t][prev] = min over prev's candidates of
-        (α(prev)+w + β[t+1][dst]) − α[t][prev]."""
+        (α(prev)+w + β[t+1][dst]) − α[t][prev], from β = each token's
+        final cost where any token is final, else 0."""
+        c = self.config
         K = self.K
         B, T_pad, L, _ = chunks.shape
         w = self._recw
         dev = chunks.device
         i64 = torch.int64
+        fin, okf, any_final, use = self._finals(fs, fc)
+        bound = use.amin(1) + _f32(c.lattice_beam + c.beta_prune_margin)
+        beta = torch.where(okf, torch.where(any_final, fin, 0.0), INF)
         kept = torch.empty((B, T_pad, L, w), dtype=torch.int32, device=dev)
         counts = torch.zeros((B, T_pad), dtype=i64, device=dev)
         for t in range(T_pad - 1, -1, -1):

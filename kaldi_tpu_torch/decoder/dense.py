@@ -226,6 +226,32 @@ class DenseDecoder:
 
     # -- device side --------------------------------------------------------
 
+    def _eps_sweep(self, alpha):
+        """One ε-sweep over (B, S) costs → (costs, per-state ε in-arc slot
+        of the winner, −1 where the state kept its own cost)."""
+        c = self.c
+        cand = alpha[:, c["n_src"]] + c["n_w"]             # (B, S, An)
+        best, arg = torch.min(cand, dim=2)
+        keep = alpha <= best
+        return torch.minimum(alpha, best), torch.where(keep, -1, arg)
+
+    def _frame_step(self, alpha, loglike, act, bps):
+        """One frame for a batch: alpha (B, S), loglike (B, P), act (B,
+        1) → new alpha (the old one where ``act`` is false), with the
+        frame's backpointers written into ``bps`` (E+1, B, S): the
+        emitting in-arc slot, then each ε-sweep's (−1 where inactive)."""
+        c = self.c
+        ac = loglike[:, c["e_pdf"]] * _f32(-self.config.acoustic_scale)
+        cand = alpha[:, c["e_src"]] + c["e_w"] + ac        # (B, S, Ae)
+        new, bp = torch.min(cand, dim=2)
+        m = new.min(dim=1, keepdim=True).values
+        new = torch.where(new > m + _f32(self.config.beam), BIG, new)
+        bps[0] = torch.where(act, bp, -1)
+        for e in range(self.graph.eps_depth):
+            new, bp = self._eps_sweep(new)
+            bps[e + 1] = torch.where(act, bp, -1)
+        return torch.where(act, new, alpha)
+
     def _decode_device(self, loglikes: torch.Tensor,
                        num_frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Viterbi over a batch on the device: loglikes (B, T_pad, P)
@@ -236,40 +262,22 @@ class DenseDecoder:
         c = self.c
         S = self.graph.num_states
         E = self.graph.eps_depth
-        beam = _f32(self.config.beam)
-        nscale = _f32(-self.config.acoustic_scale)
         B, T_pad, _ = loglikes.shape
         dev = loglikes.device
-
-        def eps_sweep(alpha):                              # (B, S)
-            cand = alpha[:, c["n_src"]] + c["n_w"]         # (B, S, An)
-            best, arg = torch.min(cand, dim=2)
-            keep = alpha <= best
-            new = torch.minimum(alpha, best)
-            return new, torch.where(keep, -1, arg)         # -1 = kept own
 
         alpha = torch.full((1, S), BIG, dtype=torch.float32, device=dev)
         alpha[:, self.graph.start] = 0.0
         init_bps = torch.full((E, 1, S), -1, dtype=torch.int64, device=dev)
         for e in range(E):
-            alpha, init_bps[e] = eps_sweep(alpha)
+            alpha, init_bps[e] = self._eps_sweep(alpha)
         alpha = alpha.expand(B, S)
         init_bps = init_bps.expand(E, B, S)
 
         active = torch.arange(T_pad, device=dev)[None, :] < num_frames[:, None]
         bps = torch.empty((T_pad, E + 1, B, S), dtype=torch.int32, device=dev)
         for t in range(T_pad):
-            act = active[:, t, None]                       # (B, 1)
-            ac = loglikes[:, t][:, c["e_pdf"]] * nscale    # (B, S, Ae)
-            cand = alpha[:, c["e_src"]] + c["e_w"] + ac
-            new, bp = torch.min(cand, dim=2)
-            m = new.min(dim=1, keepdim=True).values
-            new = torch.where(new > m + beam, BIG, new)
-            bps[t, 0] = torch.where(act, bp, -1)
-            for e in range(E):
-                new, bp = eps_sweep(new)
-                bps[t, e + 1] = torch.where(act, bp, -1)
-            alpha = torch.where(act, new, alpha)
+            alpha = self._frame_step(alpha, loglikes[:, t], active[:, t, None],
+                                     bps[t])
         total = alpha + c["final"]
         has_final = total.min(dim=1, keepdim=True).values < BIG
         use = torch.where(has_final, total, alpha)

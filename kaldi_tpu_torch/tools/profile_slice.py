@@ -20,6 +20,10 @@ Every line ends with the card's name and power limit (nvidia-smi).
    torch.profiler, with the device β-prune on and off: kernels launched
    per frame, device kernel time against the profiled wall (the busy
    share), and the top entries by device time.
+4. The streaming decoder on the same decoder (chip_smoke phase 7): one
+   utterance's advances in chunks of 6 frames, its finalize, and 10
+   steps of 8 lanes of MultiStreamBeamDecoder, each under torch.profiler:
+   kernels launched per frame and the busy share.
 """
 
 from __future__ import annotations
@@ -40,12 +44,24 @@ def _best(fn_plain, fn_kernel, timer, iters):
     return min(t["kernel"]), min(t["plain"])
 
 
+def _profiled(fn):
+    """Run ``fn`` (which ends in a device synchronisation) under
+    torch.profiler → (wall ms, CUDA kernels launched, their device ms,
+    the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return wall, len(kernels), sum(e.device_time for e in kernels) / 1e3, prof
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
     from kaldi_tpu_torch.decoder.beam import BeamDecoder, BeamDecoderConfig
     from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
     from kaldi_tpu_torch.features.mel import MelBanksOptions
@@ -132,22 +148,57 @@ def main() -> int:
         d._decode_batch(Xd, nd)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        def run():
             d._decode_batch(Xd, nd)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        busy = sum(e.device_time for e in kernels) / 1e3
+
+        wall, n_k, busy, prof = _profiled(run)
         print(f"decode {name}: T_pad {T_pad}; unprofiled wall "
-              f"{plain_wall * 1e3:.1f} ms; profiled wall {wall * 1e3:.1f} "
+              f"{plain_wall * 1e3:.1f} ms; profiled wall {wall:.1f} "
               f"ms, device kernel time {busy:.1f} ms "
-              f"({100 * busy / (wall * 1e3):.1f}% busy), {len(kernels)} "
-              f"kernels = {len(kernels) / T_pad:.1f} per frame {tag}")
+              f"({100 * busy / wall:.1f}% busy), {n_k} "
+              f"kernels = {n_k / T_pad:.1f} per frame {tag}")
         print(prof.key_averages().table(sort_by="device_time_total",
                                         row_limit=12,
                                         max_name_column_width=50))
+
+    from kaldi_tpu_torch.decoder.online_beam import (MultiStreamBeamDecoder,
+                                                     OnlineBeamDecoder)
+    ob = OnlineBeamDecoder(dec, chunk_frames=6, max_frames=1024)
+    ll = Xd[0, :int(lens[0])]
+
+    def stream():
+        ob.reset()
+        for a in range(0, ll.shape[0], 6):
+            ob.advance(ll[a:a + 6])
+        torch.cuda.synchronize()
+
+    stream()
+    ob.finalize()                                               # warm
+    for what, fn, frames in (("advances", stream, ll.shape[0]),
+                             ("finalize", ob.finalize, ll.shape[0])):
+        wall, n_k, busy, _ = _profiled(fn)
+        print(f"stream {what} of one utterance ({frames} frames, chunks "
+              f"of 6): profiled wall {wall:.1f} ms, device kernel time "
+              f"{busy:.1f} ms ({100 * busy / wall:.1f}% busy), {n_k} "
+              f"kernels = {n_k / frames:.1f} per frame {tag}")
+    ms = MultiStreamBeamDecoder(dec, n_channels=8, chunk_frames=6,
+                                max_frames=512)
+    llm = [Xd[i, :60] for i in range(8)]
+
+    def steps():
+        for a in range(0, 60, 6):
+            ms.advance([x[a:a + 6] for x in llm])
+        torch.cuda.synchronize()
+
+    ms.advance([x[:6] for x in llm])                             # warm
+    for c in range(8):
+        ms.reset_channel(c)
+    wall, n_k, busy, _ = _profiled(steps)
+    print(f"multistream 10 steps of 8 lanes × 6 frames: profiled wall "
+          f"{wall:.1f} ms, device kernel time {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}% busy), {n_k} kernels = "
+          f"{n_k / 60:.1f} per frame step {tag}")
     return 0
 
 
