@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving path on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training paths on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -55,18 +56,41 @@ Phases (each prints lines; any failure raises and exits non-zero):
         phase 6c's waveforms, with the 300-word task's .mdl and HCLG.fst
         and a 13-layer raw nnet3 TDNN-F (13 MFCC inputs, seeded), all
         written by the port: the dense SingleUtteranceDecoder branch;
-        its words equal the library path's on the same files.
+        its words equal the library path's on the same files;
+  8. the chain training path (nnet3-chain-train), on the JAX bench's den
+     graph (41 phones, trigram phone LM from 200 seeded 20-phone
+     sequences: 1553 states) and TDNN-F (40 fbank inputs, 1024 wide,
+     bottleneck 128, 13 layers, ×3; seeded weights):
+     a. the den forward-backward kernels against their plain version at
+        B = 128 sequences of 50 frames (150 input frames ×3
+        subsampled), leak 0.1, a ragged mask: log Z, d log Z / d scores,
+        posteriors summing to 1; both times on the card and the bound;
+        the kernels' launches under sync debug mode "error";
+     b. 48 seeded waveforms → the fbank kernel → seeded phone
+        alignments → egs of 150 frames with the den's normalization
+        weights → ChainTrainer with NG-SGD at B = 32 in float32 and
+        B = 32 / 64 / 128 in bfloat16: Mframes/s per point under the JAX
+        bench's keys (f32_B32_Mframes_s, ...), then one float32 step at
+        B = 4 on the card equal to the port's CPU step;
+     c. `python -m kaldi_tpu_torch.cli.chain` nnet3-chain-compute-prob,
+        nnet3-chain-train (4 epochs) and compute-prob again on the card,
+        on files the port writes: the objective is finite and better
+        after training.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths, the largest difference from
-the plain versions, the times on the card at 4096 frames and the bound
-there: the larger of the bytes over 3.35 TB/s and the float32 operations
-over 165 TFLOP/s (the H100's 495 TFLOP/s of TF32 over the 3 products of
-3xTF32, the least-time route that keeps float32 accuracy), counted as
+the plain versions, the times on the card (fbank and GMM at 4096
+frames, the den's forward + backward at phase 8a's B = 128) and the
+bound there: the larger of the bytes over 3.35 TB/s and the float32
+operations over 165 TFLOP/s (the H100's 495 TFLOP/s of TF32 over the 3
+products of 3xTF32, the least-time route that keeps float32 accuracy),
+counted as
 the function needs them (tools/timing.py): the fbank's as a real FFT
 with frames and output moved once, which makes it bound by bytes, not
 as the kernel's dense DFT product; the GMM's over its live Gaussians
-only.  The last line is {"ok": true,
+only; the chain den's as its arc operations over the active frames, at
+the 67 TFLOP/s of float32 outside the tensor cores (no matrix product
+carries sparse arcs).  The last line is {"ok": true,
 "device": {...}}.  The script imports nothing of JAX or of kaldi_tpu.
 There is no CPU fallback: without a CUDA device the script exits
 non-zero before printing any result.
@@ -746,11 +770,312 @@ def online2_cli(dev, task, tag: str) -> int:
     return launches
 
 
+CHAIN_T = 150              # frames per eg: the get_egs.sh chunk (bench.py)
+CHAIN_LEAK = 0.1           # ChainTrainingOptions' leaky-HMM coefficient
+# the den kernel's parity bar with its plain version: log Z summed over
+# 50 frames in float32 (the plain version) against double (the kernel),
+# so 1e-5 of |log Z| + 1e-4; posteriors are in [0, 1]: 1e-4
+DEN_LOGZ_REL, DEN_LOGZ_ABS, DEN_GRAD_TOL = 1e-5, 1e-4, 1e-4
+# 8c's training: compute-prob runs the model in eval mode, on running
+# batch-norm statistics that move 1% a step, so the run keeps the
+# weights near the statistics they were calibrated on; the tool's
+# default lr (1e-3) moves a 13-layer model far past them in a few steps
+CLI_EPOCHS, CLI_LR = 4, 1e-4
+# the JAX bench's training points: (batch, compute dtype)
+CHAIN_POINTS = ((32, "float32"), (32, "bfloat16"), (64, "bfloat16"),
+                (128, "bfloat16"))
+
+
+def bench_den_graph():
+    """The JAX bench's den graph (bench.py): 41 phones, chain topology,
+    monophone tree, trigram phone LM from 200 seeded 20-phone
+    sequences.  → (topo, tree, sequences, den)."""
+    from kaldi_tpu_torch.am.chain import make_denominator_graph
+    from kaldi_tpu_torch.am.topology import HmmTopology
+    from kaldi_tpu_torch.am.tree import MonophoneContextDependency
+    phones = list(range(1, 42))
+    topo = HmmTopology.chain(phones)
+    tree = MonophoneContextDependency(phones, topo)
+    rng = np.random.default_rng(0)
+    seqs = [[int(p) for p in rng.integers(1, 42, 20)] for _ in range(200)]
+    return topo, tree, seqs, make_denominator_graph(seqs, tree, topo,
+                                                    order=3)
+
+
+def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
+                     T: int = 50):
+    """8a: the den forward-backward kernels against the plain version on
+    the card, at B sequences of T output frames (the bench's B = 128
+    chunks of 150 frames, ×3 subsampled), leak 0.1, a ragged mask.  The
+    kernels' launches run under sync debug mode "error".  → (max |diff|
+    of the gradient, kernel ms, plain ms, (bound ms, bound by))."""
+    from kaldi_tpu_torch.am.chain import (den_kernel, denominator_logprob,
+                                          denominator_reference)
+    from kaldi_tpu_torch.tools.timing import chain_den_bound, device_ms
+    rng = np.random.default_rng(SEED + 10)
+    lens = rng.integers(T // 2, T + 1, B)
+    lens[0] = T
+    mask_np = np.arange(T)[None, :] < lens[:, None]
+    scores = torch.from_numpy((2.0 * rng.standard_normal((B, T, P)))
+                              .astype(np.float32)).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    k = den_kernel(den, dev)
+
+    def run(fn):
+        s = scores.detach().clone().requires_grad_(True)
+        z = fn(den, s, mask, CHAIN_LEAK)
+        z.sum().backward()
+        return z.detach(), s.grad
+
+    torch.cuda.synchronize()
+    n0 = k.launches
+    torch.cuda.set_sync_debug_mode("error")
+    z, g = run(denominator_logprob)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if k.launches - n0 != 2:
+        raise AssertionError(f"den kernels launched {k.launches - n0} "
+                             f"times for one forward-backward")
+    zr, gr = run(denominator_reference)
+    torch.cuda.synchronize()
+    dz = float(((z - zr).abs() / (DEN_LOGZ_ABS + DEN_LOGZ_REL * zr.abs()))
+               .max())
+    dg = float((g - gr).abs().max())
+    want = torch.from_numpy(mask_np | (np.arange(T) == 0)[None, :]).to(dev)
+    dsum = float((g.sum(dim=2) - want.float()).abs().max())
+    print(f"den: kernels vs plain at B={B}, T={T}, S={den.num_states}, "
+          f"A={len(den.src)}, P={P}, leak {CHAIN_LEAK}, frames per sequence "
+          f"{int(lens.min())}-{T}: log Z (range [{float(zr.min()):.1f}, "
+          f"{float(zr.max()):.1f}]) at most {dz:.3f} of the limit "
+          f"{DEN_LOGZ_ABS:g} + {DEN_LOGZ_REL:g}·|log Z|; d log Z / d scores "
+          f"max |diff| {dg:.3e} (limit {DEN_GRAD_TOL:g}); posteriors sum to "
+          f"1 per active frame within {dsum:.2e}; the kernels' launches ran "
+          f"under sync debug mode 'error'")
+    if not (dz <= 1.0 and dg <= DEN_GRAD_TOL and dsum <= 1e-4):
+        raise AssertionError("den kernels disagree with the plain version")
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = (denominator_reference if which == "plain"
+              else denominator_logprob)
+        times[which].append(device_ms(lambda: run(fn), 10))
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    active = int(mask_np[:, 1:].sum()) + B
+    bnd = chain_den_bound(k, active, B, T, P)
+    print(f"den: forward + backward on the card: kernels {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (best of 2 × 10), bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]} ({100 * bnd[0] / ms:.1f}% of it); {active} active "
+          f"frames {tag}")
+    return dg, ms, plain_ms, bnd
+
+
+def phone_runs(rng, n_frames: int, phones):
+    """Seeded (phone, frames) runs covering n_frames: 3-15 frames each,
+    no phone twice in a row."""
+    runs, total, prev = [], 0, 0
+    while total < n_frames:
+        ph = prev
+        while ph == prev:
+            ph = int(rng.choice(phones))
+        d = int(rng.integers(3, 16))
+        runs.append((ph, d))
+        total += d
+        prev = ph
+    return runs
+
+
+def chain_egs(dev, topo, tree, den, n_waves: int):
+    """Seeded waveforms → Fbank (the fbank kernel, 40 bins) → egs of
+    CHAIN_T frames with seeded phone alignments and the den's
+    normalization weights.  → (egs, fbank computer)."""
+    from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
+    from kaldi_tpu_torch.features.mel import MelBanksOptions
+    from kaldi_tpu_torch.pipelines.chain import make_chain_egs
+    fb = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=40)),
+               device=dev)
+    waves = synth_waveforms(np.random.default_rng(SEED + 11), n_waves)
+    feats = {f"utt{i:03d}": fb.compute(w) for i, w in enumerate(waves)}
+    rng = np.random.default_rng(SEED + 12)
+    feats = {u: f.cpu().numpy() for u, f in feats.items()}
+    runs = {u: phone_runs(rng, len(f), topo.phones)
+            for u, f in feats.items()}
+    egs = make_chain_egs(feats, runs, tree, topo, chunk_size=CHAIN_T,
+                         subsample=3, den=den)
+    return egs, fb, sum(len(w) for w in waves) / SAMP_FREQ
+
+
+def tdnn_config(P: int, dtype: str = "float32", hidden: int = 1024,
+                layers: int = 13):
+    """The bench's TDNN-F: 40 fbank inputs, 1024 wide, bottleneck 128,
+    13 layers, ×3 subsampling."""
+    from kaldi_tpu_torch.am.tdnn import TdnnConfig
+    return TdnnConfig(feat_dim=40, num_pdfs=P, hidden_dim=hidden,
+                      bottleneck_dim=128, num_layers=layers,
+                      frame_subsampling_factor=3, compute_dtype=dtype)
+
+
+def chain_train_points(dev, den, egs, P: int, tag: str,
+                       points=CHAIN_POINTS, steps: int = 30, **width):
+    """8b: NG-SGD training steps of ChainTrainer at each (B, dtype),
+    after 3 warm steps; Mframes/s of input frames over ``steps`` steps
+    between two synchronizes.  → {key: Mframes/s}."""
+    from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
+    N = egs.feats.shape[0]
+    out = {}
+    for B, dtype in points:
+        if N < B:
+            raise AssertionError(f"{N} egs for a batch of {B}")
+        tr = ChainTrainer(tdnn_config(P, dtype, **width), den,
+                          ChainTrainConfig(batch_size=B, optimizer="ngsgd",
+                                           total_steps=0),
+                          seed=SEED, device=dev)
+        batches = [tr.batches(egs, (np.arange(B) + i * B) % N)
+                   for i in range(4)]
+        for i in range(3):
+            tr._step(*batches[i % 4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            loss, diag = tr._step(*batches[i % 4])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        key = f"{'f32' if dtype == 'float32' else 'bf16'}_B{B}_Mframes_s"
+        out[key] = B * CHAIN_T * steps / wall / 1e6
+        params = sum(p.numel() for p in tr.model.parameters())
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"{key}: loss {float(loss)}")
+        print(f"train: B={B} {dtype}: {steps} NG-SGD steps in {wall:.3f} s "
+              f"= {1e3 * wall / steps:.2f} ms a step, {out[key]:.4f} "
+              f"Mframes/s ({params / 1e6:.2f}M params, den "
+              f"{den.num_states} states); loss {float(loss):.4f}, objf "
+              f"{float(diag['objf']):.4f} {tag}")
+    return out
+
+
+def card_step_equals_cpu(dev, den, egs, P: int, B: int = 4, **width):
+    """8b: one f32 NG-SGD step at B on the card against the port's CPU
+    step on the same egs and seed (TF32 off): loss and every parameter
+    within 1e-4 of its largest value."""
+    from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
+    res = []
+    for d in (dev, "cpu"):
+        tr = ChainTrainer(tdnn_config(P, **width), den,
+                          ChainTrainConfig(batch_size=B, optimizer="ngsgd",
+                                           total_steps=0),
+                          seed=SEED, device=d)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in tr.model.state_dict().items()}
+        loss, _ = tr._step(*tr.batches(egs, np.arange(B)))
+        res.append((float(loss), before,
+                    {k: v.detach().cpu() for k, v in
+                     tr.model.state_dict().items()}))
+    (lg, bg, pg), (lc, bc, pc) = res
+    rel = max(float((pg[k] - pc[k]).abs().max()
+                    / max(float(pc[k].abs().max()), 1e-12)) for k in pc)
+    moved = max(float((pc[k] - bc[k]).abs().max()) for k in pc)
+    lrel = abs(lg - lc) / max(abs(lc), 1e-12)
+    print(f"train: one step at B={B} on the card vs the port's CPU step: "
+          f"loss {lg:.6f} vs {lc:.6f} (relative {lrel:.2e}), parameters "
+          f"within {rel:.2e} of each tensor's largest (limit 1e-4; the step "
+          f"moved them by up to {moved:.3e})")
+    if not (lrel <= 1e-4 and rel <= 1e-4 and moved > 0):
+        raise AssertionError("the card's training step differs from the CPU's")
+
+
+def calibrate_batch_norm(model, feats: torch.Tensor) -> None:
+    """Running statistics = the statistics of one training-mode forward
+    over ``feats`` (momentum 0), so that eval mode sees what training
+    sees."""
+    from kaldi_tpu_torch.am.tdnn import BatchNorm
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(feats)
+    for m in bns:
+        m.momentum = 0.99
+    model.eval()
+
+
+def chain_cli(dev, topo, tree, seqs, egs, tag: str, n_egs: int = 64,
+              **width):
+    """8c: nnet3-chain-compute-prob, nnet3-chain-train (CLI_EPOCHS
+    epochs) and compute-prob again on the card, on files the port
+    writes: a .mdl, a seeded 13-layer raw TDNN-F (batch norm calibrated
+    on the egs), the bench's phone sequences and n_egs egs.  → (objf
+    before, after)."""
+    import subprocess
+    from kaldi_tpu_torch.am.gmm import AmDiagGmm
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.am.serialize import write_mdl
+    from kaldi_tpu_torch.am.tdnn import TdnnChain
+    from kaldi_tpu_torch.am.transitions import TransitionModel
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.pipelines.chain import ChainEgs
+    from kaldi_tpu_torch.pipelines.egs_io import write_egs_ark
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_chain")
+    os.makedirs(d, exist_ok=True)
+    P = tree.num_pdfs
+    write_mdl(os.path.join(d, "final.mdl"), TransitionModel(topo, tree),
+              AmDiagGmm(np.ones((P, 1)), np.zeros((P, 1, 40)),
+                        np.ones((P, 1, 40)), device=dev))
+    sub = ChainEgs(**{f: getattr(egs, f)[:n_egs] for f in (
+        "feats", "pdf_ali", "mask", "entry_pdf", "self_pdf", "num_segs",
+        "entry_w", "self_w", "init_w", "final_w")})
+    write_egs_ark(f"ark:{os.path.join(d, 'egs.ark')}", sub)
+    with TableWriter(f"ark:{os.path.join(d, 'ph.ark')}", holder="ivec") as w:
+        for i, s in enumerate(seqs):
+            w[f"seq{i:03d}"] = np.asarray(s, np.int32)
+    cfg = tdnn_config(P, **width)
+    net = TdnnChain(cfg)
+    net.load_state_dict(random_tdnn_state(net, np.random.default_rng(
+        SEED + 13)))
+    calibrate_batch_norm(net.to(dev), torch.from_numpy(sub.feats[:32]).to(dev))
+    write_raw_model(os.path.join(d, "0.raw"), net.state_dict(), cfg)
+    common = [os.path.join(d, "final.mdl")]
+    tail = [f"ark:{os.path.join(d, 'ph.ark')}",
+            f"ark:{os.path.join(d, 'egs.ark')}"]
+    device = f"--device={dev.type}"
+
+    def tool(*args):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "kaldi_tpu_torch.cli.chain", *args],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"{args[0]} failed ({res.returncode}):\n"
+                                 f"{res.stderr[-3000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    def objf(raw):
+        out, wall = tool("nnet3-chain-compute-prob", device, *common,
+                         os.path.join(d, raw), *tail)
+        return float(out.strip().splitlines()[-1]), wall
+
+    before, w0 = objf("0.raw")
+    _, w1 = tool("nnet3-chain-train", device, f"--num-epochs={CLI_EPOCHS}",
+                 f"--learning-rate={CLI_LR}", *common,
+                 os.path.join(d, "0.raw"), *tail, os.path.join(d, "1.raw"))
+    after, w2 = objf("1.raw")
+    print(f"chain-cli: python -m kaldi_tpu_torch.cli.chain {device}: "
+          f"nnet3-chain-compute-prob of the seeded model {before:.4f} "
+          f"({w0:.1f} s), nnet3-chain-train {CLI_EPOCHS} epochs at lr "
+          f"{CLI_LR:g} over {n_egs} egs of "
+          f"{CHAIN_T} frames ({w1:.1f} s), compute-prob after {after:.4f} "
+          f"({w2:.1f} s) {tag}")
+    if not (math.isfinite(before) and math.isfinite(after)
+            and after > before):
+        raise AssertionError(f"chain CLI objf {before} → {after}")
+    return before, after
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from kaldi_tpu_torch.am.chain import den_kernel
     from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnConfig
     from kaldi_tpu_torch.decoder.beam import (BeamDecoder, BeamDecoderConfig,
                                               host_lattice_backend)
@@ -1015,12 +1340,43 @@ def main() -> int:
     c_fb = online2_cli(dev, task300, tag)
     print(f"stream: phase 7 took {time.perf_counter() - t0:.1f} s")
 
+    # 8. the chain training path (nnet3-chain-train)
+    t0 = time.perf_counter()
+    ctopo, ctree, cseqs, cden = bench_den_graph()
+    P = ctree.num_pdfs
+    print(f"den: the bench's graph: {len(ctopo.phones)} phones, trigram "
+          f"phone LM, {cden.num_states} states, {len(cden.src)} arcs, "
+          f"{P} pdfs (built in {time.perf_counter() - t0:.1f} s)")
+    den_err, den_ms, den_plain_ms, den_bnd = den_kernel_check(dev, cden, P,
+                                                              tag)
+    dk = den_kernel(cden, dev)
+    # the main path: waveforms → egs (a new Fbank computer, its count at
+    # 0) → the four training points
+    dk.launches = 0
+    t1 = time.perf_counter()
+    egs, cfb, egs_audio_s = chain_egs(dev, ctopo, ctree, cden, 48)
+    t_egs = time.perf_counter() - t1
+    rates = chain_train_points(dev, cden, egs, P, tag)
+    t_fb = cfb.kernel.launches
+    den_launches = dk.launches
+    if min(t_fb, den_launches) <= 0:
+        raise AssertionError(f"training path launches: fbank {t_fb}, den "
+                             f"{den_launches}")
+    print(f"train: egs: {egs_audio_s:.2f} s of audio → {egs.feats.shape[0]} "
+          f"egs of {CHAIN_T} frames in {t_egs:.1f} s; fbank launches {t_fb}, "
+          f"den kernel launches {den_launches} (forward and backward)")
+    for key, v in rates.items():
+        print(f"{key} {v:.4f} {tag}")
+    card_step_equals_cpu(dev, cden, egs, P)
+    chain_cli(dev, ctopo, ctree, cseqs, egs, tag)
+    print(f"train: phase 8 took {time.perf_counter() - t0:.1f} s")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
-        "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb,
+        "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err),
         "ms": fb_ms, "plain_ms": fb_plain_ms,
         "bound_ms": fb_bound[0], "bound_by": fb_bound[1],
@@ -1032,6 +1388,15 @@ def main() -> int:
         "max_abs_err": max(gmm_err, b_err, d_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
         "bound_ms": gmm_bnd[0], "bound_by": gmm_bnd[1],
+        "library_ms": None}, {
+        "name": "chain_den", "route": "cuda",
+        "source": "kaldi_tpu_torch/csrc/chain_den.cu",
+        "replaces": "kaldi_tpu/am/chain.py:470",
+        "note": "replaces an XLA program (lax.scan + jax.grad), not a "
+                "Pallas kernel; forward and backward kernels, ms for both",
+        "launches": den_launches, "max_abs_err": den_err,
+        "ms": den_ms, "plain_ms": den_plain_ms,
+        "bound_ms": den_bnd[0], "bound_by": den_bnd[1],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

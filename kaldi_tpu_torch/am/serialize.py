@@ -214,3 +214,57 @@ def read_mdl(path: str, device="cuda") -> Tuple[TransitionModel, AmDiagGmm]:
         tm = read_transition_model(f)
         am = read_am_diag_gmm(f, device)
         return tm, am
+
+
+# Copied from kaldi_tpu/am/serialize.py (the den graph's file format).
+def write_pytree(f: BinaryIO, tree) -> None:
+    """Nested dict of arrays/scalars, keys written sorted."""
+    import numpy as _np
+    kio.write_token(f, "<Tree>")
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        kio.write_token(f, "<Dict>")
+        items = sorted(tree.items())
+        kio.write_basic_int32(f, len(items))
+        for k, v in items:
+            kio.write_token(f, f"<{k}>")
+            write_pytree(f, v)
+    else:
+        arr = _np.asarray(tree)
+        if arr.dtype.kind in "iu":
+            kio.write_token(f, "<IArr>")
+            kio.write_basic_int32(f, arr.ndim)
+            for d in arr.shape:
+                kio.write_basic_int32(f, int(d))
+            kio.write_int_vector(f, arr.reshape(-1).astype(_np.int32))
+        else:
+            kio.write_token(f, "<FArr>")
+            kio.write_basic_int32(f, arr.ndim)
+            for d in arr.shape:
+                kio.write_basic_int32(f, int(d))
+            kio.write_vector(f, arr.reshape(-1).astype(_np.float32))
+    kio.write_token(f, "</Tree>")
+
+
+def read_pytree(f: BinaryIO):
+    import numpy as _np
+    kio.expect_token(f, "<Tree>")
+    tok = kio.read_token(f)
+    if tok == "<Dict>":
+        n = kio.read_basic_int32(f)
+        out = {}
+        for _ in range(n):
+            k = kio.read_token(f)
+            out[k[1:-1]] = read_pytree(f)
+        val = out
+    elif tok in ("<IArr>", "<FArr>"):
+        nd = kio.read_basic_int32(f)
+        shape = tuple(kio.read_basic_int32(f) for _ in range(nd))
+        flat = (kio.read_int_vector(f) if tok == "<IArr>"
+                else kio.read_vector(f))
+        val = _np.asarray(flat).reshape(shape)
+        if nd == 0:
+            val = val.reshape(())
+    else:
+        raise KaldiError(f"read_pytree: unexpected token {tok}")
+    kio.expect_token(f, "</Tree>")
+    return val

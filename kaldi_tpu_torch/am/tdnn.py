@@ -1,21 +1,29 @@
-"""TDNN-F chain acoustic model, inference forward.
+"""TDNN-F chain acoustic model: forward, training mode and converters.
 
 Port of kaldi_tpu/am/tdnn.py (``splice``, ``TdnnFLayer``,
-``TdnnConfig``, ``TdnnChain``) to ``torch.nn``.  Inference only:
-batch norm uses the running mean and variance (flax's eps 1e-5, no
-scale or bias).  Dense layers are ``nn.Linear`` (torch.matmul), as the
-JAX package leaves them to XLA.  ``params_from_flax`` converts a flax
-``{"params", "batch_stats"}`` tree (as numpy) into this module's
-state dict.
+``TdnnConfig``, ``TdnnChain``, ``semi_orthogonal_penalty``) to
+``torch.nn``.  Batch norm has flax's semantics (``BatchNorm``): no scale
+or bias, eps 1e-5; in training mode it normalizes by the batch mean and
+the biased batch variance over (B, T) and moves the running statistics
+by momentum 0.99, in eval mode it uses them.  Dense layers are
+``nn.Linear`` (torch.matmul), as the JAX package leaves them to XLA.
+``compute_dtype="bfloat16"`` runs every dense layer but the output one in
+bfloat16 by explicit casts, as flax's ``dtype=`` does: the parameters
+stay float32, and each ReLU output goes back to float32 before its batch
+norm.  ``params_from_flax`` / ``params_to_flax`` convert between a flax
+``{"params", "batch_stats"}`` tree (as numpy) and this module's state
+dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -28,18 +36,40 @@ def splice(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
                      dim=-1)
 
 
-class FrozenBatchNorm(nn.Module):
-    """flax BatchNorm(use_running_average=True, use_scale=False,
-    use_bias=False): (x − mean)·rsqrt(var + eps)."""
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``layer(x)`` with input, weight and bias cast to ``dtype`` (None:
+    as they are), as flax's ``Dense(dtype=...)`` computes."""
+    if dtype is None:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(use_scale=False, use_bias=False)``: (x − mean)·
+    rsqrt(var + eps) over the last axis.  Training mode takes mean and
+    var of the batch (var = E[x²] − E[x]², floored at 0, flax's fast
+    variance) and moves the running ones: r ← 0.99·r + 0.01·batch."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
     def forward(self, x):
-        return (x - self.mean) * torch.rsqrt(self.var + self.eps)
+        if not self.training:
+            return (x - self.mean) * torch.rsqrt(self.var + self.eps)
+        dims = tuple(range(x.dim() - 1))
+        mu = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mu * mu, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mu)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        return (x - mu) * torch.rsqrt(var + self.eps)
 
 
 class TdnnFLayer(nn.Module):
@@ -55,14 +85,14 @@ class TdnnFLayer(nn.Module):
         ctx = 2 if time_stride else 1
         self.linear = nn.Linear(in_dim * ctx, bottleneck, bias=False)
         self.affine = nn.Linear(bottleneck * ctx, dim)
-        self.batchnorm = FrozenBatchNorm(dim)
+        self.batchnorm = BatchNorm(dim)
         self.dim = dim
 
-    def forward(self, x):
+    def forward(self, x, dtype: Optional[torch.dtype] = None):
         s = self.time_stride
-        h = self.linear(splice(x, (-s, 0) if s else (0,)))
-        h = self.affine(splice(h, (0, s) if s else (0,)))
-        h = self.batchnorm(torch.relu(h))
+        h = dense(self.linear, splice(x, (-s, 0) if s else (0,)), dtype)
+        h = dense(self.affine, splice(h, (0, s) if s else (0,)), dtype)
+        h = self.batchnorm(torch.relu(h).float())
         if x.shape[-1] == self.dim:
             h = h + self.bypass_scale * x
         return h
@@ -78,6 +108,9 @@ class TdnnConfig:
     frame_subsampling_factor: int = 3
     # per-layer time strides: early layers short, later dilated (1d recipe)
     strides: Optional[Sequence[int]] = None
+    # "bfloat16" runs the dense layers (not the output one) in bfloat16;
+    # parameters and batch norm stay float32
+    compute_dtype: str = "float32"
 
     def layer_strides(self) -> Sequence[int]:
         if self.strides is not None:
@@ -92,26 +125,91 @@ class TdnnChain(nn.Module):
         super().__init__()
         cfg = config
         self.config = cfg
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
+        self.matmul_dtype = (torch.bfloat16
+                             if cfg.compute_dtype == "bfloat16" else None)
         H = cfg.hidden_dim
         self.input_affine = nn.Linear(3 * cfg.feat_dim, H)
-        self.input_bn = FrozenBatchNorm(H)
+        self.input_bn = BatchNorm(H)
         self.tdnnf = nn.ModuleList(
             TdnnFLayer(H, H, cfg.bottleneck_dim, time_stride=s)
             for s in cfg.layer_strides())
         self.prefinal = nn.Linear(H, H)
-        self.prefinal_bn = FrozenBatchNorm(H)
+        self.prefinal_bn = BatchNorm(H)
         self.output_affine = nn.Linear(H, cfg.num_pdfs)
 
     def forward(self, x):
-        h = self.input_affine(splice(x, (-1, 0, 1)))
-        h = self.input_bn(torch.relu(h))
+        dt = self.matmul_dtype
+        h = dense(self.input_affine, splice(x, (-1, 0, 1)), dt)
+        h = self.input_bn(torch.relu(h).float())
         for layer in self.tdnnf:
-            h = layer(h)
+            h = layer(h, dt)
         k = self.config.frame_subsampling_factor
         if k > 1:
             h = h[:, ::k]
-        h = self.prefinal_bn(torch.relu(self.prefinal(h)))
+        h = self.prefinal_bn(torch.relu(dense(self.prefinal, h, dt)).float())
         return self.output_affine(h)
+
+
+def init_tdnn(model: TdnnChain, seed: int = 0) -> TdnnChain:
+    """Fresh weights drawn as flax initialises the original: dense
+    kernels from lecun_normal (a normal truncated at ±2, scaled to
+    variance 1/fan_in), biases zero, the output layer's kernel zero,
+    batch-norm statistics (0, 1).  flax's bits differ (its own RNG);
+    only the distributions agree."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, nn.Linear):
+                if name == "output_affine":
+                    w = torch.zeros(mod.weight.shape)
+                else:
+                    w = torch.empty(mod.weight.shape)
+                    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                          generator=gen)
+                    # the truncated normal's std is 0.8796 of its scale
+                    w *= (math.sqrt(1.0 / mod.in_features)
+                          / .87962566103423978)
+                mod.weight.copy_(w)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, BatchNorm):
+                mod.mean.zero_()
+                mod.var.fill_(1.0)
+    return model
+
+
+def semi_orthogonal_penalty(model: TdnnChain) -> torch.Tensor:
+    """Σ ‖MMᵀ − scale·I‖² over every TDNN-F first factor M (bottleneck,
+    in), scale = tr(MMᵀ)/bottleneck (nnet-utils.cc ConstrainOrthonormal's
+    floating-scale objective).  A torch weight is flax's kernel
+    transposed, so M is the weight itself."""
+    total = 0.0
+    for layer in model.tdnnf:
+        m = layer.linear.weight
+        p = m @ m.T
+        scale = torch.trace(p) / p.shape[0]
+        total = total + torch.sum(
+            (p - scale * torch.eye(p.shape[0], device=p.device)) ** 2)
+    return total
+
+
+def _blocks(sd_keys):
+    """(flax params path, flax batch_stats path or None, state-dict
+    prefix) of every dense layer and batch norm of a TdnnChain."""
+    out = [(("input_affine",), None, "input_affine"),
+           (None, ("input_bn",), "input_bn")]
+    i = 0
+    while f"tdnnf.{i}.linear.weight" in sd_keys:
+        out += [((f"tdnnf{i + 1}", "linear"), None, f"tdnnf.{i}.linear"),
+                ((f"tdnnf{i + 1}", "affine"), None, f"tdnnf.{i}.affine"),
+                (None, (f"tdnnf{i + 1}", "batchnorm"), f"tdnnf.{i}.batchnorm")]
+        i += 1
+    out += [(("prefinal",), None, "prefinal"),
+            (None, ("prefinal_bn",), "prefinal_bn"),
+            (("output_affine",), None, "output_affine")]
+    return out
 
 
 def params_from_flax(variables) -> Dict[str, torch.Tensor]:
@@ -122,27 +220,47 @@ def params_from_flax(variables) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        # a copy: the tree's arrays may share memory with a JAX buffer
+        return torch.tensor(np.asarray(a, np.float32))
 
-    def dense(dst, src):
-        sd[f"{dst}.weight"] = t(np.asarray(src["kernel"]).T)
-        if "bias" in src:
-            sd[f"{dst}.bias"] = t(src["bias"])
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
 
-    def bn(dst, src):
-        sd[f"{dst}.mean"] = t(src["mean"])
-        sd[f"{dst}.var"] = t(src["var"])
-
-    dense("input_affine", p["input_affine"])
-    bn("input_bn", bs["input_bn"])
-    i = 1
-    while f"tdnnf{i}" in p:
-        name = f"tdnnf{i}"
-        dense(f"tdnnf.{i - 1}.linear", p[name]["linear"])
-        dense(f"tdnnf.{i - 1}.affine", p[name]["affine"])
-        bn(f"tdnnf.{i - 1}.batchnorm", bs[name]["batchnorm"])
-        i += 1
-    dense("prefinal", p["prefinal"])
-    bn("prefinal_bn", bs["prefinal_bn"])
-    dense("output_affine", p["output_affine"])
+    keys = {f"tdnnf.{i - 1}.linear.weight"
+            for i in range(1, len(p) + 1) if f"tdnnf{i}" in p}
+    for ppath, bpath, dst in _blocks(keys):
+        if ppath is not None:
+            src = at(p, ppath)
+            sd[f"{dst}.weight"] = t(np.asarray(src["kernel"]).T)
+            if "bias" in src:
+                sd[f"{dst}.bias"] = t(src["bias"])
+        else:
+            src = at(bs, bpath)
+            sd[f"{dst}.mean"] = t(src["mean"])
+            sd[f"{dst}.var"] = t(src["var"])
     return sd
+
+
+def params_to_flax(state_dict) -> Dict[str, dict]:
+    """A ``TdnnChain`` state dict → flax ``{"params", "batch_stats"}``
+    with numpy float32 leaves (kernels transposed back to (in, out))."""
+    sd = {k: v.detach().cpu().numpy().copy() for k, v in state_dict.items()}
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+
+    def put(tree, path, leaf):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = leaf
+
+    for ppath, bpath, src in _blocks(set(sd)):
+        if ppath is not None:
+            put(out["params"], ppath + ("kernel",),
+                np.ascontiguousarray(sd[f"{src}.weight"].T))
+            if f"{src}.bias" in sd:
+                put(out["params"], ppath + ("bias",), sd[f"{src}.bias"])
+        else:
+            put(out["batch_stats"], bpath + ("mean",), sd[f"{src}.mean"])
+            put(out["batch_stats"], bpath + ("var",), sd[f"{src}.var"])
+    return out

@@ -1,6 +1,8 @@
 # Copied from kaldi_tpu/core/table.py; imports rewritten to kaldi_tpu_torch.
-# The training-example holders (ceg, xeg, deg, dteg) are left out until
-# training is ported: asking for one raises KaldiError.
+# The chain egs holder (ceg) reads and writes the port's
+# pipelines/egs_io.py; the other training-example holders (xeg, deg,
+# dteg) are left out until their trainers are ported: asking for one
+# raises KaldiError.
 """Ark/scp table I/O.
 
 Parity target: src/util/kaldi-table.h — SequentialTableReader,
@@ -33,8 +35,8 @@ import numpy as np
 from kaldi_tpu_torch.core import io as kio
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 
-# holders of the original that need its training pipelines
-_TRAINING_HOLDERS = ("ceg", "xeg", "deg", "dteg")
+# holders of the original whose training pipelines are not ported yet
+_TRAINING_HOLDERS = ("xeg", "deg", "dteg")
 
 log = get_logger(__name__)
 
@@ -150,6 +152,10 @@ class _Holders:
         elif holder == "fst":
             from kaldi_tpu_torch.fst.openfst_io import write_vector_fst
             write_vector_fst(f, value)
+        elif holder == "ceg":
+            from kaldi_tpu_torch.pipelines.egs_io import write_chain_eg
+            kio.init_kaldi_output_stream(f)
+            write_chain_eg(f, value)
         elif holder in _TRAINING_HOLDERS:
             raise KaldiError(f"holder '{holder}' is not ported")
         elif holder == "post":
@@ -182,6 +188,9 @@ class _Holders:
             from kaldi_tpu_torch.fst.openfst_io import read_fst
             return read_fst(f)
         binary = kio.init_kaldi_input_stream(f)
+        if holder == "ceg":
+            from kaldi_tpu_torch.pipelines.egs_io import read_chain_eg
+            return read_chain_eg(f)
         if holder in _TRAINING_HOLDERS:
             raise KaldiError(f"holder '{holder}' is not ported")
         if holder == "mat":

@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # every kernel library of the port: name → sources under csrc/
 KERNELS: Dict[str, Tuple[str, ...]] = {"kt_fbank": ("fbank.cu",),
-                                       "kt_gmm": ("gmm.cu",)}
+                                       "kt_gmm": ("gmm.cu",),
+                                       "kt_chain_den": ("chain_den.cu",)}
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: Dict[str, threading.Lock] = {}

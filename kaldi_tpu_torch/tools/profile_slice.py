@@ -24,6 +24,14 @@ Every line ends with the card's name and power limit (nvidia-smi).
    utterance's advances in chunks of 6 frames, its finalize, and 10
    steps of 8 lanes of MultiStreamBeamDecoder, each under torch.profiler:
    kernels launched per frame and the busy share.
+5. Chain training (chip_smoke phase 8's den graph and TDNN-F, NG-SGD)
+   at B = 32 float32 and B = 128 bfloat16 on egs of 150 seeded random
+   frames: one step split by synchronizes into its parts (forward,
+   numerator, denominator kernels, the whole loss, backward, optimizer)
+   on a step that advances the NG-SGD estimates and on one that does
+   not, then 4 steps under torch.profiler (kernels a step, busy share,
+   the den kernels' device time) and the den kernels alone at B = 32,
+   64 and 128.
 """
 
 from __future__ import annotations
@@ -54,7 +62,10 @@ def _profiled(fn):
         t0 = time.perf_counter()
         fn()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    # device work only: an optimizer's step also shows on the device as
+    # a user-annotation range spanning its kernels
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
     return wall, len(kernels), sum(e.device_time for e in kernels) / 1e3, prof
 
 
@@ -199,7 +210,115 @@ def main() -> int:
           f"{wall:.1f} ms, device kernel time {busy:.1f} ms "
           f"({100 * busy / wall:.1f}% busy), {n_k} kernels = "
           f"{n_k / 60:.1f} per frame step {tag}")
+    chain_training(dev, tag)
     return 0
+
+
+def chain_training(dev, tag: str) -> None:
+    """Section 5 (see the module's docstring)."""
+    from kaldi_tpu_torch.am.chain import (ChainTrainingOptions, den_kernel,
+                                          denominator_logprob,
+                                          make_denominator_graph,
+                                          numerator_flexible_logprob)
+    from kaldi_tpu_torch.am.tdnn import TdnnConfig
+    from kaldi_tpu_torch.am.topology import HmmTopology
+    from kaldi_tpu_torch.am.tree import MonophoneContextDependency
+    from kaldi_tpu_torch.pipelines.chain import (ChainTrainConfig,
+                                                 ChainTrainer, make_chain_egs)
+    from kaldi_tpu_torch.tools.timing import device_ms
+    phones = list(range(1, 42))
+    topo = HmmTopology.chain(phones)
+    tree = MonophoneContextDependency(phones, topo)
+    rng = np.random.default_rng(0)
+    seqs = [[int(p) for p in rng.integers(1, 42, 20)] for _ in range(200)]
+    den = make_denominator_graph(seqs, tree, topo, order=3)
+    feats, runs = {}, {}
+    for u in range(48):
+        n = int(rng.integers(300, 600))
+        feats[f"u{u}"] = rng.standard_normal((n, 40)).astype(np.float32)
+        runs[f"u{u}"] = [(int(p), 5) for p in rng.integers(1, 42, n // 5 + 1)]
+        runs[f"u{u}"] = [r for i, r in enumerate(runs[f"u{u}"])
+                         if i == 0 or r[0] != runs[f"u{u}"][i - 1][0]]
+    egs = make_chain_egs(feats, runs, tree, topo, chunk_size=150,
+                         subsample=3, den=den)
+    opts = ChainTrainingOptions()
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for B, dtype in ((32, "float32"), (128, "bfloat16")):
+        cfg = TdnnConfig(feat_dim=40, num_pdfs=tree.num_pdfs,
+                         hidden_dim=1024, bottleneck_dim=128, num_layers=13,
+                         compute_dtype=dtype)
+        tr = ChainTrainer(cfg, den, ChainTrainConfig(
+            batch_size=B, optimizer="ngsgd", total_steps=0), device=dev)
+        batch = tr.batches(egs, np.arange(B) % egs.feats.shape[0])
+        for _ in range(3):
+            tr._step(*batch)
+        for advance in (True, False):
+            while (tr.opt.count < 10
+                   or tr.opt.count % tr.opt.update_period == 0) != advance:
+                tr._step(*batch)
+            f, a, m, ng = batch
+            f, m = tr._as_tensor(f, torch.float32), tr._as_tensor(m,
+                                                                 torch.bool)
+            ng = tuple(tr._as_tensor(x) for x in ng)
+            a = tr._as_tensor(a, torch.int64)
+            tr.model.train()
+            t0 = sync()
+            scores = tr.model(f)
+            t1 = sync()
+            numerator_flexible_logprob(scores, *ng[:3], m, *ng[3:])
+            t2 = sync()
+            denominator_logprob(den, scores, m, opts.leaky_hmm_coefficient)
+            t3 = sync()
+            loss, _ = tr._loss_fn(f, a, m, ng)
+            t4 = sync()
+            tr.opt.zero_grad(set_to_none=True)
+            loss.backward()
+            t5 = sync()
+            tr.opt.step()
+            t6 = sync()
+            print(f"train B={B} {dtype}, a step that "
+                  f"{'advances' if advance else 'does not advance'} the "
+                  f"NG-SGD estimates: forward {1e3 * (t1 - t0):.1f} ms, "
+                  f"numerator {1e3 * (t2 - t1):.1f}, den kernel "
+                  f"{1e3 * (t3 - t2):.1f}, whole loss {1e3 * (t4 - t3):.1f}, "
+                  f"backward {1e3 * (t5 - t4):.1f}, optimizer "
+                  f"{1e3 * (t6 - t5):.1f} (host clock around synchronizes) "
+                  f"{tag}")
+        k = den_kernel(den, dev)
+
+        def steps():
+            for _ in range(4):
+                tr._step(*batch)
+            torch.cuda.synchronize()
+
+        n0 = k.launches
+        wall, n_k, busy, prof = _profiled(steps)
+        den_dev = sum(e.device_time for e in prof.events()
+                      if e.device_type.name == "CUDA"
+                      and e.name.startswith("den_")) / 1e3
+        print(f"train B={B} {dtype}: 4 steps profiled: wall {wall:.1f} ms, "
+              f"device kernel time {busy:.1f} ms ({100 * busy / wall:.1f}% "
+              f"busy), {n_k} kernels = {n_k / 4:.0f} a step; den kernels "
+              f"{k.launches - n0} launches, {den_dev:.1f} ms of device time "
+              f"{tag}")
+        print(prof.key_averages().table(sort_by="device_time_total",
+                                        row_limit=10,
+                                        max_name_column_width=50))
+        del tr
+    for B in (32, 64, 128):
+        s = torch.from_numpy(rng.standard_normal((B, 50, tree.num_pdfs))
+                             .astype(np.float32)).to(dev)
+
+        def fb():
+            x = s.detach().requires_grad_(True)
+            denominator_logprob(den, x, None, 0.1).sum().backward()
+
+        print(f"den kernels, forward + backward at B={B}, T=50: "
+              f"{device_ms(fb, 10):.4f} ms on the card {tag}")
 
 
 if __name__ == "__main__":

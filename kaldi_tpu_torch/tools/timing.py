@@ -13,6 +13,9 @@ import torch
 # the least-time route that keeps float32 accuracy
 HBM_BYTES_PER_S = 3.35e12
 F32_VIA_3XTF32_FLOP_PER_S = 495e12 / 3
+# the H100 SXM's float32 rate outside the tensor cores (sparse work that
+# no matrix product carries)
+F32_FLOP_PER_S = 67e12
 # cycles per second of torch.cuda._sleep's spin on an H100 (its SM clock
 # runs at up to 1.98 GHz); a longer spin than needed only costs time
 _SLEEP_HZ = 2.0e9
@@ -88,6 +91,26 @@ def fbank_bound(k, n: int):
                 + 3.0 * k.n_bins + 2.0 * nnz + k.n_mel)
     nbytes = 4.0 * (n * k.win_size + k.win_size + nnz + n * k.n_mel)
     return bound_ms(flop, nbytes)
+
+
+def chain_den_bound(k, active_frames: int, B: int, T: int, P: int):
+    """The chain denominator's bound on CudaChainDen k for scores (B, T,
+    P) with ``active_frames`` (b, t) pairs not masked: per active frame
+    and arc one multiply-add of α·w·e forward (3 operations) and
+    w·e·γ, its sum into β and its occupancy into the gradient backward
+    (5), per state the leak and the normalization each way (8), one exp
+    per pdf each way (2); float32 outside the tensor cores (67 TFLOP/s,
+    the H100 SXM's).  Bytes: scores and mask read once, the gradient
+    and log Z written once, the graph (per arc two states, a pdf and a
+    weight; per state four values) read once."""
+    A = k.in_w.numel()
+    S = k.num_states
+    flop = active_frames * (8.0 * A + 8.0 * S + 2.0 * P)
+    nbytes = 8.0 * B * T * P + B * T + 4.0 * B + 16.0 * (A + S)
+    t_ops = flop / F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def gmm_bound(k, T: int):

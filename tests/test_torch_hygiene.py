@@ -102,16 +102,20 @@ def _entry_points():
     from kaldi_tpu_torch.ops.fbank import CudaFbank
     from kaldi_tpu_torch.ops.gmm import CudaGmm
     from kaldi_tpu_torch.pipelines.decode import decode_gmm, decode_gmm_lattice
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
+    from kaldi_tpu_torch.pipelines.chain import ChainTrainer
     return dict(BeamDecoder=BeamDecoder, DenseDecoder=DenseDecoder,
                 _LatgenDecoder=_LatgenDecoder, Fbank=Fbank, Mfcc=Mfcc,
                 AmDiagGmm=AmDiagGmm, CudaGmm=CudaGmm, CudaFbank=CudaFbank,
                 decode_gmm_lattice=decode_gmm_lattice, decode_gmm=decode_gmm,
-                read_mdl=read_mdl)
+                read_mdl=read_mdl, CudaChainDen=CudaChainDen,
+                ChainTrainer=ChainTrainer)
 
 
 ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
                 "Mfcc", "AmDiagGmm", "CudaGmm", "CudaFbank",
-                "decode_gmm_lattice", "decode_gmm", "read_mdl"]
+                "decode_gmm_lattice", "decode_gmm", "read_mdl",
+                "CudaChainDen", "ChainTrainer"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -137,6 +141,7 @@ def test_without_a_card_construction_raises(monkeypatch):
     """With no card (as on this host, or forced), the default device
     stops every entry point at once with a clear error; nothing goes on
     on the CPU."""
+    from kaldi_tpu_torch.am.tdnn import TdnnConfig
     from kaldi_tpu_torch.core.logging import KaldiError
     from test_torch_beam import PORT, yesno_graph
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -157,7 +162,10 @@ def test_without_a_card_construction_raises(monkeypatch):
              lambda: eps["decode_gmm_lattice"](
                  {}, eps["AmDiagGmm"](w, m, v, device="cpu"), tm, HCLG, lang),
              lambda: eps["decode_gmm"](
-                 {}, eps["AmDiagGmm"](w, m, v, device="cpu"), tm, HCLG, lang)]
+                 {}, eps["AmDiagGmm"](w, m, v, device="cpu"), tm, HCLG, lang),
+             lambda: eps["CudaChainDen"](1, [0], [0], [0], [0.0], [0.0],
+                                         [0.0], [0], [0]),
+             lambda: eps["ChainTrainer"](TdnnConfig(num_pdfs=P), None)]
     for call in calls:
         with pytest.raises(KaldiError, match="no CUDA card"):
             call()
