@@ -11,7 +11,8 @@ Phases (each prints lines; any failure raises and exits non-zero):
   3. the fbank kernel (3xTF32 on the tensor cores) vs its plain PyTorch
      version on the card, 4096 frames, at the TDNN-F's 40 bins and at
      the MFCC configurations (16 kHz with 23 bins, 8 kHz with 15 bins),
-     with both times on the card alone and the kernel's bound;
+     with both times on the card alone and the kernel's bound; then at
+     40 bins at each of Fbank's use_power x use_log_fbank settings;
   4. batched lattice decode of synthetic log-likelihoods on the 20k-word
      task at the headline operating point, checked against the port's
      own CPU decode, with the frame loop run under
@@ -65,7 +66,11 @@ Phases (each prints lines; any failure raises and exits non-zero):
         B = 128 sequences of 50 frames (150 input frames ×3
         subsampled), leak 0.1, a ragged mask: log Z, d log Z / d scores,
         posteriors summing to 1; both times on the card and the bound;
-        the kernels' launches under sync debug mode "error";
+        the kernels' launches under sync debug mode "error"; every other
+        layout that fits (sequences a block G = 1/2/4/8, with and
+        without the score prefetch); then
+        the same on the left-biphone den graph (1681 states, 3444
+        pdfs), the largest P the kernels take here;
      b. 48 seeded waveforms → the fbank kernel → seeded phone
         alignments → egs of 150 frames with the den's normalization
         weights → ChainTrainer with NG-SGD at B = 32 in float32 and
@@ -802,6 +807,21 @@ def bench_den_graph():
                                                     order=3)
 
 
+def biphone_den_graph():
+    """The bench's phone LM over a full left-biphone tree (the e2e
+    flat-start recipes' tree): 1681 states, 70,602 arcs, 3444 pdfs, the
+    largest P the den kernels take here.  → (den, P)."""
+    from kaldi_tpu_torch.am.chain import make_denominator_graph
+    from kaldi_tpu_torch.am.topology import HmmTopology
+    from kaldi_tpu_torch.am.tree import full_biphone_tree
+    phones = list(range(1, 42))
+    topo = HmmTopology.chain(phones)
+    tree = full_biphone_tree(phones, topo)
+    rng = np.random.default_rng(0)
+    seqs = [[int(p) for p in rng.integers(1, 42, 20)] for _ in range(200)]
+    return make_denominator_graph(seqs, tree, topo, order=3), tree.num_pdfs
+
+
 def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
                      T: int = 50):
     """8a: the den forward-backward kernels against the plain version on
@@ -811,6 +831,8 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
     of the gradient, kernel ms, plain ms, (bound ms, bound by))."""
     from kaldi_tpu_torch.am.chain import (den_kernel, denominator_logprob,
                                           denominator_reference)
+    from kaldi_tpu_torch.ops.chain_den import (GROUPS, ChainDenFn, DenPlan,
+                                               smem_bytes)
     from kaldi_tpu_torch.tools.timing import chain_den_bound, device_ms
     rng = np.random.default_rng(SEED + 10)
     lens = rng.integers(T // 2, T + 1, B)
@@ -844,7 +866,8 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
     want = torch.from_numpy(mask_np | (np.arange(T) == 0)[None, :]).to(dev)
     dsum = float((g.sum(dim=2) - want.float()).abs().max())
     print(f"den: kernels vs plain at B={B}, T={T}, S={den.num_states}, "
-          f"A={len(den.src)}, P={P}, leak {CHAIN_LEAK}, frames per sequence "
+          f"A={len(den.src)}, P={P}, layout {k.plan(B, P)}, leak "
+          f"{CHAIN_LEAK}, frames per sequence "
           f"{int(lens.min())}-{T}: log Z (range [{float(zr.min()):.1f}, "
           f"{float(zr.max()):.1f}]) at most {dz:.3f} of the limit "
           f"{DEN_LOGZ_ABS:g} + {DEN_LOGZ_REL:g}·|log Z|; d log Z / d scores "
@@ -853,6 +876,30 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
           f"under sync debug mode 'error'")
     if not (dz <= 1.0 and dg <= DEN_GRAD_TOL and dsum <= 1e-4):
         raise AssertionError("den kernels disagree with the plain version")
+    # every other layout that fits this graph: G sequences a block, with
+    # and without the score prefetch
+    layouts = []
+    for G in GROUPS:
+        for pref in (True, False):
+            plan = DenPlan(G, pref, G, pref)
+            if plan == k.plan(B, P) or smem_bytes(
+                    "backward", G, k.num_states, P, pref) > k.smem_limit:
+                continue
+            s = scores.detach().clone().requires_grad_(True)
+            zl = ChainDenFn.apply(s, mask.to(torch.uint8), k, CHAIN_LEAK,
+                                  plan)
+            zl.sum().backward()
+            dzl = float(((zl.detach() - zr).abs()
+                         / (DEN_LOGZ_ABS + DEN_LOGZ_REL * zr.abs())).max())
+            dgl = float((s.grad - gr).abs().max())
+            layouts.append(f"G={G}{' pref' if pref else ''}: {dzl:.3f}, "
+                           f"{dgl:.1e}")
+            if not (dzl <= 1.0 and dgl <= DEN_GRAD_TOL):
+                raise AssertionError(f"den kernels disagree at {plan}: "
+                                     f"{dzl}, {dgl}")
+            dg = max(dg, dgl)
+    print(f"den: the other layouts vs plain (log Z share of its limit, "
+          f"gradient max |diff|): {'; '.join(layouts)}")
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         fn = (denominator_reference if which == "plain"
@@ -1085,7 +1132,7 @@ def main() -> int:
     from kaldi_tpu_torch.features.window import (FrameExtractionOptions,
                                                  preprocess_frames)
     from kaldi_tpu_torch.ops import build
-    from kaldi_tpu_torch.ops.fbank import fbank_reference
+    from kaldi_tpu_torch.ops.fbank import CudaFbank, fbank_reference
     from kaldi_tpu_torch.pipelines.decode import (decode_scores,
                                                   decode_waveforms)
     from kaldi_tpu_torch.pipelines.largevocab import (make_largevocab_task,
@@ -1168,6 +1215,29 @@ def main() -> int:
         if not err <= 2e-3:
             raise AssertionError(f"fbank kernel disagrees: {err}")
         fb_err = max(fb_err, err)
+    # Fbank's use_power x use_log_fbank at 40 bins (launches here are not
+    # counted): log mel energies within 2e-3, linear ones within 2e-3 of
+    # their size (the same bar, e^2e-3 - 1 ~ 2e-3 relative)
+    for use_power in (True, False):
+        for use_log in (True, False):
+            ko = CudaFbank(fopts.frame_opts, fopts.mel_opts, dev,
+                           use_power=use_power, use_log=use_log)
+            got = ko(x)
+            want = fbank_reference(x, ko.window, ko.cos, ko.sin, ko.mel,
+                                   use_power=use_power, use_log=use_log)
+            d = (got - want).abs()
+            err = float(d.max() if use_log else (d / want).max())
+            ko_ms = min(device_ms(lambda: ko(x), 50) for _ in range(2))
+            print(f"fbank: use_power={use_power} use_log_fbank={use_log}: "
+                  f"kernel vs plain on 4096 frames: max "
+                  f"{'|diff|' if use_log else '|diff| / plain'} {err:.3e} "
+                  f"(limit 2e-3); kernel {ko_ms:.4f} ms on the card (best "
+                  f"of 2 × 50) {tag}")
+            if not err <= 2e-3:
+                raise AssertionError(f"fbank kernel disagrees at use_power="
+                                     f"{use_power} use_log={use_log}: {err}")
+            if use_log:
+                fb_err = max(fb_err, err)
 
     # 4. decode synthetic log-likelihoods on the 20k task
     t0 = time.perf_counter()
@@ -1349,6 +1419,10 @@ def main() -> int:
           f"{P} pdfs (built in {time.perf_counter() - t0:.1f} s)")
     den_err, den_ms, den_plain_ms, den_bnd = den_kernel_check(dev, cden, P,
                                                               tag)
+    bden, bP = biphone_den_graph()
+    print(f"den: the left-biphone graph: {bden.num_states} states, "
+          f"{len(bden.src)} arcs, {bP} pdfs")
+    den_err = max(den_err, den_kernel_check(dev, bden, bP, tag)[0])
     dk = den_kernel(cden, dev)
     # the main path: waveforms → egs (a new Fbank computer, its count at
     # 0) → the four training points

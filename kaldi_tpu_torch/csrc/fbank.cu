@@ -5,6 +5,9 @@
 // (the pl.pallas_call in PallasFbank.__call__): the window multiply, a
 // real DFT as two products against cos/sin tables, the power
 // re^2 + im^2, the mel product and log(max(., FLT_MIN)), in one pass.
+// Two flags give the reference Fbank's other options: `use_power` off
+// takes the magnitude sqrt(re^2 + im^2) into the mel product, and
+// `use_log` off writes max(., FLT_MIN) without the log.
 // Frames arrive DC-removed and pre-emphasised (features/window.py
 // preprocess_frames), so the kernel's input is (N, win) float32.
 //
@@ -98,7 +101,7 @@ __global__ void __launch_bounds__(128 * KQ) fbank_logmel_kernel(
     const float* __restrict__ tab, const int* __restrict__ groups,
     const int* __restrict__ franges, const float* __restrict__ melw,
     float* __restrict__ out, int n_frames, int win, int kp, int n_mel,
-    int vec) {
+    int vec, int use_power, int use_log) {
   constexpr int ROWS = 16 * WM, MAXI = FB_MAX_TILES / 4, NT = 128 * KQ;
   extern __shared__ __align__(16) float smem[];
   const int S = kp + 4;
@@ -235,8 +238,10 @@ __global__ void __launch_bounds__(128 * KQ) fbank_logmel_kernel(
         if (wn + 4 * i < nt) {
           const float* c = acc[mi][i];
           const int r = 16 * mi + gid, k = 4 * (wn + 4 * i) + tig;
-          pw[r * FB_PWS + k] = c[0] * c[0] + c[1] * c[1];
-          pw[(r + 8) * FB_PWS + k] = c[2] * c[2] + c[3] * c[3];
+          const float p0 = c[0] * c[0] + c[1] * c[1];
+          const float p1 = c[2] * c[2] + c[3] * c[3];
+          pw[r * FB_PWS + k] = use_power ? p0 : sqrtf(p0);
+          pw[(r + 8) * FB_PWS + k] = use_power ? p1 : sqrtf(p1);
         }
   } else {
     float* pq = kparts + kq * ROWS * FB_PS;
@@ -264,12 +269,14 @@ __global__ void __launch_bounds__(128 * KQ) fbank_logmel_kernel(
         re += v.x;
         im += v.y;
       }
-      pw[r * FB_PWS + k] = re * re + im * im;
+      const float p = re * re + im * im;
+      pw[r * FB_PWS + k] = use_power ? p : sqrtf(p);
     }
   }
   __syncthreads();
 
-  // 4. the group's filters over their nonzero bins, then the log floor
+  // 4. the group's filters over their nonzero bins, then the floor and
+  //    the log
   const int nf = m1 - m0;
   for (int i = tid; i < ROWS * nf; i += NT) {
     const int r = i / nf, m = m0 + (i - r * nf);
@@ -279,7 +286,8 @@ __global__ void __launch_bounds__(128 * KQ) fbank_logmel_kernel(
     const float* pr = pw + r * FB_PWS - k0;
     float e = 0.f;
     for (int k = lo; k < hi; ++k) e = fmaf(pr[k], wm_[k], e);
-    out[(size_t)(f0 + r) * n_mel + m] = logf(fmaxf(e, FLT_MIN));
+    e = fmaxf(e, FLT_MIN);
+    out[(size_t)(f0 + r) * n_mel + m] = use_log ? logf(e) : e;
   }
 }
 
@@ -288,7 +296,8 @@ static cudaError_t launch(const float* frames, const float* window,
                           const float* tab, const int* groups,
                           const int* franges, const float* melw, float* out,
                           int n_frames, int win, int kp, int n_groups,
-                          int n_mel, int vec, cudaStream_t stream) {
+                          int n_mel, int vec, int use_power, int use_log,
+                          cudaStream_t stream) {
   const int rows = 16 * WM;
   size_t xs = (size_t)rows * (kp + 4);
   if (xs < (size_t)rows * FB_PWS) xs = (size_t)rows * FB_PWS;
@@ -303,7 +312,7 @@ static cudaError_t launch(const float* frames, const float* window,
   const dim3 grid((n_frames + rows - 1) / rows, n_groups);
   fbank_logmel_kernel<WM, KQ><<<grid, 128 * KQ, smem, stream>>>(
       frames, window, tab, groups, franges, melw, out, n_frames, win, kp,
-      n_mel, vec);
+      n_mel, vec, use_power, use_log);
   return cudaGetLastError();
 }
 
@@ -313,7 +322,9 @@ static cudaError_t launch(const float* frames, const float* window,
 // filter, table offset in floats); franges (n_mel, 3) int32 rows (the
 // filter's nonzero bins [lo, hi), offset of its weights in melw); melw
 // the filters' weights over those bins, in filter order; all contiguous
-// on the device.  kp is win rounded up to 8.  Launches on `stream`;
+// on the device.  kp is win rounded up to 8.  use_power (0: magnitude)
+// and use_log (0: linear mel energies) as the reference Fbank's options
+// of those names.  Launches on `stream`;
 // returns the launch status (cudaErrorInvalidValue for arguments the
 // kernel does not take).
 extern "C" cudaError_t kt_fbank_logmel(const float* frames,
@@ -322,6 +333,7 @@ extern "C" cudaError_t kt_fbank_logmel(const float* frames,
                                        const float* melw, float* out,
                                        int n_frames, int win, int kp,
                                        int n_groups, int n_mel,
+                                       int use_power, int use_log,
                                        cudaStream_t stream) {
   if (n_frames < 0 || win <= 0 || kp < win || kp % 8 != 0 || n_groups <= 0 ||
       n_groups > 65535 || n_mel <= 0)
@@ -340,7 +352,9 @@ extern "C" cudaError_t kt_fbank_logmel(const float* frames,
   const long tiles = (long)(n_frames + 15) / 16 * n_groups;
   if (tiles >= 4L * sms)
     return launch<2, 1>(frames, window, tab, groups, franges, melw, out,
-                        n_frames, win, kp, n_groups, n_mel, vec, stream);
+                        n_frames, win, kp, n_groups, n_mel, vec, use_power,
+                        use_log, stream);
   return launch<1, 2>(frames, window, tab, groups, franges, melw, out,
-                      n_frames, win, kp, n_groups, n_mel, vec, stream);
+                      n_frames, win, kp, n_groups, n_mel, vec, use_power,
+                      use_log, stream);
 }

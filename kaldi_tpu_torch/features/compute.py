@@ -12,6 +12,9 @@ through the orthonormal DCT and the lifter, as tensor products.  The
 energy column (``use_energy``) is the raw log-energy of each frame
 before pre-emphasis and windowing; the original's ``raw_energy`` field
 is left out, since it computes raw energy whatever the field says.
+``Fbank``'s ``use_power`` (off: the magnitude spectrum) and
+``use_log_fbank`` (off: linear mel energies) run inside the kernel;
+``Mfcc`` always takes the log of the power.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ class FbankOptions:
         default_factory=lambda: MelBanksOptions(num_bins=23))
     use_energy: bool = False
     energy_floor: float = 0.0
+    use_log_fbank: bool = True
+    use_power: bool = True
 
 
 @dataclasses.dataclass
@@ -74,10 +79,12 @@ class MfccOptions:
 class _LogMelBase:
     """Framing, pre-processing and the fbank kernel, on one device."""
 
-    def __init__(self, opts, dim: int, device: torch.device | str):
+    def __init__(self, opts, dim: int, device: torch.device | str,
+                 **spectrum):
         self.opts = opts
         self.frame_opts = opts.frame_opts
-        self.kernel = CudaFbank(opts.frame_opts, opts.mel_opts, device)
+        self.kernel = CudaFbank(opts.frame_opts, opts.mel_opts, device,
+                                **spectrum)
         self.device = self.kernel.device
         self.dim = dim
 
@@ -86,8 +93,9 @@ class _LogMelBase:
         return extract_frames(waveform, self.frame_opts, rng)
 
     def _log_mel(self, frames: torch.Tensor):
-        """(F, window_size) raw frames → (log-mel (F, n_mel), log-energy
-        (F,) floored at ``energy_floor``)."""
+        """(F, window_size) raw frames → (mel energies (F, n_mel), as the
+        kernel's flags say, log-energy (F,) floored at
+        ``energy_floor``)."""
         x, log_energy = preprocess_frames(frames, self.frame_opts)
         if self.opts.energy_floor > 0.0:
             log_energy = torch.clamp_min(log_energy,
@@ -111,7 +119,9 @@ class Fbank(_LogMelBase):
                  device: torch.device | str = "cuda"):
         opts = opts or FbankOptions()
         super().__init__(opts, opts.mel_opts.num_bins
-                         + (1 if opts.use_energy else 0), device)
+                         + (1 if opts.use_energy else 0), device,
+                         use_power=opts.use_power,
+                         use_log=opts.use_log_fbank)
 
     def compute_frames(self, frames: torch.Tensor) -> torch.Tensor:
         """(F, window_size) raw frames on the device → (F, dim)."""

@@ -4,13 +4,17 @@ their plain version.
 Replaces the XLA program of kaldi_tpu/am/chain.py ``denominator_logprob``
 (a log-space lax.scan differentiated by jax.grad; no Pallas kernel) on
 the card.  ``CudaChainDen`` holds one denominator graph packed once on
-one device: incoming arcs grouped by destination (CSR, for the forward)
-and outgoing arcs grouped by source (for the backward), each arc as
-(state | pdf << 16, exp(logw)), with the per-state initial and final
-probabilities and self/entry pdfs.  Called on a CUDA tensor it runs
-``ChainDenFn``: ``kt_chain_den_forward`` (csrc/chain_den.cu) gives log Z
-and keeps each frame's normalized α, max score and normalizer, and the
-backward is ``kt_chain_den_backward``, which writes d log Z / d scores.
+one device: its arcs sorted by destination (the forward's table) and by
+source (the backward's), each arc as (key, other state | pdf << 16,
+exp(logw)) with the key the state it is sorted by, padded with
+zero-weight arcs to the kernels' stride; and the per-state initial and
+final probabilities and self/entry pdfs.  Called on a CUDA tensor it
+runs ``ChainDenFn``: ``kt_chain_den_forward`` (csrc/chain_den.cu) gives
+log Z and keeps each frame's normalized α, max score and normalizer, and
+the backward is ``kt_chain_den_backward``, which writes d log Z /
+d scores.  ``den_plan`` picks, from the batch and the graph's shape, how
+many sequences a block of each kernel runs and whether the next frame's
+scores are prefetched.
 Called on a CPU tensor it runs ``ChainDenPlainFn``, the same scaled
 linear-space recursion and its β pass in plain PyTorch on the same packed
 arrays, so the CPU tests hold the kernels' arithmetic against the JAX
@@ -20,6 +24,7 @@ package.  There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,33 +33,107 @@ from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.ops import build
 
-# csrc/chain_den.cu: an arc packs its state and pdf into 16 bits each
+# csrc/chain_den.cu: an arc packs its states and pdf into 16 bits each
 MAX_ID = 65535
-# csrc/chain_den.cu DEN_RED: shared floats of the block reductions
-_RED = 17
+# csrc/chain_den.cu DEN_STRIDE: the arcs a block streams per step (4 a
+# thread)
+ARC_STRIDE = 2048
+# csrc/chain_den.cu DEN_WARPS: warps of a block
+WARPS = 16
+# sequences a block may run (the kernels' template instances)
+GROUPS = (1, 2, 4, 8)
 
 
-def pack_csr(key: np.ndarray, other: np.ndarray, pdf: np.ndarray,
-             w: np.ndarray, num_states: int):
-    """Arcs grouped by ``key`` (stable, so each row keeps the arcs'
-    order): (row pointers (S + 1,) int32, other | pdf << 16 as int32
-    bits, weights float32)."""
+def pack_arcs(key: np.ndarray, other: np.ndarray, pdf: np.ndarray,
+              w: np.ndarray):
+    """Arcs sorted by ``key`` (stable, so each key's run keeps the arcs'
+    order), padded to a multiple of ARC_STRIDE with zero-weight arcs on
+    the last key: (key words, other | pdf << 16, weights float32; both
+    int32 bits of uint32).  A key word holds the key in bits 0-15; the
+    first word of each thread's 4 arcs (csrc/chain_den.cu ``sum_by_key``)
+    also holds the warp scan's steps over the threads' last runs (bit 16
+    + i: the lane 2^i below, and every lane between, continue this
+    lane's first key, each holding only that key), bit 21 where the
+    thread holds two keys or more and its first continues the lane
+    below's last, bit 22 where the thread's last key's run ends in the
+    warp."""
     order = np.argsort(key, kind="stable")
-    ptr = np.zeros(num_states + 1, np.int64)
-    ptr[1:] = np.cumsum(np.bincount(key, minlength=num_states))
-    packed = (other[order].astype(np.uint32)
+    n = len(order)
+    A = max(1, -(-n // ARC_STRIDE)) * ARC_STRIDE
+    k = np.full(A, key[order][-1] if n else 0, np.uint32)
+    k[:n] = key[order]
+    kc = k.reshape(-1, 4)
+    k0, k3 = kc[:, 0], kc[:, 3]
+    split = (kc[:, 1:] != kc[:, :-1]).any(axis=1)
+    lane = np.arange(len(kc)) % 32
+    joins = (lane > 0) & (k0 == np.roll(k3, 1))
+    cont = (joins & ~split).reshape(-1, 32)
+    run = np.zeros(cont.shape, np.int64)   # lanes in a row that continue
+    for j in range(1, 32):
+        run[:, j] = np.where(cont[:, j], run[:, j - 1] + 1, 0)
+    run = run.reshape(-1)
+    bits = np.zeros(len(kc), np.uint32)
+    for i in range(5):
+        bits |= (run >= 1 << i).astype(np.uint32) << np.uint32(16 + i)
+    bits |= (joins & split).astype(np.uint32) << np.uint32(21)
+    tail = (lane == 31) | (np.roll(k0, -1) != k3)
+    bits |= tail.astype(np.uint32) << np.uint32(22)
+    words = k.copy()
+    words[0::4] |= bits
+    op = np.zeros(A, np.uint32)
+    op[:n] = (other[order].astype(np.uint32)
               | (pdf[order].astype(np.uint32) << np.uint32(16)))
-    return (ptr.astype(np.int32), packed.view(np.int32),
-            w[order].astype(np.float32))
+    ww = np.zeros(A, np.float32)
+    ww[:n] = w[order]
+    return words.view(np.int32), op.view(np.int32), ww
 
 
-def _unpack(ptr: torch.Tensor, packed: torch.Tensor):
-    """(row index, other state, pdf) of every packed arc, int64."""
-    counts = (ptr[1:] - ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(len(counts), device=ptr.device), counts)
+def _unpack(key: torch.Tensor, packed: torch.Tensor):
+    """(key, other state, pdf) of every packed arc, int64."""
     p = packed.long()
-    return rows, p & 0xFFFF, (p >> 16) & 0xFFFF
+    return key.long() & 0xFFFF, p & 0xFFFF, (p >> 16) & 0xFFFF
+
+
+def smem_bytes(kind: str, G: int, S: int, P: int, pref: bool) -> int:
+    """Shared memory of a block of the forward or backward kernel
+    (csrc/chain_den.cu fwd_smem, bwd_smem): per sequence α and its next
+    frame (or β and γ), e, the block sums, the backward's occupancy row,
+    and the next frame's scores (``pref``)."""
+    per = 2 * S + P + WARPS + (2 if kind == "forward" else P)
+    return 4 * G * (per + (P if pref else 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenPlan:
+    """Sequences a block (G) and the score prefetch of the two kernels."""
+    fwd_groups: int
+    fwd_pref: bool
+    bwd_groups: int
+    bwd_pref: bool
+
+
+def den_plan(B: int, S: int, P: int, smem_limit: int, n_sms: int
+             ) -> DenPlan:
+    """The smallest G whose ⌈B / G⌉ blocks fit on the card's SMs at one
+    block each (8 past that: a block's time is flat in B up to there,
+    and a sequence more a block costs more than a second wave); then,
+    for each kernel, the largest G up to it whose shared memory fits,
+    with the next frame's scores by cp.async where they fit too.  Raises
+    KaldiError where not even G = 1 without the prefetch fits."""
+    want = next((g for g in GROUPS if -(-B // g) <= n_sms), GROUPS[-1])
+
+    def pick(kind):
+        for g in reversed(GROUPS):
+            for pref in (True, False):
+                if g <= want and smem_bytes(kind, g, S, P, pref) \
+                        <= smem_limit:
+                    return g, pref
+        raise KaldiError(
+            f"chain den kernel: {S} states and {P} pdfs need "
+            f"{smem_bytes(kind, 1, S, P, False)} bytes of shared memory "
+            f"per block, above this card's limit of {smem_limit}")
+
+    return DenPlan(*pick("forward"), *pick("backward"))
 
 
 def _load():
@@ -64,20 +143,23 @@ def _load():
         # pointers and the stream as c_void_p (see ops/fbank.py)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd.restype = bwd.restype = ctypes.c_int
-        fwd.argtypes = [P] * 9 + [I] * 4 + [F, F] + [P] * 5 + [P]
-        bwd.argtypes = [P] * 9 + [I] * 4 + [F] + [P] * 6 + [P]
+        fwd.argtypes = [P] * 5 + [I] + [P] * 4 + [I] * 5 + [F, F, I] \
+            + [P] * 5 + [P]
+        bwd.argtypes = [P] * 5 + [I] + [P] * 4 + [I] * 5 + [F, I] \
+            + [P] * 6 + [P]
         lib.kt_chain_den_smem_limit.restype = ctypes.c_int
         lib.kt_chain_den_smem_limit.argtypes = [I]
     return lib
 
 
 class ChainDenFn(torch.autograd.Function):
-    """log Z (B,) of scores (B, T, P) through the two kernels."""
+    """log Z (B,) of scores (B, T, P) through the two kernels, laid out
+    by ``plan`` (None: the wrapper's ``den_plan`` for this shape)."""
 
     @staticmethod
-    def forward(ctx, scores, mask, k, leak):
-        logz, saved = k._forward(scores, mask, leak)
-        ctx.k, ctx.leak = k, leak
+    def forward(ctx, scores, mask, k, leak, plan=None):
+        logz, saved = k._forward(scores, mask, leak, plan)
+        ctx.k, ctx.leak, ctx.plan = k, leak, plan
         ctx.save_for_backward(scores, mask, *saved)
         return logz
 
@@ -85,8 +167,8 @@ class ChainDenFn(torch.autograd.Function):
     def backward(ctx, gout):
         scores, mask, *saved = ctx.saved_tensors
         grad = ctx.k._backward(scores, mask, saved, gout.contiguous(),
-                               ctx.leak)
-        return grad, None, None, None
+                               ctx.leak, ctx.plan)
+        return grad, None, None, None, None
 
 
 class ChainDenPlainFn(torch.autograd.Function):
@@ -131,10 +213,13 @@ class CudaChainDen:
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        self.in_ptr, self.in_sp, self.in_w = map(
-            dev, pack_csr(dst, src, pdf, w, S))
-        self.out_ptr, self.out_dp, self.out_w = map(
-            dev, pack_csr(src, dst, pdf, w, S))
+        self.num_arcs = len(src)
+        # forward: keyed by destination, other = source; backward: the
+        # transpose
+        self.in_key, self.in_op, self.in_w = map(
+            dev, pack_arcs(dst, src, pdf, w))
+        self.out_key, self.out_op, self.out_w = map(
+            dev, pack_arcs(src, dst, pdf, w))
         self.init = dev(init.astype(np.float32))
         self.fin = dev(np.exp(np.asarray(final, np.float64))
                        .astype(np.float32))
@@ -143,15 +228,17 @@ class CudaChainDen:
         # "cuda" → "cuda:<current>", so that it compares equal to the
         # device of a tensor moved there
         self.device = self.init.device
-        self.smem_limit = None
+        self.smem_limit = self.n_sms = None
         if self.device.type == "cuda":
             self.smem_limit = _load().kt_chain_den_smem_limit(
                 self.device.index)
+            self.n_sms = torch.cuda.get_device_properties(
+                self.device).multi_processor_count
         self.launches = 0
 
-    def smem_bytes(self, P: int) -> int:
-        """Shared memory of the larger (backward) kernel's block."""
-        return 4 * (2 * self.num_states + 2 * P + _RED)
+    def plan(self, B: int, P: int) -> DenPlan:
+        """The kernels' layout for B sequences of P pdfs on this card."""
+        return den_plan(B, self.num_states, P, self.smem_limit, self.n_sms)
 
     def __call__(self, scores: torch.Tensor, mask: torch.Tensor = None,
                  leak: float = 0.0) -> torch.Tensor:
@@ -178,29 +265,26 @@ class CudaChainDen:
             return ChainDenPlainFn.apply(scores, mask, self, float(leak))
         if self.device.type != "cuda":
             raise ValueError(f"unsupported device {self.device}")
-        need = self.smem_bytes(P)
-        if need > self.smem_limit:
-            raise KaldiError(
-                f"chain den kernel: {self.num_states} states and {P} pdfs "
-                f"need {need} bytes of shared memory per block, above this "
-                f"card's limit of {self.smem_limit}")
+        self.plan(B, P)           # raises where the graph does not fit
         return ChainDenFn.apply(scores.contiguous(), mask, self, float(leak))
 
     # -- the kernels -------------------------------------------------------
-    def _forward(self, scores, mask, leak):
+    def _forward(self, scores, mask, leak, plan: DenPlan = None):
         B, T, P = scores.shape
         S = self.num_states
+        plan = plan or self.plan(B, P)
         f32 = dict(dtype=torch.float32, device=scores.device)
         alpha = torch.empty((B, T, S), **f32)
         zt, mt = torch.empty((B, T), **f32), torch.empty((B, T), **f32)
         fsum, logz = torch.empty(B, **f32), torch.empty(B, **f32)
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         rc = _load().kt_chain_den_forward(
-            scores.data_ptr(), mask.data_ptr(), self.in_ptr.data_ptr(),
-            self.in_sp.data_ptr(), self.in_w.data_ptr(),
+            scores.data_ptr(), mask.data_ptr(), self.in_key.data_ptr(),
+            self.in_op.data_ptr(), self.in_w.data_ptr(), self.in_w.numel(),
             self.init.data_ptr(), self.fin.data_ptr(),
-            self.self_pdf.data_ptr(), self.entry_pdf.data_ptr(), B, T, S, P,
-            leak, 1.0 + leak * self.init_sum, alpha.data_ptr(),
+            self.self_pdf.data_ptr(), self.entry_pdf.data_ptr(),
+            plan.fwd_groups, B, T, S, P, leak, 1.0 + leak * self.init_sum,
+            int(plan.fwd_pref), alpha.data_ptr(),
             zt.data_ptr(), mt.data_ptr(), fsum.data_ptr(), logz.data_ptr(),
             stream)
         if rc != 0:
@@ -208,17 +292,21 @@ class CudaChainDen:
         self.launches += 1
         return logz, (alpha, zt, mt, fsum)
 
-    def _backward(self, scores, mask, saved, gout, leak):
+    def _backward(self, scores, mask, saved, gout, leak,
+                  plan: DenPlan = None):
         alpha, zt, mt, fsum = saved
         B, T, P = scores.shape
+        plan = plan or self.plan(B, P)
         grad = torch.empty_like(scores)
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         rc = _load().kt_chain_den_backward(
-            scores.data_ptr(), mask.data_ptr(), self.out_ptr.data_ptr(),
-            self.out_dp.data_ptr(), self.out_w.data_ptr(),
-            self.init.data_ptr(), self.fin.data_ptr(),
-            self.self_pdf.data_ptr(), self.entry_pdf.data_ptr(), B, T,
-            self.num_states, P, leak, alpha.data_ptr(), zt.data_ptr(),
+            scores.data_ptr(), mask.data_ptr(), self.out_key.data_ptr(),
+            self.out_op.data_ptr(), self.out_w.data_ptr(),
+            self.out_w.numel(), self.init.data_ptr(), self.fin.data_ptr(),
+            self.self_pdf.data_ptr(), self.entry_pdf.data_ptr(),
+            plan.bwd_groups, B, T, self.num_states, P, leak,
+            int(plan.bwd_pref), alpha.data_ptr(),
+            zt.data_ptr(),
             mt.data_ptr(), fsum.data_ptr(), gout.data_ptr(),
             grad.data_ptr(), stream)
         if rc != 0:
@@ -229,7 +317,7 @@ class CudaChainDen:
     # -- the plain version: the same recursion on the packed arrays --------
     def _forward_plain(self, scores, mask, leak):
         B, T, P = scores.shape
-        dst, src, pdf = _unpack(self.in_ptr, self.in_sp)
+        dst, src, pdf = _unpack(self.in_key, self.in_op)
         init, S = self.init, self.num_states
         sp, ep = self.self_pdf.long(), self.entry_pdf.long()
         alpha = scores.new_empty((B, T, S))
@@ -261,7 +349,7 @@ class CudaChainDen:
     def _backward_plain(self, scores, mask, saved, gout, leak):
         alpha, zt, mt, fsum = saved
         B, T, P = scores.shape
-        src, dst, pdf = _unpack(self.out_ptr, self.out_dp)
+        src, dst, pdf = _unpack(self.out_key, self.out_op)
         init = self.init
         sp, ep = self.self_pdf.long(), self.entry_pdf.long()
         grad = scores.new_zeros((B, T, P))

@@ -49,15 +49,23 @@ def dft_matrices(n_fft: int, n_bins: int):
 
 def fbank_reference(frames: torch.Tensor, window: torch.Tensor,
                     cosm: torch.Tensor, sinm: torch.Tensor,
-                    mel: torch.Tensor, logfloor: float = _EPS
+                    mel: torch.Tensor, logfloor: float = _EPS,
+                    use_power: bool = True, use_log: bool = True
                     ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (``fbank_xla`` of the
-    original): log(max(((f·w)·C)² + ((f·w)·S)²) · Mel, floor))."""
+    original): log(max(((f·w)·C)² + ((f·w)·S)²) · Mel, floor)); with
+    ``use_power`` off the magnitude (the square root of the power) goes
+    into the mel product, and with ``use_log`` off the floored mel
+    energies come out without the log (the reference ``Fbank``'s
+    ``use_power`` and ``use_log_fbank``)."""
     fw = frames * window[None, :]
     re = fw @ cosm
     im = fw @ sinm
     power = re * re + im * im
-    return torch.log(torch.clamp_min(power @ mel, logfloor))
+    if not use_power:
+        power = torch.sqrt(power)
+    mel_e = torch.clamp_min(power @ mel, logfloor)
+    return torch.log(mel_e) if use_log else mel_e
 
 
 def filter_ranges(mel: np.ndarray) -> np.ndarray:
@@ -142,21 +150,25 @@ def _load():
         # pointers and the stream as c_void_p: undeclared, ctypes would
         # pass each Python int as a 32-bit int and cut the address
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
     return fn
 
 
 class CudaFbank:
     """Log-mel fbank of pre-processed frames (N, window_size) float32
-    → (N, num_bins).  ``launches`` counts kernel launches."""
+    → (N, num_bins): of the power spectrum, or of the magnitude with
+    ``use_power`` off; linear mel energies with ``use_log`` off.
+    ``launches`` counts kernel launches."""
 
     def __init__(self, frame_opts: FrameExtractionOptions = None,
                  mel_opts: MelBanksOptions = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 use_power: bool = True, use_log: bool = True):
         fo = frame_opts or FrameExtractionOptions()
         mo = mel_opts or MelBanksOptions()
         self.device = resolve_device(device)
+        self.use_power, self.use_log = bool(use_power), bool(use_log)
         self.win_size = fo.window_size
         self.kp = -(-self.win_size // 8) * 8
         n_fft = fo.padded_window_size
@@ -196,7 +208,8 @@ class CudaFbank:
     def reference(self, frames: torch.Tensor) -> torch.Tensor:
         """The plain version on this computer's tables."""
         return fbank_reference(frames, self.window, self.cos, self.sin,
-                               self.mel)
+                               self.mel, use_power=self.use_power,
+                               use_log=self.use_log)
 
     def __call__(self, frames: torch.Tensor) -> torch.Tensor:
         if frames.dim() != 2 or frames.shape[1] != self.win_size:
@@ -222,7 +235,8 @@ class CudaFbank:
                 self.tables.data_ptr(), self.groups_dev.data_ptr(),
                 self.franges_dev.data_ptr(), self.melw.data_ptr(),
                 out.data_ptr(), n, self.win_size, self.kp,
-                len(self.groups), self.n_mel, stream)
+                len(self.groups), self.n_mel, int(self.use_power),
+                int(self.use_log), stream)
         if rc != 0:
             raise RuntimeError(f"kt_fbank_logmel failed: cudaError {rc}")
         self.launches += 1

@@ -30,8 +30,12 @@ Every line ends with the card's name and power limit (nvidia-smi).
    numerator, denominator kernels, the whole loss, backward, optimizer)
    on a step that advances the NG-SGD estimates and on one that does
    not, then 4 steps under torch.profiler (kernels a step, busy share,
-   the den kernels' device time) and the den kernels alone at B = 32,
-   64 and 128.
+   the den kernels' device time) and the den kernels alone
+   (``den_kernels``): at B = 32, 64 and 128 with the layout the wrapper
+   picks (sequences a block G, the score prefetch), forward and
+   backward apart and together; then at B = 128, T = 50 every layout
+   that fits, each held against the plain version.  ``--den`` runs
+   only these den lines.
 """
 
 from __future__ import annotations
@@ -88,6 +92,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     tag = f"[{card_info()}]"
     print(f"card: {tag}")
+    if "--den" in sys.argv[1:]:
+        _, tree, den, _ = _bench_den()
+        den_kernels(dev, tag, den, tree.num_pdfs)
+        return 0
 
     fb = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=40)),
                device=dev)
@@ -218,20 +226,11 @@ def chain_training(dev, tag: str) -> None:
     """Section 5 (see the module's docstring)."""
     from kaldi_tpu_torch.am.chain import (ChainTrainingOptions, den_kernel,
                                           denominator_logprob,
-                                          make_denominator_graph,
                                           numerator_flexible_logprob)
     from kaldi_tpu_torch.am.tdnn import TdnnConfig
-    from kaldi_tpu_torch.am.topology import HmmTopology
-    from kaldi_tpu_torch.am.tree import MonophoneContextDependency
     from kaldi_tpu_torch.pipelines.chain import (ChainTrainConfig,
                                                  ChainTrainer, make_chain_egs)
-    from kaldi_tpu_torch.tools.timing import device_ms
-    phones = list(range(1, 42))
-    topo = HmmTopology.chain(phones)
-    tree = MonophoneContextDependency(phones, topo)
-    rng = np.random.default_rng(0)
-    seqs = [[int(p) for p in rng.integers(1, 42, 20)] for _ in range(200)]
-    den = make_denominator_graph(seqs, tree, topo, order=3)
+    topo, tree, den, rng = _bench_den()
     feats, runs = {}, {}
     for u in range(48):
         n = int(rng.integers(300, 600))
@@ -299,7 +298,8 @@ def chain_training(dev, tag: str) -> None:
         wall, n_k, busy, prof = _profiled(steps)
         den_dev = sum(e.device_time for e in prof.events()
                       if e.device_type.name == "CUDA"
-                      and e.name.startswith("den_")) / 1e3
+                      and ("den_forward" in e.name
+                           or "den_backward" in e.name)) / 1e3
         print(f"train B={B} {dtype}: 4 steps profiled: wall {wall:.1f} ms, "
               f"device kernel time {busy:.1f} ms ({100 * busy / wall:.1f}% "
               f"busy), {n_k} kernels = {n_k / 4:.0f} a step; den kernels "
@@ -309,16 +309,82 @@ def chain_training(dev, tag: str) -> None:
                                         row_limit=10,
                                         max_name_column_width=50))
         del tr
-    for B in (32, 64, 128):
-        s = torch.from_numpy(rng.standard_normal((B, 50, tree.num_pdfs))
+    den_kernels(dev, tag, den, tree.num_pdfs)
+
+
+def _bench_den():
+    """chip_smoke's den graph: 41 phones, monophone tree, trigram phone
+    LM from 200 seeded 20-phone sequences → (topo, tree, den, the
+    generator that drew them)."""
+    from kaldi_tpu_torch.am.chain import make_denominator_graph
+    from kaldi_tpu_torch.am.topology import HmmTopology
+    from kaldi_tpu_torch.am.tree import MonophoneContextDependency
+    phones = list(range(1, 42))
+    topo = HmmTopology.chain(phones)
+    tree = MonophoneContextDependency(phones, topo)
+    rng = np.random.default_rng(0)
+    seqs = [[int(p) for p in rng.integers(1, 42, 20)] for _ in range(200)]
+    return topo, tree, make_denominator_graph(seqs, tree, topo,
+                                              order=3), rng
+
+
+def den_kernels(dev, tag: str, den, P: int, T: int = 50) -> None:
+    """The den kernels alone (see the module's docstring)."""
+    from kaldi_tpu_torch.am.chain import den_kernel, denominator_reference
+    from kaldi_tpu_torch.ops.chain_den import (GROUPS, ChainDenFn, DenPlan,
+                                               smem_bytes)
+    from kaldi_tpu_torch.tools.timing import device_ms
+    k = den_kernel(den, dev)
+    S = k.num_states
+    rng = np.random.default_rng(2)
+    leak = 0.1
+
+    def inputs(B):
+        s = torch.from_numpy((2.0 * rng.standard_normal((B, T, P)))
                              .astype(np.float32)).to(dev)
+        m = torch.ones((B, T), dtype=torch.uint8, device=dev)
+        return s, m
 
-        def fb():
+    def times(s, m, plan):
+        logz, saved = k._forward(s, m, leak, plan)
+        gout = torch.ones_like(logz)
+        fwd = device_ms(lambda: k._forward(s, m, leak, plan), 10)
+        bwd = device_ms(lambda: k._backward(s, m, saved, gout, leak, plan),
+                        10)
+
+        def both():
             x = s.detach().requires_grad_(True)
-            denominator_logprob(den, x, None, 0.1).sum().backward()
+            ChainDenFn.apply(x, m, k, leak, plan).sum().backward()
+        return fwd, bwd, device_ms(both, 10)
 
-        print(f"den kernels, forward + backward at B={B}, T=50: "
-              f"{device_ms(fb, 10):.4f} ms on the card {tag}")
+    for B in (32, 64, 128):
+        s, m = inputs(B)
+        plan = k.plan(B, P)
+        fwd, bwd, both = times(s, m, plan)
+        print(f"den kernels at B={B}, T={T}: {plan}: forward {fwd:.4f} ms, "
+              f"backward {bwd:.4f} ms, forward + backward {both:.4f} ms on "
+              f"the card {tag}")
+    B = 128
+    s, m = inputs(B)
+    x = s.detach().requires_grad_(True)
+    zr = denominator_reference(den, x, m.bool(), leak)
+    zr.sum().backward()
+    gr = x.grad
+    for G in GROUPS:
+        for pref in (True, False):
+            plan = DenPlan(G, pref, G, pref)
+            if smem_bytes("backward", G, S, P, pref) > k.smem_limit:
+                continue
+            x = s.detach().requires_grad_(True)
+            z = ChainDenFn.apply(x, m, k, leak, plan)
+            z.sum().backward()
+            dz = float((z.detach() - zr.detach()).abs().max())
+            dg = float((x.grad - gr).abs().max())
+            fwd, bwd, both = times(s, m, plan)
+            print(f"den layout G={G} prefetch={pref} at B={B}, T={T}: "
+                  f"forward {fwd:.4f} ms, backward {bwd:.4f} ms, both "
+                  f"{both:.4f} ms; vs plain max |d log Z| {dz:.2e}, max "
+                  f"|d grad| {dg:.2e} {tag}")
 
 
 if __name__ == "__main__":

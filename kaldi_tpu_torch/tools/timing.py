@@ -103,7 +103,7 @@ def chain_den_bound(k, active_frames: int, B: int, T: int, P: int):
     the H100 SXM's).  Bytes: scores and mask read once, the gradient
     and log Z written once, the graph (per arc two states, a pdf and a
     weight; per state four values) read once."""
-    A = k.in_w.numel()
+    A = k.num_arcs
     S = k.num_states
     flop = active_frames * (8.0 * A + 8.0 * S + 2.0 * P)
     nbytes = 8.0 * B * T * P + B * T + 4.0 * B + 16.0 * (A + S)

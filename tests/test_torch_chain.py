@@ -132,7 +132,7 @@ def test_denominator_matches_jax(graph, leak, limit):
 def test_kernel_recursion_matches_jax(graph, leak):
     """The kernels' algorithm (scaled linear-space forward, β pass with
     the leak's transpose, frame 0 split between self and entry pdfs) on
-    the packed CSR arcs, as CudaChainDen runs it for a CPU tensor."""
+    the packed arc tables, as CudaChainDen runs it for a CPU tensor."""
     pair = {"tiny": tiny_pair, "trigram": lambda: den_pair("mono"),
             "biphone": lambda: den_pair("biphone", order=2)}[graph]
     jden, tden, P = pair()
@@ -294,21 +294,186 @@ def test_den_graph_files_cross(writer):
 
 
 def test_packed_csr_rows_hold_each_states_arcs():
-    """Arcs grouped by destination (forward) and by source (backward),
-    each (state | pdf << 16, exp(logw)), in the graph's own order."""
+    """Arcs sorted by destination (forward) and by source (backward),
+    each (key, other | pdf << 16, exp(logw)), every key's run in the
+    graph's own order, then zero-weight padding on the last key."""
     jden, tden, P = den_pair("mono")
     k = tc.den_kernel(tden, "cpu")
-    for ptr, packed, w, key, other in (
-            (k.in_ptr, k.in_sp, k.in_w, tden.dst, tden.src),
-            (k.out_ptr, k.out_dp, k.out_w, tden.src, tden.dst)):
-        rows, oth, pdf = chain_den._unpack(ptr, packed)
+    n = k.num_arcs
+    for keyt, packed, w, key, other in (
+            (k.in_key, k.in_op, k.in_w, tden.dst, tden.src),
+            (k.out_key, k.out_op, k.out_w, tden.src, tden.dst)):
+        rows, oth, pdf = chain_den._unpack(keyt, packed)
         order = np.argsort(key, kind="stable")
-        np.testing.assert_array_equal(rows.numpy(), key[order])
-        np.testing.assert_array_equal(oth.numpy(), other[order])
-        np.testing.assert_array_equal(pdf.numpy(), tden.pdf[order])
-        np.testing.assert_allclose(w.numpy(), np.exp(tden.logw[order]),
+        np.testing.assert_array_equal(rows[:n].numpy(), key[order])
+        np.testing.assert_array_equal(oth[:n].numpy(), other[order])
+        np.testing.assert_array_equal(pdf[:n].numpy(), tden.pdf[order])
+        np.testing.assert_allclose(w[:n].numpy(), np.exp(tden.logw[order]),
                                    rtol=1e-6)
+        assert (rows[n:] == int(key[order][-1])).all()
+        assert (w[n:] == 0).all()
     assert k.max_pdf == P - 1 and k.launches == 0
+
+
+@pytest.mark.parametrize("graph", ["tiny", "trigram", "biphone"])
+def test_packed_arcs_hold_each_arc_once(graph):
+    """Each table holds every arc of the graph exactly once, with its
+    (src, dst, pdf, w); its keys never decrease (the kernels' segments);
+    its length is a multiple of the kernels' stride and the padding
+    carries weight 0."""
+    pair = {"tiny": tiny_pair, "trigram": lambda: den_pair("mono"),
+            "biphone": lambda: den_pair("biphone", order=2)}[graph]
+    _, tden, _ = pair()
+    k = tc.den_kernel(tden, "cpu")
+    n = k.num_arcs
+    want = sorted(zip(tden.src.tolist(), tden.dst.tolist(),
+                      tden.pdf.tolist(),
+                      np.exp(tden.logw.astype(np.float64))
+                      .astype(np.float32).tolist()))
+    for keyt, packed, w, forward in ((k.in_key, k.in_op, k.in_w, True),
+                                     (k.out_key, k.out_op, k.out_w, False)):
+        assert keyt.numel() == packed.numel() == w.numel()
+        assert w.numel() % chain_den.ARC_STRIDE == 0
+        assert w.numel() - n < chain_den.ARC_STRIDE
+        key, oth, pdf = (x.numpy() for x in chain_den._unpack(keyt, packed))
+        assert (np.diff(key) >= 0).all()
+        src, dst = (oth, key) if forward else (key, oth)
+        got = sorted(zip(src[:n].tolist(), dst[:n].tolist(),
+                         pdf[:n].tolist(), w[:n].tolist()))
+        assert got == want
+        assert (w[n:].numpy() == 0).all()
+
+
+def key_sums(words: np.ndarray, v: np.ndarray, num_keys: int):
+    """The kernels' sums by key (csrc/chain_den.cu ``sum_by_key``) in
+    numpy over per-arc values v: 4 arcs a thread summed serially, each
+    thread's last run carried across the warp by the Hillis-Steele steps
+    in the key words' bits, and every flushed piece added up by key."""
+    w = words.view(np.uint32)
+    k = (w & 0xFFFF).reshape(-1, 4)
+    bits = w[0::4]
+    vv = v.astype(np.float64).reshape(-1, 4)
+    out = np.zeros(num_keys)
+    x, first = vv[:, 0].copy(), np.zeros(len(k))
+    split = np.zeros(len(k), bool)
+    for i in range(1, 4):
+        brk = k[:, i] != k[:, i - 1]
+        np.add.at(out, k[brk & split, i - 1], x[brk & split])
+        first = np.where(brk & ~split, x, first)
+        x = np.where(brk, vv[:, i], x + vv[:, i])
+        split |= brk
+    x = x.reshape(-1, 32)
+    b = bits.reshape(-1, 32)
+    for i in range(5):
+        o = 1 << i
+        up = np.concatenate([x[:, :o], x[:, :-o]], axis=1)
+        x = np.where((b >> np.uint32(16 + i)) & 1, x + up, x)
+    below = np.concatenate([x[:, :1], x[:, :-1]], axis=1).reshape(-1)
+    x = x.reshape(-1)
+    carry = ((bits >> 21) & 1).astype(bool)
+    np.add.at(out, k[split, 0], first[split] + np.where(carry, below,
+                                                        0.0)[split])
+    tail = ((bits >> 22) & 1).astype(bool)
+    np.add.at(out, k[tail, 3], x[tail])
+    return out
+
+
+@pytest.mark.parametrize("graph", ["tiny", "trigram", "biphone"])
+@pytest.mark.parametrize("table", ["in", "out"])
+def test_scan_bits_sum_each_key_once(graph, table):
+    """The kernels' sums by key, run from the packed key words, equal
+    the direct sums of each key's arcs."""
+    pair = {"tiny": tiny_pair, "trigram": lambda: den_pair("mono"),
+            "biphone": lambda: den_pair("biphone", order=2)}[graph]
+    _, tden, _ = pair()
+    k = tc.den_kernel(tden, "cpu")
+    words = getattr(k, f"{table}_key").numpy()
+    key = words.view(np.uint32) & 0xFFFF
+    v = np.random.default_rng(3).random(len(words))
+    np.testing.assert_allclose(key_sums(words, v, k.num_states),
+                               np.bincount(key, v, minlength=k.num_states),
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("max_run", [3, 40, 300])
+def test_scan_bits_on_short_and_long_runs(max_run):
+    """Keys in runs of 1 to max_run arcs (several keys in one thread,
+    runs across threads and across warps): the sums by key still hold."""
+    rng = np.random.default_rng(max_run)
+    runs = rng.integers(1, max_run + 1, 400)
+    key = np.repeat(np.arange(len(runs)), runs)
+    other = rng.integers(0, len(runs), len(key))
+    words, _, w = chain_den.pack_arcs(key, other, other % 7,
+                                      rng.random(len(key)))
+    v = rng.random(len(words))
+    k16 = words.view(np.uint32) & 0xFFFF
+    np.testing.assert_allclose(key_sums(words, v, len(runs)),
+                               np.bincount(k16, v, minlength=len(runs)),
+                               rtol=1e-12)
+    assert (w[len(key):] == 0).all() and len(words) % 2048 == 0
+
+
+@pytest.mark.parametrize("graph", ["trigram", "biphone"])
+@pytest.mark.parametrize("leak", [0.1, 1e-3, 0.0])
+def test_kernel_recursion_ragged_batch_matches_jax(graph, leak):
+    """The kernels' recursion on the packed arcs at a batch the kernels
+    would split unevenly into blocks (B = 5), with ragged lengths and
+    holes, against the JAX package."""
+    pair = {"trigram": lambda: den_pair("mono"),
+            "biphone": lambda: den_pair("biphone", order=2)}[graph]
+    jden, tden, P = pair()
+    rng = np.random.default_rng(11)
+    B, T = 5, 12
+    scores = (2.0 * rng.standard_normal((B, T, P))).astype(np.float32)
+    mask = np.arange(T)[None, :] < rng.integers(T // 2, T + 1, B)[:, None]
+    mask[3, 4] = False
+    want, gwant = _jax_den(jden, scores, mask, leak, 4096)
+    k = tc.den_kernel(tden, "cpu")
+    got, g = _port_den(lambda s, m: k(s, m, leak), scores, mask)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)
+
+
+H100_SMEM, H100_SMS = 232448, 132
+BENCH_S, BENCH_P = 1553, 82          # chip_smoke's den graph
+BIPHONE_S, BIPHONE_P = 1681, 3444    # its left-biphone den graph
+
+
+@pytest.mark.parametrize("B,S,P,plan", [
+    # one block an SM: one sequence a block up to 132
+    (32, BENCH_S, BENCH_P, (1, True, 1, True)),
+    (128, BENCH_S, BENCH_P, (1, True, 1, True)),
+    (256, BENCH_S, BENCH_P, (2, True, 2, True)),
+    (1024, BENCH_S, BENCH_P, (8, True, 8, True)),
+    (5000, BENCH_S, BENCH_P, (8, True, 8, True)),
+    # 3444 pdfs: the forward fits G = 8 only without the prefetch, the
+    # backward G = 4 with it
+    (128, BIPHONE_S, BIPHONE_P, (1, True, 1, True)),
+    (1024, BIPHONE_S, BIPHONE_P, (8, False, 4, True)),
+    # a graph near the limit drops the backward's prefetch first
+    (128, 28500, BENCH_P, (1, True, 1, True)),
+    (128, 28940, BENCH_P, (1, True, 1, False)),
+])
+def test_den_plan_by_shape(B, S, P, plan):
+    got = chain_den.den_plan(B, S, P, H100_SMEM, H100_SMS)
+    assert got == chain_den.DenPlan(*plan)
+    assert chain_den.smem_bytes("forward", got.fwd_groups, S, P,
+                                got.fwd_pref) <= H100_SMEM
+    assert chain_den.smem_bytes("backward", got.bwd_groups, S, P,
+                                got.bwd_pref) <= H100_SMEM
+
+
+def test_den_plan_takes_every_graph_the_first_kernels_took():
+    """Every (S, P) whose shared memory fitted the row-per-warp kernels
+    (4 (2 S + 2 P + 17) bytes) gets a plan; past the limit at G = 1 the
+    plan raises."""
+    rng = np.random.default_rng(0)
+    for S, P in zip(rng.integers(1, 30000, 400), rng.integers(1, 8000, 400)):
+        S, P = int(S), int(P)
+        if 4 * (2 * S + 2 * P + 17) <= H100_SMEM:
+            chain_den.den_plan(128, S, P, H100_SMEM, H100_SMS)
+    with pytest.raises(KaldiError, match="shared memory"):
+        chain_den.den_plan(128, 29100, 82, H100_SMEM, H100_SMS)
 
 
 def test_kernel_wrapper_limits():
@@ -348,5 +513,30 @@ def test_kernel_matches_plain_on_the_card():
         got, g = _port_den(
             lambda s, m: tc.denominator_logprob(tden, s.to(dev), m.to(dev),
                                                 leak).cpu(), scores, mask)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", chain_den.GROUPS)
+def test_kernel_matches_plain_at_each_group(G):
+    """The kernels at each G (with and without the score prefetch)
+    against the plain version, at a batch that leaves the last block
+    part empty."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, tden, P = den_pair("mono")
+    scores, mask = _inputs(P, B=2 * G + 1, T=20, seed=8)
+    dev = torch.device("cuda")
+    k = tc.den_kernel(tden, dev)
+    want, gwant = _port_den(
+        lambda s, m: tc.denominator_reference(tden, s.to(dev), m.to(dev),
+                                              0.1).cpu(), scores, mask)
+    for pref in (True, False):
+        plan = chain_den.DenPlan(G, pref, G, pref)
+        got, g = _port_den(
+            lambda s, m: chain_den.ChainDenFn.apply(
+                s.to(dev).contiguous(), m.to(dev).to(torch.uint8), k, 0.1,
+                plan).cpu(), scores, mask)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)

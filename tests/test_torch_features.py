@@ -170,6 +170,101 @@ def test_fbank_compute_matches_jax(use_energy):
     np.testing.assert_allclose(got[loud], want[loud], atol=2e-3, rtol=0)
 
 
+SPECTRA = [(True, True), (True, False), (False, True), (False, False)]
+
+
+@pytest.mark.parametrize("use_power,use_log", SPECTRA)
+def test_fbank_reference_flags_match_xla_arithmetic(use_power, use_log):
+    """fbank_reference's two flags against the reference Fbank's own XLA
+    arithmetic (kaldi_tpu/features/compute.py: sqrt of the power, the
+    floor, the log), on the same products as ``fbank_xla``.  Log domain
+    atol 1e-4 as above; linear domain rtol 1e-4 on the floored energies
+    (float32 summation order)."""
+    fo = jwindow.FrameExtractionOptions(dither=0.0)
+    mo = jmel.MelBanksOptions(num_bins=40)
+    frames = (np.random.default_rng(99).standard_normal(
+        (50, fo.window_size)) * 10).astype(np.float32)
+    window = jwindow.feature_window_function(fo)
+    cosm, sinm = _dft_matrices(fo.padded_window_size,
+                               fo.padded_window_size // 2 + 1)
+    cosm, sinm = cosm[:fo.window_size], sinm[:fo.window_size]
+    melm = jmel.MelBanks(mo, fo).matrix.T
+    fw = jnp.asarray(frames) * jnp.asarray(window)[None, :]
+    re, im = fw @ jnp.asarray(cosm), fw @ jnp.asarray(sinm)
+    power = re * re + im * im
+    if not use_power:
+        power = jnp.sqrt(power)
+    mel_e = jnp.maximum(power @ jnp.asarray(melm), tfbank._EPS)
+    want = np.asarray(jnp.log(mel_e) if use_log else mel_e)
+    got = fbank_reference(*(torch.from_numpy(np.ascontiguousarray(a))
+                            for a in (frames, window, cosm, sinm, melm)),
+                          use_power=use_power, use_log=use_log).numpy()
+    if use_log:
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    else:
+        assert (got >= tfbank._EPS).all()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+    # the wrapper on a CPU tensor is the plain version with its flags
+    k = CudaFbank(twindow.FrameExtractionOptions(dither=0.0),
+                  tmel.MelBanksOptions(num_bins=40), device="cpu",
+                  use_power=use_power, use_log=use_log)
+    np.testing.assert_array_equal(k(torch.from_numpy(frames)).numpy(), got)
+    assert k.launches == 0
+
+
+@pytest.mark.parametrize("use_energy", [False, True])
+@pytest.mark.parametrize("use_power,use_log", SPECTRA)
+def test_fbank_spectrum_options_match_jax(use_power, use_log, use_energy):
+    """The port's Fbank at each use_power x use_log_fbank setting equals
+    the JAX Fbank on loud frames: atol 2e-3 in the log domain (DFT by
+    products vs an FFT, as above), rtol 1e-4 in the linear domain; the
+    energy column is the raw log-energy on both sides (1e-4)."""
+    wave = _speechlike(np.random.default_rng(13), 1.3)
+    kw = dict(use_energy=use_energy, use_power=use_power,
+              use_log_fbank=use_log)
+    jf = jcompute.Fbank(jcompute.FbankOptions(
+        mel_opts=jmel.MelBanksOptions(num_bins=40), **kw))
+    tf = tcompute.Fbank(tcompute.FbankOptions(
+        mel_opts=tmel.MelBanksOptions(num_bins=40), **kw), device="cpu")
+    want = jf.compute(wave, np.random.default_rng(2))
+    got = tf.compute(wave, np.random.default_rng(2)).numpy()
+    assert got.shape == want.shape == (128, 40 + use_energy) == (128, tf.dim)
+    mel_w = want[:, -40:] if use_log else np.log(want[:, -40:])
+    loud = mel_w.min(axis=1) > 1.0
+    assert loud.sum() > 100
+    if use_log:
+        np.testing.assert_allclose(got[loud], want[loud], atol=2e-3, rtol=0)
+    else:
+        np.testing.assert_allclose(got[loud, -40:], want[loud, -40:],
+                                   rtol=1e-4, atol=0)
+    if use_energy:
+        np.testing.assert_allclose(got[:, 0], want[:, 0], atol=1e-4, rtol=0)
+    assert tf.kernel.launches == 0
+
+
+@pytest.mark.parametrize("chunk", [160, 1000])
+def test_streamed_linear_fbank_equals_offline(chunk):
+    """Fbank(use_log_fbank=False) streamed through OnlineFeaturePipeline
+    in chunks equals the offline computer on the whole waveform: the
+    same arithmetic on fewer frames a call, whose products block the
+    sums another way (rtol 1e-4, as the linear-domain bar above)."""
+    from kaldi_tpu_torch.features import online as tonline
+    wave = _speechlike(np.random.default_rng(14), 0.6)
+    fb = tcompute.Fbank(tcompute.FbankOptions(
+        frame_opts=twindow.FrameExtractionOptions(dither=0.0),
+        mel_opts=tmel.MelBanksOptions(num_bins=40), use_log_fbank=False),
+        device="cpu")
+    pipe = tonline.OnlineFeaturePipeline(fb)
+    for i in range(0, len(wave), chunk):
+        pipe.accept_waveform(wave[i:i + chunk])
+    pipe.input_finished()
+    got = pipe.get_frames(0, pipe.num_frames_ready()).numpy()
+    want = fb.compute(wave).numpy()
+    assert got.shape == want.shape == (58, 40)
+    assert (want > 1.0).mean() > 0.9
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+
+
 def test_fbank_energy_floor_matches_jax():
     rng = np.random.default_rng(12)
     wave = _speechlike(rng, 1.3)

@@ -222,3 +222,22 @@ def test_native_builds_under_a_per_process_name(tmp_path, monkeypatch):
     assert native._build_and_load() is None      # the numpy fallback
     assert seen == [os.path.join(str(tmp_path),
                                  f"libkt_native.so.{os.getpid()}.tmp")]
+
+
+@pytest.mark.parametrize("argv", [
+    ["chip_smoke.py"],
+    ["-m", "kaldi_tpu_torch.tools.profile_slice"],
+    ["-m", "kaldi_tpu_torch.tools.profile_slice", "--den"]],
+    ids=["chip_smoke", "profile_slice", "profile_slice-den"])
+def test_card_scripts_refuse_without_a_card(argv):
+    """The scripts that measure on the card run their main, and without
+    a card exit non-zero before printing any result."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, *argv], cwd=root,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert res.stdout == ""
+    assert "no CUDA device" in res.stderr
