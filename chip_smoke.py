@@ -827,12 +827,13 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
     """8a: the den forward-backward kernels against the plain version on
     the card, at B sequences of T output frames (the bench's B = 128
     chunks of 150 frames, ×3 subsampled), leak 0.1, a ragged mask.  The
-    kernels' launches run under sync debug mode "error".  → (max |diff|
-    of the gradient, kernel ms, plain ms, (bound ms, bound by))."""
+    kernels' launches run under sync debug mode "error".  Then the
+    kernels without the score prefetch, and the kernels on 4 sequences
+    with one NaN score against their plain twin on the CPU.  → (max
+    |diff| of the gradient, kernel ms, plain ms, (bound ms, bound by))."""
     from kaldi_tpu_torch.am.chain import (den_kernel, denominator_logprob,
                                           denominator_reference)
-    from kaldi_tpu_torch.ops.chain_den import (GROUPS, ChainDenFn, DenPlan,
-                                               smem_bytes)
+    from kaldi_tpu_torch.ops.chain_den import ChainDenFn, DenPlan
     from kaldi_tpu_torch.tools.timing import chain_den_bound, device_ms
     rng = np.random.default_rng(SEED + 10)
     lens = rng.integers(T // 2, T + 1, B)
@@ -846,6 +847,12 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
     def run(fn):
         s = scores.detach().clone().requires_grad_(True)
         z = fn(den, s, mask, CHAIN_LEAK)
+        z.sum().backward()
+        return z.detach(), s.grad
+
+    def run_on(kern, x, m):
+        s = x.clone().requires_grad_(True)
+        z = kern(s, m, CHAIN_LEAK)
         z.sum().backward()
         return z.detach(), s.grad
 
@@ -866,7 +873,7 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
     want = torch.from_numpy(mask_np | (np.arange(T) == 0)[None, :]).to(dev)
     dsum = float((g.sum(dim=2) - want.float()).abs().max())
     print(f"den: kernels vs plain at B={B}, T={T}, S={den.num_states}, "
-          f"A={len(den.src)}, P={P}, layout {k.plan(B, P)}, leak "
+          f"A={len(den.src)}, P={P}, {k.plan(P)}, leak "
           f"{CHAIN_LEAK}, frames per sequence "
           f"{int(lens.min())}-{T}: log Z (range [{float(zr.min()):.1f}, "
           f"{float(zr.max()):.1f}]) at most {dz:.3f} of the limit "
@@ -876,30 +883,37 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
           f"under sync debug mode 'error'")
     if not (dz <= 1.0 and dg <= DEN_GRAD_TOL and dsum <= 1e-4):
         raise AssertionError("den kernels disagree with the plain version")
-    # every other layout that fits this graph: G sequences a block, with
-    # and without the score prefetch
-    layouts = []
-    for G in GROUPS:
-        for pref in (True, False):
-            plan = DenPlan(G, pref, G, pref)
-            if plan == k.plan(B, P) or smem_bytes(
-                    "backward", G, k.num_states, P, pref) > k.smem_limit:
-                continue
-            s = scores.detach().clone().requires_grad_(True)
-            zl = ChainDenFn.apply(s, mask.to(torch.uint8), k, CHAIN_LEAK,
-                                  plan)
-            zl.sum().backward()
-            dzl = float(((zl.detach() - zr).abs()
-                         / (DEN_LOGZ_ABS + DEN_LOGZ_REL * zr.abs())).max())
-            dgl = float((s.grad - gr).abs().max())
-            layouts.append(f"G={G}{' pref' if pref else ''}: {dzl:.3f}, "
-                           f"{dgl:.1e}")
-            if not (dzl <= 1.0 and dgl <= DEN_GRAD_TOL):
-                raise AssertionError(f"den kernels disagree at {plan}: "
-                                     f"{dzl}, {dgl}")
-            dg = max(dg, dgl)
-    print(f"den: the other layouts vs plain (log Z share of its limit, "
-          f"gradient max |diff|): {'; '.join(layouts)}")
+    # the kernels without the score prefetch (a graph too large for it)
+    s = scores.detach().clone().requires_grad_(True)
+    zl = ChainDenFn.apply(s, mask.to(torch.uint8), k, CHAIN_LEAK,
+                          DenPlan(False, False))
+    zl.sum().backward()
+    dzl = float(((zl.detach() - zr).abs()
+                 / (DEN_LOGZ_ABS + DEN_LOGZ_REL * zr.abs())).max())
+    dgl = float((s.grad - gr).abs().max())
+    if not (dzl <= 1.0 and dgl <= DEN_GRAD_TOL):
+        raise AssertionError(f"den kernels without the prefetch disagree: "
+                             f"{dzl}, {dgl}")
+    dg = max(dg, dgl)
+    # a NaN score in sequence 1: its log Z and the gradient rows of its
+    # active frames are NaN, as in the plain twin; the others agree
+    sn = scores[:4].detach().clone()
+    sn[1, T // 3, 0] = float("nan")
+    zk, gk = run_on(k, sn, mask[:4])
+    zc, gc = run_on(den_kernel(den, "cpu"), sn.cpu(), mask[:4].cpu())
+    rows_k, rows_c = gk.isnan().any(dim=2).cpu(), gc.isnan().any(dim=2)
+    ok = (torch.equal(zk.isnan().cpu(), zc.isnan())
+          and torch.equal(rows_k, rows_c)
+          and int(rows_c[1, 1:].sum()) == int(mask_np[1, 1:].sum())
+          and not bool(rows_c[[0, 2, 3]].any()))
+    dgn = float((gk[[0, 2, 3]].cpu() - gc[[0, 2, 3]]).abs().max())
+    print(f"den: without the score prefetch: log Z at most {dzl:.3f} of its "
+          f"limit, gradient max |diff| {dgl:.3e}; a NaN score: NaN log Z "
+          f"and gradient rows as the plain twin's ({int(rows_k.sum())} "
+          f"rows), the other sequences' gradient max |diff| {dgn:.3e}")
+    if not (ok and dgn <= DEN_GRAD_TOL):
+        raise AssertionError("den kernels do not carry a NaN score as the "
+                             "plain version does")
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         fn = (denominator_reference if which == "plain"

@@ -32,32 +32,36 @@
 // a chain of dependent L2 loads per row) at 0.5% of that bound was
 // latency: about one L2 load in flight per warp.
 //
-// Design.  A block of 512 threads runs G sequences (G = 1, 2, 4 or 8, a
-// template constant; ops/chain_den.py picks it from B and the shared
-// memory of G sequences) over all T frames; each sequence's alpha (or
-// beta and gamma) sits in shared memory.  Each frame the block streams
-// the whole arc table once, coalesced: arcs are sorted by their key
-// (destination forward, source backward) and padded to a multiple of the
-// block's 2048-arc step; an arc is 12 bytes (a key word: the key in 16
-// bits, scan bits above it; other state | pdf << 16; exp(logw)), so S
-// and P are below 65536.  A thread takes 4 consecutive arcs a step as
-// three 16-byte loads, issued a step ahead, computes each arc's term for
-// all G sequences, and sums them by key: runs inside the thread in
-// registers, runs across the warp's 128 arcs (one to four keys, ~42 arcs
-// a key on the bench graph) by a segmented warp scan whose steps come
-// with the arcs (sum_by_key); each piece of a run is added into shared
-// memory (a_next[dst] forward, beta[src] backward) with one shared
-// atomic, and into the frame's running sums.  So one arc load serves G
-// sequences, and a warp shuffles 6 times per 4 arcs and sequence.  The
-// backward adds each arc's occupancy into its sequence's (P,) row with
-// an integer shared atomic, in fixed point (OCC_ONE).  The next frame's scores come in with cp.async (one warp per
-// sequence) while the current frame's arcs run, when G more rows of P
-// floats fit.  A frame costs two barriers: one after the arc stream, one
-// after the normalization.  The normalized alpha of every frame goes to
-// global memory for the backward (B T S floats, 40 MB at B = 128, T =
-// 50, S = 1553), with each frame's max score and Z_t; the backward reads
+// Design.  A block of 512 threads runs one sequence over all T frames;
+// its alpha (or beta and gamma) sits in shared memory.  Each frame the
+// block streams the whole arc table once, coalesced: arcs are sorted by
+// their key (destination forward, source backward) and padded to a
+// multiple of the block's 2048-arc step; an arc is 12 bytes (a key word:
+// the key in 16 bits, scan bits above it; other state | pdf << 16;
+// exp(logw)), so S and P are below 65536.  A thread takes 4 consecutive
+// arcs a step as three 16-byte loads, issued a step ahead, computes each
+// arc's term, and sums them by key: runs inside the thread in registers,
+// runs across the warp's 128 arcs (one to four keys, ~42 arcs a key on
+// the bench graph) by a segmented warp scan whose steps come with the
+// arcs (sum_by_key); each piece of a run is added into shared memory
+// (a_next[dst] forward, beta[src] backward) with one shared atomic, and
+// into the frame's running sum.  A warp shuffles 6 times per 4 arcs.
+// The backward adds each arc's occupancy into the sequence's (P,) row
+// with an integer shared atomic, in fixed point (OCC_ONE); an occupancy
+// that is not a number below OCC_LIMIT marks its frame, whose gradient
+// row is then NaN.  The next frame's scores come in with cp.async (warp
+// 0) while the current frame's arcs run, when P more floats fit.  A
+// frame costs two barriers: one after the arc stream, one after the
+// normalization.  The normalized alpha of every frame goes to global
+// memory for the backward (B T S floats, 40 MB at B = 128, T = 50, S =
+// 1553), with each frame's max score and Z_t; the backward reads
 // alpha_{t-1}[src] per arc through L1 (a thread's arcs share one or two
 // sources).  Float sums are taken in the order the atomics land.
+//
+// One sequence a block: blocks that ran 2, 4 or 8 sequences, each arc
+// load serving all of them, took 1.6, 2.9 and 5.4 times as long at B =
+// 128, T = 50 on the bench graph (PERF.md): the work per sequence, not
+// the arc loads, sets a block's time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,6 +94,7 @@ __device__ __forceinline__ float warp_max(float v) {
 // ends in the warp there (KEY_TAIL).  The runs are the graph's, so
 // ops/chain_den.py pack_arcs sets the bits once.
 #define KEY_MASK 0xffffu
+#define KEY_SCAN 16
 #define KEY_CARRY (1u << 21)
 #define KEY_TAIL (1u << 22)
 
@@ -97,84 +102,63 @@ __device__ __forceinline__ float warp_max(float v) {
 // float atomic is a compare-and-swap loop, an integer one a single
 // instruction.  A pdf's occupancy in a frame is at most 1 (they sum to
 // 1), so a row never passes 2^30 of the 2^32 an unsigned holds; each add
-// rounds by at most 2^-31, 65,536 of them by 3e-5 at worst.
+// rounds by at most 2^-31, 65,536 of them by 3e-5 at worst.  An
+// occupancy that is not below OCC_LIMIT (NaN or inf from the scores, or
+// out of range) marks its frame through the barrier that ends the arc
+// stream (__syncthreads_or), and the frame's gradient row is written
+// NaN, as float sums would carry it.
 #define OCC_ONE 1073741824.f
+#define OCC_LIMIT 2.f
 
-// The sums of a warp step's arcs by key, for G sequences: runs inside a
-// thread summed in registers, runs across threads by a segmented warp
-// scan (Hillis-Steele, steps from `bits`).  flush(key, g, sum) is called
-// for each piece of a run; the pieces of a run add up to its sum.  Every
-// lane takes part in every shuffle.
-template <int G, typename Flush>
+// The sums of a warp step's arcs by key: runs inside a thread summed in
+// registers, runs across threads by a segmented warp scan (Hillis-Steele,
+// steps from `bits`).  flush(key, sum) is called for each piece of a
+// run; the pieces of a run add up to its sum.  Every lane takes part in
+// every shuffle.
+template <typename Flush>
 __device__ __forceinline__ void sum_by_key(const unsigned (&k)[4],
-                                           unsigned bits, float (&v)[4][G],
+                                           unsigned bits, const float (&v)[4],
                                            Flush&& flush) {
-  float x[G], first[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    x[g] = v[0][g];
-    first[g] = 0.f;
-  }
+  float x = v[0], first = 0.f;
   bool split = false;   // the thread holds more than one key
 #pragma unroll
   for (int i = 1; i < 4; ++i) {
     if (k[i] != k[i - 1]) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (split)
-          flush(k[i - 1], g, x[g]);
-        else
-          first[g] = x[g];
-        x[g] = v[i][g];
-      }
+      if (split)
+        flush(k[i - 1], x);
+      else
+        first = x;
+      x = v[i];
       split = true;
     } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) x[g] += v[i][g];
+      x += v[i];
     }
   }
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
-    const bool take = (bits >> (16 + i)) & 1u;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float y = __shfl_up_sync(FULL, x[g], 1 << i);
-      if (take) x[g] += y;
-    }
+    const float y = __shfl_up_sync(FULL, x, 1 << i);
+    if ((bits >> (KEY_SCAN + i)) & 1u) x += y;
   }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float below = __shfl_up_sync(FULL, x[g], 1);
-    if (split) flush(k[0], g, first[g] + ((bits & KEY_CARRY) ? below : 0.f));
-    if (bits & KEY_TAIL) flush(k[3], g, x[g]);
-  }
+  const float below = __shfl_up_sync(FULL, x, 1);
+  if (split) flush(k[0], first + ((bits & KEY_CARRY) ? below : 0.f));
+  if (bits & KEY_TAIL) flush(k[3], x);
 }
 
-// Each warp's sums of part[g] into red[warp * G + g].
-template <int G>
-__device__ __forceinline__ void warp_partials(float (&part)[G], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float s = warp_sum(part[g]);
-    if (lane == 0) red[warp * G + g] = s;
-  }
+// Each warp's sum of part into red[warp].
+__device__ __forceinline__ void warp_partial(float part, float* red) {
+  const float s = warp_sum(part);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
 }
 
-// The block's sums from red (after a barrier), in a fixed order.
-template <int G>
-__device__ __forceinline__ void block_totals(const float* red,
-                                             float (&tot)[G]) {
+// The block's sum from red (after a barrier), in a fixed order.
+__device__ __forceinline__ float block_total(const float* red) {
+  float s = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEN_WARPS; ++w) s += red[w * G + g];
-    tot[g] = s;
-  }
+  for (int w = 0; w < DEN_WARPS; ++w) s += red[w];
+  return s;
 }
 
-// Warp g of the block: e[p] = exp(score[p] - m) for one frame's row, from
+// Warp 0 of the block: e[p] = exp(score[p] - m) for one frame's row, from
 // the row in global memory or, with `pref`, from its copy in `raw` that
 // this warp's lanes started with cp.async.  m is the row's max (found
 // here and returned) when `find_max`, else `m_in`; `on` false gives e =
@@ -204,7 +188,14 @@ __device__ __forceinline__ float exp_row(const float* __restrict__ row,
   return m;
 }
 
-template <int G>
+// Warp 0: starts the copy of `row` into `raw`.
+__device__ __forceinline__ void fetch_row(const float* __restrict__ row,
+                                          float* raw, int P) {
+  for (int p = threadIdx.x & 31; p < P; p += 32)
+    kt::cp_async4(raw + p, row + p);
+  kt::cp_async_commit();
+}
+
 __global__ void __launch_bounds__(DEN_THREADS)
 den_forward(const float* __restrict__ scores,           // (B, T, P)
             const unsigned char* __restrict__ mask,     // (B, T)
@@ -216,106 +207,76 @@ den_forward(const float* __restrict__ scores,           // (B, T, P)
             const float* __restrict__ fin,              // (S) exp(final)
             const int* __restrict__ self_pdf,           // (S)
             const int* __restrict__ entry_pdf,          // (S)
-            int B, int T, int S, int P, float leak, float leak_norm,
-            int pref,
+            int T, int S, int P, float leak, float leak_norm, int pref,
             float* __restrict__ alpha,                  // (B, T, S)
             float* __restrict__ zt,                     // (B, T)
             float* __restrict__ mt,                     // (B, T)
             float* __restrict__ fsum,                   // (B)
             float* __restrict__ logz) {                 // (B)
   extern __shared__ float sh[];
-  float* a_prev = sh;                  // [G][S]
-  float* a_next = a_prev + G * S;      // [G][S], zero between frames
-  float* e = a_next + G * S;           // [G][P]
-  float* red = e + G * P;              // [DEN_WARPS][G]
-  float* mxs = red + DEN_WARPS * G;    // [2][G], by frame parity
-  float* raw = mxs + 2 * G;            // [G][P] with pref
+  float* a_prev = sh;                  // [S]
+  float* a_next = a_prev + S;          // [S], zero between frames
+  float* e = a_next + S;               // [P]
+  float* red = e + P;                  // [DEN_WARPS]
+  float* mxs = red + DEN_WARPS;        // [2], by frame parity
+  float* raw = mxs + 2;                // [P] with pref
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b0 = blockIdx.x * G, ng = min(G, B - b0);
+  const int b = blockIdx.x;
   const int n_steps = A / DEN_STRIDE;
-  // slots past the batch's end rerun its last sequence and write nothing
-  auto seq = [&](int g) { return b0 + min(g, ng - 1); };
-  auto row = [&](int g, int t) {
-    return scores + ((size_t)seq(g) * T + t) * P;
-  };
-  double logc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) logc[g] = 0.0;
+  const float* sc = scores + (size_t)b * T * P;   // frame t's row: sc + t P
+  float* al = alpha + (size_t)b * T * S;
+  double logc = 0.0;
 
   // frame 0
-  for (int i = tid; i < G * S; i += DEN_THREADS) a_next[i] = 0.f;
-  if (warp < G) {
-    const float m = exp_row(row(warp, 0), nullptr, raw + warp * P,
-                            e + warp * P, P, 0, true, 0.f, true);
-    if (lane == 0) mxs[warp] = m;
-    if (pref && T > 1) {
-      for (int p = lane; p < P; p += 32)
-        kt::cp_async4(raw + warp * P + p, row(warp, 1) + p);
-      kt::cp_async_commit();
-    }
+  for (int s = tid; s < S; s += DEN_THREADS) a_next[s] = 0.f;
+  if (warp == 0) {
+    const float m = exp_row(sc, nullptr, raw, e, P, 0, true, 0.f, true);
+    if (lane == 0) mxs[0] = m;
+    if (pref && T > 1) fetch_row(sc + P, raw, P);
   }
   __syncthreads();
   {
-    float part[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      part[g] = 0.f;
-      for (int s = tid; s < S; s += DEN_THREADS) {
-        const float v = init[s] * (e[g * P + self_pdf[s]] +
-                                   e[g * P + entry_pdf[s]]);
-        a_prev[g * S + s] = v;
-        part[g] += v;
-      }
+    float part = 0.f;
+    for (int s = tid; s < S; s += DEN_THREADS) {
+      const float v = init[s] * (e[self_pdf[s]] + e[entry_pdf[s]]);
+      a_prev[s] = v;
+      part += v;
     }
-    warp_partials<G>(part, red);
+    warp_partial(part, red);
   }
   __syncthreads();
   {
-    float tot[G];
-    block_totals<G>(red, tot);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float Z = tot[g] * leak_norm, inv = 1.f / Z;
-      const float lt = leak * tot[g];
-      float* al_t = alpha + (size_t)seq(g) * T * S;
-      for (int s = tid; s < S; s += DEN_THREADS) {
-        const float v = (a_prev[g * S + s] + lt * init[s]) * inv;
-        a_prev[g * S + s] = v;
-        if (g < ng) al_t[s] = v;
-      }
-      if (tid == 0 && g < ng) {
-        logc[g] += (double)mxs[g] + log((double)Z);
-        zt[(size_t)seq(g) * T] = Z;
-        mt[(size_t)seq(g) * T] = mxs[g];
-      }
+    const float tot = block_total(red);
+    const float Z = tot * leak_norm, inv = 1.f / Z, lt = leak * tot;
+    for (int s = tid; s < S; s += DEN_THREADS) {
+      const float v = (a_prev[s] + lt * init[s]) * inv;
+      a_prev[s] = v;
+      al[s] = v;
+    }
+    if (tid == 0) {
+      logc += (double)mxs[0] + log((double)Z);
+      zt[(size_t)b * T] = Z;
+      mt[(size_t)b * T] = mxs[0];
     }
   }
-  if (warp < G && T > 1) {
-    const float m = exp_row(row(warp, 1), T > 2 ? row(warp, 2) : nullptr,
-                            raw + warp * P, e + warp * P, P, pref, true, 0.f,
-                            true);
-    if (lane == 0) mxs[G + warp] = m;
+  if (warp == 0 && T > 1) {
+    const float m = exp_row(sc + P, T > 2 ? sc + 2 * (size_t)P : nullptr,
+                            raw, e, P, pref, true, 0.f, true);
+    if (lane == 0) mxs[1] = m;
   }
   __syncthreads();
 
   for (int t = 1; t < T; ++t) {
-    bool on[G], any = false;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      on[g] = g < ng && mask[(size_t)seq(g) * T + t];
-      any |= on[g];
-    }
+    const bool on = mask[(size_t)b * T + t];
     // 1. the arc stream: a_next[d] += a_prev[s] w e[pdf] for every arc
-    if (any) {
-      float part[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = 0.f;
+    if (on) {
+      float part = 0.f;
       const uint4* kq = reinterpret_cast<const uint4*>(in_key) + tid;
       const uint4* oq = reinterpret_cast<const uint4*>(in_op) + tid;
       const float4* wq = reinterpret_cast<const float4*>(in_w) + tid;
-      auto flush = [&](unsigned key, int g, float sum) {
-        atomicAdd(a_next + g * S + key, sum);
-        part[g] += sum;
+      auto flush = [&](unsigned key, float sum) {
+        atomicAdd(a_next + key, sum);
+        part += sum;
       };
       // the next step's arcs load while this step's are summed
       uint4 kn = __ldg(kq), on_ = __ldg(oq);
@@ -333,76 +294,59 @@ den_forward(const float* __restrict__ scores,           // (B, T, P)
                                kc.z & KEY_MASK, kc.w & KEY_MASK};
         const unsigned op[4] = {oc.x, oc.y, oc.z, oc.w};
         const float w[4] = {wc.x, wc.y, wc.z, wc.w};
-        float v[4][G];
+        float v[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int src = op[i] & 0xffffu, pdf = op[i] >> 16;
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            v[i][g] = a_prev[g * S + src] * w[i] * e[g * P + pdf];
+          v[i] = a_prev[src] * w[i] * e[pdf];
         }
-        sum_by_key<G>(k, kc.x, v, flush);
+        sum_by_key(k, kc.x, v, flush);
       }
-      warp_partials<G>(part, red);
+      warp_partial(part, red);
     }
     __syncthreads();
-    // 2. the leak and the normalization; a masked sequence keeps alpha
-    float tot[G];
-    block_totals<G>(red, tot);
-    const float* mx = mxs + (t & 1) * G;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float Z = tot[g] * leak_norm, inv = 1.f / Z;
-      const float lt = leak * tot[g];
-      float* al_t = alpha + ((size_t)seq(g) * T + t) * S;
+    // 2. the leak and the normalization; a masked frame keeps alpha
+    {
+      const float tot = block_total(red);
+      const float Z = tot * leak_norm, inv = 1.f / Z, lt = leak * tot;
+      float* al_t = al + (size_t)t * S;
       for (int s = tid; s < S; s += DEN_THREADS) {
-        float v = a_prev[g * S + s];
-        if (on[g]) {
-          v = (a_next[g * S + s] + lt * init[s]) * inv;
-          a_prev[g * S + s] = v;
+        float v = a_prev[s];
+        if (on) {
+          v = (a_next[s] + lt * init[s]) * inv;
+          a_prev[s] = v;
+          a_next[s] = 0.f;
         }
-        a_next[g * S + s] = 0.f;
-        if (g < ng) al_t[s] = v;
+        al_t[s] = v;
       }
-      if (tid == 0 && g < ng) {
-        if (on[g]) logc[g] += (double)mx[g] + log((double)Z);
-        zt[(size_t)seq(g) * T + t] = on[g] ? Z : 1.f;
-        mt[(size_t)seq(g) * T + t] = on[g] ? mx[g] : 0.f;
+      if (tid == 0) {
+        const float mx = mxs[t & 1];
+        if (on) logc += (double)mx + log((double)Z);
+        zt[(size_t)b * T + t] = on ? Z : 1.f;
+        mt[(size_t)b * T + t] = on ? mx : 0.f;
       }
     }
     // 3. the next frame's e (its scores arrived during the arc stream)
-    if (warp < G && t + 1 < T) {
-      const float m = exp_row(row(warp, t + 1),
-                              t + 2 < T ? row(warp, t + 2) : nullptr,
-                              raw + warp * P, e + warp * P, P, pref, true,
-                              0.f, true);
-      if (lane == 0) mxs[((t + 1) & 1) * G + warp] = m;
+    if (warp == 0 && t + 1 < T) {
+      const float m = exp_row(sc + (size_t)(t + 1) * P,
+                              t + 2 < T ? sc + (size_t)(t + 2) * P : nullptr,
+                              raw, e, P, pref, true, 0.f, true);
+      if (lane == 0) mxs[(t + 1) & 1] = m;
     }
     __syncthreads();
   }
 
-  float part[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    part[g] = 0.f;
-    for (int s = tid; s < S; s += DEN_THREADS)
-      part[g] += a_prev[g * S + s] * fin[s];
-  }
-  warp_partials<G>(part, red);
+  float part = 0.f;
+  for (int s = tid; s < S; s += DEN_THREADS) part += a_prev[s] * fin[s];
+  warp_partial(part, red);
   __syncthreads();
-  float F[G];
-  block_totals<G>(red, F);
   if (tid == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      if (g < ng) {
-        fsum[seq(g)] = F[g];
-        logz[seq(g)] = (float)(logc[g] + log((double)F[g]));
-      }
+    const float F = block_total(red);
+    fsum[b] = F;
+    logz[b] = (float)(logc + log((double)F));
   }
 }
 
-template <int G>
 __global__ void __launch_bounds__(DEN_THREADS)
 den_backward(const float* __restrict__ scores,            // (B, T, P)
              const unsigned char* __restrict__ mask,      // (B, T)
@@ -414,7 +358,7 @@ den_backward(const float* __restrict__ scores,            // (B, T, P)
              const float* __restrict__ fin,               // (S)
              const int* __restrict__ self_pdf,            // (S)
              const int* __restrict__ entry_pdf,           // (S)
-             int B, int T, int S, int P, float leak, int pref,
+             int T, int S, int P, float leak, int pref,
              const float* __restrict__ alpha,             // (B, T, S)
              const float* __restrict__ zt,                // (B, T)
              const float* __restrict__ mt,                // (B, T)
@@ -422,113 +366,86 @@ den_backward(const float* __restrict__ scores,            // (B, T, P)
              const float* __restrict__ gout,              // (B)
              float* __restrict__ grad) {                  // (B, T, P)
   extern __shared__ float sh[];
-  float* beta = sh;                    // [G][S]: beta_t, then beta_{t-1}'s sums
-  float* gam = beta + G * S;           // [G][S]
-  float* e = gam + G * S;              // [G][P]
-  float* red = e + G * P;              // [DEN_WARPS][G]
-  // [G][P] occupancies in fixed point, zero between frames
-  unsigned* occ = reinterpret_cast<unsigned*>(red + DEN_WARPS * G);
-  float* raw = reinterpret_cast<float*>(occ + G * P);   // [G][P] with pref
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b0 = blockIdx.x * G, ng = min(G, B - b0);
+  float* beta = sh;                    // [S]: beta_t, then beta_{t-1}'s sums
+  float* gam = beta + S;               // [S]
+  float* e = gam + S;                  // [P]
+  float* red = e + P;                  // [DEN_WARPS]
+  // [P] occupancies in fixed point, zero between frames
+  unsigned* occ = reinterpret_cast<unsigned*>(red + DEN_WARPS);
+  float* raw = reinterpret_cast<float*>(occ + P);   // [P] with pref
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int b = blockIdx.x;
   const int n_steps = A / DEN_STRIDE;
-  auto seq = [&](int g) { return b0 + min(g, ng - 1); };
-  auto row = [&](int g, int t) {
-    return scores + ((size_t)seq(g) * T + t) * P;
+  const float* sc = scores + (size_t)b * T * P;   // frame t's row: sc + t P
+  const float* al = alpha + (size_t)b * T * S;
+  const unsigned char* mk = mask + (size_t)b * T;
+  const float* zb = zt + (size_t)b * T;
+  const float* mb = mt + (size_t)b * T;
+  auto active = [&](int t) { return t == 0 || mk[t] != 0; };
+  // an occupancy (in [0, 1]) into the row; `out` notes one that is not
+  // (its add is then garbage, and the row is written NaN)
+  auto occupy = [&](int pdf, float x, bool& out) {
+    atomicAdd(occ + pdf, __float2uint_rn(x * OCC_ONE));
+    out |= !(x < OCC_LIMIT);
   };
-  auto active = [&](int g, int t) {
-    return g < ng && (t == 0 || mask[(size_t)seq(g) * T + t]);
-  };
-  // an occupancy (in [0, 1]) into sequence g's row
-  auto occupy = [&](int g, int pdf, float x) {
-    atomicAdd(occ + g * P + pdf, __float2uint_rn(x * OCC_ONE));
-  };
-  float go[G], lb[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) go[g] = gout[seq(g)];
+  const float go = gout[b];
 
   // Frame t's occupancies, times gout, into the gradient (zero where
-  // masked); the rows back to zero.
-  auto write_grad = [&](int t) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const bool on = active(g, t);
-      float* gr = grad + ((size_t)seq(g) * T + t) * P;
-      for (int p = tid; p < P; p += DEN_THREADS) {
-        const unsigned s = occ[g * P + p];
-        occ[g * P + p] = 0;
-        if (g < ng) gr[p] = on ? (float)s * (go[g] / OCC_ONE) : 0.f;
-      }
+  // masked, NaN where one was out of range); the row back to zero.
+  auto write_grad = [&](int t, bool flagged) {
+    const bool on = active(t);
+    float* gr = grad + ((size_t)b * T + t) * P;
+    for (int p = tid; p < P; p += DEN_THREADS) {
+      const unsigned s = occ[p];
+      occ[p] = 0;
+      gr[p] = !on ? 0.f : flagged ? NAN : (float)s * (go / OCC_ONE);
     }
   };
 
   // beta_{T-1} = final / F, its leak term, gamma_{T-1}
   {
-    float part[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float invF = 1.f / fsum[seq(g)];
-      part[g] = 0.f;
-      for (int s = tid; s < S; s += DEN_THREADS) {
-        const float v = fin[s] * invF;
-        beta[g * S + s] = v;
-        part[g] += init[s] * v;
-      }
+    const float invF = 1.f / fsum[b];
+    float part = 0.f;
+    for (int s = tid; s < S; s += DEN_THREADS) {
+      const float v = fin[s] * invF;
+      beta[s] = v;
+      part += init[s] * v;
     }
-    warp_partials<G>(part, red);
+    warp_partial(part, red);
   }
-  for (int i = tid; i < G * P; i += DEN_THREADS) occ[i] = 0;
-  if (warp < G)
-    exp_row(row(warp, T - 1), T > 1 ? row(warp, T - 2) : nullptr,
-            raw + warp * P, e + warp * P, P, 0, false,
-            mt[(size_t)seq(warp) * T + T - 1], active(warp, T - 1));
-  if (warp < G && pref && T > 1) {
-    for (int p = lane; p < P; p += 32)
-      kt::cp_async4(raw + warp * P + p, row(warp, T - 2) + p);
-    kt::cp_async_commit();
+  for (int p = tid; p < P; p += DEN_THREADS) occ[p] = 0;
+  if (warp == 0) {
+    exp_row(sc + (size_t)(T - 1) * P, nullptr, raw, e, P, 0, false,
+            mb[T - 1], active(T - 1));
+    if (pref && T > 1) fetch_row(sc + (size_t)(T - 2) * P, raw, P);
   }
   __syncthreads();
+  float lb = leak * block_total(red);
   {
-    float tot[G];
-    block_totals<G>(red, tot);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      lb[g] = leak * tot[g];
-      const bool clear = T - 1 >= 1 && active(g, T - 1);
-      for (int s = tid; s < S; s += DEN_THREADS) {
-        gam[g * S + s] = beta[g * S + s] + lb[g];
-        if (clear) beta[g * S + s] = 0.f;
-      }
+    const bool clear = T - 1 >= 1 && active(T - 1);
+    for (int s = tid; s < S; s += DEN_THREADS) {
+      gam[s] = beta[s] + lb;
+      if (clear) beta[s] = 0.f;
     }
   }
   __syncthreads();
 
   for (int t = T - 1; t >= 1; --t) {
-    bool on[G], any = false;
-    float invZ[G];
-    const float* ap[G];   // alpha_{t-1} of each sequence
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      on[g] = active(g, t);
-      any |= on[g];
-      invZ[g] = 1.f / zt[(size_t)seq(g) * T + t];
-      ap[g] = alpha + ((size_t)seq(g) * T + t - 1) * S;
-    }
+    const bool on = active(t);
+    const float invZ = 1.f / zb[t];
+    const float* ap = al + (size_t)(t - 1) * S;   // alpha_{t-1}
     // 1. the arc stream: beta_{t-1}[s] += w e[pdf] gamma[d] / Z_t, and
     //    each arc's occupancy alpha_{t-1}[s] w e[pdf] gamma[d] / Z_t
-    if (any) {
-      float part[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = 0.f;
+    bool out = false;   // an occupancy out of range
+    if (on) {
+      float part = 0.f;
       const uint4* kq = reinterpret_cast<const uint4*>(out_key) + tid;
       const uint4* oq = reinterpret_cast<const uint4*>(out_op) + tid;
       const float4* wq = reinterpret_cast<const float4*>(out_w) + tid;
-      auto flush = [&](unsigned key, int g, float sum) {
-        if (on[g]) {
-          const float bn = sum * invZ[g];
-          atomicAdd(beta + g * S + key, bn);
-          part[g] += init[key] * bn;
-        }
+      auto flush = [&](unsigned key, float sum) {
+        const float bn = sum * invZ;
+        atomicAdd(beta + key, bn);
+        part += init[key] * bn;
       };
       uint4 kn = __ldg(kq), on_ = __ldg(oq);
       float4 wn = __ldg(wq);
@@ -545,68 +462,57 @@ den_backward(const float* __restrict__ scores,            // (B, T, P)
                                kc.z & KEY_MASK, kc.w & KEY_MASK};
         const unsigned op[4] = {oc.x, oc.y, oc.z, oc.w};
         const float w[4] = {wc.x, wc.y, wc.z, wc.w};
-        float v[4][G];
+        float v[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int dst = op[i] & 0xffffu, pdf = op[i] >> 16;
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            v[i][g] = w[i] * e[g * P + pdf] * gam[g * S + dst];
-            // e is 0 on a masked frame, so its occupancy adds nothing
-            occupy(g, pdf, __ldg(ap[g] + k[i]) * v[i][g] * invZ[g]);
-          }
+          v[i] = w[i] * e[pdf] * gam[dst];
+          occupy(pdf, __ldg(ap + k[i]) * v[i] * invZ, out);
         }
-        sum_by_key<G>(k, kc.x, v, flush);
+        sum_by_key(k, kc.x, v, flush);
       }
-      warp_partials<G>(part, red);
+      warp_partial(part, red);
     }
-    __syncthreads();
+    const bool flagged = __syncthreads_or(out);
     // 2. frame t's gradient row; beta_{t-1}'s leak term and gamma_{t-1};
-    //    a masked sequence passes beta through
-    write_grad(t);
-    float tot[G];
-    block_totals<G>(red, tot);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (on[g]) lb[g] = leak * tot[g];
-      const bool clear = t - 1 >= 1 && active(g, t - 1);
-      for (int s = tid; s < S; s += DEN_THREADS) {
-        gam[g * S + s] = beta[g * S + s] + lb[g];
-        if (clear) beta[g * S + s] = 0.f;
-      }
+    //    a masked frame passes beta through
+    write_grad(t, flagged);
+    if (on) lb = leak * block_total(red);
+    const bool clear = t - 1 >= 1 && active(t - 1);
+    for (int s = tid; s < S; s += DEN_THREADS) {
+      gam[s] = beta[s] + lb;
+      if (clear) beta[s] = 0.f;
     }
     // 3. frame t-1's e (its scores arrived during the arc stream)
-    if (warp < G)
-      exp_row(row(warp, t - 1), t >= 2 ? row(warp, t - 2) : nullptr,
-              raw + warp * P, e + warp * P, P, pref, false,
-              mt[(size_t)seq(warp) * T + t - 1], active(warp, t - 1));
+    if (warp == 0)
+      exp_row(sc + (size_t)(t - 1) * P,
+              t >= 2 ? sc + (size_t)(t - 2) * P : nullptr, raw, e, P, pref,
+              false, mb[t - 1], active(t - 1));
     __syncthreads();
   }
 
   // frame 0: each state's init e_0 gamma_0 / Z_0, to its self and entry pdf
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float iz = 1.f / zt[(size_t)seq(g) * T];
+  {
+    const float iz = 1.f / zb[0];
+    bool out = false;
     for (int s = tid; s < S; s += DEN_THREADS) {
-      const float c = init[s] * gam[g * S + s] * iz;
+      const float c = init[s] * gam[s] * iz;
       const int sp = self_pdf[s], ep = entry_pdf[s];
-      occupy(g, sp, c * e[g * P + sp]);
-      occupy(g, ep, c * e[g * P + ep]);
+      occupy(sp, c * e[sp], out);
+      occupy(ep, c * e[ep], out);
     }
+    write_grad(0, __syncthreads_or(out));
   }
-  __syncthreads();
-  write_grad(0);
 }
 
-// Shared memory of a block (bytes); ops/chain_den.py smem_bytes mirrors it.
-static size_t fwd_smem(int G, int S, int P, int pref) {
-  return (size_t)(G * (2 * S + P + DEN_WARPS + 2 + (pref ? P : 0))) *
-         sizeof(float);
-}
-
-static size_t bwd_smem(int G, int S, int P, int pref) {
-  return (size_t)(G * (2 * S + 2 * P + DEN_WARPS + (pref ? P : 0))) *
-         sizeof(float);
+// Shared memory of a block (bytes): alpha and its next frame (or beta
+// and gamma), e, the block sums, the forward's max scores by parity (the
+// backward's occupancy row), the prefetched scores.
+extern "C" int kt_chain_den_smem_bytes(int backward, int S, int P,
+                                       int pref) {
+  const int per = backward ? 2 * S + 2 * P + DEN_WARPS
+                           : 2 * S + P + DEN_WARPS + 2;
+  return (per + (pref ? P : 0)) * (int)sizeof(float);
 }
 
 template <typename K>
@@ -626,91 +532,44 @@ extern "C" int kt_chain_den_smem_limit(int device) {
   return v;
 }
 
-static bool bad_args(int G, int B, int T, int S, int P, int A) {
-  if (G != 1 && G != 2 && G != 4 && G != 8) return true;
+static bool bad_args(int B, int T, int S, int P, int A) {
   return B <= 0 || T <= 0 || S <= 0 || S > 65535 || P <= 0 || P > 65535 ||
          A <= 0 || A % DEN_STRIDE != 0;
 }
 
-template <int G>
-static cudaError_t launch_forward(const float* scores,
-                                  const unsigned char* mask,
-                                  const unsigned* in_key,
-                                  const unsigned* in_op, const float* in_w,
-                                  int A, const float* init, const float* fin,
-                                  const int* self_pdf, const int* entry_pdf,
-                                  int B, int T, int S, int P, float leak,
-                                  float leak_norm, int pref, float* alpha,
-                                  float* zt, float* mt, float* fsum,
-                                  float* logz, cudaStream_t stream) {
-  const size_t smem = fwd_smem(G, S, P, pref);
-  cudaError_t err = allow_smem(den_forward<G>, smem);
-  if (err != cudaSuccess) return err;
-  den_forward<G><<<(B + G - 1) / G, DEN_THREADS, smem, stream>>>(
-      scores, mask, in_key, in_op, in_w, A, init, fin, self_pdf, entry_pdf,
-      B, T, S, P, leak, leak_norm, pref, alpha, zt, mt, fsum, logz);
-  return cudaGetLastError();
-}
-
-template <int G>
-static cudaError_t launch_backward(
-    const float* scores, const unsigned char* mask,
-    const unsigned* out_key, const unsigned* out_op, const float* out_w,
-    int A, const float* init, const float* fin, const int* self_pdf,
-    const int* entry_pdf, int B, int T, int S, int P, float leak, int pref,
-    const float* alpha, const float* zt, const float* mt,
-    const float* fsum, const float* gout, float* grad, cudaStream_t stream) {
-  const size_t smem = bwd_smem(G, S, P, pref);
-  cudaError_t err = allow_smem(den_backward<G>, smem);
-  if (err != cudaSuccess) return err;
-  den_backward<G><<<(B + G - 1) / G, DEN_THREADS, smem, stream>>>(
-      scores, mask, out_key, out_op, out_w, A, init, fin, self_pdf,
-      entry_pdf, B, T, S, P, leak, pref, alpha, zt, mt, fsum, gout,
-      grad);
-  return cudaGetLastError();
-}
-
-// G sequences a block (1, 2, 4 or 8); pref: the next frame's scores by
-// cp.async; A the arc count padded to a multiple of DEN_STRIDE (padding
-// arcs carry weight 0 and the last arc's key).
+// One block a sequence; pref: the next frame's scores by cp.async; A the
+// arc count padded to a multiple of DEN_STRIDE (padding arcs carry
+// weight 0 and the last arc's key).
 extern "C" cudaError_t kt_chain_den_forward(
     const float* scores, const unsigned char* mask,
     const unsigned* in_key, const unsigned* in_op, const float* in_w,
     int A, const float* init, const float* fin, const int* self_pdf,
-    const int* entry_pdf, int G, int B, int T, int S, int P, float leak,
+    const int* entry_pdf, int B, int T, int S, int P, float leak,
     float leak_norm, int pref, float* alpha, float* zt, float* mt,
     float* fsum, float* logz, cudaStream_t stream) {
-  if (bad_args(G, B, T, S, P, A)) return cudaErrorInvalidValue;
-#define KT_FWD(g)                                                          \
-  launch_forward<g>(scores, mask, in_key, in_op, in_w, A, init, fin,       \
-                    self_pdf, entry_pdf, B, T, S, P, leak, leak_norm, pref, \
-                    alpha, zt, mt, fsum, logz, stream)
-  switch (G) {
-    case 1: return KT_FWD(1);
-    case 2: return KT_FWD(2);
-    case 4: return KT_FWD(4);
-    default: return KT_FWD(8);
-  }
-#undef KT_FWD
+  if (bad_args(B, T, S, P, A)) return cudaErrorInvalidValue;
+  const size_t smem = kt_chain_den_smem_bytes(0, S, P, pref);
+  cudaError_t err = allow_smem(den_forward, smem);
+  if (err != cudaSuccess) return err;
+  den_forward<<<B, DEN_THREADS, smem, stream>>>(
+      scores, mask, in_key, in_op, in_w, A, init, fin, self_pdf, entry_pdf,
+      T, S, P, leak, leak_norm, pref, alpha, zt, mt, fsum, logz);
+  return cudaGetLastError();
 }
 
 extern "C" cudaError_t kt_chain_den_backward(
     const float* scores, const unsigned char* mask,
     const unsigned* out_key, const unsigned* out_op, const float* out_w,
     int A, const float* init, const float* fin, const int* self_pdf,
-    const int* entry_pdf, int G, int B, int T, int S, int P, float leak,
-    int pref, const float* alpha, const float* zt, const float* mt,
+    const int* entry_pdf, int B, int T, int S, int P, float leak, int pref,
+    const float* alpha, const float* zt, const float* mt,
     const float* fsum, const float* gout, float* grad, cudaStream_t stream) {
-  if (bad_args(G, B, T, S, P, A)) return cudaErrorInvalidValue;
-#define KT_BWD(g)                                                           \
-  launch_backward<g>(scores, mask, out_key, out_op, out_w, A, init, fin,    \
-                     self_pdf, entry_pdf, B, T, S, P, leak, pref,           \
-                     alpha, zt, mt, fsum, gout, grad, stream)
-  switch (G) {
-    case 1: return KT_BWD(1);
-    case 2: return KT_BWD(2);
-    case 4: return KT_BWD(4);
-    default: return KT_BWD(8);
-  }
-#undef KT_BWD
+  if (bad_args(B, T, S, P, A)) return cudaErrorInvalidValue;
+  const size_t smem = kt_chain_den_smem_bytes(1, S, P, pref);
+  cudaError_t err = allow_smem(den_backward, smem);
+  if (err != cudaSuccess) return err;
+  den_backward<<<B, DEN_THREADS, smem, stream>>>(
+      scores, mask, out_key, out_op, out_w, A, init, fin, self_pdf,
+      entry_pdf, T, S, P, leak, pref, alpha, zt, mt, fsum, gout, grad);
+  return cudaGetLastError();
 }

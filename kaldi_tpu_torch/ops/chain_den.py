@@ -12,9 +12,9 @@ final probabilities and self/entry pdfs.  Called on a CUDA tensor it
 runs ``ChainDenFn``: ``kt_chain_den_forward`` (csrc/chain_den.cu) gives
 log Z and keeps each frame's normalized α, max score and normalizer, and
 the backward is ``kt_chain_den_backward``, which writes d log Z /
-d scores.  ``den_plan`` picks, from the batch and the graph's shape, how
-many sequences a block of each kernel runs and whether the next frame's
-scores are prefetched.
+d scores.  Each kernel runs one sequence a block; ``den_plan`` picks,
+from the graph's shape and the card's shared memory, whether it
+prefetches the next frame's scores.
 Called on a CPU tensor it runs ``ChainDenPlainFn``, the same scaled
 linear-space recursion and its β pass in plain PyTorch on the same packed
 arrays, so the CPU tests hold the kernels' arithmetic against the JAX
@@ -33,15 +33,16 @@ from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.ops import build
 
-# csrc/chain_den.cu: an arc packs its states and pdf into 16 bits each
-MAX_ID = 65535
-# csrc/chain_den.cu DEN_STRIDE: the arcs a block streams per step (4 a
-# thread)
+# csrc/chain_den.cu's layout of the arc tables (tests/test_torch_chain.py
+# holds these against the source): an arc packs its states and pdf into
+# 16 bits each (KEY_MASK); DEN_STRIDE, the arcs a block streams per step
+# (4 a thread); the scan bits of a key word (KEY_SCAN, KEY_CARRY,
+# KEY_TAIL)
+MAX_ID = 0xFFFF
 ARC_STRIDE = 2048
-# csrc/chain_den.cu DEN_WARPS: warps of a block
-WARPS = 16
-# sequences a block may run (the kernels' template instances)
-GROUPS = (1, 2, 4, 8)
+KEY_SCAN = 16
+KEY_CARRY = 1 << 21
+KEY_TAIL = 1 << 22
 
 
 def pack_arcs(key: np.ndarray, other: np.ndarray, pdf: np.ndarray,
@@ -51,11 +52,11 @@ def pack_arcs(key: np.ndarray, other: np.ndarray, pdf: np.ndarray,
     the last key: (key words, other | pdf << 16, weights float32; both
     int32 bits of uint32).  A key word holds the key in bits 0-15; the
     first word of each thread's 4 arcs (csrc/chain_den.cu ``sum_by_key``)
-    also holds the warp scan's steps over the threads' last runs (bit 16
-    + i: the lane 2^i below, and every lane between, continue this
-    lane's first key, each holding only that key), bit 21 where the
-    thread holds two keys or more and its first continues the lane
-    below's last, bit 22 where the thread's last key's run ends in the
+    also holds the warp scan's steps over the threads' last runs (bit
+    KEY_SCAN + i: the lane 2^i below, and every lane between, continue
+    this lane's first key, each holding only that key), KEY_CARRY where
+    the thread holds two keys or more and its first continues the lane
+    below's last, KEY_TAIL where the thread's last key's run ends in the
     warp."""
     order = np.argsort(key, kind="stable")
     n = len(order)
@@ -74,10 +75,10 @@ def pack_arcs(key: np.ndarray, other: np.ndarray, pdf: np.ndarray,
     run = run.reshape(-1)
     bits = np.zeros(len(kc), np.uint32)
     for i in range(5):
-        bits |= (run >= 1 << i).astype(np.uint32) << np.uint32(16 + i)
-    bits |= (joins & split).astype(np.uint32) << np.uint32(21)
+        bits |= (run >= 1 << i).astype(np.uint32) << np.uint32(KEY_SCAN + i)
+    bits |= np.where(joins & split, KEY_CARRY, 0).astype(np.uint32)
     tail = (lane == 31) | (np.roll(k0, -1) != k3)
-    bits |= tail.astype(np.uint32) << np.uint32(22)
+    bits |= np.where(tail, KEY_TAIL, 0).astype(np.uint32)
     words = k.copy()
     words[0::4] |= bits
     op = np.zeros(A, np.uint32)
@@ -91,49 +92,32 @@ def pack_arcs(key: np.ndarray, other: np.ndarray, pdf: np.ndarray,
 def _unpack(key: torch.Tensor, packed: torch.Tensor):
     """(key, other state, pdf) of every packed arc, int64."""
     p = packed.long()
-    return key.long() & 0xFFFF, p & 0xFFFF, (p >> 16) & 0xFFFF
-
-
-def smem_bytes(kind: str, G: int, S: int, P: int, pref: bool) -> int:
-    """Shared memory of a block of the forward or backward kernel
-    (csrc/chain_den.cu fwd_smem, bwd_smem): per sequence α and its next
-    frame (or β and γ), e, the block sums, the backward's occupancy row,
-    and the next frame's scores (``pref``)."""
-    per = 2 * S + P + WARPS + (2 if kind == "forward" else P)
-    return 4 * G * (per + (P if pref else 0))
+    return (key.long() & MAX_ID, p & MAX_ID, (p >> 16) & MAX_ID)
 
 
 @dataclasses.dataclass(frozen=True)
 class DenPlan:
-    """Sequences a block (G) and the score prefetch of the two kernels."""
-    fwd_groups: int
+    """Whether each kernel prefetches the next frame's scores."""
     fwd_pref: bool
-    bwd_groups: int
     bwd_pref: bool
 
 
-def den_plan(B: int, S: int, P: int, smem_limit: int, n_sms: int
-             ) -> DenPlan:
-    """The smallest G whose ⌈B / G⌉ blocks fit on the card's SMs at one
-    block each (8 past that: a block's time is flat in B up to there,
-    and a sequence more a block costs more than a second wave); then,
-    for each kernel, the largest G up to it whose shared memory fits,
-    with the next frame's scores by cp.async where they fit too.  Raises
-    KaldiError where not even G = 1 without the prefetch fits."""
-    want = next((g for g in GROUPS if -(-B // g) <= n_sms), GROUPS[-1])
+def den_plan(S: int, P: int, smem_limit: int, smem_bytes) -> DenPlan:
+    """For each kernel, the score prefetch where its block's shared
+    memory with it, ``smem_bytes(backward, S, P, pref)`` (on the card
+    the library's ``kt_chain_den_smem_bytes``), fits in ``smem_limit``.
+    Raises KaldiError where not even the block without it fits."""
 
-    def pick(kind):
-        for g in reversed(GROUPS):
-            for pref in (True, False):
-                if g <= want and smem_bytes(kind, g, S, P, pref) \
-                        <= smem_limit:
-                    return g, pref
+    def pick(backward):
+        for pref in (1, 0):
+            if smem_bytes(backward, S, P, pref) <= smem_limit:
+                return bool(pref)
         raise KaldiError(
             f"chain den kernel: {S} states and {P} pdfs need "
-            f"{smem_bytes(kind, 1, S, P, False)} bytes of shared memory "
+            f"{smem_bytes(backward, S, P, 0)} bytes of shared memory "
             f"per block, above this card's limit of {smem_limit}")
 
-    return DenPlan(*pick("forward"), *pick("backward"))
+    return DenPlan(pick(0), pick(1))
 
 
 def _load():
@@ -143,18 +127,20 @@ def _load():
         # pointers and the stream as c_void_p (see ops/fbank.py)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd.restype = bwd.restype = ctypes.c_int
-        fwd.argtypes = [P] * 5 + [I] + [P] * 4 + [I] * 5 + [F, F, I] \
+        fwd.argtypes = [P] * 5 + [I] + [P] * 4 + [I] * 4 + [F, F, I] \
             + [P] * 5 + [P]
-        bwd.argtypes = [P] * 5 + [I] + [P] * 4 + [I] * 5 + [F, I] \
+        bwd.argtypes = [P] * 5 + [I] + [P] * 4 + [I] * 4 + [F, I] \
             + [P] * 6 + [P]
         lib.kt_chain_den_smem_limit.restype = ctypes.c_int
         lib.kt_chain_den_smem_limit.argtypes = [I]
+        lib.kt_chain_den_smem_bytes.restype = ctypes.c_int
+        lib.kt_chain_den_smem_bytes.argtypes = [I] * 4
     return lib
 
 
 class ChainDenFn(torch.autograd.Function):
-    """log Z (B,) of scores (B, T, P) through the two kernels, laid out
-    by ``plan`` (None: the wrapper's ``den_plan`` for this shape)."""
+    """log Z (B,) of scores (B, T, P) through the two kernels, with the
+    score prefetch of ``plan`` (None: the wrapper's ``den_plan``)."""
 
     @staticmethod
     def forward(ctx, scores, mask, k, leak, plan=None):
@@ -228,17 +214,16 @@ class CudaChainDen:
         # "cuda" → "cuda:<current>", so that it compares equal to the
         # device of a tensor moved there
         self.device = self.init.device
-        self.smem_limit = self.n_sms = None
+        self.smem_limit = None
         if self.device.type == "cuda":
             self.smem_limit = _load().kt_chain_den_smem_limit(
                 self.device.index)
-            self.n_sms = torch.cuda.get_device_properties(
-                self.device).multi_processor_count
         self.launches = 0
 
-    def plan(self, B: int, P: int) -> DenPlan:
-        """The kernels' layout for B sequences of P pdfs on this card."""
-        return den_plan(B, self.num_states, P, self.smem_limit, self.n_sms)
+    def plan(self, P: int) -> DenPlan:
+        """The kernels' score prefetch for P pdfs on this card."""
+        return den_plan(self.num_states, P, self.smem_limit,
+                        _load().kt_chain_den_smem_bytes)
 
     def __call__(self, scores: torch.Tensor, mask: torch.Tensor = None,
                  leak: float = 0.0) -> torch.Tensor:
@@ -265,14 +250,14 @@ class CudaChainDen:
             return ChainDenPlainFn.apply(scores, mask, self, float(leak))
         if self.device.type != "cuda":
             raise ValueError(f"unsupported device {self.device}")
-        self.plan(B, P)           # raises where the graph does not fit
+        self.plan(P)              # raises where the graph does not fit
         return ChainDenFn.apply(scores.contiguous(), mask, self, float(leak))
 
     # -- the kernels -------------------------------------------------------
     def _forward(self, scores, mask, leak, plan: DenPlan = None):
         B, T, P = scores.shape
         S = self.num_states
-        plan = plan or self.plan(B, P)
+        plan = plan or self.plan(P)
         f32 = dict(dtype=torch.float32, device=scores.device)
         alpha = torch.empty((B, T, S), **f32)
         zt, mt = torch.empty((B, T), **f32), torch.empty((B, T), **f32)
@@ -283,7 +268,7 @@ class CudaChainDen:
             self.in_op.data_ptr(), self.in_w.data_ptr(), self.in_w.numel(),
             self.init.data_ptr(), self.fin.data_ptr(),
             self.self_pdf.data_ptr(), self.entry_pdf.data_ptr(),
-            plan.fwd_groups, B, T, S, P, leak, 1.0 + leak * self.init_sum,
+            B, T, S, P, leak, 1.0 + leak * self.init_sum,
             int(plan.fwd_pref), alpha.data_ptr(),
             zt.data_ptr(), mt.data_ptr(), fsum.data_ptr(), logz.data_ptr(),
             stream)
@@ -296,7 +281,7 @@ class CudaChainDen:
                   plan: DenPlan = None):
         alpha, zt, mt, fsum = saved
         B, T, P = scores.shape
-        plan = plan or self.plan(B, P)
+        plan = plan or self.plan(P)
         grad = torch.empty_like(scores)
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         rc = _load().kt_chain_den_backward(
@@ -304,7 +289,7 @@ class CudaChainDen:
             self.out_op.data_ptr(), self.out_w.data_ptr(),
             self.out_w.numel(), self.init.data_ptr(), self.fin.data_ptr(),
             self.self_pdf.data_ptr(), self.entry_pdf.data_ptr(),
-            plan.bwd_groups, B, T, self.num_states, P, leak,
+            B, T, self.num_states, P, leak,
             int(plan.bwd_pref), alpha.data_ptr(),
             zt.data_ptr(),
             mt.data_ptr(), fsum.data_ptr(), gout.data_ptr(),

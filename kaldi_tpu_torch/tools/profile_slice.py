@@ -31,11 +31,10 @@ Every line ends with the card's name and power limit (nvidia-smi).
    on a step that advances the NG-SGD estimates and on one that does
    not, then 4 steps under torch.profiler (kernels a step, busy share,
    the den kernels' device time) and the den kernels alone
-   (``den_kernels``): at B = 32, 64 and 128 with the layout the wrapper
-   picks (sequences a block G, the score prefetch), forward and
-   backward apart and together; then at B = 128, T = 50 every layout
-   that fits, each held against the plain version.  ``--den`` runs
-   only these den lines.
+   (``den_kernels``): at B = 32, 64 and 128 with the score prefetch the
+   wrapper picks, forward and backward apart and together; then at B =
+   128, T = 50 with and without the prefetch, each held against the
+   plain version.  ``--den`` runs only these den lines.
 """
 
 from __future__ import annotations
@@ -331,11 +330,9 @@ def _bench_den():
 def den_kernels(dev, tag: str, den, P: int, T: int = 50) -> None:
     """The den kernels alone (see the module's docstring)."""
     from kaldi_tpu_torch.am.chain import den_kernel, denominator_reference
-    from kaldi_tpu_torch.ops.chain_den import (GROUPS, ChainDenFn, DenPlan,
-                                               smem_bytes)
+    from kaldi_tpu_torch.ops.chain_den import ChainDenFn, DenPlan
     from kaldi_tpu_torch.tools.timing import device_ms
     k = den_kernel(den, dev)
-    S = k.num_states
     rng = np.random.default_rng(2)
     leak = 0.1
 
@@ -359,7 +356,7 @@ def den_kernels(dev, tag: str, den, P: int, T: int = 50) -> None:
 
     for B in (32, 64, 128):
         s, m = inputs(B)
-        plan = k.plan(B, P)
+        plan = k.plan(P)
         fwd, bwd, both = times(s, m, plan)
         print(f"den kernels at B={B}, T={T}: {plan}: forward {fwd:.4f} ms, "
               f"backward {bwd:.4f} ms, forward + backward {both:.4f} ms on "
@@ -370,21 +367,19 @@ def den_kernels(dev, tag: str, den, P: int, T: int = 50) -> None:
     zr = denominator_reference(den, x, m.bool(), leak)
     zr.sum().backward()
     gr = x.grad
-    for G in GROUPS:
-        for pref in (True, False):
-            plan = DenPlan(G, pref, G, pref)
-            if smem_bytes("backward", G, S, P, pref) > k.smem_limit:
-                continue
-            x = s.detach().requires_grad_(True)
-            z = ChainDenFn.apply(x, m, k, leak, plan)
-            z.sum().backward()
-            dz = float((z.detach() - zr.detach()).abs().max())
-            dg = float((x.grad - gr).abs().max())
-            fwd, bwd, both = times(s, m, plan)
-            print(f"den layout G={G} prefetch={pref} at B={B}, T={T}: "
-                  f"forward {fwd:.4f} ms, backward {bwd:.4f} ms, both "
-                  f"{both:.4f} ms; vs plain max |d log Z| {dz:.2e}, max "
-                  f"|d grad| {dg:.2e} {tag}")
+    for pref in (True, False):
+        if k.plan(P) != DenPlan(True, True) and pref:
+            continue
+        plan = DenPlan(pref, pref)
+        x = s.detach().requires_grad_(True)
+        z = ChainDenFn.apply(x, m, k, leak, plan)
+        z.sum().backward()
+        dz = float((z.detach() - zr.detach()).abs().max())
+        dg = float((x.grad - gr).abs().max())
+        fwd, bwd, both = times(s, m, plan)
+        print(f"den prefetch={pref} at B={B}, T={T}: forward {fwd:.4f} ms, "
+              f"backward {bwd:.4f} ms, both {both:.4f} ms; vs plain max "
+              f"|d log Z| {dz:.2e}, max |d grad| {dg:.2e} {tag}")
 
 
 if __name__ == "__main__":

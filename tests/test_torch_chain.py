@@ -127,16 +127,28 @@ def test_denominator_matches_jax(graph, leak, limit):
     np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)
 
 
+def _ragged(P, B=5, T=12, seed=11):
+    """Ragged lengths from T // 2 to T and one hole."""
+    rng = np.random.default_rng(seed)
+    scores = (2.0 * rng.standard_normal((B, T, P))).astype(np.float32)
+    mask = np.arange(T)[None, :] < rng.integers(T // 2, T + 1, B)[:, None]
+    mask[3, 4] = False
+    return scores, mask
+
+
 @pytest.mark.parametrize("graph", ["tiny", "trigram", "biphone"])
 @pytest.mark.parametrize("leak", [0.1, 1e-3, 0.0])
-def test_kernel_recursion_matches_jax(graph, leak):
+@pytest.mark.parametrize("batch", ["holes", "ragged"])
+def test_kernel_recursion_matches_jax(graph, leak, batch):
     """The kernels' algorithm (scaled linear-space forward, β pass with
     the leak's transpose, frame 0 split between self and entry pdfs) on
-    the packed arc tables, as CudaChainDen runs it for a CPU tensor."""
+    the packed arc tables, as CudaChainDen runs it for a CPU tensor: at
+    B = 3 with holes, and at B = 5 with ragged lengths."""
     pair = {"tiny": tiny_pair, "trigram": lambda: den_pair("mono"),
             "biphone": lambda: den_pair("biphone", order=2)}[graph]
     jden, tden, P = pair()
-    scores, mask = _inputs(P, seed=3)
+    scores, mask = (_inputs(P, seed=3) if batch == "holes"
+                    else _ragged(P))
     want, gwant = _jax_den(jden, scores, mask, leak, 4096)
     k = tc.den_kernel(tden, "cpu")
     got, g = _port_den(lambda s, m: k(s, m, leak), scores, mask)
@@ -367,13 +379,13 @@ def key_sums(words: np.ndarray, v: np.ndarray, num_keys: int):
     for i in range(5):
         o = 1 << i
         up = np.concatenate([x[:, :o], x[:, :-o]], axis=1)
-        x = np.where((b >> np.uint32(16 + i)) & 1, x + up, x)
+        x = np.where((b >> np.uint32(chain_den.KEY_SCAN + i)) & 1, x + up, x)
     below = np.concatenate([x[:, :1], x[:, :-1]], axis=1).reshape(-1)
     x = x.reshape(-1)
-    carry = ((bits >> 21) & 1).astype(bool)
+    carry = (bits & chain_den.KEY_CARRY) != 0
     np.add.at(out, k[split, 0], first[split] + np.where(carry, below,
                                                         0.0)[split])
-    tail = ((bits >> 22) & 1).astype(bool)
+    tail = (bits & chain_den.KEY_TAIL) != 0
     np.add.at(out, k[tail, 3], x[tail])
     return out
 
@@ -413,67 +425,53 @@ def test_scan_bits_on_short_and_long_runs(max_run):
     assert (w[len(key):] == 0).all() and len(words) % 2048 == 0
 
 
-@pytest.mark.parametrize("graph", ["trigram", "biphone"])
-@pytest.mark.parametrize("leak", [0.1, 1e-3, 0.0])
-def test_kernel_recursion_ragged_batch_matches_jax(graph, leak):
-    """The kernels' recursion on the packed arcs at a batch the kernels
-    would split unevenly into blocks (B = 5), with ragged lengths and
-    holes, against the JAX package."""
-    pair = {"trigram": lambda: den_pair("mono"),
-            "biphone": lambda: den_pair("biphone", order=2)}[graph]
-    jden, tden, P = pair()
-    rng = np.random.default_rng(11)
-    B, T = 5, 12
-    scores = (2.0 * rng.standard_normal((B, T, P))).astype(np.float32)
-    mask = np.arange(T)[None, :] < rng.integers(T // 2, T + 1, B)[:, None]
-    mask[3, 4] = False
-    want, gwant = _jax_den(jden, scores, mask, leak, 4096)
-    k = tc.den_kernel(tden, "cpu")
-    got, g = _port_den(lambda s, m: k(s, m, leak), scores, mask)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)
+def _smem(backward, S, P, pref):
+    """A stand-in for the library's count of a block's shared memory,
+    of its shape: two state rows, one pdf row and 18 words forward (two
+    pdf rows and 16 words backward), and a pdf row more with the
+    prefetch."""
+    per = 2 * S + 2 * P + 16 if backward else 2 * S + P + 18
+    return 4 * (per + (P if pref else 0))
 
 
-H100_SMEM, H100_SMS = 232448, 132
-BENCH_S, BENCH_P = 1553, 82          # chip_smoke's den graph
-BIPHONE_S, BIPHONE_P = 1681, 3444    # its left-biphone den graph
+H100_SMEM = 232448
 
 
-@pytest.mark.parametrize("B,S,P,plan", [
-    # one block an SM: one sequence a block up to 132
-    (32, BENCH_S, BENCH_P, (1, True, 1, True)),
-    (128, BENCH_S, BENCH_P, (1, True, 1, True)),
-    (256, BENCH_S, BENCH_P, (2, True, 2, True)),
-    (1024, BENCH_S, BENCH_P, (8, True, 8, True)),
-    (5000, BENCH_S, BENCH_P, (8, True, 8, True)),
-    # 3444 pdfs: the forward fits G = 8 only without the prefetch, the
-    # backward G = 4 with it
-    (128, BIPHONE_S, BIPHONE_P, (1, True, 1, True)),
-    (1024, BIPHONE_S, BIPHONE_P, (8, False, 4, True)),
-    # a graph near the limit drops the backward's prefetch first
-    (128, 28500, BENCH_P, (1, True, 1, True)),
-    (128, 28940, BENCH_P, (1, True, 1, False)),
+@pytest.mark.parametrize("S,P,plan", [
+    (1553, 82, (True, True)),        # the bench graph
+    (1681, 3444, (True, True)),      # its left-biphone graph
+    (28500, 82, (True, True)),
+    (28940, 82, (True, False)),      # the backward's prefetch goes first
+    (28965, 82, (True, False)),      # the forward's fits to the byte
 ])
-def test_den_plan_by_shape(B, S, P, plan):
-    got = chain_den.den_plan(B, S, P, H100_SMEM, H100_SMS)
+def test_den_plan_prefetches_where_it_fits(S, P, plan):
+    got = chain_den.den_plan(S, P, H100_SMEM, _smem)
     assert got == chain_den.DenPlan(*plan)
-    assert chain_den.smem_bytes("forward", got.fwd_groups, S, P,
-                                got.fwd_pref) <= H100_SMEM
-    assert chain_den.smem_bytes("backward", got.bwd_groups, S, P,
-                                got.bwd_pref) <= H100_SMEM
+    assert _smem(0, S, P, got.fwd_pref) <= H100_SMEM
+    assert _smem(1, S, P, got.bwd_pref) <= H100_SMEM
 
 
-def test_den_plan_takes_every_graph_the_first_kernels_took():
-    """Every (S, P) whose shared memory fitted the row-per-warp kernels
-    (4 (2 S + 2 P + 17) bytes) gets a plan; past the limit at G = 1 the
-    plan raises."""
-    rng = np.random.default_rng(0)
-    for S, P in zip(rng.integers(1, 30000, 400), rng.integers(1, 8000, 400)):
-        S, P = int(S), int(P)
-        if 4 * (2 * S + 2 * P + 17) <= H100_SMEM:
-            chain_den.den_plan(128, S, P, H100_SMEM, H100_SMS)
+def test_den_plan_raises_where_nothing_fits():
     with pytest.raises(KaldiError, match="shared memory"):
-        chain_den.den_plan(128, 29100, 82, H100_SMEM, H100_SMS)
+        chain_den.den_plan(29100, 82, H100_SMEM, _smem)
+
+
+def test_layout_constants_match_the_kernel_source():
+    """The packer's constants are the kernels' (csrc/chain_den.cu)."""
+    import pathlib
+    import re
+    src = (pathlib.Path(chain_den.__file__).parent.parent / "csrc"
+           / "chain_den.cu").read_text()
+    defs = dict(re.findall(r"^#define (\w+) (.+)$", src, re.M))
+    threads = int(defs["DEN_THREADS"])
+    assert defs["DEN_STRIDE"] == "(DEN_THREADS * 4)"
+    assert chain_den.ARC_STRIDE == 4 * threads
+    assert int(defs["KEY_MASK"].rstrip("u"), 16) == chain_den.MAX_ID
+    assert int(defs["KEY_SCAN"]) == chain_den.KEY_SCAN
+    for name in ("KEY_CARRY", "KEY_TAIL"):
+        bit = int(re.fullmatch(r"\(1u << (\d+)\)", defs[name]).group(1))
+        assert 1 << bit == getattr(chain_den, name), name
+    assert "S > 65535" in src and "P > 65535" in src
 
 
 def test_kernel_wrapper_limits():
@@ -518,25 +516,45 @@ def test_kernel_matches_plain_on_the_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", chain_den.GROUPS)
-def test_kernel_matches_plain_at_each_group(G):
-    """The kernels at each G (with and without the score prefetch)
-    against the plain version, at a batch that leaves the last block
-    part empty."""
+@pytest.mark.parametrize("pref", [True, False])
+def test_kernel_matches_plain_with_and_without_prefetch(pref):
+    """The kernels with and without the score prefetch against the plain
+    version, on ragged lengths."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _, tden, P = den_pair("mono")
-    scores, mask = _inputs(P, B=2 * G + 1, T=20, seed=8)
+    scores, mask = _ragged(P, T=20, seed=8)
     dev = torch.device("cuda")
     k = tc.den_kernel(tden, dev)
     want, gwant = _port_den(
         lambda s, m: tc.denominator_reference(tden, s.to(dev), m.to(dev),
                                               0.1).cpu(), scores, mask)
-    for pref in (True, False):
-        plan = chain_den.DenPlan(G, pref, G, pref)
-        got, g = _port_den(
-            lambda s, m: chain_den.ChainDenFn.apply(
-                s.to(dev).contiguous(), m.to(dev).to(torch.uint8), k, 0.1,
-                plan).cpu(), scores, mask)
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)
+    got, g = _port_den(
+        lambda s, m: chain_den.ChainDenFn.apply(
+            s.to(dev).contiguous(), m.to(dev).to(torch.uint8), k, 0.1,
+            chain_den.DenPlan(pref, pref)).cpu(), scores, mask)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_kernel_carries_a_nan_score():
+    """A NaN score makes its sequence's log Z and the gradient rows of
+    its active frames NaN, as in the plain version on the CPU; the other
+    sequences are untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, tden, P = den_pair("mono")
+    scores, mask = _ragged(P, T=20, seed=8)
+    scores[1, 6, 0] = np.nan
+    got, g = _port_den(lambda s, m: tc.den_kernel(tden, "cuda")(
+        s.cuda(), m.cuda(), 0.1).cpu(), scores, mask)
+    want, gwant = _port_den(lambda s, m: tc.den_kernel(tden, "cpu")(
+        s, m, 0.1), scores, mask)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isnan(g).any(axis=2),
+                                  np.isnan(gwant).any(axis=2))
+    assert np.isnan(g[1, 1:]).any(axis=1).sum() == mask[1, 1:].sum()
+    ok = [0, 2, 3, 4]
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(g[ok], gwant[ok], rtol=1e-4, atol=1e-4)
