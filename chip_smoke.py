@@ -80,7 +80,28 @@ Phases (each prints lines; any failure raises and exits non-zero):
      c. `python -m kaldi_tpu_torch.cli.chain` nnet3-chain-compute-prob,
         nnet3-chain-train (4 epochs) and compute-prob again on the card,
         on files the port writes: the objective is finite and better
-        after training.
+        after training;
+  9. the rest of the feature frontend:
+     a. Spectrogram (the fbank kernel with 257 one-bin filters) and Plp
+        (the kernel's linear mel energies → Levinson-Durbin → cepstra)
+        on phase 5's waveforms: each kernel path against its plain
+        version on the card and the whole computers against the port's
+        CPU ones; the identity-filter kernel at 4096 frames, timed, with
+        its bound;
+     b. BatchedFrontend on 32 seeded waveforms of 10 s (31,936 frames),
+        MFCC + CMN + Δ+ΔΔ and 40-bin fbank, under sync debug mode
+        "error": one fbank launch a call; each utterance equal to the
+        per-utterance computers on the card plus the same CMN and
+        deltas; device ms a batch, frames/s, and the kernel alone at the
+        batch's frames against its plain version;
+     c. GmmDecodableProvider on b's batch at the mini_librispeech tri1
+        width (2000 pdfs, 10,000 Gaussians, D = 39): one GMM launch a
+        call, equal to the plain GMM on the card; the kernel timed there;
+     d. `python -m kaldi_tpu_torch.cli` on 4 waveforms' wav ark:
+        compute-mfcc-feats | compute-cmvn-stats | apply-cmvn |
+        add-deltas, compute-plp-feats, compute-spectrogram-feats and
+        compute-and-process-kaldi-pitch-feats, each output equal to the
+        library call in the same run.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths, the largest difference from
@@ -147,12 +168,12 @@ def random_tdnn_state(model, rng: np.random.Generator):
     return sd
 
 
-def synth_waveforms(rng: np.random.Generator, n: int):
-    """n waveforms of 3–6 s at 16 kHz: a few voiced-like harmonic
-    segments over noise, at int16 amplitude."""
+def synth_waveforms(rng: np.random.Generator, n: int, seconds=(3.0, 6.0)):
+    """n waveforms of ``seconds`` (a range; 3–6 s) at 16 kHz: a few
+    voiced-like harmonic segments over noise, at int16 amplitude."""
     waves = []
     for _ in range(n):
-        T = int(rng.uniform(3.0, 6.0) * SAMP_FREQ)
+        T = int(rng.uniform(*seconds) * SAMP_FREQ)
         t = np.arange(T) / SAMP_FREQ
         x = 300.0 * rng.standard_normal(T)
         for seg in np.array_split(np.arange(T), int(rng.integers(4, 9))):
@@ -1131,6 +1152,371 @@ def chain_cli(dev, topo, tree, seqs, egs, tag: str, n_egs: int = 64,
     return before, after
 
 
+# phase 9's bars.  A spectrogram bin has no filter to average it: the
+# DFT's error is absolute, of the order of float32 rounding of the
+# frame's norm, so a bin's log power is held at 2e-3 (the log-mel bar)
+# where its power is at least 1e-5 of the frame's largest bin, and every
+# bin's power within 1e-5 of that bin.  PLP carries the mel energies
+# through Levinson-Durbin: 1e-3 + 1e-3·|plain|.  The batched features
+# are held as the CPU tests hold them against the JAX package: 2e-3 on
+# log-mel, 4e-3·lifter_k on MFCC + CMN + deltas.
+SPEC_SHARE, SPEC_LOG_TOL, SPEC_LIN_TOL = 1e-5, 2e-3, 1e-5
+PLP_TOL = 1e-3
+BATCH_B, BATCH_SECONDS = 32, 10.0
+# the mini_librispeech tri1 width (steps/train_deltas.sh 2000 10000 on
+# MFCC + Δ + ΔΔ)
+TRI1_PDFS, TRI1_GAUSS = 2000, 10000
+
+
+def spectra_diff(got, want):
+    """Two log power spectra (F, n_bins) → (max |Δ log power| on bins of
+    at least SPEC_SHARE of the frame's largest bin, max |Δ power| over
+    the frame's largest bin); raises past SPEC_LOG_TOL / SPEC_LIN_TOL."""
+    g, w = got.double().cpu(), want.double().cpu()
+    pw = w.exp()
+    top = pw.max(dim=1, keepdim=True).values
+    big = pw >= SPEC_SHARE * top
+    log_err = float((g - w).abs()[big].max())
+    lin_err = float(((g.exp() - pw).abs() / top).max())
+    if not (log_err <= SPEC_LOG_TOL and lin_err <= SPEC_LIN_TOL):
+        raise AssertionError(f"spectra disagree: log {log_err}, linear "
+                             f"{lin_err}")
+    return log_err, lin_err
+
+
+def plp_diff(got, want) -> float:
+    """max |Δ| / (1 + |want|) of two PLP matrices; raises past PLP_TOL."""
+    share = float(((got.cpu() - want.cpu()).abs()
+                   / (1.0 + want.cpu().abs())).max())
+    if not share <= PLP_TOL:
+        raise AssertionError(f"PLP disagrees: {share}")
+    return share
+
+
+def spectrogram_plp(dev, waves, tag: str):
+    """9a: Spectrogram and Plp on the card on phase 5's waveforms, each
+    kernel path against its plain version on the card and the whole
+    computer against the port's CPU one; the identity-filter kernel at
+    4096 frames.  → fbank launches on the path."""
+    from kaldi_tpu_torch.features.compute import Plp, Spectrogram
+    from kaldi_tpu_torch.features.window import preprocess_frames
+    from kaldi_tpu_torch.tools.timing import device_ms, fbank_bound
+    spec, plp = Spectrogram(device=dev), Plp(device=dev)
+    spec_cpu, plp_cpu = Spectrogram(device="cpu"), Plp(device="cpu")
+    spec.compute(waves[0][:8000])                          # warm
+    plp.compute(waves[0][:8000])
+    torch.cuda.synchronize()
+    spec.kernel.launches = plp.kernel.launches = 0
+    t0 = time.perf_counter()
+    specs = [spec.compute(w) for w in waves]
+    plps = [plp.compute(w) for w in waves]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (spec.kernel.launches, plp.kernel.launches)
+    if launches != (len(waves), len(waves)):
+        raise AssertionError(f"spectrogram / PLP fbank launches {launches}")
+    frames = sum(s.shape[0] for s in specs)
+    if not all(bool(torch.isfinite(x).all()) for x in specs + plps):
+        raise AssertionError("non-finite spectrogram or PLP")
+    # each kernel path against its plain version on the card (launches
+    # here are not counted)
+    s_log = s_lin = p_mel = p_plp = 0.0
+    for w in waves:
+        x, le = preprocess_frames(torch.from_numpy(spec.frames(w)).to(dev),
+                                  spec.frame_opts)
+        x = x.contiguous()
+        d = spectra_diff(spec.kernel(x), spec.kernel.reference(x))
+        s_log, s_lin = max(s_log, d[0]), max(s_lin, d[1])
+        got, want = plp.kernel(x), plp.kernel.reference(x)
+        p_mel = max(p_mel, float(((got - want).abs() / want).max()))
+        p_plp = max(p_plp, plp_diff(plp.from_mel(got, le),
+                                    plp.from_mel(want, le)))
+    spec.kernel.launches = plp.kernel.launches = 0
+    print(f"features: Spectrogram (257 one-bin filters) and Plp (23 bins, "
+          f"LPC order 12, 13 cepstra) on the card: {len(waves)} waveforms, "
+          f"{frames} frames, {wall:.3f} s for both computers; fbank launches "
+          f"{launches[0]} + {launches[1]}")
+    print(f"features: kernel vs plain on the card: spectrogram max |Δ log "
+          f"power| {s_log:.3e} on bins ≥ {SPEC_SHARE:g} of the frame's "
+          f"largest (limit {SPEC_LOG_TOL:g}), max |Δ power| / largest "
+          f"{s_lin:.3e} (limit {SPEC_LIN_TOL:g}); PLP mel energies max "
+          f"relative {p_mel:.3e}, PLP max |Δ| / (1 + |plain|) {p_plp:.3e} "
+          f"(limit {PLP_TOL:g})")
+    # the whole computers against the port's CPU ones
+    c_log = c_lin = c_plp = c_e = 0.0
+    for w, s, p in zip(waves, specs, plps):
+        want = spec_cpu.compute(w)
+        d = spectra_diff(s[:, 1:], want[:, 1:])
+        c_log, c_lin = max(c_log, d[0]), max(c_lin, d[1])
+        c_e = max(c_e, float((s[:, 0].cpu() - want[:, 0]).abs().max()))
+        c_plp = max(c_plp, plp_diff(p, plp_cpu.compute(w)))
+    if not c_e <= 1e-4:
+        raise AssertionError(f"spectrogram energy column: {c_e}")
+    print(f"features: card vs the port's CPU computers: spectrogram max "
+          f"|Δ log power| {c_log:.3e}, |Δ power| / largest {c_lin:.3e}, "
+          f"energy column {c_e:.3e} (limit 1e-4); PLP max |Δ| / (1 + "
+          f"|cpu|) {c_plp:.3e}")
+    # the identity-filter kernel at 4096 frames
+    k = spec.kernel
+    raw = torch.from_numpy((1000.0 * np.random.default_rng(SEED + 11)
+                            .standard_normal((4096, k.win_size)))
+                           .astype(np.float32)).to(dev)
+    x = preprocess_frames(raw, spec.frame_opts)[0].contiguous()
+    err = spectra_diff(k(x), k.reference(x))
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(device_ms(
+            (lambda: k.reference(x)) if which == "plain" else
+            (lambda: k(x)), 50))
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    bnd = fbank_bound(k, x.shape[0])
+    k.launches = 0
+    print(f"features: identity-filter fbank, 4096 frames: kernel vs plain "
+          f"max |Δ log power| {err[0]:.3e}, |Δ power| / largest "
+          f"{err[1]:.3e}; on the card kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (best of 2 × 50), bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]} ({100 * bnd[0] / ms:.1f}% of it); {len(k.groups)} "
+          f"groups {tag}")
+    return sum(launches)
+
+
+def batched_frontend(dev, tag: str):
+    """9b: BatchedFrontend on BATCH_B seeded waveforms of BATCH_SECONDS,
+    MFCC + CMN + Δ+ΔΔ and 40-bin fbank, under sync debug mode "error",
+    one fbank launch a call; each utterance equal to the per-utterance
+    computers on the card.  → (the waves on the card, the MFCC
+    frontend, its features, fbank launches, max |Δ log-mel| of the
+    kernel at the batch's frames)."""
+    from kaldi_tpu_torch.features import (BatchedFrontend,
+                                          DeltaFeaturesOptions, Fbank,
+                                          FbankOptions, FrameExtractionOptions,
+                                          MelBanksOptions, Mfcc, MfccOptions,
+                                          add_deltas)
+    from kaldi_tpu_torch.features.compute import compute_lifter_coeffs
+    from kaldi_tpu_torch.features.window import preprocess_frames
+    from kaldi_tpu_torch.tools.timing import device_ms, fbank_bound
+    fo = FrameExtractionOptions(dither=0.0)
+    mo = MfccOptions(frame_opts=fo)
+    bo = MfccOptions(frame_opts=fo, mel_opts=MelBanksOptions(num_bins=40))
+    fe_m = BatchedFrontend(mo, "mfcc", DeltaFeaturesOptions(), cmn=True,
+                           device=dev)
+    fe_f = BatchedFrontend(bo, "fbank", device=dev)
+    waves = synth_waveforms(np.random.default_rng(SEED + 10), BATCH_B,
+                            (BATCH_SECONDS, BATCH_SECONDS))
+    W = torch.from_numpy(np.stack(waves)).to(dev)
+    fe_m(W[:2])                                            # warm
+    fe_f(W[:2])
+    torch.cuda.synchronize()
+    fe_m.kernel.launches = fe_f.kernel.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    fm = fe_m(W)
+    ff = fe_f(W)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = (fe_m.kernel.launches, fe_f.kernel.launches)
+    B, T = BATCH_B, fe_m.num_frames(W.shape[1])
+    if launches != (1, 1):
+        raise AssertionError(f"batched frontend fbank launches {launches}")
+    if fm.shape != (B, T, 39) or ff.shape != (B, T, 40) or \
+            not bool(torch.isfinite(fm).all() and torch.isfinite(ff).all()):
+        raise AssertionError(f"batched features {tuple(fm.shape)}, "
+                             f"{tuple(ff.shape)}")
+    print(f"features: BatchedFrontend, {B} waveforms of {BATCH_SECONDS:g} s "
+          f"({B} × {T} = {B * T} frames): MFCC + CMN + Δ+ΔΔ {tuple(fm.shape)}"
+          f" and 40-bin fbank {tuple(ff.shape)} under sync debug mode "
+          f"'error': no host sync; fbank launches {launches[0]} and "
+          f"{launches[1]}, one a call")
+    # each utterance against the per-utterance computers on the card
+    # (launches here are not counted)
+    tol = torch.from_numpy(np.tile(4e-3 * compute_lifter_coeffs(22.0, 13),
+                                   3)).to(dev)
+    mfcc = Mfcc(mo, device=dev)
+    fbank = Fbank(FbankOptions(frame_opts=fo, mel_opts=bo.mel_opts),
+                  device=dev)
+    m_share = f_err = 0.0
+    for b, w in enumerate(waves):
+        raw = mfcc.compute(w)
+        want = add_deltas(raw - raw.mean(dim=0, keepdim=True))
+        m_share = max(m_share, float(((fm[b] - want).abs() / tol).max()))
+        f_err = max(f_err, float((ff[b] - fbank.compute(w)).abs().max()))
+    if not (m_share <= 1.0 and f_err <= 2e-3):
+        raise AssertionError(f"batched vs per-utterance: MFCC {m_share} of "
+                             f"the bar, fbank {f_err}")
+    print(f"features: each utterance equals the per-utterance computers on "
+          f"the card: MFCC + CMN + Δ+ΔΔ at most {m_share:.3f} of 4e-3·lifter"
+          f"_k, fbank max |Δ log-mel| {f_err:.3e} (limit 2e-3)")
+    ms_m = device_ms(lambda: fe_m(W), 5)
+    ms_f = device_ms(lambda: fe_f(W), 5)
+    # the kernel alone at the batch's frames, against its plain version
+    k = fe_f.kernel
+    x = preprocess_frames(W.unfold(1, fo.window_size, fo.window_shift)
+                          .reshape(-1, fo.window_size), fo)[0].contiguous()
+    err = float((k(x) - k.reference(x)).abs().max())
+    if not err <= 2e-3:
+        raise AssertionError(f"fbank kernel disagrees at {x.shape[0]} "
+                             f"frames: {err}")
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(device_ms(
+            (lambda: k.reference(x)) if which == "plain" else
+            (lambda: k(x)), 10))
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    bnd = fbank_bound(k, x.shape[0])
+    fe_m.kernel.launches = fe_f.kernel.launches = 0
+    print(f"features: a batch on the card: MFCC + CMN + Δ+ΔΔ {ms_m:.4f} ms "
+          f"({B * T / ms_m * 1e3:.0f} frames/s), 40-bin fbank {ms_f:.4f} ms "
+          f"({B * T / ms_f * 1e3:.0f} frames/s) {tag}")
+    print(f"features: fbank kernel (40 bins) at {x.shape[0]} frames: vs "
+          f"plain max |diff| {err:.3e}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (best of 2 × 10), bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]} ({100 * bnd[0] / ms:.1f}% of it) {tag}")
+    return W, fe_m, fm, sum(launches), err
+
+
+def gmm_provider(dev, W, fe, feats, tag: str):
+    """9c: GmmDecodableProvider at the tri1 width on 9b's batch: one
+    fbank and one GMM launch a call, under sync debug mode "error"; equal
+    to the plain GMM on the card.  → (GMM launches, fbank launches, max
+    |diff|)."""
+    from kaldi_tpu_torch.features import GmmDecodableProvider
+    from kaldi_tpu_torch.tools.synth import mix_counts, seeded_gmm
+    from kaldi_tpu_torch.tools.timing import device_ms, gmm_bound
+    x = feats.reshape(-1, feats.shape[2]).contiguous()
+    xs = x.double().cpu().numpy()
+    rng = np.random.default_rng(SEED + 12)
+    am = seeded_gmm(rng, mix_counts(rng, TRI1_PDFS, TRI1_GAUSS, 2, 10),
+                    xs.mean(axis=0), xs.var(axis=0), spread=1.0, device=dev)
+    prov = GmmDecodableProvider(fe, am)
+    k = am.device_params()
+    prov(W[:2])                                             # warm
+    torch.cuda.synchronize()
+    k.launches = fe.kernel.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    ll = prov(W)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = (k.launches, fe.kernel.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"provider launches (GMM, fbank) {launches}")
+    B, T = feats.shape[:2]
+    if ll.shape != (B, T, TRI1_PDFS) or not bool(torch.isfinite(ll).all()):
+        raise AssertionError(f"provider output {tuple(ll.shape)}")
+    want = k.reference(x)
+    diff = (ll.reshape(-1, TRI1_PDFS) - want).abs()
+    share = float((diff / (GMM_TOL + GMM_TOL * want.abs())).max())
+    err = float(diff.max())
+    if not share <= 1.0:
+        raise AssertionError(f"provider vs plain GMM: {share} of the bar")
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(device_ms(
+            (lambda: k.reference(x)) if which == "plain" else
+            (lambda: k(x)), 5))
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    bnd = gmm_bound(k, x.shape[0])
+    k.launches = fe.kernel.launches = 0
+    print(f"features: GmmDecodableProvider at the tri1 width ({am.num_pdfs} "
+          f"pdfs, {am.num_gauss()} Gaussians in {am.max_mix} slots, D="
+          f"{am.dim}) on the batch: {tuple(ll.shape)} under sync debug mode "
+          f"'error'; GMM launches {launches[0]}, fbank launches "
+          f"{launches[1]}; vs plain max |diff| {err:.3e}, at most "
+          f"{share:.3f} of the limit {GMM_TOL:g} + {GMM_TOL:g}·|plain|")
+    print(f"features: GMM kernel (tri1) at {x.shape[0]} frames: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (best of 2 × 5), bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]} ({100 * bnd[0] / ms:.1f}% of it) "
+          f"{tag}")
+    return launches + (err,)
+
+
+def feature_cli(dev, waves, tag: str) -> int:
+    """9d: ``python -m kaldi_tpu_torch.cli`` on 4 waveforms' wav ark:
+    compute-mfcc-feats | compute-cmvn-stats | apply-cmvn | add-deltas,
+    and compute-plp-feats, compute-spectrogram-feats and
+    compute-and-process-kaldi-pitch-feats beside it, each output against
+    the library call in this run.  → the tools' fbank launches (their
+    logs' counts)."""
+    import re
+    import subprocess
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    from kaldi_tpu_torch.features import (Mfcc, Plp, Spectrogram, add_deltas,
+                                          apply_cmvn, compute_cmvn_stats)
+    from kaldi_tpu_torch.features.pitch import (compute_kaldi_pitch,
+                                                process_pitch)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_features")
+    os.makedirs(d, exist_ok=True)
+    waves = [np.clip(w, -32768, 32767).astype(np.int16) for w in waves[:4]]
+    with TableWriter(f"ark:{d}/wav.ark", holder="wav") as w:
+        for i, x in enumerate(waves):
+            w[f"utt{i}"] = (x, SAMP_FREQ)
+    cli = f"{sys.executable} -m kaldi_tpu_torch.cli"
+    cmds = {
+        "mfcc": f"{cli} compute-mfcc-feats --device=cuda ark:{d}/wav.ark "
+                f"ark:{d}/mfcc.ark && {cli} compute-cmvn-stats --device=cuda "
+                f"ark:{d}/mfcc.ark ark:{d}/cmvn.ark && {cli} apply-cmvn "
+                f"--device=cuda ark:{d}/cmvn.ark ark:{d}/mfcc.ark ark:- | "
+                f"{cli} add-deltas --device=cuda ark:- ark:{d}/deltas.ark",
+        "plp": f"{cli} compute-plp-feats --device=cuda ark:{d}/wav.ark "
+               f"ark:{d}/plp.ark",
+        "spectrogram": f"{cli} compute-spectrogram-feats --device=cuda "
+                       f"ark:{d}/wav.ark ark:{d}/spec.ark",
+        "pitch": f"{cli} compute-and-process-kaldi-pitch-feats "
+                 f"ark:{d}/wav.ark ark:{d}/pitch.ark"}
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen(["bash", "-o", "pipefail", "-c", c],
+                                 cwd=repo, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for n, c in cmds.items()}
+    logs = {}
+    for n, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"{n} tools failed ({p.returncode}):\n"
+                                 f"{err[-3000:]}")
+        logs[n] = err
+    wall = time.perf_counter() - t0
+    launches = sum(int(m) for err in logs.values()
+                   for m in re.findall(r"fbank kernel launches (\d+)", err))
+    if launches != 3 * len(waves):
+        raise AssertionError(f"feature tools' fbank launches {launches}")
+
+    def read(name):
+        return dict(SequentialTableReader(f"ark:{d}/{name}.ark"))
+
+    # the library calls on the same waveforms (launches not counted)
+    mfcc, plp, spec = Mfcc(device=dev), Plp(device=dev), Spectrogram(
+        device=dev)
+    got = {n: read(n) for n in ("deltas", "plp", "spec", "pitch")}
+    err = {"deltas": 0.0, "plp": 0.0, "spec": 0.0, "pitch": 0.0}
+    for i, x in enumerate(waves):
+        key, xf = f"utt{i}", x.astype(np.float32)
+        raw = mfcc.compute(xf)
+        lib = {"deltas": add_deltas(apply_cmvn(raw, compute_cmvn_stats(raw))),
+               "plp": plp.compute(xf), "spec": spec.compute(xf),
+               "pitch": process_pitch(compute_kaldi_pitch(xf))}
+        for n, want in lib.items():
+            want = np.asarray(want.cpu() if torch.is_tensor(want) else want)
+            if got[n][key].shape != want.shape:
+                raise AssertionError(f"{n} {key}: {got[n][key].shape} vs "
+                                     f"{want.shape}")
+            err[n] = max(err[n], float(np.abs(got[n][key] - want).max()))
+    # binary archives carry float32 exactly, and the tools run the same
+    # kernel on the same frames as the library: 1e-5; pitch is host
+    # numpy: equal
+    if not (max(err["deltas"], err["plp"], err["spec"]) <= 1e-5
+            and err["pitch"] == 0.0):
+        raise AssertionError(f"feature tools vs library: {err}")
+    print(f"features: python -m kaldi_tpu_torch.cli on {len(waves)} "
+          f"waveforms: compute-mfcc-feats | compute-cmvn-stats | apply-cmvn "
+          f"| add-deltas, compute-plp-feats, compute-spectrogram-feats "
+          f"(--device=cuda) and compute-and-process-kaldi-pitch-feats, in "
+          f"{wall:.2f} s (7 processes, 4 at a time); each output vs the "
+          f"library call max |diff|: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in err.items())
+          + f" (limit 1e-5; pitch 0); fbank launches {launches} {tag}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1459,21 +1845,33 @@ def main() -> int:
     chain_cli(dev, ctopo, ctree, cseqs, egs, tag)
     print(f"train: phase 8 took {time.perf_counter() - t0:.1f} s")
 
+    # 9. the rest of the feature frontend
+    t0 = time.perf_counter()
+    sp_fb = spectrogram_plp(dev, waves, tag)
+    W, fe_m, feats9, bf_fb, bf_err = batched_frontend(dev, tag)
+    p_gmm, p_fb, p_err = gmm_provider(dev, W, fe_m, feats9, tag)
+    del W, feats9
+    cli_fb = feature_cli(dev, waves, tag)
+    print(f"features: phase 9 took {time.perf_counter() - t0:.1f} s")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
-        "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb,
-        "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err),
+        "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
+        + sp_fb + bf_fb + p_fb + cli_fb,
+        "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err),
+        "note": "max_abs_err over log-mel outputs; the one-bin filters of "
+                "the spectrogram are held to their own bar (phase 9a)",
         "ms": fb_ms, "plain_ms": fb_plain_ms,
         "bound_ms": fb_bound[0], "bound_by": fb_bound[1],
         "library_ms": None}, {
         "name": "gmm_loglikes", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/gmm.cu",
         "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
-        "launches": b_gmm + d_gmm,
-        "max_abs_err": max(gmm_err, b_err, d_err),
+        "launches": b_gmm + d_gmm + p_gmm,
+        "max_abs_err": max(gmm_err, b_err, d_err, p_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
         "bound_ms": gmm_bnd[0], "bound_by": gmm_bnd[1],
         "library_ms": None}, {

@@ -1,11 +1,14 @@
-"""Post-processing: deltas and splicing.
+"""Post-processing: deltas, splicing, sliding-window CMN.
 
-Port of ``DeltaFeaturesOptions``, ``delta_scales``, ``add_deltas`` and
-``splice_frames`` from kaldi_tpu/features/functions.py (parity targets
-src/feat/feature-functions.h DeltaFeatures, SpliceFrames).  Both are
-shifted slices of the edge-replicated utterance, summed in the
-original's order so that float32 results agree to rounding.
-``sliding_window_cmn`` is not ported yet.
+Port of ``DeltaFeaturesOptions``, ``delta_scales``, ``add_deltas``,
+``splice_frames``, ``SlidingWindowCmnOptions`` and
+``sliding_window_cmn`` from kaldi_tpu/features/functions.py (parity
+targets src/feat/feature-functions.h DeltaFeatures, SpliceFrames,
+src/featbin/apply-cmvn-sliding.cc).  Deltas and splicing are shifted
+slices of the edge-replicated utterance on the features' device, summed
+in the original's order so that float32 results agree to rounding.
+Sliding-window CMN is host numpy, numpy in and numpy out, as in the
+original (data preparation, not the decode path).
 """
 
 from __future__ import annotations
@@ -78,3 +81,43 @@ def splice_frames(feats: torch.Tensor, left_context: int,
     return torch.cat([padded[k:k + T]
                       for k in range(left_context + right_context + 1)],
                      dim=1)
+
+
+# Copied from kaldi_tpu/features/functions.py SlidingWindowCmnOptions.
+@dataclasses.dataclass
+class SlidingWindowCmnOptions:
+    cmn_window: int = 600
+    min_window: int = 100
+    normalize_variance: bool = False
+    center: bool = True
+
+
+# Copied from kaldi_tpu/features/functions.py sliding_window_cmn.
+def sliding_window_cmn(feats: np.ndarray,
+                       opts: SlidingWindowCmnOptions = SlidingWindowCmnOptions()
+                       ) -> np.ndarray:
+    """Per-frame mean (and optionally variance) normalization over a
+    sliding window (slide-cmn semantics with center=true).  Host-side
+    numpy: used in data prep, not the decode hot path."""
+    feats = np.asarray(feats, dtype=np.float64)
+    T, D = feats.shape
+    out = np.empty_like(feats)
+    for t in range(T):
+        if opts.center:
+            lo = t - opts.cmn_window // 2
+            hi = lo + opts.cmn_window
+            if lo < 0:
+                lo, hi = 0, min(opts.cmn_window, T)
+            if hi > T:
+                hi = T
+                lo = max(0, T - opts.cmn_window)
+        else:
+            lo = max(0, t + 1 - opts.cmn_window)
+            hi = max(t + 1, min(opts.min_window, T))
+        window = feats[lo:hi]
+        mean = window.mean(axis=0)
+        out[t] = feats[t] - mean
+        if opts.normalize_variance:
+            var = np.maximum(window.var(axis=0), 1e-10)
+            out[t] /= np.sqrt(var)
+    return out.astype(np.float32)

@@ -96,9 +96,15 @@ def mel_groups(franges: np.ndarray, target_bins: int = GROUP_BINS
     equal slices of the spectrum, G the span over ``target_bins`` (more
     if a group would pass MAX_GROUP_TILES or MAX_GROUP_WEIGHTS).  → (G,
     4) int32 rows (first bin, n-tiles of 4 bins, first filter, end
-    filter)."""
+    filter).  A filter wider than one group can hold raises ValueError
+    (at 16 kHz, mel banks of 17 bins or fewer)."""
     lo, hi = franges[:, 0], franges[:, 1]
     live = hi > lo
+    widest = int((hi - lo).max())
+    if -(-widest // 4) > MAX_GROUP_TILES or widest > MAX_GROUP_WEIGHTS:
+        # no group could hold that filter alone
+        raise ValueError(f"a filter spans {widest} DFT bins; the fbank "
+                         f"kernel takes at most {4 * MAX_GROUP_TILES}")
     start, stop = int(lo[live].min()), int(hi[live].max())
     span = stop - start
     centre = np.where(live, (lo + hi) / 2.0, start)
@@ -159,12 +165,16 @@ class CudaFbank:
     """Log-mel fbank of pre-processed frames (N, window_size) float32
     → (N, num_bins): of the power spectrum, or of the magnitude with
     ``use_power`` off; linear mel energies with ``use_log`` off.
+    ``filters`` (n_fft/2 + 1, n_out) float32, nonnegative, replaces the
+    mel bank (default ``MelBanks(mel_opts, frame_opts).matrix.T``): the
+    identity gives the log power spectrum (``Spectrogram``).
     ``launches`` counts kernel launches."""
 
     def __init__(self, frame_opts: FrameExtractionOptions = None,
                  mel_opts: MelBanksOptions = None,
                  device: torch.device | str = "cuda",
-                 use_power: bool = True, use_log: bool = True):
+                 use_power: bool = True, use_log: bool = True,
+                 filters: np.ndarray | None = None):
         fo = frame_opts or FrameExtractionOptions()
         mo = mel_opts or MelBanksOptions()
         self.device = resolve_device(device)
@@ -177,7 +187,14 @@ class CudaFbank:
         # first window_size rows of the DFT tables ever multiply data
         cosm, sinm = dft_matrices(n_fft, self.n_bins)
         cosm, sinm = cosm[:self.win_size], sinm[:self.win_size]
-        mel = MelBanks(mo, fo).matrix.T                 # (n_bins, n_mel)
+        if filters is None:
+            mel = MelBanks(mo, fo).matrix.T             # (n_bins, n_mel)
+        else:
+            mel = np.asarray(filters, np.float32)
+            if mel.ndim != 2 or mel.shape[0] != self.n_bins \
+                    or (mel < 0).any():
+                raise ValueError(f"filters must be ({self.n_bins}, n_out) "
+                                 "and nonnegative")
         self.n_mel = mel.shape[1]
         self.franges = filter_ranges(mel)
         melw, woff = filter_weights(mel, self.franges)

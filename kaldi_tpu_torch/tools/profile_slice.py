@@ -35,6 +35,16 @@ Every line ends with the card's name and power limit (nvidia-smi).
    wrapper picks, forward and backward apart and together; then at B =
    128, T = 50 with and without the prefetch, each held against the
    plain version.  ``--den`` runs only these den lines.
+6. The feature frontend (``features``): the batched frontend on 32
+   seeded waveforms of 10 s (MFCC + CMN + Δ+ΔΔ, one fbank launch a
+   batch): its time on the card a batch, and under torch.profiler its
+   kernels a batch and the card's busy share; Plp on one 5 s utterance,
+   split into the fbank kernel, Durbin + the cepstrum recursion and the
+   rest (times on the card, and the launches of each part); the
+   identity-filter fbank (the spectrogram's) at 4096 frames beside one
+   ``torch.fft.rfft`` of the same windowed frames, as information for an
+   FFT-form fbank (the rfft is not the kernel's function: no power, no
+   log).  ``--features`` runs only this section.
 """
 
 from __future__ import annotations
@@ -94,6 +104,9 @@ def main() -> int:
     if "--den" in sys.argv[1:]:
         _, tree, den, _ = _bench_den()
         den_kernels(dev, tag, den, tree.num_pdfs)
+        return 0
+    if "--features" in sys.argv[1:]:
+        features(dev, tag)
         return 0
 
     fb = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=40)),
@@ -218,7 +231,100 @@ def main() -> int:
           f"({100 * busy / wall:.1f}% busy), {n_k} kernels = "
           f"{n_k / 60:.1f} per frame step {tag}")
     chain_training(dev, tag)
+    features(dev, tag)
     return 0
+
+
+def _waves(rng, n: int, seconds: float) -> np.ndarray:
+    """(n, seconds · 16 kHz) float32: harmonic segments over noise, at
+    int16 amplitude."""
+    L = int(seconds * 16000)
+    t = np.arange(L) / 16000.0
+    out = 300.0 * rng.standard_normal((n, L))
+    for b in range(n):
+        for seg in np.array_split(np.arange(L), int(rng.integers(4, 9))):
+            f0, amp = rng.uniform(90.0, 250.0), rng.uniform(500.0, 4000.0)
+            for h in range(1, 6):
+                out[b, seg] += amp / h * np.sin(2 * np.pi * h * f0 * t[seg])
+    return out.astype(np.float32)
+
+
+def features(dev, tag: str) -> None:
+    """Section 6 (see the module's docstring)."""
+    from kaldi_tpu_torch.features import (BatchedFrontend,
+                                          DeltaFeaturesOptions,
+                                          FrameExtractionOptions, MfccOptions,
+                                          Plp, Spectrogram)
+    from kaldi_tpu_torch.features.compute import _durbin, _lpc_to_cepstrum
+    from kaldi_tpu_torch.features.window import preprocess_frames
+    from kaldi_tpu_torch.tools.timing import cuda_ms, device_ms
+
+    rng = np.random.default_rng(6)
+    W = torch.from_numpy(_waves(rng, 32, 10.0)).to(dev)
+    fe = BatchedFrontend(MfccOptions(frame_opts=FrameExtractionOptions(
+        dither=0.0)), "mfcc", DeltaFeaturesOptions(), cmn=True, device=dev)
+    fe(W)
+    torch.cuda.synchronize()
+    frames = 32 * fe.num_frames(W.shape[1])
+    ms = device_ms(lambda: fe(W), 5)
+
+    def batch():
+        fe(W)
+        torch.cuda.synchronize()
+
+    wall, n_k, busy, _ = _profiled(batch)
+    print(f"features batched frontend, 32 × 10 s ({frames} frames), MFCC + "
+          f"CMN + Δ+ΔΔ: {ms:.4f} ms a batch on the card "
+          f"({frames / ms * 1e3:.0f} frames/s); profiled wall {wall:.2f} ms, "
+          f"device kernel time {busy:.2f} ms ({100 * busy / wall:.1f}% "
+          f"busy), {n_k} kernels a batch {tag}")
+
+    plp = Plp(device=dev)
+    wave = _waves(rng, 1, 5.0)[0]
+    fr = torch.from_numpy(plp.frames(wave)).to(dev)
+    x, le = preprocess_frames(fr, plp.frame_opts)
+    x = x.contiguous()
+    mel_e = plp.kernel(x)
+    o = plp.opts
+    dup = (mel_e * plp.equal_loudness[None, :]) ** o.compress_factor
+    ac = torch.cat([dup[:, :1], dup, dup[:, -1:]], dim=1) @ plp.idft
+
+    def recursion():
+        lpc, _ = _durbin(ac, o.lpc_order)
+        return _lpc_to_cepstrum(lpc, o.lpc_order, o.num_ceps)
+
+    parts = {"whole compute_frames": lambda: plp.compute_frames(fr),
+             "fbank kernel": lambda: plp.kernel(x),
+             "Durbin + cepstrum": recursion}
+    line, on_card = [], {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        # 2 calls: up to ~500 launches queue behind the spin; more would
+        # fill the launch queue and time the host's issue instead
+        on_card[name], hms = device_ms(fn, 2), cuda_ms(fn, 10)
+        _, n_k, k_ms, _ = _profiled(lambda: (fn(), torch.cuda.synchronize()))
+        line.append(f"{name} {on_card[name]:.4f} ms on the card, {hms:.4f} "
+                    f"ms per call, {n_k} kernels profiled ({k_ms:.4f} ms of "
+                    f"kernel time)")
+    rest = on_card["whole compute_frames"] - on_card["fbank kernel"] \
+        - on_card["Durbin + cepstrum"]
+    print(f"features Plp, one 5 s utterance ({x.shape[0]} frames): "
+          f"{'; '.join(line)}; the rest (pre-processing, loudness, IDFT, "
+          f"lifter) {rest:.4f} ms on the card {tag}")
+
+    spec = Spectrogram(device=dev)
+    k = spec.kernel
+    raw = torch.from_numpy((1000.0 * rng.standard_normal(
+        (4096, k.win_size))).astype(np.float32)).to(dev)
+    x = preprocess_frames(raw, spec.frame_opts)[0].contiguous()
+    pad = spec.frame_opts.padded_window_size - k.win_size
+    xw = torch.nn.functional.pad(x * k.window, (0, pad))
+    kms, fft_ms = _best(lambda: torch.fft.rfft(xw), lambda: k(x), device_ms,
+                        50)
+    print(f"features identity-filter fbank (257 outputs), 4096 frames: "
+          f"kernel {kms:.4f} ms on the card; torch.fft.rfft of the same "
+          f"windowed frames (no power, no log) {fft_ms:.4f} ms {tag}")
 
 
 def chain_training(dev, tag: str) -> None:

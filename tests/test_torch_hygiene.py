@@ -54,7 +54,8 @@ COPIED = {
     "fst/openfst_io.py", "fst/__init__.py", "lattice/lattice.py",
     "lattice/determinize.py", "lattice/io.py", "am/topology.py",
     "am/transitions.py", "am/tree.py", "native/__init__.py",
-    "native/lattice_build.cpp", "native/lattice_det.cpp"}
+    "native/lattice_build.cpp", "native/lattice_det.cpp",
+    "features/pitch.py", "features/resample.py"}
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -98,7 +99,9 @@ def _entry_points():
     from kaldi_tpu_torch.cli.latgen import _LatgenDecoder
     from kaldi_tpu_torch.decoder.beam import BeamDecoder
     from kaldi_tpu_torch.decoder.dense import DenseDecoder
-    from kaldi_tpu_torch.features.compute import Fbank, Mfcc
+    from kaldi_tpu_torch.features.batch import BatchedFrontend
+    from kaldi_tpu_torch.features.compute import Fbank, Mfcc, Plp, \
+        Spectrogram
     from kaldi_tpu_torch.ops.fbank import CudaFbank
     from kaldi_tpu_torch.ops.gmm import CudaGmm
     from kaldi_tpu_torch.pipelines.decode import decode_gmm, decode_gmm_lattice
@@ -109,13 +112,15 @@ def _entry_points():
                 AmDiagGmm=AmDiagGmm, CudaGmm=CudaGmm, CudaFbank=CudaFbank,
                 decode_gmm_lattice=decode_gmm_lattice, decode_gmm=decode_gmm,
                 read_mdl=read_mdl, CudaChainDen=CudaChainDen,
-                ChainTrainer=ChainTrainer)
+                ChainTrainer=ChainTrainer, Spectrogram=Spectrogram, Plp=Plp,
+                BatchedFrontend=BatchedFrontend)
 
 
 ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
                 "Mfcc", "AmDiagGmm", "CudaGmm", "CudaFbank",
                 "decode_gmm_lattice", "decode_gmm", "read_mdl",
-                "CudaChainDen", "ChainTrainer"]
+                "CudaChainDen", "ChainTrainer", "Spectrogram", "Plp",
+                "BatchedFrontend"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -165,7 +170,9 @@ def test_without_a_card_construction_raises(monkeypatch):
                  {}, eps["AmDiagGmm"](w, m, v, device="cpu"), tm, HCLG, lang),
              lambda: eps["CudaChainDen"](1, [0], [0], [0], [0.0], [0.0],
                                          [0.0], [0], [0]),
-             lambda: eps["ChainTrainer"](TdnnConfig(num_pdfs=P), None)]
+             lambda: eps["ChainTrainer"](TdnnConfig(num_pdfs=P), None),
+             lambda: eps["Spectrogram"](), lambda: eps["Plp"](),
+             lambda: eps["BatchedFrontend"]()]
     for call in calls:
         with pytest.raises(KaldiError, match="no CUDA card"):
             call()
@@ -227,8 +234,10 @@ def test_native_builds_under_a_per_process_name(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [
     ["chip_smoke.py"],
     ["-m", "kaldi_tpu_torch.tools.profile_slice"],
-    ["-m", "kaldi_tpu_torch.tools.profile_slice", "--den"]],
-    ids=["chip_smoke", "profile_slice", "profile_slice-den"])
+    ["-m", "kaldi_tpu_torch.tools.profile_slice", "--den"],
+    ["-m", "kaldi_tpu_torch.tools.profile_slice", "--features"]],
+    ids=["chip_smoke", "profile_slice", "profile_slice-den",
+         "profile_slice-features"])
 def test_card_scripts_refuse_without_a_card(argv):
     """The scripts that measure on the card run their main, and without
     a card exit non-zero before printing any result."""
