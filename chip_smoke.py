@@ -12,7 +12,11 @@ Phases (each prints lines; any failure raises and exits non-zero):
      version on the card, 4096 frames, at the TDNN-F's 40 bins and at
      the MFCC configurations (16 kHz with 23 bins, 8 kHz with 15 bins),
      with both times on the card alone and the kernel's bound; then at
-     40 bins at each of Fbank's use_power x use_log_fbank settings;
+     40 bins at each of Fbank's use_power x use_log_fbank settings; then
+     the wide banks (16 kHz with 15 and 17 bins, whose top filters pass
+     one group and are cut into pieces summed by kt_fbank_sum_pieces),
+     timed, and Fbank (17 bins) and Mfcc (15 bins) on 4 seeded
+     waveforms: the wide-bank path;
   4. batched lattice decode of synthetic log-likelihoods on the 20k-word
      task at the headline operating point, checked against the port's
      own CPU decode, with the frame loop run under
@@ -101,12 +105,41 @@ Phases (each prints lines; any failure raises and exits non-zero):
         compute-mfcc-feats | compute-cmvn-stats | apply-cmvn |
         add-deltas, compute-plp-feats, compute-spectrogram-feats and
         compute-and-process-kaldi-pitch-feats, each output equal to the
-        library call in the same run.
+        library call in the same run;
+ 10. GMM training and the GMM recipes:
+     a. the yesno recipe (pipelines/yesno.py ``run`` at its defaults: 30
+        train / 10 test utterances, 12 iterations, 120 Gaussians, beam
+        16) on the card: MFCC through the fbank kernel, flat start,
+        realignments (one GMM launch over all frames, the batched
+        aligner), accumulation, MLE updates and mix-up, then the dense
+        decode of the test and the train set, both WER 0.00; the loglike
+        per frame of each iteration; the same recipe on the port's CPU:
+        final loglike per frame within 0.05%, the same WER, at least 99%
+        of frames with equal alignments at each realignment;
+     b. the mini_librispeech ladder (pipelines/mini.py ``run``: mono 14
+        iterations; tri1, tri2b LDA+MLLT, tri3b SAT with the two-pass
+        fMLLR decode) on the card, on the hard corpus of the GMM stages
+        of pipelines/ladder.py (100 / 30 utterances, 30 leaves / 600
+        Gaussians): each stage's WER and wall; it fails unless mono's
+        WER is above 0 and tri3b's at most mono's;
+     c. at the tri3b width (2500 pdfs, 15,000 Gaussians, D = 40):
+        accumulate_stats over 32,768 seeded frames, the card against the
+        port's CPU at rtol 1e-4, timed; mle_update and mixup to 18,000
+        Gaussians; DenseAligner over 32 sentences of phase 6c's 300-word
+        task, under sync debug mode "error", its tids equal to the CPU
+        aligner's on the same log-likelihoods, timed, with its kernels a
+        frame;
+     d. ``python -m kaldi_tpu_torch.cli`` gmm-init-mono,
+        compile-train-graphs, align-equal-compiled, gmm-acc-stats-ali,
+        gmm-est --mix-up and gmm-align-compiled on a's train set (run in
+        the background beside b and c), each output equal to the library
+        call in the same run.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths, the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
-frames, the den's forward + backward at phase 8a's B = 128) and the
+frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
+forward + backward at phase 8a's B = 128) and the
 bound there: the larger of the bytes over 3.35 TB/s and the float32
 operations over 165 TFLOP/s (the H100's 495 TFLOP/s of TF32 over the 3
 products of 3xTF32, the least-time route that keeps float32 accuracy),
@@ -141,6 +174,8 @@ GMM_TOL = 1e-4
 # both branches, PERF.md); 10% leaves room for near-homophones of the
 # 20k-word task, and a broken path is far above it
 MAX_WER = 10.0
+# phase 10d's gmm-est --mix-up target on the yesno train set
+GMM_TOOLS_GAUSS = 60
 
 
 def random_tdnn_state(model, rng: np.random.Generator):
@@ -1517,6 +1552,487 @@ def feature_cli(dev, waves, tag: str) -> int:
     return launches
 
 
+def wide_banks(dev, x, tag: str):
+    """3, wide banks: at 16 kHz a bank of 15 or 17 bins has filters wider
+    than a group holds; the kernel on their pieces plus the pieces' sum
+    against the plain version on phase 3's 4096 frames (launches here
+    are not counted), both timed; then the wide-bank path: Fbank (17
+    bins) and Mfcc (15 bins) on 4 seeded waveforms, its count at 0 just
+    before.  → (max |diff|, 17-bin ms, plain ms, bound, launches of the
+    pair on the path)."""
+    from kaldi_tpu_torch.features.compute import (Fbank, FbankOptions, Mfcc,
+                                                  MfccOptions)
+    from kaldi_tpu_torch.features.mel import MelBanksOptions
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    from kaldi_tpu_torch.ops.fbank import CudaFbank, fbank_reference
+    from kaldi_tpu_torch.tools.timing import device_ms, fbank_bound
+    err = 0.0
+    for nb in (15, 17):
+        k = CudaFbank(FrameExtractionOptions(), MelBanksOptions(num_bins=nb),
+                      dev)
+
+        def plain():
+            return fbank_reference(x, k.window, k.cos, k.sin, k.mel)
+
+        d = float((k(x) - plain()).abs().max())
+        torch.cuda.synchronize()
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[which].append(device_ms(plain if which == "plain"
+                                          else lambda: k(x), 50))
+        ms, plain_ms = min(times["kernel"]), min(times["plain"])
+        bnd = fbank_bound(k, x.shape[0])
+        print(f"fbank: 16 kHz, {nb} bins (widest filter "
+              f"{int((k.mel != 0).sum(0).max())} DFT bins, cut into "
+              f"{k.n_cols} pieces): kernel + piece sum vs plain on 4096 "
+              f"frames: max |diff| {d:.3e} (limit 2e-3); on the card "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (best of 2 × 50), "
+              f"bound {bnd[0]:.4f} ms by {bnd[1]} "
+              f"({100 * bnd[0] / ms:.1f}% of it) {tag}")
+        if not d <= 2e-3:
+            raise AssertionError(f"wide-bank fbank disagrees: {d}")
+        err = max(err, d)
+    waves = synth_waveforms(np.random.default_rng(SEED + 3), 4)
+    fbank = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=17)),
+                  device=dev)
+    mfcc = Mfcc(MfccOptions(mel_opts=MelBanksOptions(num_bins=15),
+                            num_ceps=13, use_energy=False), device=dev)
+    CudaFbank.total_sum_launches = 0
+    for w in waves:
+        fbank.compute(w)
+        mfcc.compute(w)
+    torch.cuda.synchronize()
+    launches = CudaFbank.total_sum_launches
+    if launches != 2 * len(waves):
+        raise AssertionError(f"wide-bank path launches {launches}")
+    err = max(err, check_path_fbank(mfcc, waves, "fbank 16 kHz 15 bins"),
+              check_path_fbank(fbank, waves, "fbank 16 kHz 17 bins"))
+    return err, ms, plain_ms, bnd, launches
+
+
+# ---------------------------------------------------------------------------
+# 10. GMM training and the GMM recipes
+# ---------------------------------------------------------------------------
+
+def zero_totals() -> None:
+    """Every instance's launch counts to 0 (a recipe makes its own fbank
+    computers and rebuilds its GMM tables after every update)."""
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    from kaldi_tpu_torch.ops.gmm import CudaGmm
+    CudaFbank.total_launches = CudaFbank.total_sum_launches = 0
+    CudaGmm.total_launches = 0
+
+
+def totals():
+    """(fbank launches, GMM launches) of every instance."""
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    from kaldi_tpu_torch.ops.gmm import CudaGmm
+    return CudaFbank.total_launches, CudaGmm.total_launches
+
+
+def training_recorder(noise: float = 0.0, seed: int = 0):
+    """A train_mono/train_tri report that keeps each iteration's loglike
+    per frame and alignments; with ``noise``, it then scales each entry
+    of the accumulators the update reads by 1 + noise·N(0, 1), drawn
+    from ``seed``."""
+    rec = {"ll": [], "ali": []}
+    rng = np.random.default_rng(seed)
+
+    def report(it, ali, accs):
+        rec["ll"].append(accs.tot_like / accs.tot_frames)
+        rec["ali"].append({u: list(t) for u, t in ali.items()})
+        for a in (accs.occ, accs.mean_acc, accs.var_acc):
+            if noise:
+                a *= 1.0 + noise * rng.standard_normal(a.shape)
+
+    return rec, report
+
+
+def equal_share(x, y) -> float:
+    """The share of frames two alignments (utt → tids) give equal tids."""
+    same = sum(int(p == q) for u in x for p, q in zip(x[u], y[u]))
+    return same / sum(len(x[u]) for u in x)
+
+
+def drift(a, b, iters):
+    """(relative difference of the last loglike per frame, per iteration
+    in ``iters`` the share of frames with equal alignments) between two
+    training records."""
+    return (abs(a["ll"][-1] - b["ll"][-1]) / abs(b["ll"][-1]),
+            [equal_share(a["ali"][it], b["ali"][it]) for it in iters])
+
+
+# 10a's bar for the card's training run against the CPU's: the larger of
+# 0.05% (final loglike per frame) and YESNO_SLACK times the largest drift
+# that the CPU run shows against itself in YESNO_DRAWS runs whose float32
+# accumulators are scaled by 1 + 1e-6·N(0, 1) (the size of a
+# summation-order difference, which mix-up's and the alignments'
+# discrete choices amplify over the iterations), and the smaller of 99%
+# and 1 - YESNO_SLACK times those runs' largest unequal share of frames,
+# at each realignment
+YESNO_SLACK = 2.0
+YESNO_DRAWS = 3
+
+
+def yesno_recipe(dev, tag: str):
+    """10a: the yesno recipe at its own settings on the card, then the
+    same on the port's CPU, unperturbed and with its accumulators
+    perturbed at the scale of float32 rounding.  → (fbank launches, GMM
+    launches, the system the card built)."""
+    from kaldi_tpu_torch.am.gmm import AmDiagGmm
+    from kaldi_tpu_torch.decoder.align import (DenseAligner,
+                                               pack_training_graphs)
+    from kaldi_tpu_torch.decoder.training_graph import TrainingGraphCompiler
+    from kaldi_tpu_torch.pipelines import yesno
+    from kaldi_tpu_torch.pipelines.decode import decode_gmm
+    from kaldi_tpu_torch.pipelines.mono import MonoTrainConfig, realign
+    rec, report = training_recorder()
+    zero_totals()
+    t0 = time.perf_counter()
+    res, sysm = yesno.run(device=dev, report=report, return_system=True)
+    m = sysm["model"]
+    tr = decode_gmm(sysm["train_feats"], m.am, m.tm, sysm["HCLG"],
+                    sysm["lang"], sysm["dcfg"], refs=sysm["train"].text,
+                    device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fb, gm = totals()
+    print(f"yesno: {len(sysm['train'].utts)} train / "
+          f"{len(sysm['test'].utts)} test utterances, 12 iterations, "
+          f"{m.am.num_gauss()} Gaussians: test {res.wer}; train {tr.wer}; "
+          f"{wall:.1f} s on the card (features, training, graph, both "
+          f"decodes); fbank launches {fb}, GMM launches {gm} {tag}")
+    print("yesno: loglike per frame by iteration (card): "
+          + " ".join(f"{v:.4f}" for v in rec["ll"]))
+    if not (res.wer.wer == 0.0 and tr.wer.wer == 0.0):
+        raise AssertionError(f"yesno WER test {res.wer} train {tr.wer}")
+    if min(fb, gm) <= 0:
+        raise AssertionError(f"yesno launches: fbank {fb}, GMM {gm}")
+
+    # one step, the same model: the card's realignment of the train set
+    # (the GMM kernel, the aligner on the card) against the CPU's
+    feats, utts = sysm["train_feats"], sysm["train"].utts
+    compiler = TrainingGraphCompiler(sysm["lang"], m.tm)
+    dense = dict(zip(utts, pack_training_graphs(
+        [compiler.compile_text(sysm["train"].text[u]) for u in utts])))
+    got = realign(m.am, DenseAligner(m.tm.tid_to_pdf_array, device=dev),
+                  dense, utts, feats)
+    cpu_am = AmDiagGmm(m.am.weights, m.am.means, m.am.vars, device="cpu")
+    want = realign(cpu_am, DenseAligner(m.tm.tid_to_pdf_array,
+                                        device="cpu"), dense, utts, feats)
+    one = equal_share(got, want)
+
+    realigns = MonoTrainConfig(realign_iters=tuple(range(1, 12, 2))) \
+        .realign_iters
+    crec, creport = training_recorder()
+    t0 = time.perf_counter()
+    cres = yesno.run(device="cpu", report=creport)
+    cwall = time.perf_counter() - t0
+    rel, shares = drift(rec, crec, realigns)
+    p_rel, p_shares = 0.0, [1.0] * len(realigns)
+    for k in range(YESNO_DRAWS):
+        prec, preport = training_recorder(noise=1e-6, seed=SEED + 12 + k)
+        yesno.run(device="cpu", report=preport)
+        d, sh = drift(prec, crec, realigns)
+        p_rel, p_shares = max(p_rel, d), [min(a, b) for a, b in
+                                          zip(p_shares, sh)]
+    ll_bar = max(5e-4, YESNO_SLACK * p_rel)
+    ali_bars = [min(0.99, 1.0 - YESNO_SLACK * (1.0 - x)) for x in p_shares]
+    print(f"yesno: the port's CPU run ({cwall:.1f} s): test {cres.wer}; "
+          f"final loglike per frame {crec['ll'][-1]:.5f} vs card "
+          f"{rec['ll'][-1]:.5f}: {rel:.2e} relative (bar {ll_bar:.2e}); "
+          f"frames with equal alignments at realignments {list(realigns)}: "
+          + " ".join(f"{100 * x:.2f}%" for x in shares) + " (bars "
+          + " ".join(f"{100 * x:.2f}%" for x in ali_bars) + ")")
+    print(f"yesno: the CPU run against itself with its accumulators scaled "
+          f"by 1 + 1e-6·N(0, 1), worst of {YESNO_DRAWS} draws: final "
+          f"loglike per frame {p_rel:.2e} relative; equal alignments "
+          + " ".join(f"{100 * x:.2f}%" for x in p_shares)
+          + f"; one realignment of the train set by the trained model, "
+          f"card vs CPU: {100 * one:.3f}% of frames equal (limit 99.9%)")
+    if not (cres.wer.wer == res.wer.wer and rel <= ll_bar and one >= 0.999
+            and all(x >= b for x, b in zip(shares, ali_bars))):
+        raise AssertionError("yesno: card and CPU runs disagree")
+    return fb, gm, sysm
+
+
+# 10b's corpus: the GMM stages of kaldi_tpu/pipelines/ladder.py ``run``
+# at its defaults (100 / 30 utterances, the confusable lexicon, noise and
+# speaker warp 0.12, held-out test speakers, coarticulation 0.35, 30
+# leaves / 600 Gaussians, 5 / 3 speakers).  At mini.run's own defaults
+# mono already scores 0.00 and the original fails its exit rule (ROADMAP
+# Queue 3).
+MINI_LADDER = dict(num_utts=100, num_test=30, seed=1, noise=0.12,
+                   speaker_warp=0.12, heldout_speakers=True,
+                   coarticulation=0.35, tri_leaves=30, tri_gauss=600,
+                   num_speakers=5, num_test_speakers=3)
+
+
+def mini_recipe(dev, tag: str):
+    """10b: the mini_librispeech ladder (mini.run) on the ladder's hard
+    corpus on the card.  → (fbank launches, GMM launches)."""
+    from kaldi_tpu_torch.pipelines import mini
+    from kaldi_tpu_torch.pipelines.data import (confusable_formants,
+                                                confusable_lexicon)
+    stamps = {}
+
+    def report(stage, it, ali, accs):
+        stamps.setdefault(stage, []).append(
+            (time.perf_counter(), accs.tot_like / accs.tot_frames))
+
+    zero_totals()
+    t0 = time.perf_counter()
+    wers = mini.run(lexicon=confusable_lexicon(),
+                    formants=confusable_formants(), device=dev,
+                    report=report, **MINI_LADDER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fb, gm = totals()
+    prev = t0
+    for stage, marks in stamps.items():
+        print(f"mini: {stage}: {len(marks)} iterations, final loglike per "
+              f"frame {marks[-1][1]:.4f}; {marks[-1][0] - prev:.1f} s from "
+              f"the previous stage's last iteration (its decode, this "
+              f"stage's set-up and training)")
+        prev = marks[-1][0]
+    print(f"mini: " + "; ".join(f"{k} {v}" for k, v in wers.items()))
+    print(f"mini: {wall:.1f} s on the card for the four stages and their "
+          f"decodes; fbank launches {fb}, GMM launches {gm} {tag}")
+    # the ladder's rule: a task mono does not solve, and tri3b no worse
+    if not (0 < wers["mono"].wer and wers["tri3b"].wer <= wers["mono"].wer):
+        raise AssertionError(f"mini: mono {wers['mono']}, tri3b "
+                             f"{wers['tri3b']}")
+    if min(fb, gm) <= 0:
+        raise AssertionError(f"mini launches: fbank {fb}, GMM {gm}")
+    return fb, gm
+
+
+def tri3b_training(dev, task, tag: str):
+    """10c: accumulation, the MLE update and mix-up at the tri3b width,
+    then the forced aligner over 32 utterances of ``task``.  → (ms of
+    accumulate_stats on the card, ms of the align batch, launches per
+    aligner frame)."""
+    from kaldi_tpu_torch.am.gmm import (AmDiagGmm, GmmAccs, accumulate_stats,
+                                        accumulate_stats_device, mixup,
+                                        mle_update)
+    from kaldi_tpu_torch.decoder.align import DenseAligner
+    from kaldi_tpu_torch.tools.synth import (align_workload, model_frames,
+                                             tri3b_gmm)
+    from kaldi_tpu_torch.tools.timing import cuda_ms, device_ms, profiled
+    rng = np.random.default_rng(SEED + 10)
+    am = tri3b_gmm(rng, 2500, 15000, device=dev)
+    T = 32768
+    feats, pdfs = model_frames(am, rng, T)
+    cpu = AmDiagGmm(am.weights, am.means, am.vars, device="cpu")
+    got, want = (GmmAccs.zeros(am.num_pdfs, am.max_mix, am.dim)
+                 for _ in range(2))
+    accumulate_stats(am, feats, pdfs, got)
+    accumulate_stats(cpu, feats, pdfs, want)
+    worst = 0.0
+    for name in ("occ", "mean_acc", "var_acc"):
+        g, w = getattr(got, name), getattr(want, name)
+        worst = max(worst, float((np.abs(g - w) / (1e-4 * np.abs(w) + 1e-4
+                                 * np.abs(w).max())).max()))
+    like = abs(got.tot_like - want.tot_like) / abs(want.tot_like)
+    x = torch.from_numpy(feats).to(dev)
+    p = torch.from_numpy(pdfs).to(dev)
+    acc_ms = device_ms(lambda: accumulate_stats_device(am, x, p), 5)
+    print(f"train: accumulate_stats at the tri3b width ({am.num_pdfs} pdfs, "
+          f"{am.num_gauss()} Gaussians, D={am.dim}) over {T} frames: card vs "
+          f"the port's CPU accumulators at most {worst:.3f} of the limit "
+          f"1e-4·|cpu| + 1e-4·max|cpu|, tot_like {like:.2e} relative "
+          f"(limit 1e-4); {acc_ms:.4f} ms on the card "
+          f"({T / acc_ms * 1e3:.0f} frames/s) {tag}")
+    if not (worst <= 1.0 and like <= 1e-4):
+        raise AssertionError("accumulate_stats: card and CPU disagree")
+    t0 = time.perf_counter()
+    mle_update(am, got)
+    t1 = time.perf_counter()
+    n_live = am.num_gauss()
+    am = mixup(am, 18000)
+    t2 = time.perf_counter()
+    # the model's tables follow the update and the mix-up: its kernel
+    # output equals that of a model built afresh from its parameters
+    ll = am.loglikes(x[:4096])
+    fresh = AmDiagGmm(am.weights, am.means, am.vars,
+                      device=dev).loglikes(x[:4096])
+    same = bool(torch.equal(ll, fresh))
+    # mle_update zeroes the weight of a Gaussian that took no frames
+    # (about e^-2.2 of them at 2.2 frames a Gaussian); mixup, as the
+    # original's, then fills slots by the count of live ones, and a
+    # split can land on a live slot above such a hole (ROADMAP Queue 3)
+    print(f"train: mle_update {1e3 * (t1 - t0):.1f} ms ({n_live} Gaussians "
+          f"kept), mixup toward 18000: {am.num_gauss()} Gaussians "
+          f"({am.max_mix} slots) {1e3 * (t2 - t1):.1f} ms on the host; the "
+          f"GMM kernel on the mixed-up model's tables "
+          f"{'equals' if same else 'DIFFERS from'} a fresh model's")
+    if not (n_live < am.num_gauss() <= 18000 and same):
+        raise AssertionError("mixup at the tri3b width")
+
+    graphs, lls, tm = align_workload(task, 32, SEED + 11)
+    want = DenseAligner(tm.tid_to_pdf_array, device="cpu").align_batch(
+        graphs, lls)
+    al = DenseAligner(tm.tid_to_pdf_array, device=dev)
+    batch = al.prepare(graphs, lls)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    tids, _ = al.align_device(batch)
+    torch.cuda.set_sync_debug_mode(0)
+    got = al.align_batch(graphs, lls)
+    tids = tids.cpu().numpy()
+    for b, ((gt, gc), (wt, wc)) in enumerate(zip(got, want)):
+        if gt != wt or tids[b][:len(wt)].tolist() != wt \
+                or abs(gc - wc) > 1e-4 * abs(wc):
+            raise AssertionError(f"aligner utt {b}: card and CPU differ")
+    T_max = batch["loglikes"].shape[1]
+    frames = sum(len(w[0]) for w in want)
+    align_ms = cuda_ms(lambda: al.align_device(batch), 3)
+    wall, n_k, busy, _ = profiled(
+        lambda: (al.align_device(batch), torch.cuda.synchronize()))
+    print(f"train: DenseAligner, 32 sentences of phase 6c's 300-word task "
+          f"({frames} frames, T_max {T_max}, "
+          f"{batch['e_src'].shape[1]} padded states, ε depth "
+          f"{batch['eps_depth']}): tids equal the port's CPU aligner's on "
+          f"the same log-likelihoods, costs within 1e-4; the frame loop "
+          f"and backtrace ran under sync debug mode 'error'; "
+          f"{align_ms:.1f} ms a batch ({frames / align_ms * 1e3:.0f} "
+          f"frames/s); {n_k} kernels, {n_k / T_max:.1f} a frame, "
+          f"{100 * busy / wall:.1f}% busy under the profiler {tag}")
+    return acc_ms, align_ms, n_k / T_max
+
+
+def gmm_tools_start(dev, sysm):
+    """10d, started: the yesno train set's features, transcripts,
+    lexicon and topology written by the port, then ``python -m
+    kaldi_tpu_torch.cli`` gmm-init-mono | compile-train-graphs |
+    align-equal-compiled | gmm-acc-stats-ali | gmm-est --mix-up |
+    gmm-align-compiled in one background shell.  → (process, dir)."""
+    import subprocess
+    from kaldi_tpu_torch.am.serialize import write_topology
+    from kaldi_tpu_torch.am.topology import HmmTopology
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import TableWriter
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_gmm_tools")
+    os.makedirs(d, exist_ok=True)
+    train, feats = sysm["train"], sysm["train_feats"]
+    with TableWriter(f"ark:{d}/feats.ark", holder="mat") as w:
+        for u in train.utts:
+            w[u] = feats[u]
+    with TableWriter(f"ark:{d}/text.ark", holder="text") as w:
+        for u in train.utts:
+            w[u] = train.text[u]
+    with open(f"{d}/lexicon.txt", "w") as f:
+        for word, pron in sysm["lang"].lexicon.entries:
+            f.write(f"{word} {' '.join(pron)}\n")
+    with open(f"{d}/topo", "wb") as f:
+        kio.init_kaldi_output_stream(f)
+        write_topology(f, HmmTopology.three_state(sysm["lang"].phone_list()))
+    dim = feats[train.utts[0]].shape[1]
+    cli = f"{sys.executable} -m kaldi_tpu_torch.cli"
+    steps = [
+        f"gmm-init-mono --train-feats=ark:{d}/feats.ark "
+        f"--perturb-factor=0.01 {d}/topo {dim} {d}/0.mdl {d}/tree",
+        f"compile-train-graphs {d}/lexicon.txt {d}/0.mdl ark:{d}/text.ark "
+        f"ark:{d}/graphs.ark",
+        f"align-equal-compiled ark:{d}/graphs.ark ark:{d}/feats.ark "
+        f"ark:{d}/ali0.ark",
+        f"gmm-acc-stats-ali --device=cuda {d}/0.mdl ark:{d}/feats.ark "
+        f"ark:{d}/ali0.ark {d}/0.acc",
+        f"gmm-est --mix-up={GMM_TOOLS_GAUSS} {d}/0.mdl {d}/0.acc {d}/1.mdl",
+        f"gmm-align-compiled --device=cuda {d}/1.mdl ark:{d}/graphs.ark "
+        f"ark:{d}/feats.ark ark:{d}/ali1.ark"]
+    proc = subprocess.Popen(
+        ["bash", "-e", "-c", "\n".join(f"{cli} {s}" for s in steps)],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, d, time.perf_counter()
+
+
+def gmm_tools_finish(dev, sysm, started, tag: str) -> int:
+    """10d, checked: each tool's output against the library call on the
+    same inputs in this run.  → the tools' GMM launches (their log)."""
+    import re
+    from kaldi_tpu_torch.am.gmm import (AmDiagGmm, GmmAccs, accumulate_stats,
+                                        global_stats, mixup, mle_update)
+    from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+    from kaldi_tpu_torch.cli.tools_extra import read_gmm_accs
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    from kaldi_tpu_torch.decoder.align import (DenseAligner,
+                                               pack_training_graphs)
+    from kaldi_tpu_torch.decoder.training_graph import (TrainingGraphCompiler,
+                                                        equal_align)
+    from kaldi_tpu_torch.pipelines.mono import realign
+    proc, d, t0 = started
+    _, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"GMM tools failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    launches = sum(int(n) for n in
+                   re.findall(r"GMM kernel launches (\d+)", err))
+    train, feats, lang = sysm["train"], sysm["train_feats"], sysm["lang"]
+    utts = train.utts
+
+    def ark(name, holder):
+        return dict(SequentialTableReader(f"ark:{d}/{name}.ark",
+                                          holder=holder))
+
+    def same_model(tool, lib, tm):
+        # the library's model through the same .mdl file format
+        write_mdl(f"{d}/lib.mdl", tm, lib)
+        _, lib = read_mdl(f"{d}/lib.mdl", device="cpu")
+        return all(np.array_equal(getattr(tool, n), getattr(lib, n))
+                   for n in ("weights", "means", "vars"))
+
+    tm0, am0 = read_mdl(f"{d}/0.mdl", device=dev)
+    gmean, gvar = global_stats(feats[u] for u in utts)
+    ok = {"gmm-init-mono": same_model(am0, AmDiagGmm.flat_start(
+        am0.num_pdfs, gmean, gvar, perturb=0.01, device="cpu"), tm0)}
+    compiler = TrainingGraphCompiler(lang, tm0)
+    graphs = {u: compiler.compile_text(train.text[u]) for u in utts}
+    got = ark("graphs", "fst")
+    def arcs(fst):
+        # an archive carries float32 weights
+        return [[(a.ilabel, a.olabel, np.float32(a.weight), a.nextstate)
+                 for a in arcs] for arcs in fst.arcs]
+
+    ok["compile-train-graphs"] = all(arcs(got[u]) == arcs(graphs[u])
+                                     for u in utts)
+    ali0 = ark("ali0", "ivec")
+    ok["align-equal-compiled"] = all(
+        list(ali0[u]) == equal_align(graphs[u], feats[u].shape[0])
+        for u in utts)
+    accs = GmmAccs.zeros(am0.num_pdfs, am0.max_mix, am0.dim)
+    for u in utts:
+        accumulate_stats(am0, feats[u], tm0.tid_to_pdf_array[
+            np.asarray(ali0[u])], accs)
+    tool_accs = read_gmm_accs(f"{d}/0.acc")
+    ok["gmm-acc-stats-ali"] = all(
+        np.allclose(getattr(tool_accs, n), getattr(accs, n), rtol=1e-5,
+                    atol=1e-5 * np.abs(getattr(accs, n)).max())
+        for n in ("occ", "mean_acc", "var_acc"))
+    mle_update(am0, tool_accs)
+    am1 = mixup(am0, GMM_TOOLS_GAUSS)
+    tm1, tool_am1 = read_mdl(f"{d}/1.mdl", device=dev)
+    ok["gmm-est --mix-up"] = same_model(tool_am1, am1, tm1) \
+        and tool_am1.num_gauss() == GMM_TOOLS_GAUSS
+    dense = dict(zip(utts, pack_training_graphs([graphs[u] for u in utts])))
+    lib = realign(tool_am1, DenseAligner(tm1.tid_to_pdf_array, device=dev),
+                  dense, utts, feats)
+    ali1 = ark("ali1", "ivec")
+    ok["gmm-align-compiled"] = all(list(ali1[u]) == lib[u] for u in utts)
+    print(f"gmm tools: python -m kaldi_tpu_torch.cli on the yesno train set "
+          f"({len(utts)} utterances), 6 processes in {wall:.1f} s (run "
+          f"beside 10b and 10c): "
+          + ", ".join(f"{n} {'equals' if v else 'DIFFERS from'} the library"
+                      for n, v in ok.items())
+          + f"; GMM launches {launches} {tag}")
+    if not all(ok.values()) or launches <= 0:
+        raise AssertionError(f"GMM tools vs library: {ok}, launches "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1638,6 +2154,8 @@ def main() -> int:
                                      f"{use_power} use_log={use_log}: {err}")
             if use_log:
                 fb_err = max(fb_err, err)
+    wide_err, wide_ms, wide_plain_ms, wide_bound, wide_launches = \
+        wide_banks(dev, x, tag)
 
     # 4. decode synthetic log-likelihoods on the 20k task
     t0 = time.perf_counter()
@@ -1854,23 +2372,48 @@ def main() -> int:
     cli_fb = feature_cli(dev, waves, tag)
     print(f"features: phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    # 10. GMM training and the GMM recipes; 10d's tools run in the
+    # background beside 10b and 10c
+    t0 = time.perf_counter()
+    y_fb, y_gmm, ysys = yesno_recipe(dev, tag)
+    tools = gmm_tools_start(dev, ysys)
+    try:
+        m_fb, m_gmm = mini_recipe(dev, tag)
+        tri3b_training(dev, task300, tag)
+        tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
+    finally:
+        if tools[0].poll() is None:
+            tools[0].kill()
+            tools[0].wait()
+    print(f"train: phase 10 took {time.perf_counter() - t0:.1f} s")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
-        + sp_fb + bf_fb + p_fb + cli_fb,
+        + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
                 "the spectrogram are held to their own bar (phase 9a)",
         "ms": fb_ms, "plain_ms": fb_plain_ms,
         "bound_ms": fb_bound[0], "bound_by": fb_bound[1],
         "library_ms": None}, {
+        "name": "fbank_logmel_wide", "route": "cuda",
+        "source": "kaldi_tpu_torch/csrc/fbank.cu",
+        "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
+        "note": "a 16 kHz bank of 17 bins: the fbank kernel on the pieces "
+                "of its wide filters, then kt_fbank_sum_pieces; ms for "
+                "both, launches of the pair on the wide-bank path",
+        "launches": wide_launches, "max_abs_err": wide_err,
+        "ms": wide_ms, "plain_ms": wide_plain_ms,
+        "bound_ms": wide_bound[0], "bound_by": wide_bound[1],
+        "library_ms": None}, {
         "name": "gmm_loglikes", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/gmm.cu",
         "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
-        "launches": b_gmm + d_gmm + p_gmm,
+        "launches": b_gmm + d_gmm + p_gmm + y_gmm + m_gmm + tool_gmm,
         "max_abs_err": max(gmm_err, b_err, d_err, p_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
         "bound_ms": gmm_bnd[0], "bound_by": gmm_bnd[1],

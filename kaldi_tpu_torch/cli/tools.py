@@ -12,7 +12,8 @@ there, and CMVN, deltas, splicing and transforms run on it.  The
 registry also holds the port's other tools: ``gmm-latgen-faster``
 (cli/latgen.py), ``online2-wav-nnet3-latgen-faster`` (cli/online2.py),
 ``nnet3-chain-train`` and ``nnet3-chain-compute-prob`` (cli/chain.py),
-and those of cli/tools_extra.py, tools_bank3.py and tools_bank10.py.
+and those of cli/tools_extra.py, tools_bank3.py, tools_bank5.py and
+tools_bank10.py.
 
     python -m kaldi_tpu_torch.cli <tool-name> [options] args...
 """

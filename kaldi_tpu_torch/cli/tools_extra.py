@@ -1,19 +1,32 @@
-"""compute-spectrogram-feats and apply-cmvn-sliding.
+"""compute-spectrogram-feats, apply-cmvn-sliding and the GMM estimation
+tools gmm-mixup, gmm-acc-stats-ali, gmm-sum-accs and gmm-est.
 
-Port of the two featbin tools of kaldi_tpu/cli/tools_extra.py (parity
-targets featbin/compute-spectrogram-feats.cc, apply-cmvn-sliding.cc),
-registered in cli/tools.py's ``TOOLS``.  The spectrogram runs the fbank
-kernel with one filter per DFT bin on ``--device`` (default cuda);
-sliding-window CMN is host numpy, as in the original.
+Port of those tools of kaldi_tpu/cli/tools_extra.py (parity targets
+featbin/compute-spectrogram-feats.cc, apply-cmvn-sliding.cc,
+gmmbin/gmm-mixup.cc, gmm-acc-stats-ali.cc, gmm-sum-accs.cc,
+gmm-est.cc), registered in cli/tools.py's ``TOOLS``, with the
+accumulator files' reader and writer.  The spectrogram runs the fbank
+kernel with one filter per DFT bin on ``--device`` (default cuda), and
+gmm-acc-stats-ali accumulates on it; sliding-window CMN and the
+updates are host numpy, as in the original.  The original's gmm-mixup
+and ``gmm-est --mix-up`` drop ``mixup``'s result and write the model
+unchanged; these write the mixed-up model.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from kaldi_tpu_torch.cli.tools import _feature_tool, _make_frame_opts, tool
+from kaldi_tpu_torch.cli.tools import (_device_po, _feature_tool,
+                                       _make_frame_opts, tool)
+from kaldi_tpu_torch.core.io import (read_matrix, read_token, read_vector,
+                                     write_matrix, write_token, write_vector)
+from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
 from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.device import resolve_device
+
+log = get_logger(__name__)
 
 
 @tool("compute-spectrogram-feats")
@@ -46,4 +59,115 @@ def apply_cmvn_sliding(argv):
     with TableWriter(args[1], holder="mat") as w:
         for key, m in SequentialTableReader(args[0], holder="mat"):
             w[key] = sliding_window_cmn(np.asarray(m), opts)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# gmmbin
+# ---------------------------------------------------------------------------
+
+_ACC_TOKEN = "<GmmAccs>"
+
+
+# Copied from kaldi_tpu/cli/tools_extra.py write_gmm_accs.
+def write_gmm_accs(path: str, accs) -> None:
+    P, M, D = accs.mean_acc.shape
+    with open(path, "wb") as f:
+        f.write(b"\0B")
+        write_token(f, _ACC_TOKEN)
+        write_matrix(f, accs.occ.astype(np.float64), dtype="float64")
+        write_matrix(f, accs.mean_acc.reshape(P, M * D).astype(np.float64),
+                     dtype="float64")
+        write_matrix(f, accs.var_acc.reshape(P, M * D).astype(np.float64),
+                     dtype="float64")
+        write_vector(f, np.array([accs.tot_like, accs.tot_frames, D],
+                                 np.float64), dtype="float64")
+
+
+# Copied from kaldi_tpu/cli/tools_extra.py read_gmm_accs.
+def read_gmm_accs(path: str):
+    from kaldi_tpu_torch.am.gmm import GmmAccs
+    with open(path, "rb") as f:
+        if f.read(2) != b"\0B":
+            raise KaldiError(f"{path}: not a binary kaldi file")
+        tok = read_token(f)
+        if tok != _ACC_TOKEN:
+            raise KaldiError(f"{path}: expected {_ACC_TOKEN}, got {tok}")
+        occ = read_matrix(f)
+        mean = read_matrix(f)
+        var = read_matrix(f)
+        meta = read_vector(f)
+    P, M = occ.shape
+    D = int(meta[2])
+    return GmmAccs(occ, mean.reshape(P, M, D), var.reshape(P, M, D),
+                   float(meta[0]), float(meta[1]))
+
+
+@tool("gmm-mixup")
+def gmm_mixup(argv):
+    from kaldi_tpu_torch.am.gmm import mixup
+    from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+    po = ParseOptions("gmm-mixup --mix-up=N <model-in> <model-out>")
+    po.register("mix-up", int, 0, "target total #gauss")
+    po.register("perturb-factor", float, 0.01, "mean perturbation")
+    args = po.read(argv)
+    tm, am = read_mdl(args[0], device="cpu")
+    if po["mix-up"]:
+        am = mixup(am, po["mix-up"], perturb=po["perturb-factor"])
+    write_mdl(args[1], tm, am)
+    return 0
+
+
+@tool("gmm-acc-stats-ali")
+def gmm_acc_stats_ali(argv):
+    from kaldi_tpu_torch.am.gmm import GmmAccs, accumulate_stats
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    po = ParseOptions("gmm-acc-stats-ali <model> <feats-rspec> "
+                      "<ali-rspec> <accs-out>")
+    _device_po(po)
+    args = po.read(argv)
+    tm, am = read_mdl(args[0], device=resolve_device(po["device"]))
+    accs = GmmAccs.zeros(am.num_pdfs, am.max_mix, am.dim)
+    alis = dict(SequentialTableReader(args[2], holder="ivec"))
+    n = 0
+    for key, feats in SequentialTableReader(args[1], holder="mat"):
+        if key not in alis:
+            log.warning("no alignment for %s", key)
+            continue
+        pdf_ali = tm.tid_to_pdf_array[np.asarray(alis[key])]
+        accumulate_stats(am, np.asarray(feats), pdf_ali, accs)
+        n += 1
+    write_gmm_accs(args[3], accs)
+    log.info("accumulated stats from %d utterances; avg like/frame %.4f",
+             n, accs.tot_like / max(accs.tot_frames, 1.0))
+    return 0
+
+
+@tool("gmm-sum-accs")
+def gmm_sum_accs(argv):
+    po = ParseOptions("gmm-sum-accs <accs-out> <accs-in1> [<accs-in2> ...]")
+    args = po.read(argv)
+    total = read_gmm_accs(args[1])
+    for p in args[2:]:
+        total = total + read_gmm_accs(p)
+    write_gmm_accs(args[0], total)
+    return 0
+
+
+@tool("gmm-est")
+def gmm_est(argv):
+    from kaldi_tpu_torch.am.gmm import mixup, mle_update
+    from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+    po = ParseOptions("gmm-est [opts] <model-in> <accs-in> <model-out>")
+    po.register("min-gaussian-occupancy", float, 3.0, "")
+    po.register("mix-up", int, 0, "target #gauss after update")
+    args = po.read(argv)
+    tm, am = read_mdl(args[0], device="cpu")
+    accs = read_gmm_accs(args[1])
+    mle_update(am, accs, min_occ=po["min-gaussian-occupancy"])
+    if po["mix-up"]:
+        am = mixup(am, po["mix-up"])
+    write_mdl(args[2], tm, am)
+    log.info("estimated model; tot like/frame %.4f over %.0f frames",
+             accs.tot_like / max(accs.tot_frames, 1.0), accs.tot_frames)
     return 0

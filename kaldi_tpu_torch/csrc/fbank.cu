@@ -61,6 +61,17 @@
 // over all 50 k-steps it cost up to half the 2e-3 log-mel bar on
 // near-silent bins of the paths' audio.
 //
+// A group holds at most 64 bins (FB_MAX_TILES n-tiles) of one filter.  A
+// bank with a wider filter (at 16 kHz, 17 mel bins or fewer) reaches the
+// kernel cut into pieces of at most 64 bins (ops/fbank.py split_filters),
+// one output column each: with `raw` set the kernel writes each piece's
+// linear energy, with no floor and no log, and fbank_sum_pieces_kernel
+// sums each filter's pieces in bin order, then floors at FLT_MIN and
+// takes the log.  The floor comes after the whole filter's sum, as in
+// the reference.  The second kernel moves 4 bytes per piece and frame
+// in and 4 per filter out: ~0.13 MB at 4096 frames and 17 bins, a few
+// microseconds beside the DFT.
+//
 // Shaped by ptxas (chip_smoke prints its report): 120 registers for 8
 // warps x 16 frames, 160 for 4 warps x 32 frames, no spills; 64 frames a
 // block took 153 registers before the per-k-step sums and ran slower.
@@ -101,7 +112,7 @@ __global__ void __launch_bounds__(128 * KQ) fbank_logmel_kernel(
     const float* __restrict__ tab, const int* __restrict__ groups,
     const int* __restrict__ franges, const float* __restrict__ melw,
     float* __restrict__ out, int n_frames, int win, int kp, int n_mel,
-    int vec, int use_power, int use_log) {
+    int vec, int use_power, int use_log, int raw) {
   constexpr int ROWS = 16 * WM, MAXI = FB_MAX_TILES / 4, NT = 128 * KQ;
   extern __shared__ __align__(16) float smem[];
   const int S = kp + 4;
@@ -276,7 +287,7 @@ __global__ void __launch_bounds__(128 * KQ) fbank_logmel_kernel(
   __syncthreads();
 
   // 4. the group's filters over their nonzero bins, then the floor and
-  //    the log
+  //    the log (or neither, for the pieces of a wide filter)
   const int nf = m1 - m0;
   for (int i = tid; i < ROWS * nf; i += NT) {
     const int r = i / nf, m = m0 + (i - r * nf);
@@ -286,9 +297,30 @@ __global__ void __launch_bounds__(128 * KQ) fbank_logmel_kernel(
     const float* pr = pw + r * FB_PWS - k0;
     float e = 0.f;
     for (int k = lo; k < hi; ++k) e = fmaf(pr[k], wm_[k], e);
-    e = fmaxf(e, FLT_MIN);
-    out[(size_t)(f0 + r) * n_mel + m] = use_log ? logf(e) : e;
+    if (!raw) {
+      e = fmaxf(e, FLT_MIN);
+      if (use_log) e = logf(e);
+    }
+    out[(size_t)(f0 + r) * n_mel + m] = e;
   }
+}
+
+// One thread per (frame, filter): the sum of the filter's pieces in bin
+// order, floored at FLT_MIN, then the log unless use_log is 0.
+__global__ void fbank_sum_pieces_kernel(const float* __restrict__ parts,
+                                        const int* __restrict__ piece_off,
+                                        const int* __restrict__ piece_cols,
+                                        float* __restrict__ out, int n_frames,
+                                        int n_cols, int n_mel, int use_log) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long)n_frames * n_mel) return;
+  const long r = i / n_mel;
+  const int m = (int)(i - r * n_mel);
+  const float* p = parts + r * n_cols;
+  float e = 0.f;
+  for (int j = piece_off[m]; j < piece_off[m + 1]; ++j) e += p[piece_cols[j]];
+  e = fmaxf(e, FLT_MIN);
+  out[i] = use_log ? logf(e) : e;
 }
 
 template <int WM, int KQ>
@@ -297,7 +329,7 @@ static cudaError_t launch(const float* frames, const float* window,
                           const int* franges, const float* melw, float* out,
                           int n_frames, int win, int kp, int n_groups,
                           int n_mel, int vec, int use_power, int use_log,
-                          cudaStream_t stream) {
+                          int raw, cudaStream_t stream) {
   const int rows = 16 * WM;
   size_t xs = (size_t)rows * (kp + 4);
   if (xs < (size_t)rows * FB_PWS) xs = (size_t)rows * FB_PWS;
@@ -312,7 +344,7 @@ static cudaError_t launch(const float* frames, const float* window,
   const dim3 grid((n_frames + rows - 1) / rows, n_groups);
   fbank_logmel_kernel<WM, KQ><<<grid, 128 * KQ, smem, stream>>>(
       frames, window, tab, groups, franges, melw, out, n_frames, win, kp,
-      n_mel, vec, use_power, use_log);
+      n_mel, vec, use_power, use_log, raw);
   return cudaGetLastError();
 }
 
@@ -324,7 +356,8 @@ static cudaError_t launch(const float* frames, const float* window,
 // the filters' weights over those bins, in filter order; all contiguous
 // on the device.  kp is win rounded up to 8.  use_power (0: magnitude)
 // and use_log (0: linear mel energies) as the reference Fbank's options
-// of those names.  Launches on `stream`;
+// of those names; raw (1: each column's linear energy, no floor, no log:
+// the pieces of a wide filter).  Launches on `stream`;
 // returns the launch status (cudaErrorInvalidValue for arguments the
 // kernel does not take).
 extern "C" cudaError_t kt_fbank_logmel(const float* frames,
@@ -333,7 +366,7 @@ extern "C" cudaError_t kt_fbank_logmel(const float* frames,
                                        const float* melw, float* out,
                                        int n_frames, int win, int kp,
                                        int n_groups, int n_mel,
-                                       int use_power, int use_log,
+                                       int use_power, int use_log, int raw,
                                        cudaStream_t stream) {
   if (n_frames < 0 || win <= 0 || kp < win || kp % 8 != 0 || n_groups <= 0 ||
       n_groups > 65535 || n_mel <= 0)
@@ -353,8 +386,30 @@ extern "C" cudaError_t kt_fbank_logmel(const float* frames,
   if (tiles >= 4L * sms)
     return launch<2, 1>(frames, window, tab, groups, franges, melw, out,
                         n_frames, win, kp, n_groups, n_mel, vec, use_power,
-                        use_log, stream);
+                        use_log, raw, stream);
   return launch<1, 2>(frames, window, tab, groups, franges, melw, out,
                       n_frames, win, kp, n_groups, n_mel, vec, use_power,
-                      use_log, stream);
+                      use_log, raw, stream);
+}
+
+// parts (n_frames, n_cols): the pieces' linear energies that
+// kt_fbank_logmel wrote with raw set; filter m's pieces are the columns
+// piece_cols[piece_off[m] .. piece_off[m + 1]); out (n_frames, n_mel).
+// All int32 / float32, contiguous on the device.  Launches on `stream`;
+// returns the launch status.
+extern "C" cudaError_t kt_fbank_sum_pieces(const float* parts,
+                                           const int* piece_off,
+                                           const int* piece_cols, float* out,
+                                           int n_frames, int n_cols,
+                                           int n_mel, int use_log,
+                                           cudaStream_t stream) {
+  if (n_frames < 0 || n_cols <= 0 || n_mel <= 0)
+    return cudaErrorInvalidValue;
+  const long n = (long)n_frames * n_mel;
+  if (n == 0) return cudaSuccess;
+  const int threads = 256;
+  fbank_sum_pieces_kernel<<<(unsigned)((n + threads - 1) / threads), threads,
+                            0, stream>>>(parts, piece_off, piece_cols, out,
+                                         n_frames, n_cols, n_mel, use_log);
+  return cudaGetLastError();
 }

@@ -1,6 +1,4 @@
 # Copied from kaldi_tpu/fst/hclg.py; imports rewritten to kaldi_tpu_torch.
-# Context-dependent graphs (fst/context.py) are not ported: mkgraph
-# takes context-independent trees only.
 """HCLG graph compilation.
 
 Parity targets: egs/wsj/s5/utils/mkgraph.sh pipeline,
@@ -209,8 +207,9 @@ def mkgraph(lang, trans_model: TransitionModel, G: VectorFst,
         ilabel_info = lang.mono_ilabel_info()
         disambig_start = lang.phone_disambig_start
     else:
-        raise KaldiError(f"mkgraph: context width {tree.context_width}: "
-                         "context-dependent graphs are not ported")
+        from kaldi_tpu_torch.fst.context import compose_context
+        CLG, ilabel_info, disambig_start = compose_context(
+            LG, lang, tree.context_width, tree.central_position)
     log.info("CLG: %s", CLG)
 
     Ha, disambig_tids = make_h_transducer(

@@ -12,6 +12,14 @@ is a run of filters whose nonzero DFT bins, together, span about
 ``GROUP_BINS`` bins, and it reads the interleaved cos/sin columns of
 those bins only (``group_tables``), split into TF32 hi/lo halves in
 mma.sync fragment order (ops/tf32.py).
+
+A group holds at most ``PIECE_BINS`` bins of one filter.  A bank with a
+wider filter (at 16 kHz, 17 mel bins or fewer) is cut into pieces of at
+most that many bins (``split_filters``); the kernel then writes each
+piece's linear energy, with no floor and no log, and a second kernel
+(``kt_fbank_sum_pieces``) sums each filter's pieces in bin order, then
+floors and takes the log as ``fbank_reference`` does.  A bank with no
+such filter keeps the one launch.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ GROUP_BINS = 32
 MAX_GROUP_TILES = 16
 # csrc/fbank.cu FB_MELW: a group's filters have at most 128 weights
 MAX_GROUP_WEIGHTS = 128
+# the widest filter piece a group takes
+PIECE_BINS = 4 * MAX_GROUP_TILES
 
 
 def dft_matrices(n_fft: int, n_bins: int):
@@ -96,8 +106,9 @@ def mel_groups(franges: np.ndarray, target_bins: int = GROUP_BINS
     equal slices of the spectrum, G the span over ``target_bins`` (more
     if a group would pass MAX_GROUP_TILES or MAX_GROUP_WEIGHTS).  → (G,
     4) int32 rows (first bin, n-tiles of 4 bins, first filter, end
-    filter).  A filter wider than one group can hold raises ValueError
-    (at 16 kHz, mel banks of 17 bins or fewer)."""
+    filter).  The filters' centres must not decrease.  A filter wider
+    than one group can hold raises ValueError: ``split_filters`` cuts
+    such filters first."""
     lo, hi = franges[:, 0], franges[:, 1]
     live = hi > lo
     widest = int((hi - lo).max())
@@ -124,7 +135,42 @@ def mel_groups(franges: np.ndarray, target_bins: int = GROUP_BINS
         if (max(r[1] for r in rows) <= MAX_GROUP_TILES
                 and max(r[4] for r in rows) <= MAX_GROUP_WEIGHTS):
             return np.array([r[:4] for r in rows], np.int32)
+        if G > 2 * span + 1:
+            # slices under half a bin part every two distinct centres:
+            # only filters sharing one centre are left together
+            raise ValueError("filters sharing a centre pass a group's "
+                             f"{MAX_GROUP_WEIGHTS} weights")
         G += 1
+
+
+def split_filters(mel: np.ndarray, franges: np.ndarray):
+    """Cut every filter wider than PIECE_BINS bins into near-equal
+    pieces of at most that many, one column each, the columns ordered
+    by centre (as ``mel_groups`` needs them).  → (columns (n_bins,
+    n_cols) float32, piece_off (n_mel + 1,) int32, piece_cols (n_cols,)
+    int32): filter m's pieces are columns piece_cols[piece_off[m]:
+    piece_off[m + 1]], in bin order.  A bank with no such filter gives
+    (mel, None, None)."""
+    width = franges[:, 1] - franges[:, 0]
+    if width.max() <= PIECE_BINS:
+        return mel, None, None
+    pieces = []                                  # (centre, filter, lo, hi)
+    for m, (lo, hi) in enumerate(franges):
+        n = max(1, -(-int(hi - lo) // PIECE_BINS))
+        cuts = lo + ((hi - lo) * np.arange(n + 1)) // n
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            pieces.append(((a + b) / 2.0 if b > a else -1.0, m, a, b))
+    order = sorted(range(len(pieces)), key=lambda i: pieces[i][0])
+    cols = np.zeros((mel.shape[0], len(pieces)), np.float32)
+    owner = np.zeros(len(pieces), np.int64)
+    for c, i in enumerate(order):
+        _, m, a, b = pieces[i]
+        cols[a:b, c] = mel[a:b, m]
+        owner[c] = m
+    piece_cols = np.argsort(owner, kind="stable").astype(np.int32)
+    piece_off = np.searchsorted(owner[piece_cols],
+                                np.arange(mel.shape[1] + 1)).astype(np.int32)
+    return cols, piece_off, piece_cols
 
 
 def group_tables(cosm: np.ndarray, sinm: np.ndarray, groups: np.ndarray,
@@ -151,14 +197,17 @@ def group_tables(cosm: np.ndarray, sinm: np.ndarray, groups: np.ndarray,
 
 def _load():
     lib = build.load_library("kt_fbank", build.KERNELS["kt_fbank"])
-    fn = lib.kt_fbank_logmel
+    fn, fsum = lib.kt_fbank_logmel, lib.kt_fbank_sum_pieces
     if fn.argtypes is None:
         # pointers and the stream as c_void_p: undeclared, ctypes would
         # pass each Python int as a 32-bit int and cut the address
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
-    return fn
+        fsum.restype = ctypes.c_int
+        fsum.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+    return fn, fsum
 
 
 class CudaFbank:
@@ -168,7 +217,13 @@ class CudaFbank:
     ``filters`` (n_fft/2 + 1, n_out) float32, nonnegative, replaces the
     mel bank (default ``MelBanks(mel_opts, frame_opts).matrix.T``): the
     identity gives the log power spectrum (``Spectrogram``).
-    ``launches`` counts kernel launches."""
+    ``launches`` counts launches of the fbank kernel, ``sum_launches``
+    those of the kernel that sums a wide bank's pieces; the class's
+    ``total_launches`` and ``total_sum_launches`` count those of every
+    instance (a recipe makes its own computers)."""
+
+    total_launches = 0
+    total_sum_launches = 0
 
     def __init__(self, frame_opts: FrameExtractionOptions = None,
                  mel_opts: MelBanksOptions = None,
@@ -196,8 +251,12 @@ class CudaFbank:
                 raise ValueError(f"filters must be ({self.n_bins}, n_out) "
                                  "and nonnegative")
         self.n_mel = mel.shape[1]
-        self.franges = filter_ranges(mel)
-        melw, woff = filter_weights(mel, self.franges)
+        # the kernel's columns: the filters, or their pieces
+        cols, piece_off, piece_cols = split_filters(mel,
+                                                    filter_ranges(mel))
+        self.n_cols = cols.shape[1]
+        self.franges = filter_ranges(cols)
+        melw, woff = filter_weights(cols, self.franges)
         groups = mel_groups(self.franges)
         tables, offsets = group_tables(cosm, sinm, groups, self.kp)
         self.groups = np.concatenate([groups, offsets[:, None]], axis=1)
@@ -217,10 +276,14 @@ class CudaFbank:
         self.franges_dev = dev(np.concatenate([self.franges, woff[:, None]],
                                               axis=1))
         self.melw = dev(melw)
+        self.piece_off = self.piece_cols = None
+        if piece_off is not None:
+            self.piece_off, self.piece_cols = dev(piece_off), dev(piece_cols)
         # "cuda" → "cuda:<current>", so that it compares equal to the
         # device of a tensor moved there
         self.device = self.mel.device
         self.launches = 0
+        self.sum_launches = 0
 
     def reference(self, frames: torch.Tensor) -> torch.Tensor:
         """The plain version on this computer's tables."""
@@ -243,18 +306,31 @@ class CudaFbank:
             raise ValueError(f"unsupported device {frames.device}")
         if not frames.is_contiguous():
             raise ValueError("frames must be contiguous")
-        fn = _load()
+        fn, fsum = _load()
         n = frames.shape[0]
         out = torch.empty((n, self.n_mel), dtype=torch.float32,
                           device=frames.device)
+        wide = self.piece_off is not None
+        parts = torch.empty((n, self.n_cols), dtype=torch.float32,
+                            device=frames.device) if wide else out
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         rc = fn(frames.data_ptr(), self.window.data_ptr(),
                 self.tables.data_ptr(), self.groups_dev.data_ptr(),
                 self.franges_dev.data_ptr(), self.melw.data_ptr(),
-                out.data_ptr(), n, self.win_size, self.kp,
-                len(self.groups), self.n_mel, int(self.use_power),
-                int(self.use_log), stream)
+                parts.data_ptr(), n, self.win_size, self.kp,
+                len(self.groups), self.n_cols, int(self.use_power),
+                int(self.use_log), int(wide), stream)
         if rc != 0:
             raise RuntimeError(f"kt_fbank_logmel failed: cudaError {rc}")
         self.launches += 1
+        CudaFbank.total_launches += 1
+        if wide:
+            rc = fsum(parts.data_ptr(), self.piece_off.data_ptr(),
+                      self.piece_cols.data_ptr(), out.data_ptr(), n,
+                      self.n_cols, self.n_mel, int(self.use_log), stream)
+            if rc != 0:
+                raise RuntimeError(f"kt_fbank_sum_pieces failed: "
+                                   f"cudaError {rc}")
+            self.sum_launches += 1
+            CudaFbank.total_sum_launches += 1
         return out

@@ -84,7 +84,11 @@ def _load():
 
 class CudaGmm:
     """Per-pdf GMM log-likelihoods of features (T, D) float32 → (T, P).
-    ``launches`` counts kernel launches."""
+    ``launches`` counts this instance's kernel launches and the class's
+    ``total_launches`` those of every instance (a training run rebuilds
+    its tables after every update)."""
+
+    total_launches = 0
 
     def __init__(self, gconst: np.ndarray, mean_invvar: np.ndarray,
                  inv_var: np.ndarray, device: torch.device | str = "cuda"):
@@ -145,4 +149,5 @@ class CudaGmm:
         if rc != 0:
             raise RuntimeError(f"kt_gmm_loglikes failed: cudaError {rc}")
         self.launches += 1
+        CudaGmm.total_launches += 1
         return out

@@ -1,7 +1,7 @@
 """Large-vocabulary synthetic decode task, decoded by the port.
 
 Jax-free copy of kaldi_tpu/pipelines/largevocab.py's task builder
-(``make_largevocab_task``, monophone context only), ``synth_loglikes``
+(``make_largevocab_task``, monophone or left-biphone), ``synth_loglikes``
 and ``sample_eval_set``: the original module imports no JAX itself, but
 its package does.  The builders produce the same task, graph and
 utterances from the same seeds.  ``run``/``main`` decode an eval set
@@ -52,8 +52,9 @@ class LargeVocabTask:
         return self.tree.num_pdfs
 
     def pdf_pair(self, left_id: int, phone_id: int) -> Tuple[int, int]:
-        """(forward pdf, self-loop pdf) of a phone instance (the left
-        phone is ignored by a monophone tree)."""
+        """(forward pdf, self-loop pdf) of a phone instance with the
+        given LEFT phone id (0 = none) — context-aware for CD trees,
+        left ignored for monophone."""
         st = self.topo.topology_for_phone(phone_id)[0]
         if self.tree.context_width == 1:
             window = [phone_id]
@@ -72,11 +73,17 @@ def make_largevocab_task(vocab_size: int = 20000,
                          closure: bool = True,
                          self_loop_scale: float = 1.0,
                          entries: Optional[List[Tuple[str, List[str]]]]
-                         = None) -> LargeVocabTask:
-    """Synthesize lexicon + Zipfian Markov corpus + pruned n-gram LM
-    and build the monophone decode graph (biglang direct construction).
-    The original's ``context="biphone"`` tree needs
-    kaldi_tpu.pipelines.tri and is not ported."""
+                         = None,
+                         context: str = "mono") -> LargeVocabTask:
+    """Synthesize lexicon + Zipfian Markov corpus + pruned n-gram LM,
+    and build the decode graph (biglang direct construction).  Pass
+    ``entries`` to supply a custom lexicon; phone names must be
+    p00-style.
+
+    ``context``: "mono" (default) or "biphone" — the latter builds a
+    LEFT-BIPHONE (2,1) decision tree from synthetic context-shifted
+    stats and dispatches the graph build through biglang's
+    context-dependent construction."""
     timer = Timer()
     rng = np.random.default_rng(seed)
     if entries is None:
@@ -102,18 +109,45 @@ def make_largevocab_task(vocab_size: int = 20000,
     words, ptab = make_symbol_tables(entries)
     pl = [ptab[p] for p in ["SIL"] + phones]
     topo = HmmTopology.chain(pl)
-    tree = MonophoneContextDependency(pl, topo)
+    if context == "biphone":
+        # (2,1) tree over synthetic context-shifted stats: per-window
+        # means offset by the left phone so the tree genuinely splits
+        # on context (the build_tree.sh left-biphone chain contract)
+        from kaldi_tpu_torch.am.tree import GaussStats, build_tree
+        from kaldi_tpu_torch.pipelines.tri import cluster_phone_questions
+        srng = np.random.default_rng(seed + 31)
+        stats = {}
+        for pid in pl:
+            for left in [0] + pl:
+                for pc in range(2):
+                    g = GaussStats(3)
+                    mean = np.array([pid, 0.37 * left, 0.8 * pc])
+                    for _ in range(4):
+                        g.accumulate(mean + 0.05 * srng.standard_normal(3))
+                    stats[((left, pid), pc)] = g
+        questions = cluster_phone_questions(stats, central_position=1)
+        tree = build_tree(stats, questions, 2, 1,
+                          max_leaves=4 * len(pl))
+    elif context == "mono":
+        tree = MonophoneContextDependency(pl, topo)
+    else:
+        raise ValueError(f"context must be mono|biphone, got {context}")
     tm = TransitionModel(topo, tree)
     graph = build_big_graph(entries, arpa, tm, words, ptab,
                             self_loop_scale=self_loop_scale)
-    if closure:
+    if closure and context == "mono":
+        # ε-transitive-closure keeps the sweep count at 1 for decoders
+        # that run ε sweeps; CD graphs skip it (their ε paths can carry
+        # several word olabels — the BeamDecoder's eps_precompose
+        # handles those via olabel sequences at construction)
         graph.csr = eps_close(graph.csr)
     fwd_pdf, slf_pdf = {}, {}
     for p in phones + ["SIL"]:
         pid = ptab[p]
         st = topo.topology_for_phone(pid)[0]
-        fwd_pdf[p] = tree.compute([pid], st.forward_pdf_class)
-        slf_pdf[p] = tree.compute([pid], st.self_loop_pdf_class)
+        w0 = [pid] if tree.context_width == 1 else [0, pid]
+        fwd_pdf[p] = tree.compute(w0, st.forward_pdf_class)
+        slf_pdf[p] = tree.compute(w0, st.self_loop_pdf_class)
     log.info("largevocab task: %d words, graph %d states %d+%d arcs "
              "(%.1fs)", vocab_size, graph.csr.num_states,
              graph.csr.num_emitting_arcs, graph.csr.num_eps_arcs,
@@ -193,7 +227,7 @@ def run(vocab: int = 20000, n_utts: int = 32, noise: float = 0.5,
         beam: float = 13.0, max_active: int = 7000,
         lattice_beam: float = 7.0, batch: int = 8,
         lattice_arcs: int = 8192, seed: int = 7,
-        device: str = "cuda"):
+        context: str = "mono", device: str = "cuda"):
     """Build the task, decode an eval set to determinized lattices on
     ``device``, report WER and audio-seconds per second (decoded frames
     are ×3-subsampled chain frames, 30 ms each)."""
@@ -202,7 +236,8 @@ def run(vocab: int = 20000, n_utts: int = 32, noise: float = 0.5,
     from kaldi_tpu_torch.decoder.beam import BeamDecoder, BeamDecoderConfig
     from kaldi_tpu_torch.pipelines.score import compute_wer
 
-    task = make_largevocab_task(vocab_size=vocab, seed=seed)
+    task = make_largevocab_task(vocab_size=vocab, seed=seed,
+                                context=context)
     eval_set = sample_eval_set(task, n_utts)
     rng = np.random.default_rng(seed + 999)
     lls = {u: synth_loglikes(task, s, rng, noise=noise)
@@ -250,11 +285,14 @@ def main(argv=None):
     po.register("noise", float, 0.5, "acoustic noise level (WER knob)")
     po.register("beam", float, 13.0, "decode beam")
     po.register("max-active", int, 7000, "max active tokens")
+    po.register("context", str, "mono",
+                "acoustic context: mono | biphone (CD graph)")
     po.register("device", str, "cuda", "torch device to decode on")
     po.read(argv)
     wer, tput = run(vocab=po["vocab"], n_utts=po["num-utts"],
                     noise=po["noise"], beam=po["beam"],
-                    max_active=po["max-active"], device=po["device"])
+                    max_active=po["max-active"], context=po["context"],
+                    device=po["device"])
     print(wer)
     print(f"{tput:.1f} audio-s/s")
     return 0

@@ -45,6 +45,14 @@ Every line ends with the card's name and power limit (nvidia-smi).
    ``torch.fft.rfft`` of the same windowed frames, as information for an
    FFT-form fbank (the rfft is not the kernel's function: no power, no
    log).  ``--features`` runs only this section.
+7. GMM training at the tri3b width (``gmm_training``; chip_smoke phase
+   10c's steps): ``accumulate_stats`` over 32,768 frames drawn from a
+   seeded tri3b model (2500 pdfs, 15,000 Gaussians, D = 40), on the card
+   alone and per call, and under torch.profiler (kernels, busy share);
+   then the forced aligner over 32 sentences of the 300-word task: a
+   batch's time per call, and under torch.profiler its kernels a frame
+   and the card's busy share, for the frame loop with the backtrace.
+   ``--gmm-train`` runs only this section.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ import time
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.tools.timing import profiled
+
 
 def _best(fn_plain, fn_kernel, timer, iters):
     """(kernel ms, plain ms): plain, kernel, kernel, plain; best of each."""
@@ -63,23 +73,6 @@ def _best(fn_plain, fn_kernel, timer, iters):
         t[which].append(timer(fn_plain if which == "plain" else fn_kernel,
                               iters))
     return min(t["kernel"]), min(t["plain"])
-
-
-def _profiled(fn):
-    """Run ``fn`` (which ends in a device synchronisation) under
-    torch.profiler → (wall ms, CUDA kernels launched, their device ms,
-    the profile)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall = (time.perf_counter() - t0) * 1e3
-    # device work only: an optimizer's step also shows on the device as
-    # a user-annotation range spanning its kernels
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
-               and not getattr(e, "is_user_annotation", False)]
-    return wall, len(kernels), sum(e.device_time for e in kernels) / 1e3, prof
 
 
 def main() -> int:
@@ -107,6 +100,9 @@ def main() -> int:
         return 0
     if "--features" in sys.argv[1:]:
         features(dev, tag)
+        return 0
+    if "--gmm-train" in sys.argv[1:]:
+        gmm_training(dev, tag)
         return 0
 
     fb = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=40)),
@@ -183,7 +179,7 @@ def main() -> int:
             d._decode_batch(Xd, nd)
             torch.cuda.synchronize()
 
-        wall, n_k, busy, prof = _profiled(run)
+        wall, n_k, busy, prof = profiled(run)
         print(f"decode {name}: T_pad {T_pad}; unprofiled wall "
               f"{plain_wall * 1e3:.1f} ms; profiled wall {wall:.1f} "
               f"ms, device kernel time {busy:.1f} ms "
@@ -208,7 +204,7 @@ def main() -> int:
     ob.finalize()                                               # warm
     for what, fn, frames in (("advances", stream, ll.shape[0]),
                              ("finalize", ob.finalize, ll.shape[0])):
-        wall, n_k, busy, _ = _profiled(fn)
+        wall, n_k, busy, _ = profiled(fn)
         print(f"stream {what} of one utterance ({frames} frames, chunks "
               f"of 6): profiled wall {wall:.1f} ms, device kernel time "
               f"{busy:.1f} ms ({100 * busy / wall:.1f}% busy), {n_k} "
@@ -225,7 +221,7 @@ def main() -> int:
     ms.advance([x[:6] for x in llm])                             # warm
     for c in range(8):
         ms.reset_channel(c)
-    wall, n_k, busy, _ = _profiled(steps)
+    wall, n_k, busy, _ = profiled(steps)
     print(f"multistream 10 steps of 8 lanes × 6 frames: profiled wall "
           f"{wall:.1f} ms, device kernel time {busy:.1f} ms "
           f"({100 * busy / wall:.1f}% busy), {n_k} kernels = "
@@ -272,7 +268,7 @@ def features(dev, tag: str) -> None:
         fe(W)
         torch.cuda.synchronize()
 
-    wall, n_k, busy, _ = _profiled(batch)
+    wall, n_k, busy, _ = profiled(batch)
     print(f"features batched frontend, 32 × 10 s ({frames} frames), MFCC + "
           f"CMN + Δ+ΔΔ: {ms:.4f} ms a batch on the card "
           f"({frames / ms * 1e3:.0f} frames/s); profiled wall {wall:.2f} ms, "
@@ -303,7 +299,7 @@ def features(dev, tag: str) -> None:
         # 2 calls: up to ~500 launches queue behind the spin; more would
         # fill the launch queue and time the host's issue instead
         on_card[name], hms = device_ms(fn, 2), cuda_ms(fn, 10)
-        _, n_k, k_ms, _ = _profiled(lambda: (fn(), torch.cuda.synchronize()))
+        _, n_k, k_ms, _ = profiled(lambda: (fn(), torch.cuda.synchronize()))
         line.append(f"{name} {on_card[name]:.4f} ms on the card, {hms:.4f} "
                     f"ms per call, {n_k} kernels profiled ({k_ms:.4f} ms of "
                     f"kernel time)")
@@ -325,6 +321,62 @@ def features(dev, tag: str) -> None:
     print(f"features identity-filter fbank (257 outputs), 4096 frames: "
           f"kernel {kms:.4f} ms on the card; torch.fft.rfft of the same "
           f"windowed frames (no power, no log) {fft_ms:.4f} ms {tag}")
+
+
+def gmm_training(dev, tag: str) -> None:
+    """Section 7 (see the module's docstring)."""
+    from kaldi_tpu_torch.am.gmm import accumulate_stats_device
+    from kaldi_tpu_torch.decoder.align import DenseAligner
+    from kaldi_tpu_torch.pipelines.largevocab import make_largevocab_task
+    from kaldi_tpu_torch.tools.synth import (align_workload, model_frames,
+                                             tri3b_gmm)
+    from kaldi_tpu_torch.tools.timing import cuda_ms, device_ms
+
+    rng = np.random.default_rng(10)
+    am = tri3b_gmm(rng, 2500, 15000, device=dev)
+    T = 32768
+    feats, pdfs = model_frames(am, rng, T)
+    x = torch.from_numpy(feats).to(dev)
+    p = torch.from_numpy(pdfs).to(dev)
+    am.device_params()
+
+    def acc():
+        accumulate_stats_device(am, x, p)
+        torch.cuda.synchronize()
+
+    ms = device_ms(lambda: accumulate_stats_device(am, x, p), 5)
+    call = cuda_ms(lambda: accumulate_stats_device(am, x, p), 5)
+    wall, n_k, busy, _ = profiled(acc)
+    print(f"gmm-train accumulate_stats, tri3b width ({am.num_pdfs} pdfs, "
+          f"{am.num_gauss()} Gaussians, D={am.dim}), {T} frames: "
+          f"{ms:.4f} ms on the card, {call:.4f} ms per call "
+          f"({T / ms * 1e3:.0f} frames/s on the card); profiled wall "
+          f"{wall:.2f} ms, {n_k} kernels, device time {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}% busy) {tag}")
+
+    task = make_largevocab_task(vocab_size=300, order=3, seed=7,
+                                closure=False, corpus_sentences=600)
+    graphs, lls, tm = align_workload(task, 32, 11)
+    al = DenseAligner(tm.tid_to_pdf_array, device=dev)
+    batch = al.prepare(graphs, lls)
+    T_max = batch["loglikes"].shape[1]
+    frames = sum(len(ll) for ll in lls)
+
+    def align():
+        al.align_device(batch)
+        torch.cuda.synchronize()
+
+    align()
+    call = cuda_ms(lambda: al.align_device(batch), 3)
+    wall, n_k, busy, prof = profiled(align)
+    print(f"gmm-train DenseAligner, 32 utterances ({frames} frames, T_max "
+          f"{T_max}, {batch['e_src'].shape[1]} padded states, ε depth "
+          f"{batch['eps_depth']}): {call:.1f} ms a batch per call "
+          f"({frames / call * 1e3:.0f} frames/s); profiled wall "
+          f"{wall:.1f} ms, {n_k} kernels = {n_k / T_max:.1f} a frame, "
+          f"device time {busy:.2f} ms ({100 * busy / wall:.1f}% busy) {tag}")
+    top = prof.key_averages().table(sort_by="device_time_total", row_limit=6)
+    print("gmm-train aligner top kernels:\n" + top)
 
 
 def chain_training(dev, tag: str) -> None:
@@ -400,7 +452,7 @@ def chain_training(dev, tag: str) -> None:
             torch.cuda.synchronize()
 
         n0 = k.launches
-        wall, n_k, busy, prof = _profiled(steps)
+        wall, n_k, busy, prof = profiled(steps)
         den_dev = sum(e.device_time for e in prof.events()
                       if e.device_type.name == "CUDA"
                       and ("den_forward" in e.name

@@ -8,7 +8,8 @@ a waveform in which each pdf has its own spectrum, and ``aligned_gmm``
 draws a GMM around the features of each pdf's frames: a decode of that
 audio then behaves like a trained model's on real speech (a dominant
 best path, small lattices), which a GMM drawn around global statistics
-does not.
+does not.  ``align_workload`` gives the forced aligner a batch of
+training graphs and log-likelihoods peaked along a path of each.
 """
 
 from __future__ import annotations
@@ -112,3 +113,52 @@ def aligned_gmm(rng: np.random.Generator, feats: Sequence[np.ndarray],
             mean[p] = sel.mean(axis=0)
             var[p] = np.maximum(sel.var(axis=0), 0.01 * gvar)
     return seeded_gmm(rng, counts, mean, var, spread=0.5, device=device)
+
+
+def model_frames(am: AmDiagGmm, rng: np.random.Generator, T: int):
+    """T frames drawn from the model: a seeded pdf alignment, each frame
+    from one of its pdf's Gaussians chosen by weight.  → (frames (T, D)
+    float32, pdfs (T,) int64)."""
+    pdfs = rng.integers(0, am.num_pdfs, T)
+    cum = np.cumsum(am.weights[pdfs], axis=1)
+    comp = np.minimum((cum < rng.random((T, 1)) * cum[:, -1:]).sum(1),
+                      am.max_mix - 1)
+    x = am.means[pdfs, comp] + np.sqrt(am.vars[pdfs, comp]) \
+        * rng.standard_normal((T, am.dim))
+    return x.astype(np.float32), pdfs
+
+
+def align_workload(task, n_utts: int, seed: int):
+    """A batch for the forced aligner: ``n_utts`` seeded sentences of a
+    large-vocabulary task (pipelines/largevocab.py), their training
+    graphs under a three-state monophone model of the task's lexicon,
+    and (T, P) float32 log-likelihoods peaked (by 6) on the pdfs of an
+    equal alignment 1.5–3× the sentence's fewest frames long, with unit
+    Gaussian noise.  → (packed graphs (decoder/align.py DenseRGraph),
+    log-likelihoods, transition model)."""
+    from kaldi_tpu_torch.am.topology import HmmTopology
+    from kaldi_tpu_torch.am.transitions import TransitionModel
+    from kaldi_tpu_torch.am.tree import MonophoneContextDependency
+    from kaldi_tpu_torch.decoder.align import pack_training_graphs
+    from kaldi_tpu_torch.decoder.training_graph import (TrainingGraphCompiler,
+                                                        equal_align)
+    from kaldi_tpu_torch.fst.lang import Lang, Lexicon
+    from kaldi_tpu_torch.pipelines.largevocab import sample_eval_set
+    rng = np.random.default_rng(seed)
+    lang = Lang(Lexicon(sorted(task.pron_of.items())))
+    phones = lang.phone_list()
+    topo = HmmTopology.three_state(phones)
+    tm = TransitionModel(topo, MonophoneContextDependency(phones, topo))
+    compiler = TrainingGraphCompiler(lang, tm)
+    sents = sample_eval_set(task, n_utts, max_words=12, seed=seed)
+    graphs, lls = [], []
+    for u in sorted(sents):
+        g = compiler.compile_text(sents[u])
+        fewest = 3 * sum(len(task.pron_of[w]) for w in sents[u])
+        T = int(fewest * rng.uniform(1.5, 3.0))
+        pdfs = tm.tid_to_pdf_array[np.asarray(equal_align(g, T))]
+        ll = rng.standard_normal((T, tm.num_pdfs)).astype(np.float32) - 6.0
+        ll[np.arange(T), pdfs] += 6.0
+        graphs.append(g)
+        lls.append(ll)
+    return pack_training_graphs(graphs), lls, tm

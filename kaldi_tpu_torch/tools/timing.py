@@ -68,6 +68,23 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled(fn):
+    """Run ``fn`` (which ends in a device synchronisation) under
+    torch.profiler → (wall ms, CUDA kernels launched, their device ms,
+    the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device work only: an optimizer's step also shows on the device as
+    # a user-annotation range spanning its kernels
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    return wall, len(kernels), sum(e.device_time for e in kernels) / 1e3, prof
+
+
 def bound_ms(flop: float, nbytes: float):
     """(least ms the card could take for this work, "operations" or
     "bytes": whichever bounds it)."""

@@ -379,8 +379,7 @@ def test_batched_frontend_clamps_like_jax_without_snip_edges(batch_waves):
 def test_batched_frontend_equals_per_utterance(batch_waves, deltas):
     """tests/test_batch_frontend.py on the port: each utterance of the
     batch equals the port's own Mfcc (+ add_deltas).  Its 15 mel bins
-    and 10 cepstra at 8 kHz (the yes/no recipe's): at 16 kHz the fbank
-    kernel takes no bank of 17 bins or fewer (see below)."""
+    and 10 cepstra at 8 kHz (the yes/no recipe's)."""
     opts = tcompute.MfccOptions(
         frame_opts=twindow.FrameExtractionOptions(samp_freq=8000.0,
                                                   dither=0.0),
@@ -397,16 +396,104 @@ def test_batched_frontend_equals_per_utterance(batch_waves, deltas):
         torch.testing.assert_close(got[b], ref, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("num_bins", [15, 17])
-def test_mel_bank_too_wide_for_the_kernel_raises(num_bins):
-    """At 16 kHz the top filter of a bank of 17 bins or fewer spans more
-    DFT bins (67 and up) than one of the kernel's groups holds (64):
-    the layout refuses it at once."""
-    with pytest.raises(ValueError, match="spans"):
-        CudaFbank(twindow.FrameExtractionOptions(),
+WIDE_BANKS = [15, 17]
+
+
+@pytest.mark.parametrize("num_bins", WIDE_BANKS)
+def test_wide_mel_bank_fbank_and_mfcc_match_jax(num_bins):
+    """At 16 kHz the top filters of a bank of 17 bins or fewer span more
+    DFT bins (67 and up) than one of the kernel's groups holds (64); the
+    port's Fbank and Mfcc take such banks all the same and equal the JAX
+    ones: log-mel within 2e-3 on loud frames (the bar of
+    tests/test_torch_features.py), cepstrum k within 2e-3 · lifter_k."""
+    wave = speechlike(np.random.default_rng(11), 1.3)
+    jf = jcompute.Fbank(jcompute.FbankOptions(
+        mel_opts=jmel.MelBanksOptions(num_bins=num_bins)))
+    tf = tcompute.Fbank(tcompute.FbankOptions(
+        mel_opts=tmel.MelBanksOptions(num_bins=num_bins)), device="cpu")
+    assert tf.kernel.piece_off is not None
+    want = jf.compute(wave, np.random.default_rng(2))
+    got = tf.compute(wave, np.random.default_rng(2)).numpy()
+    assert got.shape == want.shape == (128, num_bins)
+    loud = want.min(axis=1) > 1.0
+    assert loud.sum() > 100
+    np.testing.assert_allclose(got[loud], want[loud], atol=2e-3, rtol=0)
+    jm = jcompute.Mfcc(jcompute.MfccOptions(
+        mel_opts=jmel.MelBanksOptions(num_bins=num_bins), num_ceps=13,
+        use_energy=False))
+    tm = tcompute.Mfcc(tcompute.MfccOptions(
+        mel_opts=tmel.MelBanksOptions(num_bins=num_bins), num_ceps=13,
+        use_energy=False), device="cpu")
+    want = jm.compute(wave, np.random.default_rng(2))
+    got = tm.compute(wave, np.random.default_rng(2)).numpy()
+    tol = 2e-3 * tcompute.compute_lifter_coeffs(22.0, 13)
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max(0)
+
+
+@pytest.mark.parametrize("num_bins", WIDE_BANKS)
+def test_wide_mel_bank_layout_covers_each_bin_once(num_bins):
+    """The pieces of a wide bank cover every nonzero bin of every filter
+    exactly once with the filter's own weight; each piece fits a group;
+    the groups keep the kernel's limits; the kernel's arithmetic group by
+    group from its split tables, then the pieces summed in bin order,
+    floored and logged, equals fbank_reference (summation order alone:
+    1e-3, as for the other banks)."""
+    k = CudaFbank(twindow.FrameExtractionOptions(),
                   tmel.MelBanksOptions(num_bins=num_bins), device="cpu")
-    CudaFbank(twindow.FrameExtractionOptions(),
-              tmel.MelBanksOptions(num_bins=18), device="cpu")
+    mel = k.mel.numpy()
+    assert (mel != 0).sum(0).max() > tfbank.PIECE_BINS
+    off, cols = k.piece_off.numpy(), k.piece_cols.numpy()
+    assert off[0] == 0 and off[-1] == k.n_cols > k.n_mel
+    assert sorted(cols.tolist()) == list(range(k.n_cols))
+    melw = k.melw.numpy()
+    woff = np.cumsum([0] + [hi - lo for lo, hi in k.franges[:-1]])
+    for m in range(k.n_mel):
+        covered = np.zeros(k.n_bins, np.int64)
+        weight = np.zeros(k.n_bins, np.float32)
+        for c in cols[off[m]:off[m + 1]]:
+            lo, hi = k.franges[c]
+            assert 0 < hi - lo <= tfbank.PIECE_BINS
+            covered[lo:hi] += 1
+            weight[lo:hi] = melw[woff[c]:woff[c] + hi - lo]
+        np.testing.assert_array_equal(covered, (mel[:, m] != 0).astype(int))
+        np.testing.assert_array_equal(weight, mel[:, m])
+    assert k.groups[0, 2] == 0 and k.groups[-1, 3] == k.n_cols
+    assert (k.groups[1:, 2] == k.groups[:-1, 3]).all()
+    for k0, nt, m0, m1, _ in k.groups:
+        assert 1 <= nt <= tfbank.MAX_GROUP_TILES
+        assert (k.franges[m0:m1, 1] - k.franges[m0:m1, 0]).sum() <= \
+            tfbank.MAX_GROUP_WEIGHTS
+        for c in range(m0, m1):
+            assert k0 <= k.franges[c, 0] and k.franges[c, 1] <= k0 + 4 * nt
+    fo = twindow.FrameExtractionOptions(dither=0.0)
+    x = twindow.preprocess_frames(torch.from_numpy(twindow.extract_frames(
+        speechlike(np.random.default_rng(5), 0.6), fo)), fo)[0]
+    want = k.reference(x)
+    ks = k.kp // 8
+    fw = torch.zeros((x.shape[0], k.kp))
+    fw[:, :k.win_size] = x * k.window
+    parts = torch.zeros((x.shape[0], k.n_cols))
+    for k0, nt, m0, m1, toff in k.groups:
+        hi_, lo_ = from_fragment_order(
+            k.tables[toff:toff + ks * nt * 128].reshape(ks, nt, 32, 4))
+        y = fw @ (hi_ + lo_)
+        power = y[:, 0::2] ** 2 + y[:, 1::2] ** 2
+        for c in range(m0, m1):
+            lo, hi = k.franges[c]
+            parts[:, c] = power[:, lo - k0:hi - k0] @ torch.from_numpy(
+                melw[woff[c]:woff[c] + hi - lo])
+    got = torch.stack([parts[:, cols[off[m]:off[m + 1]]].sum(1)
+                       for m in range(k.n_mel)], 1)
+    got = torch.log(torch.clamp_min(got, tfbank._EPS))
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+def test_banks_without_wide_filters_keep_one_launch():
+    """A bank whose filters all fit a group is laid out as before: no
+    pieces, one kernel column per filter."""
+    k = CudaFbank(twindow.FrameExtractionOptions(),
+                  tmel.MelBanksOptions(num_bins=18), device="cpu")
+    assert k.piece_off is None and k.n_cols == k.n_mel == 18
 
 
 def _gmm_pair(rng, P=11, M=4, D=39):

@@ -55,7 +55,8 @@ COPIED = {
     "lattice/determinize.py", "lattice/io.py", "am/topology.py",
     "am/transitions.py", "am/tree.py", "native/__init__.py",
     "native/lattice_build.cpp", "native/lattice_det.cpp",
-    "features/pitch.py", "features/resample.py"}
+    "features/pitch.py", "features/resample.py", "pipelines/data.py",
+    "fst/context.py", "lattice/functions.py", "decoder/training_graph.py"}
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -107,7 +108,14 @@ def _entry_points():
     from kaldi_tpu_torch.pipelines.decode import decode_gmm, decode_gmm_lattice
     from kaldi_tpu_torch.ops.chain_den import CudaChainDen
     from kaldi_tpu_torch.pipelines.chain import ChainTrainer
-    return dict(BeamDecoder=BeamDecoder, DenseDecoder=DenseDecoder,
+    from kaldi_tpu_torch.decoder.align import DenseAligner
+    from kaldi_tpu_torch.pipelines import mini, yesno
+    from kaldi_tpu_torch.pipelines.mono import train_mono
+    from kaldi_tpu_torch.pipelines.tri import train_tri
+    return dict(DenseAligner=DenseAligner, flat_start=AmDiagGmm.flat_start,
+                train_mono=train_mono, train_tri=train_tri,
+                yesno_run=yesno.run, mini_run=mini.run,
+                BeamDecoder=BeamDecoder, DenseDecoder=DenseDecoder,
                 _LatgenDecoder=_LatgenDecoder, Fbank=Fbank, Mfcc=Mfcc,
                 AmDiagGmm=AmDiagGmm, CudaGmm=CudaGmm, CudaFbank=CudaFbank,
                 decode_gmm_lattice=decode_gmm_lattice, decode_gmm=decode_gmm,
@@ -120,7 +128,8 @@ ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
                 "Mfcc", "AmDiagGmm", "CudaGmm", "CudaFbank",
                 "decode_gmm_lattice", "decode_gmm", "read_mdl",
                 "CudaChainDen", "ChainTrainer", "Spectrogram", "Plp",
-                "BatchedFrontend"]
+                "BatchedFrontend", "DenseAligner", "flat_start",
+                "train_mono", "train_tri", "yesno_run", "mini_run"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -172,7 +181,9 @@ def test_without_a_card_construction_raises(monkeypatch):
                                          [0.0], [0], [0]),
              lambda: eps["ChainTrainer"](TdnnConfig(num_pdfs=P), None),
              lambda: eps["Spectrogram"](), lambda: eps["Plp"](),
-             lambda: eps["BatchedFrontend"]()]
+             lambda: eps["BatchedFrontend"](),
+             lambda: eps["DenseAligner"](tid),
+             lambda: eps["flat_start"](P, np.zeros(3), np.ones(3))]
     for call in calls:
         with pytest.raises(KaldiError, match="no CUDA card"):
             call()
