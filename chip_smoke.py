@@ -133,7 +133,32 @@ Phases (each prints lines; any failure raises and exits non-zero):
         compile-train-graphs, align-equal-compiled, gmm-acc-stats-ali,
         gmm-est --mix-up and gmm-align-compiled on a's train set (run in
         the background beside b and c), each output equal to the library
-        call in the same run.
+        call in the same run;
+ 11. the flagship LVCSR system, the hard corpus and the lattice tools:
+     a. pipelines/flagship.py ``run`` on the card at HARDBENCH_r05's
+        operating point (5000 words, 30,000 LM sentences, 400 train / 160
+        test utterances, noise 0.10, warp 0.12; the TDNN of run, 10 chain
+        epochs): MFCC through the fbank kernel, mono → tri → tri2b
+        (LDA+MLLT) → tri3b (SAT) on the GMM kernel, the mono-GMM rung and
+        the two-pass fMLLR tri3b rung on large-vocabulary graphs, the
+        left-biphone chain tree, den graph and training on the den
+        kernels, the chain rung, 4-gram rescoring and MBR; every rung
+        printed beside r5's WER, each WER at most 30 and each oracle WER
+        at most its WER; the graphs' state counts equal to host rebuilds;
+        the three kernels against their plain versions at the run's
+        shapes (the den's at B = 32, T = 17 on the run's den graph,
+        timed); the chain model in float32 on the card against the CPU on
+        16 test utterances (1e-4 + 1e-4·|cpu|) and their decodes' best
+        paths (equal on at least 15), the card's decode profiled;
+     c. ``python -m kaldi_tpu_torch.cli`` lattice-scale |
+        lattice-add-penalty | lattice-lmrescore-pruned, lattice-best-path
+        and lattice-oracle on a's chain lattices: 1-best and oracle equal
+        to the same steps in process;
+     b. pipelines/hard.py ``run_point`` on the 20,000-word hard corpus
+        (300 utterances, noise 1.0, peak 4.0, up to 16 words) at arc
+        budgets 4096 and 12288 with escalation to 16384: WER, oracle,
+        density, rates, dropped arcs, escalations; each oracle WER at most
+        its WER, and 4096 within 0.1 oracle WER of 12288.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths, the largest difference from
@@ -412,6 +437,12 @@ def gmm_beam_branch(dev, task, mfcc, tag: str):
     return launches + (err, fb_err)
 
 
+# 6c's utterances decoded again on the CPU, whose dense lattice decode
+# is the slowest step of phases 1-10: 2, not 4, keeps the whole run
+# within half its time limit
+DENSE_CPU_UTTS = 2
+
+
 def gmm_dense_branch(dev, task, mfcc, tag: str):
     """6c: the latgen DenseDecoder branch on a graph under dense_limit.
     Returns (GMM launches, fbank launches, max |diff| of the GMM kernel
@@ -480,10 +511,11 @@ def gmm_dense_branch(dev, task, mfcc, tag: str):
     t0 = time.perf_counter()
     cpu = _LatgenDecoder(csr, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
                          device="cpu")
-    same_best(one_best[:4], cpu._dec.decode_batch(X[:4].cpu(), lens[:4]),
+    n = DENSE_CPU_UTTS
+    same_best(one_best[:n], cpu._dec.decode_batch(X[:n].cpu(), lens[:n]),
               "gmm-dense one-best")
     cbest = []
-    for b, ll in enumerate(lls[:4]):
+    for b, ll in enumerate(lls[:n]):
         lat, cost = cpu._dec.decode_lattice(ll.cpu())
         glat, gcost = raws[b]
         shape = (lat.num_states, sum(len(a) for a in lat.arcs))
@@ -492,9 +524,9 @@ def gmm_dense_branch(dev, task, mfcc, tag: str):
             raise AssertionError(f"gmm-dense lattice utt {b}: GPU {gshape} "
                                  f"{gcost} vs CPU {shape} {cost}")
         cbest.append(cpu.determinize(lat).best_path())
-    same_best(best, cbest, "gmm-dense lattice")
-    print(f"gmm-dense: GPU equals the port's CPU decode: one-best on 4 "
-          f"utts, and 4 lattices (same states and arcs, best paths' words "
+    same_best(best[:n], cbest, "gmm-dense lattice")
+    print(f"gmm-dense: GPU equals the port's CPU decode: one-best on {n} "
+          f"utts, and {n} lattices (same states and arcs, best paths' words "
           f"equal, costs within 1e-3; CPU side "
           f"{time.perf_counter() - t0:.1f} s)")
     return launches + (err,)
@@ -951,10 +983,12 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
         raise AssertionError(f"den kernels without the prefetch disagree: "
                              f"{dzl}, {dgl}")
     dg = max(dg, dgl)
-    # a NaN score in sequence 1: its log Z and the gradient rows of its
-    # active frames are NaN, as in the plain twin; the others agree
+    # a NaN score in sequence 1, on a pdf the graph reads (the wrapper
+    # sets the pdfs it never reads to -inf): its log Z and the gradient
+    # rows of its active frames are NaN, as in the plain twin; the others
+    # agree
     sn = scores[:4].detach().clone()
-    sn[1, T // 3, 0] = float("nan")
+    sn[1, T // 3, int(np.asarray(den.pdf)[0])] = float("nan")
     zk, gk = run_on(k, sn, mask[:4])
     zc, gc = run_on(den_kernel(den, "cpu"), sn.cpu(), mask[:4].cpu())
     rows_k, rows_c = gk.isnan().any(dim=2).cpu(), gc.isnan().any(dim=2)
@@ -1616,11 +1650,12 @@ def wide_banks(dev, x, tag: str):
 
 def zero_totals() -> None:
     """Every instance's launch counts to 0 (a recipe makes its own fbank
-    computers and rebuilds its GMM tables after every update)."""
+    computers, den graph and GMM tables, the last after every update)."""
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
     from kaldi_tpu_torch.ops.fbank import CudaFbank
     from kaldi_tpu_torch.ops.gmm import CudaGmm
     CudaFbank.total_launches = CudaFbank.total_sum_launches = 0
-    CudaGmm.total_launches = 0
+    CudaGmm.total_launches = CudaChainDen.total_launches = 0
 
 
 def totals():
@@ -2033,6 +2068,436 @@ def gmm_tools_finish(dev, sysm, started, tag: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. the flagship LVCSR system, the hard corpus and the lattice tools
+# ---------------------------------------------------------------------------
+
+# 11a: HARDBENCH_r05's operating point of the flagship (its flagship_note:
+# 400 train / 160 test utterances, noise 0.10, speaker warp 0.12) at
+# run's widths: 5000 words, 30,000 LM sentences, the TDNN of run (hidden
+# 256, bottleneck 64, 7 layers, subsampling 3), 10 chain epochs
+FLAGSHIP = dict(vocab=5000, train_utts=400, test_utts=160, lm_sents=30000,
+                chain_epochs=10)
+# r5's WERs were 0.84-3.95; a broken rung is far above this
+FLAGSHIP_MAX_WER = 30.0
+# the chain model on the card against the CPU: test utterances compared,
+# the float32 bar of tests/test_torch_chain.py, and the best paths that
+# must agree
+CHAIN_CHECK_UTTS = 16
+CHAIN_CHECK_TOL = 1e-4
+CHAIN_CHECK_SAME = 15
+# 11b: the hard corpus at HARDBENCH_r05's noise-1.0 point (20,000 words,
+# noise 1.0, peak 4.0, up to 16 words) on 300 utterances, at the default
+# and the loosest arc budget, both with escalation to 16384
+HARD_TASK = dict(vocab=20000)
+HARD_EVAL = dict(n_utts=300, noise=1.0, peak=4.0, max_words=16)
+HARD_BUDGETS = (4096, 12288)
+HARD_ESCALATE = 16384
+# the module's own acceptance (pipelines/hard.py): the default budget
+# loses less than this much oracle WER, absolute, against the loosest
+HARD_ORACLE_LOSS = 0.1
+# 11c: the tool chain's settings
+TOOL_ACWT, TOOL_PENALTY, TOOL_BEAM = 0.8, 0.5, 8.0
+
+
+# 11a's GMM bar.  The trained tri3b model on fMLLR features sums terms
+# (gconst, x·μ/σ², ½x²/σ²) far larger than their result: float32 itself
+# then holds the result only to about u·S, where S is the sum of the
+# terms' magnitudes and u = 2^-24, and two float32 sums in other orders
+# (the plain version, the kernel) differ by that much (PERF.md §7).  On
+# the flagship's path both are held to the float64 value of the same
+# function on the same float32 tables: within GMM_TOL + GMM_TOL·|f64| +
+# 2^-18·S, S taken at the component that dominates the logsumexp; 2^-18
+# = 64u covers 3xTF32's products (each about 3·2^-22 relative: the lo·lo
+# product and the lo parts' own TF32 rounding are dropped) and the
+# float32 sum of the 2D + 1 terms
+GMM_TERMS_TOL = 2.0 ** -18
+
+
+def check_path_loglikes_f64(am, xs, what: str) -> float:
+    """11a: the GMM kernel and its plain version against the float64
+    value of the same function on the model's float32 tables, on each
+    utterance's features, at GMM_TERMS_TOL (launches here are not
+    counted).  → the kernel's max |diff| from float64."""
+    from kaldi_tpu_torch.ops.gmm import gmm_loglikes_reference
+    k = am.device_params()
+    d = {n: getattr(k, n).double() for n in ("gconst", "mean_invvar",
+                                             "inv_var")}
+    P, M, D = d["mean_invvar"].shape
+    err, share, plain_share = 0.0, 0.0, 0.0
+    for x in xs:
+        x = torch.as_tensor(x, dtype=torch.float32).to(k.device)
+        x64 = x.double()
+        exact = gmm_loglikes_reference(x64, **d)
+        comp = (x64 @ d["mean_invvar"].reshape(P * M, D).T
+                - 0.5 * (x64 * x64) @ d["inv_var"].reshape(P * M, D).T
+                ).reshape(-1, P, M) + d["gconst"][None]
+        terms = ((x64.abs() @ d["mean_invvar"].abs().reshape(P * M, D).T
+                  + 0.5 * (x64 * x64) @ d["inv_var"].abs().reshape(
+                      P * M, D).T).reshape(-1, P, M)
+                 + d["gconst"].abs()[None])
+        S = torch.gather(terms, 2, comp.argmax(dim=2, keepdim=True))[..., 0]
+        bar = GMM_TOL + GMM_TOL * exact.abs() + GMM_TERMS_TOL * S
+        got, plain = k(x).double(), k.reference(x).double()
+        err = max(err, float((got - exact).abs().max()))
+        share = max(share, float(((got - exact).abs() / bar).max()))
+        plain_share = max(plain_share,
+                          float(((plain - exact).abs() / bar).max()))
+    print(f"{what}: GMM kernel vs float64 on each utterance's features: max "
+          f"|diff| {err:.3e}, at most {share:.3f} of the limit {GMM_TOL:g} + "
+          f"{GMM_TOL:g}·|f64| + 2^-18·S (S the terms' magnitudes, up to "
+          f"{float(S.max()):.3e}); the plain float32 version at most "
+          f"{plain_share:.3f} of it")
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: GMM kernel disagrees on the path")
+    return err
+
+
+def den_unread_check(dev, den, P: int, B: int = 32, T: int = 17) -> float:
+    """11a: the den kernels with the pdfs the graph never reads (those
+    below P it skips, and one past P) scored 200 above every read pdf:
+    log Z and the gradient on the read pdfs equal the plain version's
+    (log space, which reads only the graph's pdfs) within 8a's bars, the
+    unread pdfs' gradient 0.  → the gradient's max |diff|."""
+    from kaldi_tpu_torch.am.chain import den_kernel, denominator_reference
+    rng = np.random.default_rng(SEED + 11)
+    k = den_kernel(den, dev)
+    unread = k.unused_pdfs.tolist() + [P]
+    scores = torch.from_numpy((2.0 * rng.standard_normal((B, T, P + 1)))
+                              .astype(np.float32)).to(dev)
+    scores[:, :, unread] = float(scores.max()) + 200.0
+    mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    s = scores.clone().requires_grad_(True)
+    z = k(s, mask, CHAIN_LEAK)
+    z.sum().backward()
+    read = [p for p in range(P + 1) if p not in unread]
+    sr = scores[:, :, read].clone().requires_grad_(True)
+    zr = denominator_reference(den, _scatter(sr, read, P + 1), mask,
+                               CHAIN_LEAK)
+    zr.sum().backward()
+    z, zr = z.detach(), zr.detach()
+    dz = float(((z - zr).abs() / (DEN_LOGZ_ABS + DEN_LOGZ_REL * zr.abs()))
+               .max())
+    dg = float((s.grad[:, :, read] - sr.grad).abs().max())
+    g_unread = float(s.grad[:, :, unread].abs().max())
+    print(f"den: pdfs the graph never reads ({unread}) scored 200 above the "
+          f"rest: log Z finite and at most {dz:.3f} of the limit, gradient "
+          f"max |diff| {dg:.3e} on the read pdfs, {g_unread:g} on the "
+          f"unread")
+    if not (dz <= 1.0 and dg <= DEN_GRAD_TOL and g_unread == 0.0):
+        raise AssertionError("den kernels: an unread pdf's score changes "
+                             "log Z")
+    return dg
+
+
+def _scatter(x, cols, width):
+    """(B, T, len(cols)) → (B, T, width) with x at ``cols``, 0 elsewhere
+    (differentiable)."""
+    out = x.new_zeros(x.shape[:2] + (width,))
+    return out.index_copy(2, torch.tensor(cols, device=x.device), x)
+
+
+def r05_flagship():
+    """HARDBENCH_r05's flagship rows (a TPU run of the JAX package at
+    11a's operating point): system → (WER, oracle WER, graph states)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "HARDBENCH_r05.json")
+    with open(path) as f:
+        rows = json.load(f)["flagship"]
+    return {r["system"]: (r["wer"], r.get("oracle_wer"),
+                          r.get("graph_states")) for r in rows}
+
+
+def flagship_system(dev, tag: str):
+    """11a: pipelines/flagship.py ``run`` on the card at FLAGSHIP: every
+    rung's record beside r5's WER; the rungs' WERs within
+    FLAGSHIP_MAX_WER and their oracle WERs at most their WERs.  → (fbank,
+    GMM and den launches of the run, its records, its systems, wall s)."""
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
+    from kaldi_tpu_torch.pipelines import flagship
+    zero_totals()
+    t0 = time.perf_counter()
+    results, sysm = flagship.run(device=dev, return_systems=True,
+                                 **FLAGSHIP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fb, gm = totals()
+    den = CudaChainDen.total_launches
+    r05 = r05_flagship()
+    for r in results:
+        want = r05.get(r["system"])
+        rest = " ".join(f"{k}={v}" for k, v in r.items()
+                        if k not in ("metric", "system", "wer"))
+        print(f"flagship: {r['system']}: WER {r['wer']:.2f} (HARDBENCH_r05 "
+              f"WER {want[0] if want else '—'}); {rest} {tag}")
+    print(f"flagship: run took {wall:.1f} s on the card; fbank launches "
+          f"{fb}, GMM launches {gm}, den kernel launches {den} {tag}")
+    for r in results:
+        if not r["wer"] <= FLAGSHIP_MAX_WER:
+            raise AssertionError(f"flagship {r['system']}: WER {r['wer']}")
+        if "oracle_wer" in r and not r["oracle_wer"] <= r["wer"]:
+            raise AssertionError(f"flagship {r['system']}: oracle WER "
+                                 f"{r['oracle_wer']} above WER {r['wer']}")
+    if min(fb, gm, den) <= 0:
+        raise AssertionError(f"flagship launches: fbank {fb}, GMM {gm}, den "
+                             f"{den}")
+    return fb, gm, den, results, sysm, wall
+
+
+def flagship_graphs(results, sysm) -> None:
+    """11a: each rung's graph rebuilt on the host from the run's lexicon,
+    trigram and transition models has the state count the run reports
+    (r5's counts beside them)."""
+    from kaldi_tpu_torch.am.topology import HmmTopology
+    from kaldi_tpu_torch.am.transitions import TransitionModel
+    from kaldi_tpu_torch.am.tree import MonophoneContextDependency
+    from kaldi_tpu_torch.fst.biglang import build_big_graph
+    lang = sysm["lang"]
+    phones = lang.phone_list()
+    topo = HmmTopology.three_state(phones)
+    tms = {"mono-gmm": (TransitionModel(
+               topo, MonophoneContextDependency(phones, topo)), 0.1),
+           "tri3b-sat": (sysm["sat_model"].tm, 0.1),
+           "chain-tdnn": (sysm["tm_chain"], 1.0)}
+    r05 = r05_flagship()
+    for name, (tm, slf) in tms.items():
+        g = build_big_graph(sysm["entries"], sysm["arpa3"], tm, lang.words,
+                            lang.phones, self_loop_scale=slf)
+        got = sysm["graph_states"][name]
+        print(f"flagship: {name} graph: {got} states in the run, "
+              f"{g.csr.num_states} rebuilt on the host (HARDBENCH_r05: "
+              f"{r05[name][2]})")
+        if got != g.csr.num_states:
+            raise AssertionError(f"flagship {name} graph: {got} states, "
+                                 f"{g.csr.num_states} rebuilt")
+
+
+def flagship_kernels(dev, sysm, tag: str):
+    """11a: the kernels against their plain versions at the flagship's
+    shapes (launches here are not counted): the fbank kernel at the
+    8 kHz MFCC's 15 bins on 4 test waveforms, the GMM kernel with the
+    mono (10 cepstra + Δ + ΔΔ, D = 30) and tri3b (LDA+MLLT+fMLLR,
+    D = 30) models on 4 test utterances' features (against float64:
+    GMM_TERMS_TOL), the den kernels on the run's left-biphone den
+    graph at the trainer's B = 32 chunks of 17 output frames (51 input
+    frames, ×3), timed, and with the pdfs the graph never reads scored
+    far above the rest.  → (fbank err, GMM err, den err)."""
+    from kaldi_tpu_torch.features import FrameExtractionOptions, \
+        MelBanksOptions, Mfcc, MfccOptions
+    test = sysm["test"]
+    utts = test.utts[:4]
+    mfcc = Mfcc(MfccOptions(
+        frame_opts=FrameExtractionOptions(samp_freq=8000.0, dither=0.0),
+        mel_opts=MelBanksOptions(num_bins=15), num_ceps=10), device=dev)
+    fb_err = check_path_fbank(mfcc, [test.wavs[u][0] * 32768.0
+                                     for u in utts], "flagship")
+    gm_err = 0.0
+    for name, am, feats in (("mono", sysm["mono"].am, sysm["delta_te"]),
+                            ("tri3b", sysm["sat_model"].am,
+                             sysm["sat_te"])):
+        gm_err = max(gm_err, check_path_loglikes_f64(
+            am, [feats[u] for u in utts], f"flagship {name} (D={am.dim}, "
+            f"{am.num_pdfs} pdfs, {am.num_gauss()} Gaussians)"))
+    den = sysm["den"]
+    P = sysm["trainer"].model.config.num_pdfs
+    print(f"flagship: the run's den graph: {den.num_states} states, "
+          f"{len(den.src)} arcs, {P} pdfs")
+    den_err = den_kernel_check(dev, den, P, tag, B=32, T=17)[0]
+    return fb_err, gm_err, max(den_err, den_unread_check(dev, den, P))
+
+
+def flagship_card_vs_cpu(dev, sysm, tag: str) -> None:
+    """11a: the trained chain model in float32 on the card and on the
+    CPU on CHAIN_CHECK_UTTS test utterances: outputs within
+    CHAIN_CHECK_TOL + CHAIN_CHECK_TOL·|cpu|, and the card's decode and
+    the CPU's (the run's chain graph and knobs) the same best path on at
+    least CHAIN_CHECK_SAME; the card's decode profiled for its busy
+    share."""
+    import dataclasses as dc
+    from kaldi_tpu_torch.am.tdnn import TdnnChain
+    from kaldi_tpu_torch.pipelines.hard import decode_eval
+    from kaldi_tpu_torch.tools.timing import profiled
+    trained = sysm["trainer"].model
+    cfg = dc.replace(trained.config, compute_dtype="float32")
+    state = {k: v.detach().cpu() for k, v in trained.state_dict().items()}
+    utts = sorted(sysm["base_te"])[:CHAIN_CHECK_UTTS]
+    outs, share, bf16 = [], 0.0, 0.0
+    for where in (dev, torch.device("cpu")):
+        m = TdnnChain(cfg)
+        m.load_state_dict(state)
+        m.to(where).eval()
+        with torch.no_grad():
+            outs.append({u: m(torch.from_numpy(
+                sysm["base_te"][u][None]).to(where))[0].cpu()
+                for u in utts})
+    on_card, on_cpu = outs
+    with torch.no_grad():
+        trained.eval()
+        for u in utts:
+            c = on_cpu[u]
+            share = max(share, float(((on_card[u] - c).abs()
+                                      / (CHAIN_CHECK_TOL
+                                         + CHAIN_CHECK_TOL * c.abs())).max()))
+            b = trained(torch.from_numpy(sysm["base_te"][u][None]).to(
+                dev))[0].float().cpu()
+            bf16 = max(bf16, float((b - c).abs().max()
+                                   / max(float(c.abs().max()), 1e-6)))
+    print(f"flagship: chain model (float32) on the card vs the CPU on "
+          f"{len(utts)} test utterances: at most {share:.3f} of the limit "
+          f"{CHAIN_CHECK_TOL:g} + {CHAIN_CHECK_TOL:g}·|cpu|; the trained "
+          f"{trained.config.compute_dtype} forward on the card within "
+          f"{bf16:.2e} of the largest |cpu| value")
+    if not share <= 1.0:
+        raise AssertionError("flagship: the chain model's outputs on the "
+                             "card and the CPU disagree")
+    knobs = dict(sysm["chain_knobs"], batch=CHAIN_CHECK_UTTS)
+    sys_ch = sysm["sys_ch"]
+    card_in = {u: x.numpy() for u, x in on_card.items()}
+    lat_card, _ = decode_eval(sys_ch, card_in, device=dev, **knobs)
+    lat_cpu, _ = decode_eval(sys_ch, {u: x.numpy() for u, x in
+                                      on_cpu.items()},
+                             device="cpu", **knobs)
+    same = sum(lat_card[u].best_path()[0] == lat_cpu[u].best_path()[0]
+               for u in utts)
+
+    def decode():
+        decode_eval(sys_ch, card_in, device=dev, **knobs)
+        torch.cuda.synchronize()
+
+    wall, n_k, busy, _ = profiled(decode)
+    frames = sum(x.shape[0] for x in card_in.values())
+    print(f"flagship: decodes of the {len(utts)} utterances: the card's and "
+          f"the CPU's best paths equal on {same} (at least "
+          f"{CHAIN_CHECK_SAME}); the card's decode under torch.profiler: "
+          f"{wall:.1f} ms wall, {n_k} kernels ({n_k / frames:.1f} a frame), "
+          f"{busy:.1f} ms on the card ({100 * busy / wall:.1f}% busy) {tag}")
+    if same < CHAIN_CHECK_SAME:
+        raise AssertionError(f"flagship: card and CPU decodes agree on "
+                             f"{same} of {len(utts)}")
+
+
+def hard_corpus(dev, tag: str):
+    """11b: pipelines/hard.py ``run_point`` on the card on the hard
+    corpus at each of HARD_BUDGETS with escalation to HARD_ESCALATE:
+    every point's oracle WER at most its WER, and the default budget
+    within HARD_ORACLE_LOSS oracle WER of the loosest.  → the points."""
+    from kaldi_tpu_torch.pipelines import hard
+    t0 = time.perf_counter()
+    task = hard.make_hard_task(**HARD_TASK)
+    ev, lls = hard.synth_eval(task, **HARD_EVAL)
+    audio_s = sum(len(x) for x in lls.values()) * 0.03
+    print(f"hard: {HARD_TASK['vocab']}-word task, graph "
+          f"{task.graph.csr.num_states} states, {HARD_EVAL['n_utts']} "
+          f"utterances / {audio_s:.1f} audio-s (built in "
+          f"{time.perf_counter() - t0:.1f} s on the host)")
+    recs = []
+    for ab in HARD_BUDGETS:
+        r = hard.run_point(task, ev, lls, device=dev, arc_budget=ab,
+                           escalate_budget=HARD_ESCALATE)
+        recs.append(r)
+        print(f"hard: arc_budget {ab}: WER {r['wer']:.2f}, oracle "
+              f"{r['oracle_wer']:.2f}, density {r['density']:.2f}, "
+              f"{r['audio_s_per_s']} audio-s/s wall, "
+              f"{r.get('device_audio_s_per_s')} on the card, dropped arcs "
+              f"{r['dropped_arcs']}, escalated {r['n_escalated']}, min "
+              f"effective beam {r['min_eff_beam']}; wall {r['wall_s']} s "
+              f"(fetch {r['fetch_s']}, lattice builds {r['build_s']} over "
+              f"the threads) {tag}")
+        print(json.dumps(r))
+    for r in recs:
+        if not r["oracle_wer"] <= r["wer"]:
+            raise AssertionError(f"hard {r['arc_budget']}: oracle WER "
+                                 f"{r['oracle_wer']} above WER {r['wer']}")
+    loss = recs[0]["oracle_wer"] - recs[-1]["oracle_wer"]
+    print(f"hard: budget {HARD_BUDGETS[0]} loses {loss:.2f} oracle WER "
+          f"against {HARD_BUDGETS[-1]} (limit {HARD_ORACLE_LOSS})")
+    if not loss < HARD_ORACLE_LOSS:
+        raise AssertionError(f"hard: oracle WER loss {loss}")
+    return recs
+
+
+def lattice_tools(sysm) -> None:
+    """11c: lattice-scale | lattice-add-penalty | lattice-lmrescore-pruned
+    | lattice-best-path, and lattice-oracle on the rescored lattices, as
+    processes of ``python -m kaldi_tpu_torch.cli`` on 11a's chain
+    lattices and LMs written to files; their 1-best and oracle equal the
+    same steps in process."""
+    import io
+    import subprocess
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    from kaldi_tpu_torch.fst.arpa import ArpaModel, write_arpa
+    from kaldi_tpu_torch.lattice.functions import (oracle_errors,
+                                                   scale_lattice)
+    from kaldi_tpu_torch.lattice.io import (read_compact_lattice,
+                                            write_compact_lattice)
+    from kaldi_tpu_torch.lattice.rescore import lmrescore_diff_pruned
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_lattice")
+    os.makedirs(d, exist_ok=True)
+    lang, test = sysm["lang"], sysm["test"]
+    with TableWriter(f"ark:{d}/lat.ark", holder="clat") as w:
+        for u, lat in sorted(sysm["lats_ch"].items()):
+            w[u] = lat
+    with TableWriter(f"ark,t:{d}/ref.txt", holder="text") as w:
+        for u in sorted(sysm["lats_ch"]):
+            w[u] = test.text[u]
+    lang.words.write(f"{d}/words.txt")
+    write_arpa(sysm["arpa3"], f"{d}/lm3.arpa")
+    write_arpa(sysm["arpa4"], f"{d}/lm4.arpa")
+    cli = f"{sys.executable} -m kaldi_tpu_torch.cli"
+    cmd = (f"{cli} lattice-scale --acoustic-scale={TOOL_ACWT} "
+           f"ark:{d}/lat.ark ark:- | {cli} lattice-add-penalty "
+           f"--word-ins-penalty={TOOL_PENALTY} ark:- ark:- | {cli} "
+           f"lattice-lmrescore-pruned --lattice-compose-beam={TOOL_BEAM} "
+           f"{d}/lm3.arpa {d}/lm4.arpa {d}/words.txt ark:- "
+           f"ark:{d}/rescored.ark && {cli} lattice-best-path "
+           f"--word-symbol-table={d}/words.txt ark:{d}/rescored.ark "
+           f"ark,t:{d}/best.txt && {cli} lattice-oracle "
+           f"--word-symbol-table={d}/words.txt ark:{d}/rescored.ark "
+           f"ark,t:{d}/ref.txt")
+    t0 = time.perf_counter()
+    res = subprocess.run(["bash", "-o", "pipefail", "-c", cmd], cwd=repo,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"lattice tools failed ({res.returncode}):\n"
+                             f"{res.stderr[-3000:]}")
+    tool_best = dict(SequentialTableReader(f"ark,t:{d}/best.txt",
+                                           holder="text"))
+    # the same steps in process, on the lattices and LMs read back, each
+    # step's lattice stored as the tools store it (float32 weights)
+    def stored(lat):
+        buf = io.BytesIO()
+        write_compact_lattice(buf, lat)
+        buf.seek(0)
+        return read_compact_lattice(buf)
+
+    old = ArpaModel.parse(f"{d}/lm3.arpa")
+    new = ArpaModel.parse(f"{d}/lm4.arpa")
+    err = words = same = 0
+    for u, lat in SequentialTableReader(f"ark:{d}/lat.ark", holder="clat"):
+        lat = stored(scale_lattice(lat, acoustic_scale=TOOL_ACWT))
+        for s in range(lat.num_states):
+            for a in lat.arcs[s]:
+                if a.word:
+                    a.graph_cost += TOOL_PENALTY
+        r = stored(lmrescore_diff_pruned(stored(lat), old, new, lang.words,
+                                         beam=TOOL_BEAM, max_arcs=200_000))
+        best = [lang.words.find(w) for w in r.best_path()[0]]
+        same += int(best == list(tool_best.get(u, [None])))
+        ref = [lang.words[w] for w in test.text[u]]
+        err += oracle_errors(r, ref)
+        words += len(ref)
+    want = f"%WER {100.0 * err / max(words, 1):.2f} [ {err} / {words} ]"
+    got = res.stdout.strip().splitlines()[-1]
+    print(f"tools: lattice-scale | lattice-add-penalty | "
+          f"lattice-lmrescore-pruned, lattice-best-path, lattice-oracle on "
+          f"{len(tool_best)} chain lattices in {wall:.1f} s: 1-best equal to "
+          f"the library's on {same}, oracle '{got}' (library '{want}')")
+    if same != len(sysm["lats_ch"]) or got != want:
+        raise AssertionError("lattice tools disagree with the library")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2387,14 +2852,31 @@ def main() -> int:
             tools[0].wait()
     print(f"train: phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    # 11. the flagship system on the card (its launches are counted), its
+    # kernels at its shapes, card against CPU, the lattice tools on its
+    # lattices; then the hard corpus
+    t0 = time.perf_counter()
+    f_fb, f_gm, f_den, f_results, fsys, f_wall = flagship_system(dev, tag)
+    flagship_graphs(f_results, fsys)
+    f_fb_err, f_gm_err, f_den_err = flagship_kernels(dev, fsys, tag)
+    flagship_card_vs_cpu(dev, fsys, tag)
+    lattice_tools(fsys)
+    del fsys
+    print(f"flagship: 11a and 11c took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    hard_corpus(dev, tag)
+    print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phase 11 "
+          f"{time.perf_counter() - t0:.1f} s")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
-        + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb,
-        "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err),
+        + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb,
+        "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err,
+                           f_fb_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
                 "the spectrogram are held to their own bar (phase 9a)",
         "ms": fb_ms, "plain_ms": fb_plain_ms,
@@ -2413,8 +2895,9 @@ def main() -> int:
         "name": "gmm_loglikes", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/gmm.cu",
         "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
-        "launches": b_gmm + d_gmm + p_gmm + y_gmm + m_gmm + tool_gmm,
-        "max_abs_err": max(gmm_err, b_err, d_err, p_err),
+        "launches": b_gmm + d_gmm + p_gmm + y_gmm + m_gmm + tool_gmm
+        + f_gm,
+        "max_abs_err": max(gmm_err, b_err, d_err, p_err, f_gm_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
         "bound_ms": gmm_bnd[0], "bound_by": gmm_bnd[1],
         "library_ms": None}, {
@@ -2423,7 +2906,8 @@ def main() -> int:
         "replaces": "kaldi_tpu/am/chain.py:470",
         "note": "replaces an XLA program (lax.scan + jax.grad), not a "
                 "Pallas kernel; forward and backward kernels, ms for both",
-        "launches": den_launches, "max_abs_err": den_err,
+        "launches": den_launches + f_den,
+        "max_abs_err": max(den_err, f_den_err),
         "ms": den_ms, "plain_ms": den_plain_ms,
         "bound_ms": den_bnd[0], "bound_by": den_bnd[1],
         "library_ms": None}]}))

@@ -5,7 +5,9 @@ Port of ``TOOLS``, ``tool``, ``_frame_opts_po``, ``_make_frame_opts``,
 kaldi_tpu/cli/tools.py (``compute-mfcc-feats``, ``compute-fbank-feats``,
 ``compute-plp-feats``, ``copy-feats``, ``compute-cmvn-stats``,
 ``apply-cmvn``, ``add-deltas``, ``splice-feats``, ``transform-feats``
-and ``resample-wav``; parity targets src/featbin/).  Each tool keeps the
+and ``resample-wav``; parity targets src/featbin/) and its lattice tools
+(``lattice-best-path``, ``lattice-mbr-decode``, ``lattice-scale``,
+``lattice-prune``; host code, as there).  Each tool keeps the
 original's options and arguments; those that compute with tensors add
 ``--device`` (default cuda): the computers launch the fbank kernel
 there, and CMVN, deltas, splicing and transforms run on it.  The
@@ -271,6 +273,75 @@ def resample_wav(argv):
         for key, (wave, rate) in SequentialTableReader(args[0], holder="wav"):
             out = linear_resample(wave / 32768.0, rate, po["target-rate"])
             w[key] = (out, int(po["target-rate"]))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# latbin (host code, copied from kaldi_tpu/cli/tools.py)
+# ---------------------------------------------------------------------------
+
+@tool("lattice-best-path")
+def lattice_best_path(argv):
+    po = ParseOptions(
+        "lattice-best-path [opts] <lattice-rspec> <words-wspec>")
+    po.register("lm-scale", float, 1.0, "LM scale")
+    po.register("acoustic-scale", float, 1.0, "acoustic scale")
+    po.register("word-symbol-table", str, "", "words.txt")
+    args = po.read(argv)
+    from kaldi_tpu_torch.lattice import scale_lattice
+    words_tab = None
+    if po["word-symbol-table"]:
+        from kaldi_tpu_torch.fst.fst import SymbolTable
+        words_tab = SymbolTable.read(po["word-symbol-table"])
+    with TableWriter(args[1], holder="text") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            scale_lattice(clat, po["lm-scale"], po["acoustic-scale"])
+            wseq, _, cost = clat.best_path()
+            w[key] = [words_tab.find(x) if words_tab else str(x)
+                      for x in wseq]
+    return 0
+
+
+@tool("lattice-mbr-decode")
+def lattice_mbr_decode(argv):
+    from kaldi_tpu_torch.lattice import mbr_decode
+    po = ParseOptions("lattice-mbr-decode <lattice-rspec> <words-wspec>")
+    po.register("word-symbol-table", str, "", "words.txt")
+    args = po.read(argv)
+    words_tab = None
+    if po["word-symbol-table"]:
+        from kaldi_tpu_torch.fst.fst import SymbolTable
+        words_tab = SymbolTable.read(po["word-symbol-table"])
+    with TableWriter(args[1], holder="text") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            r = mbr_decode(clat)
+            w[key] = [words_tab.find(x) if words_tab else str(x)
+                      for x in r.words]
+    return 0
+
+
+@tool("lattice-scale")
+def lattice_scale_tool(argv):
+    from kaldi_tpu_torch.lattice import scale_lattice
+    po = ParseOptions("lattice-scale <rspec> <wspec>")
+    po.register("lm-scale", float, 1.0, "")
+    po.register("acoustic-scale", float, 1.0, "")
+    args = po.read(argv)
+    with TableWriter(args[1], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            w[key] = scale_lattice(clat, po["lm-scale"], po["acoustic-scale"])
+    return 0
+
+
+@tool("lattice-prune")
+def lattice_prune_tool(argv):
+    from kaldi_tpu_torch.lattice import prune_lattice
+    po = ParseOptions("lattice-prune --beam=4.0 <rspec> <wspec>")
+    po.register("beam", float, 4.0, "pruning beam")
+    args = po.read(argv)
+    with TableWriter(args[1], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            w[key] = prune_lattice(clat, po["beam"])
     return 0
 
 

@@ -1,10 +1,16 @@
 """compute-kaldi-pitch-feats, process-kaldi-pitch-feats,
-compile-train-graphs, align-equal-compiled and gmm-align-compiled.
+compile-train-graphs, align-equal-compiled, gmm-align-compiled and the
+lattice tools lattice-1best, lattice-oracle, lattice-add-penalty,
+lattice-lmrescore-const-arpa and lattice-lmrescore-pruned.
 
 Port of those tools of kaldi_tpu/cli/tools_bank3.py (parity targets
 featbin/compute-kaldi-pitch-feats.cc, process-kaldi-pitch-feats.cc,
 bin/compile-train-graphs.cc, align-equal-compiled.cc,
-gmmbin/gmm-align-compiled.cc), registered in cli/tools.py's ``TOOLS``.
+gmmbin/gmm-align-compiled.cc, latbin/lattice-1best.cc,
+lattice-oracle.cc, lattice-add-penalty.cc,
+lattice-lmrescore-const-arpa.cc, lattice-lmrescore-pruned.cc),
+registered in cli/tools.py's ``TOOLS``.  The lattice tools are the
+original's host code, copied.
 Training graphs and the equal alignment are host code, as in the
 original; gmm-align-compiled runs the GMM kernel and the aligner on
 ``--device`` (default cuda), ``ALIGN_BATCH`` utterances at a time (the
@@ -18,7 +24,7 @@ is a power of two, so the two give the same pitch all the same.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -177,4 +183,179 @@ def gmm_align_compiled(argv):
             flush(batch)
     log.info("gmm-align-compiled: aligned %d utterances; GMM kernel "
              "launches %d", n_done, am.device_params().launches)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# latbin (host code, copied from kaldi_tpu/cli/tools_bank3.py)
+# ---------------------------------------------------------------------------
+
+@tool("lattice-1best")
+def lattice_1best(argv):
+    from kaldi_tpu_torch.lattice.lattice import CompactArc, CompactLattice
+    po = ParseOptions("lattice-1best [--acoustic-scale=1.0] <rspec> "
+                      "<wspec>")
+    po.register("acoustic-scale", float, 1.0, "acoustic scale")
+    args = po.read(argv)
+    from kaldi_tpu_torch.lattice.functions import scale_lattice
+    with TableWriter(args[1], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            if po["acoustic-scale"] != 1.0:
+                scale_lattice(clat, acoustic_scale=po["acoustic-scale"])
+            words, tids, cost = clat.best_path()
+            lin = CompactLattice()
+            states = [lin.add_state() for _ in range(len(words) + 1)]
+            lin.start = states[0]
+            # distribute tids evenly; exact per-arc splits live in the
+            # full lattice — 1best output carries words + total cost
+            per = len(tids) // max(len(words), 1) if words else 0
+            pos = 0
+            for i, wd in enumerate(words):
+                hi = pos + per if i < len(words) - 1 else len(tids)
+                lin.arcs[states[i]].append(CompactArc(
+                    wd, cost if i == 0 else 0.0, 0.0,
+                    tuple(tids[pos:hi]), states[i + 1]))
+                pos = hi
+            lin.finals[states[-1]] = (0.0, 0.0, ())
+            w[key] = lin
+    return 0
+
+
+@tool("lattice-oracle")
+def lattice_oracle(argv):
+    """Oracle (minimum achievable) WER of each lattice vs the reference
+    transcript (latbin/lattice-oracle.cc)."""
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    po = ParseOptions("lattice-oracle <lat-rspec> <ref-rspec> "
+                      "[<oracle-text-wspec>]")
+    po.register("word-symbol-table", str, "", "words.txt (ref is text)")
+    args = po.read(argv)
+    words = (SymbolTable.read(po["word-symbol-table"])
+             if po["word-symbol-table"] else None)
+    refs = RandomAccessTableReader(args[1], holder="text")
+    w = (TableWriter(args[2], holder="text") if len(args) > 2 else None)
+    tot_err = tot_words = 0
+    for key, clat in SequentialTableReader(args[0], holder="clat"):
+        if key not in refs:
+            continue
+        ref = [words[x] if words else int(x) for x in refs[key]]
+        errs, best = _oracle_path(clat, ref)
+        tot_err += errs
+        tot_words += len(ref)
+        if w:
+            w[key] = ([words.find(x) for x in best] if words
+                      else [str(x) for x in best])
+    if w:
+        w.close()
+    wer = 100.0 * tot_err / max(tot_words, 1)
+    log.info("lattice-oracle: %%WER %.2f [ %d / %d ]", wer, tot_err,
+             tot_words)
+    print(f"%WER {wer:.2f} [ {tot_err} / {tot_words} ]")
+    return 0
+
+
+def _oracle_path(clat, ref: List[int]) -> Tuple[int, List[int]]:
+    """Min edit distance over all lattice paths (dp over
+    (state, ref position) pairs), returning (errors, best word seq)."""
+    order = clat.top_order()
+    n, m = clat.num_states, len(ref)
+    INF = 10 ** 9
+    D = np.full((n, m + 1), INF, np.int64)
+    back: Dict[Tuple[int, int], Tuple[int, int, List[int]]] = {}
+    if clat.start < 0:
+        return len(ref), []
+    D[clat.start, 0] = 0
+    for s in order:
+        for j in range(m + 1):
+            d = D[s, j]
+            if d >= INF:
+                continue
+            # deletion of ref word (consume ref, stay at state)
+            if j < m and d + 1 < D[s, j + 1]:
+                D[s, j + 1] = d + 1
+                back[(s, j + 1)] = (s, j, [])
+            for a in clat.arcs[s]:
+                steps = ([(j, d + (0 if a.word == 0 else 1), [a.word]
+                           if a.word else [])]  # insertion (or ε free)
+                         + ([(j + 1, d + (a.word != ref[j]),
+                              [a.word] if a.word else [])]
+                            if j < m and a.word != 0 else []))
+                for nj, nd, ws in steps:
+                    if nd < D[a.nextstate, nj]:
+                        D[a.nextstate, nj] = nd
+                        back[(a.nextstate, nj)] = (s, j, ws)
+    best, bs = INF, -1
+    for s in clat.finals:
+        if D[s, m] < best:
+            best, bs = int(D[s, m]), s
+    if bs < 0:
+        return len(ref), []
+    seq: List[int] = []
+    cur = (bs, m)
+    while cur != (clat.start, 0) and cur in back:
+        ps, pj, ws = back[cur]
+        seq = ws + seq
+        cur = (ps, pj)
+    return best, seq
+
+
+@tool("lattice-add-penalty")
+def lattice_add_penalty(argv):
+    po = ParseOptions("lattice-add-penalty [--word-ins-penalty=0.0] "
+                      "<rspec> <wspec>")
+    po.register("word-ins-penalty", float, 0.0, "per-word graph cost")
+    args = po.read(argv)
+    pen = po["word-ins-penalty"]
+    with TableWriter(args[1], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            for s in range(clat.num_states):
+                for a in clat.arcs[s]:
+                    if a.word != 0:
+                        a.graph_cost += pen
+            w[key] = clat
+    return 0
+
+
+@tool("lattice-lmrescore-const-arpa")
+def lattice_lmrescore_const_arpa(argv):
+    from kaldi_tpu_torch.fst.arpa import ArpaModel
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    from kaldi_tpu_torch.lattice.rescore import compose_lm
+    po = ParseOptions("lattice-lmrescore-const-arpa [--lm-scale=1.0] "
+                      "<arpa> <words.txt> <lat-rspec> <lat-wspec>")
+    po.register("lm-scale", float, 1.0, "LM scale")
+    args = po.read(argv)
+    lm = ArpaModel.parse(args[0])
+    words = SymbolTable.read(args[1])
+    with TableWriter(args[3], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[2], holder="clat"):
+            w[key] = compose_lm(clat, lm.score, words,
+                                scale=po["lm-scale"])
+    return 0
+
+
+@tool("lattice-lmrescore-pruned")
+def lattice_lmrescore_pruned(argv):
+    from kaldi_tpu_torch.fst.arpa import ArpaModel
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    from kaldi_tpu_torch.lattice.rescore import lmrescore_diff_pruned
+    po = ParseOptions("lattice-lmrescore-pruned [--lm-scale=1.0] "
+                      "[--lattice-compose-beam=6] [--max-arcs=200000] "
+                      "<old-arpa> <new-arpa> <words.txt> <lat-rspec> "
+                      "<lat-wspec>")
+    po.register("lm-scale", float, 1.0, "LM scale")
+    po.register("lattice-compose-beam", float, 6.0, "composition beam")
+    po.register("max-arcs", int, 200_000, "output arc cap")
+    args = po.read(argv)
+    old_lm = ArpaModel.parse(args[0])
+    new_lm = ArpaModel.parse(args[1])
+    words = SymbolTable.read(args[2])
+    with TableWriter(args[4], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[3], holder="clat"):
+            # single pruned composition with the difference LM: the
+            # exact subtract-then-add intermediate is quadratic in
+            # density × histories and blows up on dense lattices
+            w[key] = lmrescore_diff_pruned(
+                clat, old_lm, new_lm, words, lm_scale=po["lm-scale"],
+                beam=po["lattice-compose-beam"], max_arcs=po["max-arcs"])
     return 0

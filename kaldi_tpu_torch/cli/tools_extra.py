@@ -1,16 +1,19 @@
-"""compute-spectrogram-feats, apply-cmvn-sliding and the GMM estimation
-tools gmm-mixup, gmm-acc-stats-ali, gmm-sum-accs and gmm-est.
+"""compute-spectrogram-feats, apply-cmvn-sliding, the GMM estimation
+tools gmm-mixup, gmm-acc-stats-ali, gmm-sum-accs and gmm-est, and the
+lattice tools lattice-depth and lattice-lmrescore.
 
 Port of those tools of kaldi_tpu/cli/tools_extra.py (parity targets
 featbin/compute-spectrogram-feats.cc, apply-cmvn-sliding.cc,
 gmmbin/gmm-mixup.cc, gmm-acc-stats-ali.cc, gmm-sum-accs.cc,
-gmm-est.cc), registered in cli/tools.py's ``TOOLS``, with the
+gmm-est.cc, latbin/lattice-depth.cc, lattice-lmrescore.cc),
+registered in cli/tools.py's ``TOOLS``, with the
 accumulator files' reader and writer.  The spectrogram runs the fbank
 kernel with one filter per DFT bin on ``--device`` (default cuda), and
 gmm-acc-stats-ali accumulates on it; sliding-window CMN and the
 updates are host numpy, as in the original.  The original's gmm-mixup
 and ``gmm-est --mix-up`` drop ``mixup``'s result and write the model
-unchanged; these write the mixed-up model.
+unchanged; these write the mixed-up model.  The lattice tools are the
+original's host code, copied.
 """
 
 from __future__ import annotations
@@ -170,4 +173,53 @@ def gmm_est(argv):
     write_mdl(args[2], tm, am)
     log.info("estimated model; tot like/frame %.4f over %.0f frames",
              accs.tot_like / max(accs.tot_frames, 1.0), accs.tot_frames)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# latbin (host code, copied from kaldi_tpu/cli/tools_extra.py)
+# ---------------------------------------------------------------------------
+
+@tool("lattice-depth")
+def lattice_depth(argv):
+    from kaldi_tpu_torch.lattice.functions import state_times
+    po = ParseOptions("lattice-depth <rspec> [<depth-wspec>]")
+    args = po.read(argv)
+    w = TableWriter(args[1], holder="text") if len(args) > 1 else None
+    tot_arc_frames = tot_frames = 0
+    for key, clat in SequentialTableReader(args[0], holder="clat"):
+        times = state_times(clat)
+        T = max(times) if times else 0
+        arc_frames = sum(len(a.tids) for s in range(clat.num_states)
+                         for a in clat.arcs[s])
+        depth = arc_frames / max(T, 1)
+        tot_arc_frames += arc_frames
+        tot_frames += T
+        if w:
+            w[key] = [f"{depth:.2f}"]
+        else:
+            print(key, f"{depth:.2f}")
+    log.info("overall lattice depth %.2f over %d frames",
+             tot_arc_frames / max(tot_frames, 1), tot_frames)
+    if w:
+        w.close()
+    return 0
+
+
+@tool("lattice-lmrescore")
+def lattice_lmrescore(argv):
+    from kaldi_tpu_torch.fst.arpa import ArpaModel
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    from kaldi_tpu_torch.lattice.rescore import lmrescore
+    po = ParseOptions("lattice-lmrescore [--lm-scale=1.0] <old-arpa> "
+                      "<new-arpa> <words.txt> <lat-rspec> <lat-wspec>")
+    po.register("lm-scale", float, 1.0, "LM scale")
+    args = po.read(argv)
+    old_lm = ArpaModel.parse(args[0])
+    new_lm = ArpaModel.parse(args[1])
+    words = SymbolTable.read(args[2])
+    with TableWriter(args[4], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[3], holder="clat"):
+            w[key] = lmrescore(clat, old_lm, new_lm, words,
+                               lm_scale=po["lm-scale"])
     return 0

@@ -721,6 +721,33 @@ class BeamDecoder:
         T = loglikes.shape[0]
         return self._backtrace(self._decode_host(loglikes[None], [T])[0], T)
 
+    # Port of kaldi_tpu/decoder/beam.py BeamDecoder.decode_batch.
+    def decode_batch(self, loglikes_padded, num_frames: np.ndarray
+                     ) -> List[Tuple[List[int], List[int], float]]:
+        """(B, T_pad, P) + (B,) → list of (tids, olabels, cost)."""
+        num_frames = np.asarray(num_frames)
+        hosts = self._decode_host(loglikes_padded, num_frames)
+        return [self._backtrace(h, int(num_frames[b]))
+                for b, h in enumerate(hosts)]
+
+    # Port of kaldi_tpu/decoder/beam.py BeamDecoder.decode_lattice_batch.
+    def decode_lattice_batch(self, loglikes_padded, num_frames: np.ndarray
+                             ) -> List[Lattice]:
+        """(B, T_pad, P) + (B,) → one pruned raw Lattice per utterance,
+        each re-decoded at the escalated budget when its deficit
+        trigger fires."""
+        if not self.L:
+            raise KaldiError("decode_lattice needs lattice_arcs_per_frame")
+        ll_host = self._host_array(loglikes_padded)
+        num_frames = np.asarray(num_frames)
+        hosts = self._decode_host(loglikes_padded, num_frames, lattice=True)
+        lats = []
+        for b, h in enumerate(hosts):
+            T = int(num_frames[b])
+            h, dec = self._maybe_escalate(h, ll_host[b], T)
+            lats.append(dec._build_lattice(h, T, ll_host[b]))
+        return lats
+
     def decode_lattice(self, loglikes) -> Lattice:
         """Single utterance → pruned raw Lattice."""
         if not self.L:

@@ -1,4 +1,4 @@
-# Copied from kaldi_tpu/fst/arpa.py; imports rewritten to kaldi_tpu_torch.
+# Copied from kaldi_tpu/fst/arpa.py; imports rewritten to kaldi_tpu_torch; write_arpa added.
 """ARPA n-gram language models: parsing, G.fst compilation, const LM.
 
 Parity targets: src/lm/arpa-file-parser.h (ArpaFileParser),
@@ -239,6 +239,26 @@ def estimate_arpa(texts: Sequence[Sequence[str]], order: int = 3,
             lp = model.ngrams[n - 1][h][0]
             model.ngrams[n - 1][h] = (lp, math.log(bow))
     return model
+
+
+def write_arpa(model: ArpaModel, path: str) -> None:
+    """``model`` as an ARPA file at ``path``, log10 values with 9
+    significant digits (the port's own: the lattice rescoring tools read
+    their LMs from such files)."""
+    lines = ["\\data\\"]
+    for order, table in enumerate(model.ngrams, start=1):
+        lines.append(f"ngram {order}={len(table)}")
+    for order, table in enumerate(model.ngrams, start=1):
+        lines += ["", f"\\{order}-grams:"]
+        for ctx in sorted(table):
+            lp, bow = table[ctx]
+            row = f"{lp / LOG10:.9g}\t{' '.join(ctx)}"
+            if bow != 0.0:
+                row += f"\t{bow / LOG10:.9g}"
+            lines.append(row)
+    lines += ["", "\\end\\", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
 
 
 def make_unigram_arpa(word_probs: Dict[str, float]) -> str:

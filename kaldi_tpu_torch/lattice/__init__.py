@@ -1,7 +1,7 @@
 # From kaldi_tpu/lattice/__init__.py, down to the copied modules.
-"""Lattices: raw and compact lattices, determinization and pruning
-and lattice functions (copied from kaldi_tpu/lattice/: lattice.py,
-determinize.py, io.py, functions.py)."""
+"""Lattices: raw and compact lattices, determinization and pruning,
+lattice functions and LM rescoring (copied from kaldi_tpu/lattice/:
+lattice.py, determinize.py, io.py, functions.py, rescore.py)."""
 
 from kaldi_tpu_torch.lattice.lattice import (
     CompactArc,
@@ -19,8 +19,11 @@ from kaldi_tpu_torch.lattice.functions import (
     scale_lattice,
     state_times,
 )
+from kaldi_tpu_torch.lattice.rescore import (compose_lm, compose_lm_pruned,
+                                             lmrescore, lmrescore_pruned)
 
 __all__ = ["CompactArc", "CompactLattice", "Lattice", "LatticeArc",
            "determinize_lattice", "prune_lattice", "MbrResult",
            "forward_backward_post", "mbr_decode", "nbest", "scale_lattice",
-           "state_times"]
+           "state_times", "compose_lm", "lmrescore",
+           "compose_lm_pruned", "lmrescore_pruned"]

@@ -176,7 +176,11 @@ class ChainDenPlainFn(torch.autograd.Function):
 
 class CudaChainDen:
     """One denominator graph packed for the forward-backward kernels.
-    ``launches`` counts kernel launches (forward and backward)."""
+    ``launches`` counts kernel launches (forward and backward), and the
+    class's ``total_launches`` those of every instance (a recipe builds
+    its own den graph)."""
+
+    total_launches = 0
 
     def __init__(self, num_states: int, src, dst, pdf, logw, initial,
                  final, self_pdf, entry_pdf,
@@ -187,6 +191,11 @@ class CudaChainDen:
         self_pdf = np.asarray(self_pdf, np.int64)
         entry_pdf = np.asarray(entry_pdf, np.int64)
         self.max_pdf = int(max(pdf.max(), self_pdf.max(), entry_pdf.max()))
+        # the pdfs below max_pdf that the graph does not read (on an arc,
+        # or as a state's self or entry pdf at frame 0): mask_unused
+        used = np.zeros(self.max_pdf + 1, bool)
+        used[np.concatenate([pdf, self_pdf, entry_pdf])] = True
+        unused = np.nonzero(~used)[0]
         if S > MAX_ID or self.max_pdf > MAX_ID:
             raise KaldiError(f"chain den kernel: {S} states, pdf ids up to "
                              f"{self.max_pdf}; the kernel packs both into "
@@ -211,6 +220,7 @@ class CudaChainDen:
                        .astype(np.float32))
         self.self_pdf = dev(self_pdf.astype(np.int32))
         self.entry_pdf = dev(entry_pdf.astype(np.int32))
+        self.unused_pdfs = dev(unused.astype(np.int64))
         # "cuda" → "cuda:<current>", so that it compares equal to the
         # device of a tensor moved there
         self.device = self.init.device
@@ -246,12 +256,30 @@ class CudaChainDen:
                              f"got {tuple(mask.shape)} on {mask.device}")
         else:
             mask = (mask != 0).to(torch.uint8).contiguous()
+        scores = self.mask_unused(scores)
         if self.device.type == "cpu":
             return ChainDenPlainFn.apply(scores, mask, self, float(leak))
         if self.device.type != "cuda":
             raise ValueError(f"unsupported device {self.device}")
         self.plan(P)              # raises where the graph does not fit
         return ChainDenFn.apply(scores.contiguous(), mask, self, float(leak))
+
+    def mask_unused(self, scores: torch.Tensor) -> torch.Tensor:
+        """scores with the pdfs no arc or state of the graph reads set to
+        -inf (differentiable; their gradient is 0).  log Z does not
+        depend on them, but both recursions scale each frame by its
+        largest score: an unread pdf whose score lies 104 nats or more
+        above every read one (nothing in training holds it down) would
+        underflow every e_t to 0 and make Z_t 0 (a left-biphone tree can
+        have a leaf that no context of the phone LM reaches).  Adds no
+        operation where the graph reads every pdf."""
+        n = self.max_pdf + 1
+        if self.unused_pdfs.numel():
+            scores = scores.index_fill(2, self.unused_pdfs, float("-inf"))
+        if scores.shape[2] > n:
+            scores = torch.cat([scores[..., :n], torch.full_like(
+                scores[..., n:], float("-inf"))], dim=2)
+        return scores
 
     # -- the kernels -------------------------------------------------------
     def _forward(self, scores, mask, leak, plan: DenPlan = None):
@@ -275,6 +303,7 @@ class CudaChainDen:
         if rc != 0:
             raise RuntimeError(f"kt_chain_den_forward failed: cudaError {rc}")
         self.launches += 1
+        CudaChainDen.total_launches += 1
         return logz, (alpha, zt, mt, fsum)
 
     def _backward(self, scores, mask, saved, gout, leak,
@@ -297,6 +326,7 @@ class CudaChainDen:
         if rc != 0:
             raise RuntimeError(f"kt_chain_den_backward failed: cudaError {rc}")
         self.launches += 1
+        CudaChainDen.total_launches += 1
         return grad
 
     # -- the plain version: the same recursion on the packed arrays --------

@@ -12,9 +12,13 @@ update, and each tensor's final update clamped to l2 ≤ max_change before
 it is applied.  Checkpoints are ``torch.save`` files (the original
 writes orbax ones).
 
-Not ported here: the ``mesh=`` argument (multi-device training),
+``build_chain_tree`` (the left-biphone tree from GMM alignments) is the
+original's host numpy, on the port's tree statistics and questions
+(pipelines/tri.py).
+
+Not ported here: the ``mesh=`` argument (multi-device training) and
 lattice-derived supervision (the original's ``egs.sup`` and ``_step``'s
-``sup``) and ``build_chain_tree``, which needs pipelines/tri.py.
+``sup``).
 """
 
 from __future__ import annotations
@@ -33,10 +37,13 @@ from kaldi_tpu_torch.am.tdnn import (TdnnChain, TdnnConfig, init_tdnn,
                                      semi_orthogonal_penalty)
 from kaldi_tpu_torch.am.topology import HmmTopology
 from kaldi_tpu_torch.am.transitions import TransitionModel
+from kaldi_tpu_torch.am.tree import GaussStats, build_tree
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.ops.natural_gradient import (NgSgd, Schedule,
                                                   ScheduledOptimizer)
+from kaldi_tpu_torch.pipelines.tri import (_frame_info,
+                                           cluster_phone_questions)
 
 log = get_logger(__name__)
 
@@ -437,6 +444,58 @@ class ChainTrainer:
             with torch.no_grad():
                 return self.model(self._as_tensor(feats, torch.float32))
         return f
+
+
+# Copied from kaldi_tpu/pipelines/chain.py build_chain_tree.
+def build_chain_tree(feats: Dict[str, np.ndarray],
+                     alignments: Dict[str, Sequence[int]],
+                     tm: TransitionModel, topo: HmmTopology,
+                     num_leaves: int,
+                     context_width: int = 2, central_position: int = 1):
+    """Context-dependent decision tree over the CHAIN topology from GMM
+    alignments — steps/nnet3/chain/build_tree.sh.  The (2,1)
+    left-biphone default is the reference's standard chain-tree
+    configuration; it keeps the denominator graph near phone-LM size
+    (am/chain.py _make_den_graph_biphone).
+
+    Stats: per aligned frame, window = phone context of the instance,
+    pdf-class = the chain topology's forward class on the instance's
+    first frame and its self-loop class after (the 3-state GMM
+    alignment collapses onto the 2-class chain topology by frame
+    position, as build_tree.sh re-accumulates stats under the new
+    topology)."""
+    stats: Dict[Tuple[Tuple[int, ...], int], GaussStats] = {}
+    for u, tids in alignments.items():
+        f = np.asarray(feats[u], np.float64)
+        info = _frame_info(tm, tids)
+        phones: List[int] = []
+        for pi, ph, st in info:
+            if pi == len(phones):
+                phones.append(ph)
+        prev_pi = -1
+        for t, (pi, ph, hmm_state) in enumerate(info):
+            if t >= f.shape[0]:
+                break
+            window = []
+            for off in range(-central_position,
+                             context_width - central_position):
+                j = pi + off
+                window.append(phones[j] if 0 <= j < len(phones) else 0)
+            entry = topo.topology_for_phone(ph)[0]
+            pc = (entry.forward_pdf_class if pi != prev_pi
+                  else entry.self_loop_pdf_class)
+            prev_pi = pi
+            key = (tuple(window), pc)
+            if key not in stats:
+                stats[key] = GaussStats(f.shape[1])
+            stats[key].accumulate(f[t])
+    questions = cluster_phone_questions(stats, central_position)
+    tree = build_tree(stats, questions, context_width, central_position,
+                      max_leaves=num_leaves)
+    log.info("build_chain_tree: %d leaves over %d (window, class) "
+             "events (context %d,%d)", tree.num_pdfs, len(stats),
+             context_width, central_position)
+    return tree
 
 
 def phone_alignment_runs(tm: TransitionModel, tids: Sequence[int]

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
 import subprocess
 import time
@@ -66,6 +67,33 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class EventTimer:
+    """The card's time over regions of queued work, summed: CUDA events
+    recorded on the current stream before and after each region, read
+    once at the end (``total_ms`` synchronises), so the regions stay
+    asynchronous.  A region's time runs from the card reaching its
+    first event to reaching its last, gaps where the host had not yet
+    issued the next kernel included."""
+
+    def __init__(self):
+        self._pairs = []
+
+    @contextlib.contextmanager
+    def region(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self._pairs.append((start, end))
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self._pairs)
 
 
 def profiled(fn):

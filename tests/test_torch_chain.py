@@ -156,6 +156,49 @@ def test_kernel_recursion_matches_jax(graph, leak, batch):
     np.testing.assert_allclose(g, gwant, rtol=1e-4, atol=1e-4)
 
 
+def _gapped(tden, gap: int):
+    """``tden``'s graph on the kernel wrapper with pdf ids from ``gap``
+    on shifted up by one: pdf ``gap`` is read by no arc or state."""
+    self_pdf, entry_pdf = tc.state_pdfs(tden)
+
+    def shift(a):
+        a = np.asarray(a)
+        return a + (a >= gap)
+    return chain_den.CudaChainDen(
+        tden.num_states, tden.src, tden.dst, shift(tden.pdf), tden.logw,
+        tden.initial, tden.final, shift(self_pdf), shift(entry_pdf),
+        device="cpu")
+
+
+@pytest.mark.parametrize("where", ["inside", "past the graph's pdfs"])
+@pytest.mark.parametrize("graph", ["trigram", "biphone"])
+def test_kernel_recursion_ignores_pdfs_the_graph_never_reads(graph, where):
+    """A pdf no arc or state reads may carry any score (in training
+    nothing holds it down): at +200 over every read pdf it would be each
+    frame's largest score, and every e_t would underflow to 0 under the
+    recursions' per-frame scale.  The wrapper sets it to -inf, so log Z
+    and the gradient are the JAX package's on the read pdfs, and the
+    unread pdf's gradient is 0."""
+    jden, tden, P = (den_pair("mono") if graph == "trigram"
+                     else den_pair("biphone", order=2))
+    scores, mask = _ragged(P)
+    want, gwant = _jax_den(jden, scores, mask, 0.1, 4096)
+    gap = P // 2 if where == "inside" else P
+    k = _gapped(tden, gap) if where == "inside" else tc.den_kernel(tden,
+                                                                    "cpu")
+    wide = np.insert(scores, gap, scores.max() + 200.0, axis=2)
+    got, g = _port_den(lambda s, m: k(s, m, 0.1), wide, mask)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.delete(g, gap, axis=2), gwant, rtol=1e-4,
+                               atol=1e-4)
+    assert not g[:, :, gap].any()
+    unmasked = chain_den.ChainDenPlainFn.apply(
+        torch.from_numpy(wide), torch.from_numpy(mask).to(torch.uint8), k,
+        0.1)
+    assert not torch.isfinite(unmasked).all()   # what the mask prevents
+
+
 def test_posteriors_sum_to_one():
     """d log Z / d scores is a posterior: each active frame sums to 1,
     masked frames (t ≥ 1) get 0, every entry lies in [0, 1]."""

@@ -8,6 +8,8 @@
   builders give equal CSR arrays on seeded tasks.
 * Every entry point defaults to ``device="cuda"``; without a card it
   raises before doing any work.
+* The flagship's rungs that are not ported yet raise, naming the
+  ROADMAP item that brings them.
 * ``ops/build.py`` rebuilds a kernel library when a shared header
   changes.
 """
@@ -56,7 +58,8 @@ COPIED = {
     "am/transitions.py", "am/tree.py", "native/__init__.py",
     "native/lattice_build.cpp", "native/lattice_det.cpp",
     "features/pitch.py", "features/resample.py", "pipelines/data.py",
-    "fst/context.py", "lattice/functions.py", "decoder/training_graph.py"}
+    "fst/context.py", "lattice/functions.py", "decoder/training_graph.py",
+    "lattice/rescore.py"}
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -112,7 +115,11 @@ def _entry_points():
     from kaldi_tpu_torch.pipelines import mini, yesno
     from kaldi_tpu_torch.pipelines.mono import train_mono
     from kaldi_tpu_torch.pipelines.tri import train_tri
+    from kaldi_tpu_torch.pipelines import flagship, hard
     return dict(DenseAligner=DenseAligner, flat_start=AmDiagGmm.flat_start,
+                decode_eval=hard.decode_eval, run_point=hard.run_point,
+                run_sweep=hard.run_sweep, flagship_run=flagship.run,
+                flagship_align=flagship._align,
                 train_mono=train_mono, train_tri=train_tri,
                 yesno_run=yesno.run, mini_run=mini.run,
                 BeamDecoder=BeamDecoder, DenseDecoder=DenseDecoder,
@@ -129,7 +136,9 @@ ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
                 "decode_gmm_lattice", "decode_gmm", "read_mdl",
                 "CudaChainDen", "ChainTrainer", "Spectrogram", "Plp",
                 "BatchedFrontend", "DenseAligner", "flat_start",
-                "train_mono", "train_tri", "yesno_run", "mini_run"]
+                "train_mono", "train_tri", "yesno_run", "mini_run",
+                "decode_eval", "run_point", "run_sweep", "flagship_run",
+                "flagship_align"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -183,10 +192,53 @@ def test_without_a_card_construction_raises(monkeypatch):
              lambda: eps["Spectrogram"](), lambda: eps["Plp"](),
              lambda: eps["BatchedFrontend"](),
              lambda: eps["DenseAligner"](tid),
-             lambda: eps["flat_start"](P, np.zeros(3), np.ones(3))]
+             lambda: eps["flat_start"](P, np.zeros(3), np.ones(3)),
+             lambda: eps["decode_eval"](None, {}),
+             lambda: eps["run_point"](None, {}, {}),
+             lambda: eps["flagship_run"]()]
     for call in calls:
         with pytest.raises(KaldiError, match="no CUDA card"):
             call()
+
+
+@pytest.mark.parametrize("option,item", [
+    ("with_ivector", "ROADMAP Queue 1 item 4: the flagship's i-vector rung "
+                     "needs am/ivector.py"),
+    ("with_rnnlm", "ROADMAP Queue 1 item 5: the flagship's RNNLM rung "
+                   "needs lm/rnnlm.py")])
+def test_flagship_unported_rungs_name_their_roadmap_item(option, item):
+    """``run(with_ivector=True)`` and ``run(with_rnnlm=True)`` raise at
+    once (on any device), naming the ROADMAP item; both default off."""
+    from kaldi_tpu_torch.core.logging import KaldiError
+    from kaldi_tpu_torch.pipelines import flagship
+    assert inspect.signature(flagship.run).parameters[option].default \
+        is False
+    with pytest.raises(KaldiError) as e:
+        flagship.run(device="cpu", **{option: True})
+    assert item in str(e.value)
+
+
+def test_flagship_and_hard_mains_default_to_the_card(monkeypatch):
+    """The flagship's and the hard corpus's mains hand their pipeline
+    device "cuda" unless told otherwise."""
+    from kaldi_tpu_torch.pipelines import flagship, hard
+    seen = []
+
+    def fake(*args, device=None, **kw):
+        seen.append(device)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(flagship, "run", fake)
+    monkeypatch.setattr(hard, "run_sweep", fake)
+    monkeypatch.setattr(hard, "run_point", fake)
+    monkeypatch.setattr(hard, "make_hard_task", lambda **kw: None)
+    monkeypatch.setattr(hard, "synth_eval", lambda *a, **kw: ({}, {}))
+    for main, argv in ((flagship.main, []), (hard.main, []),
+                       (hard.main, ["--sweep=false"]),
+                       (flagship.main, ["--device=cpu"])):
+        with pytest.raises(SystemExit):
+            main(argv)
+    assert seen == ["cuda", "cuda", "cuda", "cpu"]
 
 
 def test_build_counts_headers_in_its_mtime_check(tmp_path, monkeypatch):
