@@ -73,8 +73,9 @@ Phases (each prints lines; any failure raises and exits non-zero):
         the kernels' launches under sync debug mode "error"; every other
         layout that fits (sequences a block G = 1/2/4/8, with and
         without the score prefetch); then
-        the same on the left-biphone den graph (1681 states, 3444
-        pdfs), the largest P the kernels take here;
+        the same on the left-biphone den graph (1722 states, 41 of
+        them utterance-initial, 3444 pdfs), the largest P the kernels
+        take here;
      b. 48 seeded waveforms → the fbank kernel → seeded phone
         alignments → egs of 150 frames with the den's normalization
         weights → ChainTrainer with NG-SGD at B = 32 in float32 and
@@ -142,9 +143,14 @@ Phases (each prints lines; any failure raises and exits non-zero):
         (LDA+MLLT) → tri3b (SAT) on the GMM kernel, the mono-GMM rung and
         the two-pass fMLLR tri3b rung on large-vocabulary graphs, the
         left-biphone chain tree, den graph and training on the den
-        kernels, the chain rung, 4-gram rescoring and MBR; every rung
-        printed beside r5's WER, each WER at most 30 and each oracle WER
-        at most its WER; the graphs' state counts equal to host rebuilds;
+        kernels, the chain rung, the chain + online i-vector rung (a
+        64-Gaussian diag UBM, 3 EM iterations of a 16-dimensional
+        extractor and online i-vectors, float64 on the card, then a second
+        chain training on the i-vector-appended features and its decode),
+        4-gram rescoring and MBR; every rung printed beside r5's WER,
+        each WER at most 30 and each oracle WER at most its WER, each
+        decode's time on the card at most its wall time; the graphs'
+        state counts equal to host rebuilds;
         the three kernels against their plain versions at the run's
         shapes (the den's at B = 32, T = 17 on the run's den graph,
         timed); the chain model in float32 on the card against the CPU on
@@ -154,11 +160,39 @@ Phases (each prints lines; any failure raises and exits non-zero):
         lattice-add-penalty | lattice-lmrescore-pruned, lattice-best-path
         and lattice-oracle on a's chain lattices: 1-best and oracle equal
         to the same steps in process;
+     d. the i-vector stages of a on the card against the CPU (float64
+        both) on 40 training utterances' base features: the UBM, the
+        extractor's EM and the online i-vectors of 8 test utterances
+        within 1e-8 of the largest magnitude; online_ivectors against the
+        streaming estimator fed period by period;
+     e. (first) the device-time check: two small kernels with a 50 ms
+        host sleep between them read at least 50 ms by CUDA events
+        around the queued region, under 5 ms by tools/timing.py
+        ``graph_ms`` (the region captured into a CUDA graph and launched
+        once, as decode_eval's ``device_s`` times every batch) and
+        ``device_ms`` (the work queued behind a spin kernel, as the
+        kernels are timed);
      b. pipelines/hard.py ``run_point`` on the 20,000-word hard corpus
-        (300 utterances, noise 1.0, peak 4.0, up to 16 words) at arc
+        (200 utterances, noise 1.0, peak 4.0, up to 16 words) at arc
         budgets 4096 and 12288 with escalation to 16384: WER, oracle,
         density, rates, dropped arcs, escalations; each oracle WER at most
-        its WER, and 4096 within 0.1 oracle WER of 12288.
+        its WER, 4096 within 0.1 oracle WER of 12288, and each point's
+        device_s at most its wall_s;
+ 12. i-vectors as the Kaldi recipes run them, on the card:
+     a. ``python -m kaldi_tpu_torch.cli`` gmm-global-init-from-feats →
+        gmm-global-acc-stats → gmm-global-est → ivector-extractor-init →
+        two ivector-extractor-acc-stats jobs → ivector-extractor-sum-accs
+        → ivector-extractor-est → ivector-extract-online2 on online2's
+        MFCC of phase 5's waveforms (run in the background beside 11a),
+        each output equal to the library in this process from the chain's
+        previous output;
+     b. phase 5's waveforms through ``python -m
+        kaldi_tpu_torch.cli.online2 --ivector-extractor`` (a's
+        extractor; 7d's 300-word task, a raw TDNN-F of the flagship's
+        widths on 13 + 16 inputs) on the card, and the first 2 on the
+        CPU (at the end of a's shell): the same words; the streamed
+        i-vector-appended features equal the offline assembly.
+     c's tools and b's card run go in the background after d.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths, the largest difference from
@@ -897,8 +931,9 @@ def bench_den_graph():
 
 def biphone_den_graph():
     """The bench's phone LM over a full left-biphone tree (the e2e
-    flat-start recipes' tree): 1681 states, 70,602 arcs, 3444 pdfs, the
-    largest P the den kernels take here.  → (den, P)."""
+    flat-start recipes' tree): 1722 states (41 utterance-initial),
+    72,324 arcs, 3444 pdfs, the largest P the den kernels take here.  →
+    (den, P)."""
     from kaldi_tpu_torch.am.chain import make_denominator_graph
     from kaldi_tpu_torch.am.topology import HmmTopology
     from kaldi_tpu_torch.am.tree import full_biphone_tree
@@ -2072,12 +2107,6 @@ def gmm_tools_finish(dev, sysm, started, tag: str) -> int:
 # 11. the flagship LVCSR system, the hard corpus and the lattice tools
 # ---------------------------------------------------------------------------
 
-# 11a: HARDBENCH_r05's operating point of the flagship (its flagship_note:
-# 400 train / 160 test utterances, noise 0.10, speaker warp 0.12) at
-# run's widths: 5000 words, 30,000 LM sentences, the TDNN of run (hidden
-# 256, bottleneck 64, 7 layers, subsampling 3), 10 chain epochs
-FLAGSHIP = dict(vocab=5000, train_utts=400, test_utts=160, lm_sents=30000,
-                chain_epochs=10)
 # r5's WERs were 0.84-3.95; a broken rung is far above this
 FLAGSHIP_MAX_WER = 30.0
 # the chain model on the card against the CPU: test utterances compared,
@@ -2087,10 +2116,12 @@ CHAIN_CHECK_UTTS = 16
 CHAIN_CHECK_TOL = 1e-4
 CHAIN_CHECK_SAME = 15
 # 11b: the hard corpus at HARDBENCH_r05's noise-1.0 point (20,000 words,
-# noise 1.0, peak 4.0, up to 16 words) on 300 utterances, at the default
+# noise 1.0, peak 4.0, up to 16 words) on 200 utterances (r5 ran 1200;
+# cut so that the whole script, with its i-vector phases and every
+# decode's card time, stays near its time budget), at the default
 # and the loosest arc budget, both with escalation to 16384
 HARD_TASK = dict(vocab=20000)
-HARD_EVAL = dict(n_utts=300, noise=1.0, peak=4.0, max_words=16)
+HARD_EVAL = dict(n_utts=200, noise=1.0, peak=4.0, max_words=16)
 HARD_BUDGETS = (4096, 12288)
 HARD_ESCALATE = 16384
 # the module's own acceptance (pipelines/hard.py): the default budget
@@ -2209,7 +2240,10 @@ def r05_flagship():
 
 
 def flagship_system(dev, tag: str):
-    """11a: pipelines/flagship.py ``run`` on the card at FLAGSHIP: every
+    """11a: pipelines/flagship.py ``run`` on the card at its R05_POINT
+    (HARDBENCH_r05's operating point at run's widths: 5000 words, 30,000
+    LM sentences, 400 train / 160 test utterances, the TDNN of run: hidden
+    256, bottleneck 64, 7 layers, subsampling 3; 10 chain epochs): every
     rung's record beside r5's WER; the rungs' WERs within
     FLAGSHIP_MAX_WER and their oracle WERs at most their WERs.  → (fbank,
     GMM and den launches of the run, its records, its systems, wall s)."""
@@ -2218,7 +2252,7 @@ def flagship_system(dev, tag: str):
     zero_totals()
     t0 = time.perf_counter()
     results, sysm = flagship.run(device=dev, return_systems=True,
-                                 **FLAGSHIP)
+                                 **flagship.R05_POINT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fb, gm = totals()
@@ -2232,6 +2266,12 @@ def flagship_system(dev, tag: str):
               f"WER {want[0] if want else '—'}); {rest} {tag}")
     print(f"flagship: run took {wall:.1f} s on the card; fbank launches "
           f"{fb}, GMM launches {gm}, den kernel launches {den} {tag}")
+    for r in results:
+        for prefix in ("", "pass1_"):
+            if prefix + "wall_s" in r:
+                decode_times_ok(f"flagship: {r['system']}"
+                                + (" first pass" if prefix else ""), r,
+                                prefix)
     for r in results:
         if not r["wer"] <= FLAGSHIP_MAX_WER:
             raise AssertionError(f"flagship {r['system']}: WER {r['wer']}")
@@ -2353,7 +2393,8 @@ def flagship_card_vs_cpu(dev, sysm, tag: str) -> None:
     knobs = dict(sysm["chain_knobs"], batch=CHAIN_CHECK_UTTS)
     sys_ch = sysm["sys_ch"]
     card_in = {u: x.numpy() for u, x in on_card.items()}
-    lat_card, _ = decode_eval(sys_ch, card_in, device=dev, **knobs)
+    lat_card, stats = decode_eval(sys_ch, card_in, device=dev, **knobs)
+    decode_times_ok("flagship: the 16 utterances' decode", stats)
     lat_cpu, _ = decode_eval(sys_ch, {u: x.numpy() for u, x in
                                       on_cpu.items()},
                              device="cpu", **knobs)
@@ -2404,6 +2445,7 @@ def hard_corpus(dev, tag: str):
               f"(fetch {r['fetch_s']}, lattice builds {r['build_s']} over "
               f"the threads) {tag}")
         print(json.dumps(r))
+        decode_times_ok(f"hard: arc_budget {ab}", r)
     for r in recs:
         if not r["oracle_wer"] <= r["wer"]:
             raise AssertionError(f"hard {r['arc_budget']}: oracle WER "
@@ -2416,21 +2458,16 @@ def hard_corpus(dev, tag: str):
     return recs
 
 
-def lattice_tools(sysm) -> None:
-    """11c: lattice-scale | lattice-add-penalty | lattice-lmrescore-pruned
-    | lattice-best-path, and lattice-oracle on the rescored lattices, as
-    processes of ``python -m kaldi_tpu_torch.cli`` on 11a's chain
-    lattices and LMs written to files; their 1-best and oracle equal the
-    same steps in process."""
-    import io
+def lattice_tools_start(sysm):
+    """11c, started: 11a's chain lattices, reference texts, words and LMs
+    written to files, then lattice-scale | lattice-add-penalty |
+    lattice-lmrescore-pruned | lattice-best-path, and lattice-oracle on
+    the rescored lattices, as processes of ``python -m
+    kaldi_tpu_torch.cli`` in one background shell.  → (process, dir,
+    start time)."""
     import subprocess
-    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
-    from kaldi_tpu_torch.fst.arpa import ArpaModel, write_arpa
-    from kaldi_tpu_torch.lattice.functions import (oracle_errors,
-                                                   scale_lattice)
-    from kaldi_tpu_torch.lattice.io import (read_compact_lattice,
-                                            write_compact_lattice)
-    from kaldi_tpu_torch.lattice.rescore import lmrescore_diff_pruned
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.fst.arpa import write_arpa
     repo = os.path.dirname(os.path.abspath(__file__))
     d = os.path.join(repo, "build", "chip_smoke_lattice")
     os.makedirs(d, exist_ok=True)
@@ -2455,13 +2492,30 @@ def lattice_tools(sysm) -> None:
            f"ark,t:{d}/best.txt && {cli} lattice-oracle "
            f"--word-symbol-table={d}/words.txt ark:{d}/rescored.ark "
            f"ark,t:{d}/ref.txt")
-    t0 = time.perf_counter()
-    res = subprocess.run(["bash", "-o", "pipefail", "-c", cmd], cwd=repo,
-                         capture_output=True, text=True, timeout=900)
+    proc = subprocess.Popen(["bash", "-o", "pipefail", "-c", cmd],
+                            cwd=repo, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, d, time.perf_counter()
+
+
+def lattice_tools_finish(sysm, started) -> None:
+    """11c, checked: the tools' 1-best and oracle equal the same steps in
+    process on the lattices and LMs read back."""
+    import io
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    from kaldi_tpu_torch.fst.arpa import ArpaModel
+    from kaldi_tpu_torch.lattice.functions import (oracle_errors,
+                                                   scale_lattice)
+    from kaldi_tpu_torch.lattice.io import (read_compact_lattice,
+                                            write_compact_lattice)
+    from kaldi_tpu_torch.lattice.rescore import lmrescore_diff_pruned
+    proc, d, t0 = started
+    stdout, stderr = proc.communicate(timeout=900)
     wall = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"lattice tools failed ({res.returncode}):\n"
-                             f"{res.stderr[-3000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"lattice tools failed ({proc.returncode}):\n"
+                             f"{stderr[-3000:]}")
+    lang, test = sysm["lang"], sysm["test"]
     tool_best = dict(SequentialTableReader(f"ark,t:{d}/best.txt",
                                            holder="text"))
     # the same steps in process, on the lattices and LMs read back, each
@@ -2489,13 +2543,458 @@ def lattice_tools(sysm) -> None:
         err += oracle_errors(r, ref)
         words += len(ref)
     want = f"%WER {100.0 * err / max(words, 1):.2f} [ {err} / {words} ]"
-    got = res.stdout.strip().splitlines()[-1]
+    got = stdout.strip().splitlines()[-1]
     print(f"tools: lattice-scale | lattice-add-penalty | "
           f"lattice-lmrescore-pruned, lattice-best-path, lattice-oracle on "
-          f"{len(tool_best)} chain lattices in {wall:.1f} s: 1-best equal to "
+          f"{len(tool_best)} chain lattices in {wall:.1f} s (in the "
+          f"background from 11d on): 1-best equal to "
           f"the library's on {same}, oracle '{got}' (library '{want}')")
     if same != len(sysm["lats_ch"]) or got != want:
         raise AssertionError("lattice tools disagree with the library")
+
+
+# ---------------------------------------------------------------------------
+# 11d, 11e, 12: i-vectors on the card, the device-time check
+# ---------------------------------------------------------------------------
+
+# 11d: the i-vector functions on the card against the CPU, both float64
+# (only the order of the sums differs): within IVEC_TOL of the largest
+# magnitude, on the flagship's base features of IVEC_CHECK_UTTS training
+# utterances (the UBM and the extractor) and 8 test utterances (online
+# i-vectors)
+IVEC_TOL = 1e-8
+IVEC_CHECK_UTTS = 40
+# 12: the i-vector tool chain (steps/online/nnet2's train_diag_ubm.sh →
+# train_ivector_extractor.sh → extract_ivectors_online.sh) on online2's
+# MFCC of phase 5's waveforms, at the flagship rung's i-vector dim and
+# period; its UBM is smaller (16 Gaussians: 8 waveforms, ~3,900 frames)
+IVEC_DIM, IVEC_PERIOD = 16, 10
+IVEC_TOOL_GAUSS, IVEC_TOOL_ITERS = 16, 6
+# 12b: the streamed features against the offline assembly (the MFCC of
+# the fbank kernel over other batches of frames, and the i-vectors that
+# follow from them): within this share of each part's largest magnitude
+STREAM_IVEC_TOL = 1e-4
+# 12b: waveforms the CPU run decodes (its dense decoder takes ~30 s a
+# waveform on the host)
+STREAM_CPU_WAVES = 2
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want| (tensors or arrays)."""
+    got = torch.as_tensor(np.asarray(got) if not torch.is_tensor(got)
+                          else got).detach().cpu().double()
+    want = torch.as_tensor(np.asarray(want) if not torch.is_tensor(want)
+                           else want).detach().cpu().double()
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-300)
+
+
+def device_time_check(dev, tag: str) -> None:
+    """11e: a region of two small kernels with a 50 ms host sleep between
+    them.  CUDA events around it, recorded as the work is queued, read
+    the host's gap (at least 50 ms); ``tools/timing.py`` ``graph_ms``
+    (the region captured into a CUDA graph and launched once, as
+    decode_eval's ``device_s`` times each batch) and ``device_ms`` (the
+    region queued behind a spin kernel, as the kernels are timed) read
+    the card's work alone (above 0, under 5 ms)."""
+    from kaldi_tpu_torch.tools.timing import device_ms, graph_ms
+    x = torch.ones(1 << 16, device=dev)
+
+    def region():
+        x.mul_(1.0001)
+        time.sleep(0.05)
+        x.add_(1.0)
+
+    region()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    region()
+    end.record()
+    torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end)
+    spin_ms = device_ms(region, 1)
+    g_ms = graph_ms(region)
+    print(f"device time: two kernels with a 50 ms host sleep between them: "
+          f"events around the queued region {events_ms:.3f} ms (at least "
+          f"50), graph_ms {g_ms:.4f} ms and device_ms {spin_ms:.4f} ms "
+          f"(above 0, under 5) {tag}")
+    if not (events_ms >= 50.0 and 0.0 < spin_ms < 5.0 and 0.0 < g_ms < 5.0):
+        raise AssertionError(f"device time check: events {events_ms} ms, "
+                             f"graph_ms {g_ms} ms, device_ms {spin_ms} ms")
+
+
+def decode_times_ok(what: str, rec: dict, prefix: str = "") -> None:
+    """A decode's device_s is at most its wall_s (and the seconds its
+    measurement took, off the wall clock)."""
+    wall, dev_s = rec[prefix + "wall_s"], rec[prefix + "device_s"]
+    print(f"{what}: decode wall {wall} s, on the card {dev_s} s "
+          f"(device_s ≤ wall_s); measuring it took "
+          f"{rec[prefix + 'timing_s']} s off the wall clock")
+    if not dev_s <= wall:
+        raise AssertionError(f"{what}: device_s {dev_s} above wall_s {wall}")
+
+
+def ivector_card_vs_cpu(dev, sysm, tag: str) -> None:
+    """11d: the flagship rung's i-vector stages on the card and on the
+    CPU (train_diag_ubm with 64 Gaussians, the 3-iteration extractor EM,
+    online_ivectors) equal within IVEC_TOL; and on the card
+    online_ivectors equals OnlineIvectorEstimator fed period by period
+    (its estimate before each block)."""
+    from kaldi_tpu_torch.am.ivector import (IvectorExtractor,
+                                            OnlineIvectorEstimator,
+                                            online_ivectors, train_diag_ubm)
+    feats = [sysm["base_tr"][u] for u in sorted(sysm["base_tr"])[
+        :IVEC_CHECK_UTTS]]
+    test = [sysm["base_te"][u] for u in sorted(sysm["base_te"])[:8]]
+    out, walls = [], []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        m, v, w = train_diag_ubm(feats, num_gauss=64, seed=1, device=where)
+        ex = IvectorExtractor(m, v, w, ivector_dim=IVEC_DIM, seed=1,
+                              device=where)
+        ex.train([ex.acc_stats(f) for f in feats], num_iters=3)
+        on = [online_ivectors(ex, f, period=IVEC_PERIOD) for f in test]
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        out.append((ex, [m, v, w, ex.T] + on))
+    (ex, card), (_, cpu) = out
+    err = max(rel_err(g, c) for g, c in zip(card, cpu))
+    est_err = 0.0
+    for f, got in zip(test, card[4:]):
+        est = OnlineIvectorEstimator(ex, max_count=100.0)
+        rows = []
+        for t0 in range(0, len(f), IVEC_PERIOD):
+            rows.append(est.ivector())
+            est.accept_frames(f[t0:t0 + IVEC_PERIOD])
+        want = torch.stack(rows).repeat_interleave(IVEC_PERIOD, 0)[:len(f)]
+        est_err = max(est_err, rel_err(got, want))
+    frames = sum(len(f) for f in feats)
+    print(f"ivectors: UBM (64 Gaussians), 3 EM iterations (dim {IVEC_DIM}) "
+          f"on {len(feats)} utterances ({frames} frames) and online "
+          f"i-vectors of 8 test utterances, float64: the card against the "
+          f"CPU within {err:.2e} of the largest magnitude (limit "
+          f"{IVEC_TOL:g}); online_ivectors against the estimator fed "
+          f"period by period {est_err:.2e}; wall {walls[0]:.2f} s on "
+          f"the card, {walls[1]:.2f} s on the CPU {tag}")
+    if not (err <= IVEC_TOL and est_err <= IVEC_TOL):
+        raise AssertionError(f"i-vectors card vs CPU {err}, batched vs "
+                             f"streaming {est_err}")
+
+
+def ivector_tools_start(dev, task, waves):
+    """12a, started: online2's MFCC (16 kHz, 13 cepstra, dither 0) of
+    phase 5's waveforms on the card, written as an ark (and as two job
+    arks) with a spk2utt of two speakers, then ``python -m
+    kaldi_tpu_torch.cli`` gmm-global-init-from-feats →
+    gmm-global-acc-stats → gmm-global-est → ivector-extractor-init → two
+    ivector-extractor-acc-stats jobs (at once) →
+    ivector-extractor-sum-accs → ivector-extractor-est →
+    ivector-extract-online2, on the card, in one background shell; then,
+    for 12b, ``python -m kaldi_tpu_torch.cli.online2 --device=cpu
+    --ivector-extractor`` with the extractor it made on the first
+    STREAM_CPU_WAVES waveforms (on 2 threads: the shell runs beside 11a),
+    with 7d's 300-word .mdl and HCLG.fst and a raw nnet3 TDNN-F of the
+    flagship rung's widths (13 + 16 inputs, seeded), written here.  →
+    (process, dir, features, start time)."""
+    import subprocess
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnConfig
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.features.compute import Mfcc, MfccOptions
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_ivector")
+    os.makedirs(d, exist_ok=True)
+    mfcc = Mfcc(MfccOptions(frame_opts=FrameExtractionOptions(dither=0.0),
+                            num_ceps=13), device=dev)
+    feats = {f"utt{i}": mfcc.compute(w).cpu().numpy()
+             for i, w in enumerate(waves)}
+    utts = sorted(feats)
+    half = len(utts) // 2
+    for name, keys in (("feats", utts), ("feats1", utts[:half]),
+                       ("feats2", utts[half:])):
+        with TableWriter(f"ark:{d}/{name}.ark", holder="mat") as w:
+            for u in keys:
+                w[u] = feats[u]
+    with TableWriter(f"ark,t:{d}/spk2utt", holder="text") as w:
+        w["spkA"] = utts[:half]
+        w["spkB"] = utts[half:]
+    # 12b's model and waveforms
+    cfg = TdnnConfig(feat_dim=13 + IVEC_DIM, num_pdfs=task.num_pdfs,
+                     hidden_dim=256, bottleneck_dim=64, num_layers=7)
+    sd = random_tdnn_state(TdnnChain(cfg), np.random.default_rng(SEED + 12))
+    # as 7d's model: outputs 5× phase 5's spread, so that the best paths
+    # hold words
+    sd["output_affine.weight"] *= 5.0
+    write_raw_model(f"{d}/ivec.raw", sd, cfg)
+    for name, n in (("wav", len(waves)), ("wav_cpu", STREAM_CPU_WAVES)):
+        with TableWriter(f"ark:{d}/{name}.ark", holder="wav") as w:
+            for i, x in enumerate(waves[:n]):
+                w[f"utt{i}"] = (np.clip(x, -32768, 32767).astype(np.int16),
+                                SAMP_FREQ)
+    cli = f"{sys.executable} -m kaldi_tpu_torch.cli"
+    o2 = os.path.join(repo, "build", "chip_smoke_online2")
+    script = "\n".join([
+        f"{cli} gmm-global-init-from-feats --device=cuda "
+        f"--num-gauss={IVEC_TOOL_GAUSS} --num-iters={IVEC_TOOL_ITERS} "
+        f"ark:{d}/feats.ark {d}/ubm0",
+        f"{cli} gmm-global-acc-stats --device=cuda {d}/ubm0 "
+        f"ark:{d}/feats.ark {d}/ubm.acc",
+        f"{cli} gmm-global-est {d}/ubm0 {d}/ubm.acc {d}/ubm",
+        f"{cli} ivector-extractor-init --device=cuda "
+        f"--ivector-dim={IVEC_DIM} --seed=1 {d}/ubm {d}/0.ie",
+        f"{cli} ivector-extractor-acc-stats --device=cuda {d}/0.ie "
+        f"ark:{d}/feats1.ark {d}/acc.1 & p1=$!",
+        f"{cli} ivector-extractor-acc-stats --device=cuda {d}/0.ie "
+        f"ark:{d}/feats2.ark {d}/acc.2 & p2=$!",
+        "wait $p1",
+        "wait $p2",
+        f"{cli} ivector-extractor-sum-accs {d}/acc {d}/acc.1 {d}/acc.2",
+        f"{cli} ivector-extractor-est --device=cuda {d}/0.ie {d}/acc "
+        f"{d}/1.ie",
+        f"{cli} ivector-extract-online2 --device=cuda "
+        f"--ivector-period={IVEC_PERIOD} ark:{d}/spk2utt {d}/1.ie "
+        f"ark:{d}/feats.ark ark:{d}/ivectors.ark",
+        "echo TOOLS_DONE $SECONDS >&2",
+        f"OMP_NUM_THREADS=2 {sys.executable} -m kaldi_tpu_torch.cli.online2 "
+        f"--device=cpu --ivector-extractor={d}/1.ie "
+        f"--ivector-period={IVEC_PERIOD} {o2}/final.mdl {d}/ivec.raw "
+        f"{o2}/HCLG.fst ark:{d}/wav_cpu.ark ark,t:{d}/words_cpu.txt",
+        "echo CPU_ONLINE2_DONE $SECONDS >&2"])
+    proc = subprocess.Popen(["bash", "-e", "-c", script], cwd=repo,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, d, feats, time.perf_counter()
+
+
+def ivector_tools_finish(dev, started, tag: str) -> int:
+    """12a, checked: each tool's output against the library in this
+    process on the card, from the tool chain's previous output (so each
+    step is held on its own): the UBM's EM within 1e-6 of the largest
+    magnitude, its accumulators within 1e-5, the host update and the
+    extractor's initialisation equal, the i-vector stats within 1e-6
+    (float64 work stored as float32), the estimated extractor and the
+    online i-vectors within 1e-6 (read back and stored as float32).  The
+    GMM kernel at the tools' shape (one pdf, IVEC_TOOL_GAUSS Gaussians,
+    13 dims: a partial pdf tile) on the tool's UBM and the chain's MFCC,
+    held with its plain version to the float64 value at 11a's bar.  → the tools' GMM kernel launches (their
+    log: gmm-global-init-from-feats's like/frame line is the one launch;
+    the tools' EM, stats and posteriors are tensor ops)."""
+    import re
+    from kaldi_tpu_torch.am.gmm import (AmDiagGmm, GmmAccs, accumulate_stats,
+                                        global_stats, mixup, mle_update)
+    from kaldi_tpu_torch.am.ivector import (IvectorExtractor,
+                                            OnlineIvectorEstimator,
+                                            read_ivector_extractor,
+                                            write_ivector_extractor)
+    from kaldi_tpu_torch.cli.tools_bank5 import (_read_global_gmm,
+                                                 _write_global_gmm)
+    from kaldi_tpu_torch.cli.tools_extra import read_gmm_accs
+    from kaldi_tpu_torch.cli.tools_ivector import _read_iv_stats
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    proc, d, feats, t0 = started
+    _, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"i-vector tools failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    launches = sum(int(n) for n in
+                   re.findall(r"GMM kernel launches (\d+)", err))
+    done = dict(re.findall(r"(TOOLS_DONE|CPU_ONLINE2_DONE) (\d+)", err))
+    utts = sorted(feats)
+    half = len(utts) // 2
+    errs = {}
+    # gmm-global-init-from-feats: six EM iterations with mix-ups, each
+    # run as users run it (a one-pdf model's sums over frames take one
+    # order every run: am/gmm.py accumulate_stats_device)
+    x = np.concatenate([feats[u] for u in utts])
+    gmean, gvar = global_stats([x])
+    am = AmDiagGmm.flat_start(1, gmean, gvar, device=dev)
+    for it in range(IVEC_TOOL_ITERS):
+        want = min(IVEC_TOOL_GAUSS, 1 + (IVEC_TOOL_GAUSS * (it + 1) * 2)
+                   // IVEC_TOOL_ITERS)
+        if am.num_gauss() < want:
+            am = mixup(am, want)
+        accs = GmmAccs.zeros(am.num_pdfs, am.max_mix, am.dim)
+        accumulate_stats(am, x, np.zeros(len(x), np.int32), accs)
+        mle_update(am, accs)
+    _write_global_gmm(f"{d}/lib_ubm0", am)
+    tool, lib = (_read_global_gmm(f"{d}/{n}", dev)
+                 for n in ("ubm0", "lib_ubm0"))
+    errs["gmm-global-init-from-feats"] = (
+        max(rel_err(getattr(tool, n), getattr(lib, n))
+            for n in ("weights", "means", "vars"))
+        if tool.num_gauss() == lib.num_gauss() == IVEC_TOOL_GAUSS else 1.0,
+        1e-6)
+    # the GMM kernel at the tools' shape, on the tool's UBM, held as on
+    # 11a's path: on MFCCs without dither the UBM's terms run to ~1e5, and
+    # float32 itself holds the result only to ~u·S (the plain version was
+    # 3.7 of the GMM_TOL bar off float64 on this UBM on the CPU)
+    ubm0 = _read_global_gmm(f"{d}/ubm0", dev)
+    gmm_err = check_path_loglikes_f64(
+        ubm0, [x],
+        f"ivector tools: the UBM ({ubm0.num_pdfs} pdf, {ubm0.num_gauss()} "
+        f"Gaussians, D={ubm0.dim}) on the chain's {len(x)} MFCC frames")
+    # gmm-global-acc-stats, from the tool's UBM
+    accs = GmmAccs.zeros(ubm0.num_pdfs, ubm0.max_mix, ubm0.dim)
+    for u in utts:
+        accumulate_stats(ubm0, feats[u], np.zeros(len(feats[u]), np.int32),
+                         accs)
+    tool_accs = read_gmm_accs(f"{d}/ubm.acc")
+    errs["gmm-global-acc-stats"] = (max(
+        rel_err(getattr(tool_accs, n), getattr(accs, n))
+        for n in ("occ", "mean_acc", "var_acc")), 1e-5)
+    # gmm-global-est, from the tool's UBM and accumulators (host numpy)
+    ubm0 = _read_global_gmm(f"{d}/ubm0", "cpu")
+    mle_update(ubm0, tool_accs)
+    _write_global_gmm(f"{d}/lib_ubm", ubm0)
+    with open(f"{d}/ubm", "rb") as f, open(f"{d}/lib_ubm", "rb") as g:
+        errs["gmm-global-est"] = (0.0 if f.read() == g.read() else 1.0, 0.0)
+    # ivector-extractor-init, from the tool's UBM
+    ex = IvectorExtractor.from_am(_read_global_gmm(f"{d}/ubm", "cpu"),
+                                  IVEC_DIM, device=dev)
+    ex.T = 0.1 * np.random.default_rng(1).standard_normal(tuple(ex.T.shape))
+    write_ivector_extractor(f"{d}/lib_0.ie", ex)
+    with open(f"{d}/0.ie", "rb") as f, open(f"{d}/lib_0.ie", "rb") as g:
+        errs["ivector-extractor-init"] = (0.0 if f.read() == g.read()
+                                          else 1.0, 0.0)
+    # the two acc-stats jobs and their sum, from the tool's extractor
+    ex0 = read_ivector_extractor(f"{d}/0.ie", dev)
+    jobs = [ex0.em_stats([ex0.acc_stats(feats[u]) for u in keys])
+            for keys in (utts[:half], utts[half:])]
+    tool_stats = _read_iv_stats(f"{d}/acc")
+    errs["ivector-extractor-acc-stats + sum-accs"] = (max(
+        rel_err(tool_stats[k], jobs[0][i] + jobs[1][i])
+        for i, k in enumerate(("A", "B", "gamma"))), 1e-6)
+    # ivector-extractor-est, from the tool's extractor and summed stats
+    ex0.em_update(tool_stats["A"], tool_stats["B"], tool_stats["gamma"])
+    write_ivector_extractor(f"{d}/lib_1.ie", ex0)
+    tool1 = read_ivector_extractor(f"{d}/1.ie", dev)
+    errs["ivector-extractor-est"] = (rel_err(
+        tool1.T, read_ivector_extractor(f"{d}/lib_1.ie", dev).T), 1e-6)
+    # ivector-extract-online2, from the tool's extractor: one estimator a
+    # speaker, its estimate after each period
+    got = dict(SequentialTableReader(f"ark:{d}/ivectors.ark", holder="mat"))
+    worst = 0.0
+    for keys in (utts[:half], utts[half:]):
+        est = OnlineIvectorEstimator(tool1)
+        for u in keys:
+            rows = []
+            for s in range(0, len(feats[u]), IVEC_PERIOD):
+                est.accept_frames(feats[u][s:s + IVEC_PERIOD])
+                rows.append(est.ivector())
+            worst = max(worst, rel_err(got[u], torch.stack(rows)))
+    errs["ivector-extract-online2"] = (worst, 1e-6)
+    frames = sum(len(f) for f in feats.values())
+    print(f"ivector tools: python -m kaldi_tpu_torch.cli on online2's MFCC of "
+          f"{len(utts)} waveforms ({frames} frames, 2 speakers): 9 processes "
+          f"in {done.get('TOOLS_DONE')} s, then 12b's online2 on the CPU "
+          f"until {done.get('CPU_ONLINE2_DONE')} s (beside 11a; {wall:.1f} "
+          f"s until checked here): "
+          + ", ".join(f"{n} {e:.2e} (limit {lim:g})"
+                      for n, (e, lim) in errs.items())
+          + f"; GMM launches {launches} {tag}")
+    bad = {n: e for n, (e, lim) in errs.items() if not e <= lim}
+    if bad or launches <= 0:
+        raise AssertionError(f"i-vector tools vs library: {bad}, GMM "
+                             f"launches {launches}")
+    return launches, gmm_err
+
+
+def stream_ivectors_start(d: str):
+    """12b, started: ``python -m kaldi_tpu_torch.cli.online2 --device=cuda
+    --ivector-extractor`` on phase 5's waveforms with 12a's extractor,
+    model and files, in the background.  → (process, start time)."""
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    o2 = os.path.join(repo, "build", "chip_smoke_online2")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli.online2", "--device=cuda",
+         f"--ivector-extractor={d}/1.ie", f"--ivector-period={IVEC_PERIOD}",
+         f"{o2}/final.mdl", f"{d}/ivec.raw", f"{o2}/HCLG.fst",
+         f"ark:{d}/wav.ark", f"ark,t:{d}/words_cuda.txt"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def stream_ivectors(dev, waves, d: str, started, tag: str) -> int:
+    """12b: the card's online2 run (``stream_ivectors_start``): the words
+    of the first STREAM_CPU_WAVES equal those of 12a's CPU run, and some
+    are decoded.  Then, on the card, each waveform streamed in WAV_CHUNK
+    pieces through OnlineFeaturePipeline with an OnlineIvectorEstimator
+    equals the offline assembly (the whole waveform's MFCC beside the
+    estimator's estimate after each period, fed period by period),
+    within STREAM_IVEC_TOL.  → the card tool's fbank launches (its
+    log)."""
+    import re
+    from kaldi_tpu_torch.am.ivector import (OnlineIvectorEstimator,
+                                            read_ivector_extractor)
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    from kaldi_tpu_torch.features.compute import Mfcc, MfccOptions
+    from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    # the streamed features against the offline assembly, on the card,
+    # while the tool runs
+    ex = read_ivector_extractor(f"{d}/1.ie", dev)
+    mfcc = Mfcc(MfccOptions(frame_opts=FrameExtractionOptions(dither=0.0),
+                            num_ceps=13), device=dev)
+    feat_err = iv_err = 0.0
+    for x in waves:
+        pipe = OnlineFeaturePipeline(
+            mfcc, ivector_estimator=OnlineIvectorEstimator(ex),
+            ivector_period=IVEC_PERIOD)
+        for i in range(0, len(x), WAV_CHUNK):
+            pipe.accept_waveform(x[i:i + WAV_CHUNK])
+        pipe.input_finished()
+        got = pipe.get_frames(0, pipe.num_frames_ready())
+        base = mfcc.compute(x)
+        est = OnlineIvectorEstimator(ex)
+        rows = []
+        for s in range(0, base.shape[0], IVEC_PERIOD):
+            est.accept_frames(base[s:s + IVEC_PERIOD])
+            rows.append(est.ivector())
+        ivec = torch.stack(rows).repeat_interleave(IVEC_PERIOD, 0)[
+            :base.shape[0]]
+        feat_err = max(feat_err, rel_err(got[:, :13], base))
+        iv_err = max(iv_err, rel_err(got[:, 13:], ivec))
+    proc, t0 = started
+    _, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"online2 --ivector-extractor failed "
+                             f"({proc.returncode}):\n{err[-3000:]}")
+    words = {where: dict(SequentialTableReader(
+        f"ark,t:{d}/words_{where}.txt", holder="text"))
+        for where in ("cuda", "cpu")}
+    m = re.search(r"fbank kernel launches (\d+)", err)
+    launches = int(m.group(1)) if m else 0
+    n_words = [len(v) for v in words["cuda"].values()]
+    same = all(words["cuda"].get(u) == v for u, v in words["cpu"].items())
+    print(f"online2 --ivector-extractor: {len(waves)} waveforms "
+          f"({sum(len(x) for x in waves) / SAMP_FREQ:.2f} s) on the card, "
+          f"TDNN-F 256 / 64 / 7 layers on 13 + {IVEC_DIM} inputs, 7d's "
+          f"300-word graph: words {n_words} per utt; the first "
+          f"{len(words['cpu'])} equal the CPU run's: {same}; wall "
+          f"{wall:.1f} s (process start, graph and model load; beside 11c "
+          f"and the check below); fbank "
+          f"launches {launches}; streamed features against the offline "
+          f"assembly: MFCC {feat_err:.2e}, i-vectors {iv_err:.2e} of their "
+          f"largest magnitude (limit {STREAM_IVEC_TOL:g}) {tag}")
+    if not same or len(words["cpu"]) != STREAM_CPU_WAVES \
+            or not sum(n_words) or launches <= 0:
+        raise AssertionError(f"online2 --ivector-extractor: card "
+                             f"{words['cuda']} vs CPU {words['cpu']}; fbank "
+                             f"launches {launches}")
+    if not (feat_err <= STREAM_IVEC_TOL and iv_err <= STREAM_IVEC_TOL):
+        raise AssertionError(f"streamed i-vector features: MFCC {feat_err}, "
+                             f"i-vectors {iv_err}")
+    return launches
 
 
 def main() -> int:
@@ -2855,18 +3354,39 @@ def main() -> int:
     # 11. the flagship system on the card (its launches are counted), its
     # kernels at its shapes, card against CPU, the lattice tools on its
     # lattices; then the hard corpus
+    # 12a's i-vector tools run in the background beside 11a
     t0 = time.perf_counter()
-    f_fb, f_gm, f_den, f_results, fsys, f_wall = flagship_system(dev, tag)
-    flagship_graphs(f_results, fsys)
-    f_fb_err, f_gm_err, f_den_err = flagship_kernels(dev, fsys, tag)
-    flagship_card_vs_cpu(dev, fsys, tag)
-    lattice_tools(fsys)
-    del fsys
-    print(f"flagship: 11a and 11c took {time.perf_counter() - t0:.1f} s")
+    device_time_check(dev, tag)
+    iv_tools = ivector_tools_start(dev, task300, waves)
+    procs = [iv_tools]
+    try:
+        f_fb, f_gm, f_den, f_results, fsys, f_wall = flagship_system(dev,
+                                                                     tag)
+        flagship_graphs(f_results, fsys)
+        f_fb_err, f_gm_err, f_den_err = flagship_kernels(dev, fsys, tag)
+        flagship_card_vs_cpu(dev, fsys, tag)
+        ivector_card_vs_cpu(dev, fsys, tag)
+        print(f"flagship: 11a and 11d took {time.perf_counter() - t0:.1f} s")
+        # 11c's tools and 12b's card run in the background beside 12a's
+        # check and 12b's in-process check
+        t1 = time.perf_counter()
+        procs.append(lattice_tools_start(fsys))
+        iv_gmm, iv_gmm_err = ivector_tools_finish(dev, iv_tools, tag)
+        procs.append(stream_ivectors_start(iv_tools[1]))
+        iv_fb = stream_ivectors(dev, waves, iv_tools[1], procs[-1], tag)
+        lattice_tools_finish(fsys, procs[-2])
+        del fsys
+    finally:
+        for p in procs:
+            if p[0].poll() is None:
+                p[0].kill()
+                p[0].wait()
+    print(f"ivectors: 11c and phase 12 took {time.perf_counter() - t1:.1f} "
+          f"s")
     t1 = time.perf_counter()
     hard_corpus(dev, tag)
-    print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phase 11 "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phases 11 and "
+          f"12 {time.perf_counter() - t0:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -2874,7 +3394,7 @@ def main() -> int:
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
-        + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb,
+        + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb + iv_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err,
                            f_fb_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
@@ -2896,8 +3416,9 @@ def main() -> int:
         "source": "kaldi_tpu_torch/csrc/gmm.cu",
         "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
         "launches": b_gmm + d_gmm + p_gmm + y_gmm + m_gmm + tool_gmm
-        + f_gm,
-        "max_abs_err": max(gmm_err, b_err, d_err, p_err, f_gm_err),
+        + f_gm + iv_gmm,
+        "max_abs_err": max(gmm_err, b_err, d_err, p_err, f_gm_err,
+                           iv_gmm_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
         "bound_ms": gmm_bnd[0], "bound_by": gmm_bnd[1],
         "library_ms": None}, {

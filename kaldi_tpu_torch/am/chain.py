@@ -257,7 +257,7 @@ def make_denominator_graph(phone_seqs: Sequence[Sequence[int]],
     lm = estimate_phone_lm(phone_seqs, phones, order=order,
                            min_hist_count=min_hist_count)
     if tree.context_width == 2 and tree.central_position == 1:
-        return _make_den_graph_biphone(lm, tree, topo, phones)
+        return _make_den_graph_biphone(lm, tree, topo, phones, phone_seqs)
     if tree.context_width != 1:
         raise KaldiError(
             "make_denominator_graph: context-dependent den graphs "
@@ -323,8 +323,15 @@ def make_denominator_graph(phone_seqs: Sequence[Sequence[int]],
         state_entry_pdf=fwd_pdf[cur].astype(np.int32))
 
 
-def _make_den_graph_biphone(lm: PhoneLm, tree, topo,
-                            phones) -> DenominatorGraph:
+# the reference's initial probabilities average the graph's occupancy over
+# this many frames from its start state (chain-den-graph.cc
+# SetInitialProbs)
+INITIAL_FRAMES = 100
+
+
+def _make_den_graph_biphone(lm: PhoneLm, tree, topo, phones,
+                            phone_seqs: Sequence[Sequence[int]]
+                            ) -> DenominatorGraph:
     """Denominator graph for a LEFT-BIPHONE tree (context_width 2,
     central_position 1 — the reference chain/e2e build_tree.sh
     standard): a state must know its instance's (left, center) phone
@@ -339,7 +346,24 @@ def _make_den_graph_biphone(lm: PhoneLm, tree, topo,
     (g, l) --x--> (g', l'=center(g)) enters instance x with window
     (center(g), x) = (l', center(g')).  Ref: steps/nnet3/chain/
     build_tree.sh --context-width=2 --central-position=1,
-    src/chain/chain-den-graph.h."""
+    src/chain/chain-den-graph.h.
+
+    Utterance-initial states (a repair of the original): the numerator
+    gives an utterance's first phone p the window (0, p), no left context
+    (pipelines/chain.py ``make_chain_egs``), and every state above has a
+    real left phone.  Where the tree gives (0, p) an entry or self-loop
+    pdf no state emits, LF-MMI would train that pdf on the numerator
+    alone, and raising its score raises the objective without bound.  So
+    each phone that starts a training sequence and has such a window gets
+    a state (p's unigram LM state, left context none) that nothing enters
+    and whose arcs lead into the states above.  Its initial mass is what
+    the reference's initial probabilities give it: they average the
+    occupancy over the first INITIAL_FRAMES frames from the start, and a
+    state that nothing enters, started with probability q (the share of
+    training sequences that begin with p), holds q·p_self^t at frame t,
+    q·(1 − p_self^N)/(N·(1 − p_self)) on average (the reference's
+    per-frame renormalisation for the final mass left out).  The rest of
+    the initial mass is the stationary distribution's, scaled down."""
     P = len(phones)
     pid = list(phones)                       # index -> phone id
 
@@ -389,6 +413,20 @@ def _make_den_graph_biphone(lm: PhoneLm, tree, topo,
     for g in range(S_lm):
         for x in range(P):
             sid(int(lm.next_state[g, x]), int(last[g]))
+    # utterance-initial states, for the phones that start a sequence and
+    # whose window (0, p) has a pdf no state above emits
+    main = np.asarray(exp_states, np.int32).reshape(-1, 2)
+    read = set(slf_tab[main[:, 1] + 1, last[main[:, 0]]].tolist()) \
+        | set(fwd_tab[main[:, 1] + 1, last[main[:, 0]]].tolist())
+    first = np.zeros(P)
+    for seq in phone_seqs:
+        if len(seq):
+            first[pid.index(int(seq[0]))] += 1.0
+    first /= max(first.sum(), 1.0)
+    start_ci = [ci for ci in range(P) if first[ci] > 0.0
+                and not {int(fwd_tab[0, ci]), int(slf_tab[0, ci])} <= read]
+    hist_index = {h: i for i, h in enumerate(lm.hists)}
+    starts = [sid(hist_index[(ci,)], -1) for ci in start_ci]
 
     S = len(exp_states)
     eg = np.asarray([g for g, _ in exp_states], np.int32)
@@ -423,6 +461,13 @@ def _make_den_graph_biphone(lm: PhoneLm, tree, topo,
     logw = np.concatenate(logw).astype(np.float32)
     final = (l_fwd + lm.final_logp[eg]).astype(np.float32)
     initial = _stationary_distribution(S, src, dst, logw)
+    if starts:
+        N = INITIAL_FRAMES
+        p_self = np.exp(l_self_p[start_ci].astype(np.float64))
+        mass = first[start_ci] * (1.0 - p_self ** N) / (N * (1.0 - p_self))
+        p0 = (1.0 - mass.sum()) * np.exp(initial.astype(np.float64))
+        p0[starts] += mass
+        initial = np.log(np.maximum(p0, 1e-30)).astype(np.float32)
 
     # per-LM-state views for normalization weights
     lm_l_self = l_self_p[last]

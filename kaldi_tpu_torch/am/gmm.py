@@ -192,14 +192,25 @@ def accumulate_stats_device(am: AmDiagGmm, x: torch.Tensor,
                             pdfs: torch.Tensor):
     """The accumulation on the model's device, with no host sync: x (T,
     D) float32, pdfs (T,) int64 → (occ (P, M), mean_acc (P, M, D),
-    var_acc (P, M, D), total log-likelihood ()) float32 tensors."""
+    var_acc (P, M, D), total log-likelihood ()) float32 tensors.
+
+    A model of one pdf (a global GMM) sums over the frames: on a card
+    ``index_add_`` adds every frame into that one row with atomics, in
+    an order that changes from run to run, and EM with mix-ups carries
+    that order into which Gaussians split, so that two runs of
+    gmm-global-init-from-feats could end with other models."""
     comp = am.component_loglikes(x, pdfs)                   # (T, M)
     post = torch.softmax(comp, dim=1)
     P, M, D = am.num_pdfs, am.max_mix, am.dim
-    occ = x.new_zeros((P, M)).index_add_(0, pdfs, post)
     px = post[:, :, None] * x[:, None, :]
-    mean_acc = x.new_zeros((P, M, D)).index_add_(0, pdfs, px)
-    var_acc = x.new_zeros((P, M, D)).index_add_(0, pdfs, px * x[:, None, :])
+    pxx = px * x[:, None, :]
+    if P == 1:
+        occ, mean_acc, var_acc = (t.sum(0, keepdim=True)
+                                  for t in (post, px, pxx))
+    else:
+        occ = x.new_zeros((P, M)).index_add_(0, pdfs, post)
+        mean_acc = x.new_zeros((P, M, D)).index_add_(0, pdfs, px)
+        var_acc = x.new_zeros((P, M, D)).index_add_(0, pdfs, pxx)
     return occ, mean_acc, var_acc, torch.logsumexp(comp, dim=1).sum()
 
 

@@ -6,5 +6,6 @@ import kaldi_tpu_torch.cli.tools_extra  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_bank3  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_bank10  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_bank5  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_ivector  # noqa: F401  (registers into TOOLS)
 
 __all__ = ["TOOLS", "main"]

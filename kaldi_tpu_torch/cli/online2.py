@@ -7,8 +7,12 @@ online2bin/online2-wav-nnet3-latgen-faster.cc).  Each waveform goes in
 CUDA device), context-buffered TDNN-F scoring (``OnlineNnetScorer``) and
 a streaming decoder: ``OnlineBeamDecoder`` above 20,000 graph states,
 ``SingleUtteranceDecoder`` on the dense decoder otherwise, as in the
-original.  The best path's words are written per utterance.  The options
-are the original's, plus ``--device`` (default cuda).
+original.  With ``--ivector-extractor`` each utterance gets a fresh
+``OnlineIvectorEstimator`` (am/ivector.py, float64 on the device) and
+the features carry its online i-vector (re-estimated every
+``--ivector-period`` frames).  The best path's words are written per
+utterance.  The options are the original's, plus ``--device`` (default
+cuda).
 
     python -m kaldi_tpu_torch.cli.online2 [opts] <trans-model> \\
         <raw-nnet3> <fst> <wav-rspec> <words-wspec>
@@ -66,7 +70,8 @@ def online2_wav_nnet3_latgen_faster(argv=None) -> int:
     po.register("num-ceps", int, 13, "MFCC cepstra (model input dim)")
     po.register("word-symbol-table", str, "", "words.txt")
     po.register("ivector-extractor", str, "",
-                "online i-vectors appended to features (not ported yet)")
+                "online i-vectors appended to features (the "
+                "OnlineIvectorFeature role)")
     po.register("ivector-period", int, 10,
                 "re-estimate the i-vector every N frames")
     po.register("do-endpointing", bool, False,
@@ -77,10 +82,12 @@ def online2_wav_nnet3_latgen_faster(argv=None) -> int:
     if len(args) != 5:
         po.print_usage()
         return 1
-    if po["ivector-extractor"]:
-        raise KaldiError("online2: --ivector-extractor is not ported yet "
-                         "(am/ivector.py)")
     device = resolve_device(po["device"])
+    extractor = None
+    if po["ivector-extractor"]:
+        from kaldi_tpu_torch.am.ivector import read_ivector_extractor
+        extractor = read_ivector_extractor(po["ivector-extractor"],
+                                           device=device)
     tm, _ = read_mdl(args[0], device=device)
     _, net = _load_tdnn(args[1], po["frame-subsampling-factor"], device)
     HCLG = _load_hclg(args[2])
@@ -129,7 +136,13 @@ def online2_wav_nnet3_latgen_faster(argv=None) -> int:
             if rate != po["sample-frequency"]:
                 raise KaldiError(f"{key}: rate {rate} != "
                                  f"{po['sample-frequency']}")
-            pipe = OnlineFeaturePipeline(mfcc)
+            est = None
+            if extractor is not None:
+                from kaldi_tpu_torch.am.ivector import OnlineIvectorEstimator
+                est = OnlineIvectorEstimator(extractor)
+            pipe = OnlineFeaturePipeline(
+                mfcc, ivector_estimator=est,
+                ivector_period=po["ivector-period"])
             scorer = OnlineNnetScorer(
                 net, subsample=po["frame-subsampling-factor"],
                 device=device)

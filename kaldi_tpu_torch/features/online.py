@@ -16,16 +16,19 @@ computable:
     come from float64 prefix sums on the device (a few launches per
     call, where the original loops over frames on the host);
   * deltas and splicing need future context, so the ready-frame count
-    lags by the right context.
-
-Online i-vectors (``ivector_estimator``) wait for the port of
-am/ivector.py: passing one raises.
+    lags by the right context;
+  * with an ``ivector_estimator`` (am/ivector.py
+    ``OnlineIvectorEstimator``, float64 on its extractor's device) the
+    raw pre-CMVN frames go to the estimator at every ``ivector_period``
+    boundary, the estimate there is kept per block, and ``get_frames``
+    appends each frame's block estimate (the current one past the last
+    complete block) as float32 columns on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -76,15 +79,20 @@ class OnlineFeaturePipeline:
                  deltas: Optional[DeltaFeaturesOptions] = None,
                  splice: Optional[tuple] = None,
                  ivector_estimator=None, ivector_period: int = 10):
-        if ivector_estimator is not None:
-            raise KaldiError("OnlineFeaturePipeline: online i-vectors are "
-                             "not ported yet (am/ivector.py)")
+        """ivector_estimator: an am.ivector.OnlineIvectorEstimator — when
+        given, the current i-vector (re-estimated every ivector_period
+        frames, from RAW pre-CMVN frames as the reference does) is
+        appended to each output frame (the OnlineIvectorFeature input of
+        online-nnet2-feature-pipeline.h)."""
         if deltas is not None and splice is not None:
             raise KaldiError("use deltas or splicing, not both")
         self.computer = computer
         self.cmvn = cmvn
         self.delta_opts = deltas
         self.splice_ctx = splice
+        self.ivector_estimator = ivector_estimator
+        self.ivector_period = ivector_period
+        self._ivectors: List[torch.Tensor] = []   # per period-block
         self._wave = np.zeros(0, np.float32)
         # raw computed frames, on the device
         self._frames = torch.zeros((0, computer.dim), dtype=torch.float32,
@@ -113,6 +121,8 @@ class OnlineFeaturePipeline:
             feats = self.computer.compute(
                 self._wave[have * opts.window_shift:])
             self._frames = torch.cat([self._frames, feats[:total - have]])
+            if self.ivector_estimator is not None:
+                self._update_ivectors()
 
     # -- output ------------------------------------------------------------
     @property
@@ -140,7 +150,51 @@ class OnlineFeaturePipeline:
             out = add_deltas(out, self.delta_opts)
         elif self.splice_ctx is not None:
             out = splice_frames(out, *self.splice_ctx)
-        return out[begin:end]
+        out = out[begin:end]
+        if self.ivector_estimator is not None:
+            out = torch.cat([out, self._ivector_rows(begin, end)], dim=1)
+        return out
+
+    # Port of kaldi_tpu/features/online.py OnlineFeaturePipeline
+    # .set_frame_weights.
+    def set_frame_weights(self, weights) -> None:
+        """Silence-weighting hook: revise the i-vector estimator's
+        per-frame weights (computed by OnlineSilenceWeighting from the
+        decoder's partial traceback).  Affects FUTURE block estimates —
+        the online protocol, matching the reference's greedy update."""
+        if self.ivector_estimator is not None:
+            self.ivector_estimator.update_frame_weights(weights)
+
+    # Port of kaldi_tpu/features/online.py
+    # OnlineFeaturePipeline._update_ivectors.
+    def _update_ivectors(self) -> None:
+        """Snapshot the i-vector at every period boundary as raw frames
+        arrive (frame t reads the estimate from frames < its block's
+        end — online causal re-estimation every ivector_period)."""
+        est = self.ivector_estimator
+        period = self.ivector_period
+        n = self._frames.shape[0]
+        while (len(self._ivectors) + 1) * period <= n:
+            boundary = (len(self._ivectors) + 1) * period
+            if boundary > est.num_frames:
+                est.accept_frames(self._frames[est.num_frames:boundary])
+            self._ivectors.append(est.ivector().to(torch.float32))
+
+    # Port of kaldi_tpu/features/online.py
+    # OnlineFeaturePipeline._ivector_rows.
+    def _ivector_rows(self, begin: int, end: int) -> torch.Tensor:
+        """(end − begin, K) float32: each frame's block estimate; frames
+        past the last complete block read the current estimate (all
+        frames so far go to the estimator first, as in the original)."""
+        est = self.ivector_estimator
+        n = self._frames.shape[0]
+        if n > est.num_frames:
+            est.accept_frames(self._frames[est.num_frames:])
+        table = torch.stack(self._ivectors
+                            + [est.ivector().to(torch.float32)])
+        block = (torch.arange(begin, end, device=table.device)
+                 // self.ivector_period).clamp_max(len(self._ivectors))
+        return table[block]
 
 
 def make_online_mfcc_pipeline(opts: MfccOptions = None,

@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import contextlib
 import math
 import subprocess
 import time
@@ -69,31 +68,28 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-class EventTimer:
-    """The card's time over regions of queued work, summed: CUDA events
-    recorded on the current stream before and after each region, read
-    once at the end (``total_ms`` synchronises), so the regions stay
-    asynchronous.  A region's time runs from the card reaching its
-    first event to reaching its last, gaps where the host had not yet
-    issued the next kernel included."""
-
-    def __init__(self):
-        self._pairs = []
-
-    @contextlib.contextmanager
-    def region(self):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self._pairs.append((start, end))
-
-    def total_ms(self) -> float:
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self._pairs)
+def graph_ms(fn) -> float:
+    """Milliseconds the card takes for the work ``fn`` queues, with no
+    host in its way: ``fn`` (warm, and free of host synchronisation) is
+    captured once into a CUDA graph, and the graph is launched once
+    between two CUDA events, so the card runs its kernels back to back.
+    For work of more launches than the launch queue holds (about a
+    thousand), which ``device_ms`` cannot queue whole behind its spin
+    (the host then waits for the card, and the events time its gaps).
+    ``fn``'s outputs are dropped with the graph."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    del graph
+    return ms
 
 
 def profiled(fn):

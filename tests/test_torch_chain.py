@@ -29,6 +29,7 @@ from kaldi_tpu_torch.am.topology import HmmTopology as TTopo
 from kaldi_tpu_torch.core import io as tkio
 from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.ops import chain_den
+from test_torch_chain_start import assert_original_within, port_graph
 
 torch.set_num_threads(1)
 
@@ -37,9 +38,14 @@ GRAPH_FIELDS = ("src", "dst", "pdf", "logw", "initial", "final", "l_self",
                 "lm_l_self", "lm_l_fwd", "lm_final")
 
 
-def den_pair(kind: str, phones=(1, 2, 3, 4), order=3, seed=9):
-    """The same den graph built by each package: "mono" (monophone
-    tree) or "biphone" (full left-biphone tree)."""
+def den_pair(kind: str, phones=(1, 2, 3, 4), order=3, seed=9,
+             own: bool = False):
+    """The same den graph in each package: "mono" (monophone tree) or
+    "biphone" (full left-biphone tree), each built by its own package.
+    The port's biphone graph adds utterance-initial states to the
+    original's (tests/test_torch_chain_start.py), so unless ``own`` the
+    port side of a biphone pair is the JAX package's graph as the port's
+    (``port_graph``)."""
     rng = np.random.default_rng(seed)
     seqs = [[int(p) for p in rng.choice(phones, 12)] for _ in range(30)]
     out = []
@@ -51,6 +57,8 @@ def den_pair(kind: str, phones=(1, 2, 3, 4), order=3, seed=9):
                 else tree_mod.full_biphone_tree(list(phones), topo))
         out.append(chain.make_denominator_graph(seqs, tree, topo,
                                                 order=order))
+    if kind == "biphone" and not own:
+        out[1] = port_graph(out[0])
     return out[0], out[1], tree.num_pdfs
 
 
@@ -68,7 +76,12 @@ def tiny_pair():
 @pytest.mark.parametrize("kind,order", [("mono", 2), ("mono", 3),
                                         ("biphone", 2)])
 def test_den_graph_equals_jax(kind, order):
-    jden, tden, _ = den_pair(kind, order=order)
+    jden, tden, _ = den_pair(kind, order=order, own=True)
+    if kind == "biphone":
+        # the port's start states, then the original's graph within it
+        assert tden.num_states > jden.num_states
+        assert_original_within(tden, jden)
+        return
     assert tden.num_states == jden.num_states
     for f in GRAPH_FIELDS:
         a, b = getattr(jden, f), getattr(tden, f)

@@ -32,6 +32,7 @@ from kaldi_tpu_torch.am.topology import HmmTopology as TTopo
 from kaldi_tpu_torch.am.transitions import TransitionModel as TTm
 from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.pipelines import chain as tpc
+from test_torch_chain_start import port_graph
 
 torch.set_num_threads(1)
 
@@ -51,7 +52,10 @@ def _runs(seed=0, n_utts=4, n_phones=12, dim=5):
 
 
 def _sides(tree_kind="mono", order=2):
-    """(topo, tree, den) of each package: the JAX side, then the port."""
+    """(topo, tree, den) of each package: the JAX side, then the port.
+    The port's den of a biphone tree is the JAX package's graph as the
+    port's (its own builder adds utterance-initial states:
+    tests/test_torch_chain_start.py)."""
     out = []
     for topo_cls, tree_mod, chain in ((JTopo, jtree, jc),
                                       (TTopo, ttree, tc)):
@@ -61,6 +65,8 @@ def _sides(tree_kind="mono", order=2):
                 else tree_mod.full_biphone_tree(PHONES, topo))
         out.append((topo, tree, chain.make_denominator_graph(
             SEQS, tree, topo, order=order)))
+    if tree_kind == "biphone":
+        out[1] = out[1][:2] + (port_graph(out[0][2]),)
     return out
 
 

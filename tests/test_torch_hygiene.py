@@ -8,8 +8,11 @@
   builders give equal CSR arrays on seeded tasks.
 * Every entry point defaults to ``device="cuda"``; without a card it
   raises before doing any work.
-* The flagship's rungs that are not ported yet raise, naming the
-  ROADMAP item that brings them.
+* The flagship's rung that is not ported yet raises, naming the ROADMAP
+  item that brings it; the i-vector rung runs by default.
+* am/ivector.py names its original on its first line, and each of its
+  host copies (PLDA, clustering, silence weighting, the PLDA I/O) and
+  ports names its original on the line above it.
 * ``ops/build.py`` rebuilds a kernel library when a shared header
   changes.
 """
@@ -116,7 +119,12 @@ def _entry_points():
     from kaldi_tpu_torch.pipelines.mono import train_mono
     from kaldi_tpu_torch.pipelines.tri import train_tri
     from kaldi_tpu_torch.pipelines import flagship, hard
-    return dict(DenseAligner=DenseAligner, flat_start=AmDiagGmm.flat_start,
+    from kaldi_tpu_torch.am import ivector
+    return dict(IvectorExtractor=ivector.IvectorExtractor,
+                train_diag_ubm=ivector.train_diag_ubm,
+                read_ivector_extractor=ivector.read_ivector_extractor,
+                compute_vad_energy=ivector.compute_vad_energy,
+                DenseAligner=DenseAligner, flat_start=AmDiagGmm.flat_start,
                 decode_eval=hard.decode_eval, run_point=hard.run_point,
                 run_sweep=hard.run_sweep, flagship_run=flagship.run,
                 flagship_align=flagship._align,
@@ -138,7 +146,8 @@ ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
                 "BatchedFrontend", "DenseAligner", "flat_start",
                 "train_mono", "train_tri", "yesno_run", "mini_run",
                 "decode_eval", "run_point", "run_sweep", "flagship_run",
-                "flagship_align"]
+                "flagship_align", "IvectorExtractor", "train_diag_ubm",
+                "read_ivector_extractor", "compute_vad_energy"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -195,20 +204,23 @@ def test_without_a_card_construction_raises(monkeypatch):
              lambda: eps["flat_start"](P, np.zeros(3), np.ones(3)),
              lambda: eps["decode_eval"](None, {}),
              lambda: eps["run_point"](None, {}, {}),
-             lambda: eps["flagship_run"]()]
+             lambda: eps["flagship_run"](),
+             lambda: eps["IvectorExtractor"](np.zeros((2, 3)), np.ones((2, 3)),
+                                             np.ones(2) / 2, 2),
+             lambda: eps["train_diag_ubm"]([np.zeros((4, 3))], num_gauss=2),
+             lambda: eps["read_ivector_extractor"]("never.read"),
+             lambda: eps["compute_vad_energy"](np.zeros((4, 3)))]
     for call in calls:
         with pytest.raises(KaldiError, match="no CUDA card"):
             call()
 
 
 @pytest.mark.parametrize("option,item", [
-    ("with_ivector", "ROADMAP Queue 1 item 4: the flagship's i-vector rung "
-                     "needs am/ivector.py"),
     ("with_rnnlm", "ROADMAP Queue 1 item 5: the flagship's RNNLM rung "
                    "needs lm/rnnlm.py")])
 def test_flagship_unported_rungs_name_their_roadmap_item(option, item):
-    """``run(with_ivector=True)`` and ``run(with_rnnlm=True)`` raise at
-    once (on any device), naming the ROADMAP item; both default off."""
+    """``run(with_rnnlm=True)`` raises at once (on any device), naming
+    the ROADMAP item; it defaults off."""
     from kaldi_tpu_torch.core.logging import KaldiError
     from kaldi_tpu_torch.pipelines import flagship
     assert inspect.signature(flagship.run).parameters[option].default \
@@ -216,6 +228,46 @@ def test_flagship_unported_rungs_name_their_roadmap_item(option, item):
     with pytest.raises(KaldiError) as e:
         flagship.run(device="cpu", **{option: True})
     assert item in str(e.value)
+
+
+def test_flagship_runs_the_ivector_rung_by_default():
+    """``with_ivector`` defaults to True, as in the original, and the
+    guard that raised on it is gone."""
+    from kaldi_tpu_torch.pipelines import flagship
+    assert inspect.signature(flagship.run).parameters[
+        "with_ivector"].default is True
+    assert not hasattr(flagship, "IVECTOR_ITEM")
+
+
+IVECTOR_COPIES = ["VadEnergyOptions", "OnlineSilenceWeighting", "Plda",
+                  "agglomerative_cluster", "plda_score_matrix", "diarize",
+                  "write_plda", "read_plda"]
+IVECTOR_PORTS = ["compute_vad_energy", "IvectorExtractor", "train_diag_ubm",
+                 "online_ivectors", "OnlineIvectorEstimator",
+                 "write_ivector_extractor", "read_ivector_extractor"]
+
+
+@pytest.mark.parametrize("name", IVECTOR_COPIES + IVECTOR_PORTS)
+def test_ivector_module_names_its_originals(name):
+    """am/ivector.py's first line names kaldi_tpu/am/ivector.py; each
+    host copy's line above it says "Copied from" its original, each
+    port's "Port of" it, and the original exists there."""
+    path = os.path.join(REPO, "kaldi_tpu_torch", "am", "ivector.py")
+    with open(path) as f:
+        src = f.read()
+    lines = src.splitlines()
+    assert "kaldi_tpu/am/ivector.py" in lines[0]
+    node = next(n for n in ast.parse(src).body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                and n.name == name)
+    first = min([node.lineno] + [d.lineno for d in node.decorator_list])
+    above = lines[first - 2]
+    kind = "Copied from" if name in IVECTOR_COPIES else "Port of"
+    assert above.startswith(f"# {kind} kaldi_tpu/am/ivector.py {name}"), \
+        above
+    with open(os.path.join(REPO, "kaldi_tpu", "am", "ivector.py")) as f:
+        assert any(n.name == name for n in ast.parse(f.read()).body
+                   if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
 
 
 def test_flagship_and_hard_mains_default_to_the_card(monkeypatch):
@@ -298,9 +350,10 @@ def test_native_builds_under_a_per_process_name(tmp_path, monkeypatch):
     ["chip_smoke.py"],
     ["-m", "kaldi_tpu_torch.tools.profile_slice"],
     ["-m", "kaldi_tpu_torch.tools.profile_slice", "--den"],
-    ["-m", "kaldi_tpu_torch.tools.profile_slice", "--features"]],
+    ["-m", "kaldi_tpu_torch.tools.profile_slice", "--features"],
+    ["-m", "kaldi_tpu_torch.tools.flagship_spread"]],
     ids=["chip_smoke", "profile_slice", "profile_slice-den",
-         "profile_slice-features"])
+         "profile_slice-features", "flagship_spread"])
 def test_card_scripts_refuse_without_a_card(argv):
     """The scripts that measure on the card run their main, and without
     a card exit non-zero before printing any result."""

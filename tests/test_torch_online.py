@@ -123,8 +123,10 @@ def test_pipeline_with_cmvn_and_splice_matches_jax(rng):
 
 def test_pipeline_guards():
     mfcc, _ = _mfcc()
-    with pytest.raises(KaldiError, match="not ported"):
-        tonline.OnlineFeaturePipeline(mfcc, ivector_estimator=object())
+    est = object()
+    pipe = tonline.OnlineFeaturePipeline(mfcc, ivector_estimator=est,
+                                         ivector_period=7)
+    assert pipe.ivector_estimator is est and pipe.ivector_period == 7
     with pytest.raises(KaldiError, match="not both"):
         tonline.OnlineFeaturePipeline(mfcc, deltas=DeltaFeaturesOptions(),
                                       splice=(1, 1))

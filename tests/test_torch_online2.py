@@ -78,8 +78,10 @@ def test_online2_usage_and_guards(files, capsys, monkeypatch):
     d = files
     args = [str(d / "final.mdl"), str(d / "final.raw"), str(d / "HCLG.fst"),
             f"ark:{d / 'wav.ark'}", f"ark,t:{d / 'x.txt'}"]
-    assert online2.main(["--device=cpu", "--ivector-extractor=x"] + args) == 1
-    assert "not ported" in capsys.readouterr().err
+    (d / "not_an_extractor").write_bytes(b"text")
+    assert online2.main(["--device=cpu", "--ivector-extractor="
+                         f"{d / 'not_an_extractor'}"] + args) == 1
+    assert "not binary kaldi" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert online2.main(args) == 1
     assert "no CUDA card" in capsys.readouterr().err
