@@ -30,8 +30,8 @@ Phases (each prints lines; any failure raises and exits non-zero):
         Gaussians, D = 40) at 300, 1000 and 4096 frames, with both times
         and the kernel's bound;
      b. wav → MFCC → CMVN → Δ+ΔΔ → GMM kernel → the latgen BeamDecoder
-        branch on the 20k-word task (above the dense limit), 8
-        waveforms, checked against the port's CPU decode on 4;
+        branch on the 20k-word task (above the dense limit), 4
+        waveforms, checked against the port's CPU decode on 2;
      c. wav → MFCC → CMVN → splice ±3 → LDA+MLLT → GMM kernel → the
         latgen DenseDecoder branch on a 300-word task: one-best batch
         of 8 (frame loop under sync debug mode "error") and lattices
@@ -69,7 +69,10 @@ Phases (each prints lines; any failure raises and exits non-zero):
      a. the den forward-backward kernels against their plain version at
         B = 128 sequences of 50 frames (150 input frames ×3
         subsampled), leak 0.1, a ragged mask: log Z, d log Z / d scores,
-        posteriors summing to 1; both times on the card and the bound;
+        posteriors summing to 1; both times on the card (the kernels
+        queued behind a spin, ``device_ms``; the plain recursion, whose
+        thousands of launches a call overflow the launch queue, as one
+        CUDA graph launch, ``graph_ms``) and the bound;
         the kernels' launches under sync debug mode "error"; every other
         layout that fits (sequences a block G = 1/2/4/8, with and
         without the score prefetch); then
@@ -147,7 +150,13 @@ Phases (each prints lines; any failure raises and exits non-zero):
         64-Gaussian diag UBM, 3 EM iterations of a 16-dimensional
         extractor and online i-vectors, float64 on the card, then a second
         chain training on the i-vector-appended features and its decode),
-        4-gram rescoring and MBR; every rung printed beside r5's WER,
+        4-gram rescoring, the RNNLM rung (a GRU LM of E 96, H 192 over
+        the 5k vocabulary trained on the card on 8000 LM sentences, 12
+        epochs of B = 64 with a 512-candidate sampled softmax, then its
+        scorer's GRU steps on the card inside the pruned lattice
+        rescoring: steps, final nll, histories scored, ms a history,
+        rescore audio-s/s beside HARDBENCH_r05's TPU v5e row) and MBR;
+        every rung printed beside r5's WER,
         each WER at most 30 and each oracle WER at most its WER, each
         decode's time on the card at most its wall time; the graphs'
         state counts equal to host rebuilds;
@@ -173,7 +182,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
         ``device_ms`` (the work queued behind a spin kernel, as the
         kernels are timed);
      b. pipelines/hard.py ``run_point`` on the 20,000-word hard corpus
-        (200 utterances, noise 1.0, peak 4.0, up to 16 words) at arc
+        (80 utterances, noise 1.0, peak 4.0, up to 16 words) at arc
         budgets 4096 and 12288 with escalation to 16384: WER, oracle,
         density, rates, dropped arcs, escalations; each oracle WER at most
         its WER, 4096 within 0.1 oracle WER of 12288, and each point's
@@ -192,7 +201,25 @@ Phases (each prints lines; any failure raises and exits non-zero):
         widths on 13 + 16 inputs) on the card, and the first 2 on the
         CPU (at the end of a's shell): the same words; the streamed
         i-vector-appended features equal the offline assembly.
-     c's tools and b's card run go in the background after d.
+     11c's and 13c's tools go in the background after 11a's rung, b's card
+     run after 12a's check.
+ 13. the flagship's RNNLM rung on the card (11a's run):
+     a. at the rung's widths on seeded weights, the card against the
+        port's CPU: the forward on one batch of 64 LM sentences, one
+        full-softmax and one sampled-softmax Adam step (the same
+        candidates) from the same weights (losses, gradients, weights
+        after the step), and the scorer's log-probs on 40 sentences'
+        prefixes;
+     b. the training step's time, kernels and busy card time a step,
+        and the scorer's time a new history (11a's trained model);
+     c. (in the background from 11a's rung on) ``python -m
+        kaldi_tpu_torch.cli`` rnnlm-get-sampling-lm → rnnlm-train (one
+        epoch of 2000 LM sentences at the rung's widths) →
+        rnnlm-compute-prob → lattice-lmrescore-kaldi-rnnlm-pruned on 8
+        of 11a's chain lattices, equal to the library's rescoring with
+        the tool's model on the card, and arpa-to-const-arpa →
+        lattice-lmrescore-const-arpa on the 4-gram, equal to rescoring
+        with the ARPA text.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths, the largest difference from
@@ -412,6 +439,12 @@ def words_of(task, wids):
     return [task.words.find(w) for w in wids]
 
 
+# 6b's waveforms, and those decoded again on the CPU (8 and 4 before
+# phase 13 came; cut to keep the whole run near its time budget)
+GMM_BEAM_UTTS = 4
+GMM_BEAM_CPU_UTTS = 2
+
+
 def gmm_beam_branch(dev, task, mfcc, tag: str):
     """6b: the latgen BeamDecoder branch (the 20k-word graph is above
     dense_limit; the CSR goes to the decoder as it is, with no VectorFst
@@ -421,7 +454,7 @@ def gmm_beam_branch(dev, task, mfcc, tag: str):
     from kaldi_tpu_torch.pipelines.score import compute_wer
     from kaldi_tpu_torch.tools.synth import aligned_gmm, mix_counts
     csr, tm = task.graph.csr, task.tm
-    waves, aligns, refs = speech_set(task, 8, SEED + 7)
+    waves, aligns, refs = speech_set(task, GMM_BEAM_UTTS, SEED + 7)
     rng = np.random.default_rng(SEED + 7)
     feats = [delta_feats(mfcc, w) for w in waves]
     am = aligned_gmm(rng, [f.cpu().numpy() for f in feats], aligns,
@@ -463,9 +496,10 @@ def gmm_beam_branch(dev, task, mfcc, tag: str):
     t0 = time.perf_counter()
     cpu = _LatgenDecoder(csr, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
                          max_active=7000, device="cpu")
-    same_best(best[:4], [cpu.decode_to_clat(ll.cpu()).best_path()
-                         for ll in lls[:4]], "gmm-beam")
-    print(f"gmm-beam: GPU best paths equal the port's CPU decode on 4 utts "
+    n = GMM_BEAM_CPU_UTTS
+    same_best(best[:n], [cpu.decode_to_clat(ll.cpu()).best_path()
+                         for ll in lls[:n]], "gmm-beam")
+    print(f"gmm-beam: GPU best paths equal the port's CPU decode on {n} utts "
           f"(words equal, costs within 1e-3; CPU side "
           f"{time.perf_counter() - t0:.1f} s)")
     return launches + (err, fb_err)
@@ -957,7 +991,8 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
     from kaldi_tpu_torch.am.chain import (den_kernel, denominator_logprob,
                                           denominator_reference)
     from kaldi_tpu_torch.ops.chain_den import ChainDenFn, DenPlan
-    from kaldi_tpu_torch.tools.timing import chain_den_bound, device_ms
+    from kaldi_tpu_torch.tools.timing import (chain_den_bound, device_ms,
+                                              graph_ms)
     rng = np.random.default_rng(SEED + 10)
     lens = rng.integers(T // 2, T + 1, B)
     lens[0] = T
@@ -1039,18 +1074,23 @@ def den_kernel_check(dev, den, P: int, tag: str, B: int = 128,
     if not (ok and dgn <= DEN_GRAD_TOL):
         raise AssertionError("den kernels do not carry a NaN score as the "
                              "plain version does")
+    # the plain recursion's thousands of launches a call overflow the
+    # launch queue that device_ms queues behind its spin: one call is
+    # captured into a CUDA graph and launched once (graph_ms)
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
-        fn = (denominator_reference if which == "plain"
-              else denominator_logprob)
-        times[which].append(device_ms(lambda: run(fn), 10))
+        if which == "plain":
+            times[which].append(graph_ms(lambda: run(denominator_reference)))
+        else:
+            times[which].append(device_ms(lambda: run(denominator_logprob),
+                                          10))
     ms, plain_ms = min(times["kernel"]), min(times["plain"])
     active = int(mask_np[:, 1:].sum()) + B
     bnd = chain_den_bound(k, active, B, T, P)
-    print(f"den: forward + backward on the card: kernels {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (best of 2 × 10), bound {bnd[0]:.4f} ms by "
-          f"{bnd[1]} ({100 * bnd[0] / ms:.1f}% of it); {active} active "
-          f"frames {tag}")
+    print(f"den: forward + backward on the card: kernels {ms:.4f} ms (best "
+          f"of 2 × 10, device_ms), plain {plain_ms:.4f} ms (best of 2 "
+          f"graph launches, graph_ms), bound {bnd[0]:.4f} ms by {bnd[1]} "
+          f"({100 * bnd[0] / ms:.1f}% of it); {active} active frames {tag}")
     return dg, ms, plain_ms, bnd
 
 
@@ -2116,12 +2156,12 @@ CHAIN_CHECK_UTTS = 16
 CHAIN_CHECK_TOL = 1e-4
 CHAIN_CHECK_SAME = 15
 # 11b: the hard corpus at HARDBENCH_r05's noise-1.0 point (20,000 words,
-# noise 1.0, peak 4.0, up to 16 words) on 200 utterances (r5 ran 1200;
-# cut so that the whole script, with its i-vector phases and every
-# decode's card time, stays near its time budget), at the default
+# noise 1.0, peak 4.0, up to 16 words) on 80 utterances (r5 ran 1200;
+# cut so that the whole script, with its i-vector and RNNLM phases and
+# every decode's card time, stays near its time budget), at the default
 # and the loosest arc budget, both with escalation to 16384
 HARD_TASK = dict(vocab=20000)
-HARD_EVAL = dict(n_utts=200, noise=1.0, peak=4.0, max_words=16)
+HARD_EVAL = dict(n_utts=80, noise=1.0, peak=4.0, max_words=16)
 HARD_BUDGETS = (4096, 12288)
 HARD_ESCALATE = 16384
 # the module's own acceptance (pipelines/hard.py): the default budget
@@ -2547,7 +2587,7 @@ def lattice_tools_finish(sysm, started) -> None:
     print(f"tools: lattice-scale | lattice-add-penalty | "
           f"lattice-lmrescore-pruned, lattice-best-path, lattice-oracle on "
           f"{len(tool_best)} chain lattices in {wall:.1f} s (in the "
-          f"background from 11d on): 1-best equal to "
+          f"background from 11a's rung on): 1-best equal to "
           f"the library's on {same}, oracle '{got}' (library '{want}')")
     if same != len(sysm["lats_ch"]) or got != want:
         raise AssertionError("lattice tools disagree with the library")
@@ -2997,6 +3037,378 @@ def stream_ivectors(dev, waves, d: str, started, tag: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 13. the flagship's RNNLM rung on the card: card against CPU, timing, tools
+# ---------------------------------------------------------------------------
+
+# 13a: the card against the CPU at the rung's widths (E 96, H 192, the
+# rung's vocabulary) on seeded weights, one batch of the rung's B = 64
+# LM sentences: forward, losses and gradients within RNN_TOL of the
+# largest magnitude (float32 products summed in other orders over the
+# 9 recurrent steps); the weights after one Adam step at the rung's lr
+# within 1e-3·lr plus the step's sensitivity to a gradient error of
+# RNN_TOL (a first step moves a weight by lr·g/(|g| + eps): near
+# |g| = eps, rounding of g moves it by up to a step); the scorer's
+# log-probs within RNN_SCORER_ATOL nats
+RNN_TOL = 1e-4
+RNN_SCORER_ATOL = 1e-4
+RNN_LR = 4e-3
+RNN_B = 64
+# 13a / 13b: sentences whose prefixes are the scorer's histories
+RNN_SCORER_SENTS = 40
+# 13b: training steps timed, steps profiled
+RNN_TIME_STEPS = 50
+RNN_PROFILE_STEPS = 5
+# 13c: the tools' training text, held-out text and lattices
+RNN_TOOL_SENTS = 2000
+RNN_TOOL_HELD = 200
+RNN_TOOL_LATS = 8
+
+
+def rnnlm_rung(results, sysm, tag: str) -> None:
+    """11a: the RNNLM rung's record beside HARDBENCH_r05's (TPU v5e), its
+    training steps and final nll per word, histories scored, ms a
+    history (the rescore's wall over its histories) and rescore
+    audio-s/s."""
+    rec = next(r for r in results if r["system"] == "chain+rnnlm-rescore")
+    info = sysm["rnnlm"]
+    cfg = info["config"]
+    r05 = json.load(open(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "HARDBENCH_r05.json")))["flagship"]
+    tpu = next(r for r in r05 if r["system"] == "chain+rnnlm-rescore")
+    chain = next(r for r in results if r["system"] == "chain-tdnn")
+    print(f"rnnlm: rung: WER {rec['wer']:.2f} (chain-tdnn {chain['wer']:.2f}"
+          f", delta {rec['wer_delta_vs_trigram']:+.2f}), oracle "
+          f"{rec['oracle_wer']:.2f}, lm_scale {rec['lm_scale']}, "
+          f"rnnlm_train_s {rec['rnnlm_train_s']} ({info['steps']} steps of "
+          f"B = 64 at V = {cfg.vocab_size}, E = {cfg.embed_dim}, H = "
+          f"{cfg.hidden_dim}, K = {info['sample_k']}; final nll "
+          f"per word {info['nll']:.4f}), {info['histories']} histories "
+          f"scored in {info['rescore_s']:.2f} s = "
+          f"{1e3 * info['rescore_s'] / max(info['histories'], 1):.4f} ms a "
+          f"history, rescore {rec['rescore_audio_s_per_s']} audio-s/s "
+          f"{tag}")
+    print(f"rnnlm: HARDBENCH_r05 (TPU v5e, scorer on the host CPU, 3 "
+          f"epochs): WER {tpu['wer']}, oracle {tpu['oracle_wer']}, delta "
+          f"{tpu['wer_delta_vs_trigram']:+.2f}, rnnlm_train_s "
+          f"{tpu['rnnlm_train_s']}, rescore {tpu['rescore_audio_s_per_s']} "
+          f"audio-s/s")
+    if info["steps"] <= 0 or info["histories"] <= 0:
+        raise AssertionError(f"rnnlm rung: {info['steps']} steps, "
+                             f"{info['histories']} histories")
+    if not math.isfinite(info["nll"]):
+        raise AssertionError(f"rnnlm rung: final nll {info['nll']}")
+
+
+def _rnnlm_batch(sysm, n: int, start: int = 0):
+    """The rung's first sentences from ``start`` as word ids, and the
+    rung's <s> / </s> ids."""
+    lang, info = sysm["lang"], sysm["rnnlm"]
+    sents = [[lang.words[w] for w in s]
+             for s in sysm["lm_texts"][start:start + n]]
+    return sents, info["bos"], info["eos"]
+
+
+def _adam_step_ok(got, want, grad, lr: float, tol: float) -> float:
+    """max over weights of |got − want| / (1e-3·lr + lr·eps·δg/(|g| +
+    eps)²), δg = tol·max|g|: ≤ 1 when the two steps agree."""
+    eps = 1e-8
+    g = grad.double().abs()
+    bar = 1e-3 * lr + lr * eps * (tol * float(g.max())) / (g + eps) ** 2
+    return float(((got.double() - want.double()).abs() / bar).max())
+
+
+def rnnlm_card_vs_cpu(dev, sysm, tag: str) -> None:
+    """13a: at the rung's widths on seeded weights (init_rnnlm, SEED),
+    the card against the CPU: the forward on one batch of B = 64 LM
+    sentences, one full-softmax and one sampled Adam step (the same
+    candidates, drawn once) from the same weights, and the scorer's
+    log-probs on the prefixes of RNN_SCORER_SENTS sentences."""
+    from kaldi_tpu_torch.lm.rnnlm import (RnnLm, RnnLmScorer,
+                                          draw_candidates, frame_sentences,
+                                          init_rnnlm, train_step,
+                                          unigram_proposal)
+    cfg = sysm["rnnlm"]["config"]
+    sents, bos, eos = _rnnlm_batch(sysm, RNN_B)
+    batch_cpu = tuple(torch.from_numpy(a)
+                      for a in frame_sentences(sents, bos, eos))
+    batch_dev = tuple(a.to(dev) for a in batch_cpu)
+    cpu = init_rnnlm(RnnLm(cfg), seed=SEED)
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+
+    def pair():
+        a, b = RnnLm(cfg), RnnLm(cfg)
+        a.load_state_dict(state)
+        b.load_state_dict(state)
+        return a, b.to(dev)
+
+    def rel(x, y):
+        return float((x.cpu().double() - y.double()).abs().max()
+                     / y.double().abs().max())
+
+    a, b = pair()
+    with torch.no_grad():
+        la, ca = a(batch_cpu[0])
+        lb, cb = b(batch_dev[0])
+    fwd = max(rel(lb, la), rel(cb, ca))
+    log_q = torch.from_numpy(np.log(unigram_proposal(
+        _rnnlm_batch(sysm, 8000)[0], cfg.vocab_size, eos=eos)))
+    cand = draw_candidates(log_q, sysm["rnnlm"]["sample_k"],
+                           torch.Generator().manual_seed(SEED))
+    worst = {"loss": 0.0, "grad": 0.0, "step": 0.0}
+    for name, k in (("full", None), ("sampled", cand)):
+        a, b = pair()
+        oa = torch.optim.Adam(a.parameters(), lr=RNN_LR)
+        ob = torch.optim.Adam(b.parameters(), lr=RNN_LR)
+        loss_a = train_step(a, oa, *batch_cpu, log_q, k)
+        loss_b = train_step(b, ob, *batch_dev, log_q.to(dev),
+                            None if k is None else k.to(dev))
+        worst["loss"] = max(worst["loss"], abs(float(loss_b) - float(loss_a))
+                            / abs(float(loss_a)))
+        # the step leaves each weight's gradient in .grad
+        pb = dict(b.named_parameters())
+        for n, w in a.named_parameters():
+            worst["grad"] = max(worst["grad"], rel(pb[n].grad, w.grad))
+            worst["step"] = max(worst["step"], _adam_step_ok(
+                pb[n].detach().cpu(), w.detach(), w.grad, RNN_LR, RNN_TOL))
+        print(f"rnnlm: card vs CPU, one {name}-softmax Adam step (B = "
+              f"{RNN_B}, T = {batch_cpu[0].shape[1]}): loss "
+              f"{float(loss_b):.6f} / {float(loss_a):.6f}")
+    a, _ = pair()
+    sc_cpu = RnnLmScorer(a, sysm["lang"].words, device="cpu")
+    sc_dev = RnnLmScorer(a, sysm["lang"].words, device=dev)
+    words = sysm["lang"].words
+    score_err, n = 0.0, 0
+    for s in _rnnlm_batch(sysm, RNN_SCORER_SENTS, start=RNN_B)[0]:
+        ws = [words.find(w) for w in s]
+        for i in range(len(ws) + 1):
+            nxt = ws[i] if i < len(ws) else "</s>"
+            score_err = max(score_err, abs(sc_dev.score(tuple(ws[:i]), nxt)
+                                           - sc_cpu.score(tuple(ws[:i]),
+                                                          nxt)))
+            n += 1
+    print(f"rnnlm: card vs CPU at V = {cfg.vocab_size}, E = "
+          f"{cfg.embed_dim}, H = {cfg.hidden_dim} (seeded weights): forward "
+          f"logits and carry max |diff| / max |cpu| {fwd:.3e} (limit "
+          f"{RNN_TOL:g}); losses {worst['loss']:.3e} relative, gradients "
+          f"{worst['grad']:.3e} of each tensor's largest (limit {RNN_TOL:g}); "
+          f"weights after the step at most {worst['step']:.3f} of their bar; "
+          f"the scorer's log-probs on {n} (history, word) pairs "
+          f"({sc_dev.steps} histories on the card) max |diff| "
+          f"{score_err:.3e} (limit {RNN_SCORER_ATOL:g}) {tag}")
+    if not (fwd <= RNN_TOL and worst["loss"] <= RNN_TOL
+            and worst["grad"] <= RNN_TOL and worst["step"] <= 1.0
+            and score_err <= RNN_SCORER_ATOL):
+        raise AssertionError(f"rnnlm: the card disagrees with the CPU: "
+                             f"forward {fwd}, {worst}, scorer {score_err}")
+
+
+def rnnlm_timing(dev, sysm, tag: str) -> None:
+    """13b: the rung's training step on the card (sampled softmax, B = 64,
+    the rung's widths, lr): ms a step over RNN_TIME_STEPS steps, and
+    kernels and busy card ms a step from a profile of RNN_PROFILE_STEPS;
+    then the scorer's step on the rung's trained model: ms a new history
+    (one GRU step and its row of log-probs to the host) over the
+    prefixes of RNN_SCORER_SENTS sentences."""
+    from kaldi_tpu_torch.lm.rnnlm import (RnnLm, RnnLmScorer,
+                                          draw_candidates, frame_sentences,
+                                          init_rnnlm, train_step,
+                                          unigram_proposal)
+    from kaldi_tpu_torch.tools.timing import profiled
+    cfg = sysm["rnnlm"]["config"]
+    sents, bos, eos = _rnnlm_batch(sysm, RNN_B)
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in frame_sentences(sents, bos, eos))
+    model = init_rnnlm(RnnLm(cfg), seed=SEED).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=RNN_LR)
+    log_q = torch.from_numpy(np.log(unigram_proposal(
+        _rnnlm_batch(sysm, 8000)[0], cfg.vocab_size, eos=eos))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    K = sysm["rnnlm"]["sample_k"]
+
+    def step():
+        train_step(model, opt, *batch, log_q, draw_candidates(log_q, K, gen))
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RNN_TIME_STEPS):
+        step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / RNN_TIME_STEPS
+
+    def steps():
+        for _ in range(RNN_PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+
+    wall, n_k, k_ms, _ = profiled(steps)
+    words = sysm["lang"].words
+    scorer = RnnLmScorer(sysm["rnnlm"]["model"], words, device=dev)
+    scorer.score((), "</s>")
+    torch.cuda.synchronize()
+    n0 = scorer.steps
+    t0 = time.perf_counter()
+    for s in _rnnlm_batch(sysm, RNN_SCORER_SENTS, start=RNN_B)[0]:
+        ws = [words.find(w) for w in s]
+        for i in range(len(ws) + 1):
+            scorer.score(tuple(ws[:i]), "</s>")
+    sc_ms = 1e3 * (time.perf_counter() - t0) / max(scorer.steps - n0, 1)
+    print(f"rnnlm: training step on the card (sampled softmax, B = {RNN_B}, "
+          f"T = {batch[0].shape[1]}, K = {K}): {step_ms:.3f} ms a step over "
+          f"{RNN_TIME_STEPS} steps; profiled {RNN_PROFILE_STEPS} steps: "
+          f"{n_k / RNN_PROFILE_STEPS:.1f} kernels and "
+          f"{k_ms / RNN_PROFILE_STEPS:.3f} card ms a step "
+          f"({100 * k_ms / wall:.1f}% busy) {tag}")
+    print(f"rnnlm: scorer step on the card: {sc_ms:.4f} ms a new history "
+          f"over {scorer.steps - n0} histories (the trained model) {tag}")
+
+
+def rnnlm_tools_start(sysm, lat_dir: str):
+    """13c, started: the rung's first RNN_TOOL_SENTS LM sentences (word
+    ids) and RNN_TOOL_HELD held-out ones, RNN_TOOL_LATS of 11a's chain
+    lattices, words.txt and both ARPA LMs written to files, then as
+    processes of ``python -m kaldi_tpu_torch.cli`` in one background
+    shell: rnnlm-get-sampling-lm → rnnlm-train (the rung's widths, one
+    epoch, --sample-k) → rnnlm-compute-prob → lattice-lmrescore-kaldi-
+    rnnlm-pruned, and arpa-to-const-arpa → lattice-lmrescore-const-arpa
+    on the const file and on the ARPA text (words.txt and the LMs are
+    11c's, in ``lat_dir``).  → (process, dir, start)."""
+    import shutil
+    import subprocess
+    from kaldi_tpu_torch.core.table import TableWriter
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_rnnlm")
+    os.makedirs(d, exist_ok=True)
+    cfg = sysm["rnnlm"]["config"]
+    train, _, _ = _rnnlm_batch(sysm, RNN_TOOL_SENTS)
+    held, _, _ = _rnnlm_batch(sysm, RNN_TOOL_HELD, start=RNN_TOOL_SENTS)
+    for name, ss in (("train", train), ("held", held)):
+        with TableWriter(f"ark,t:{d}/{name}.txt", holder="text") as w:
+            for i, s in enumerate(ss):
+                w[f"s{i:05d}"] = [str(x) for x in s]
+    with TableWriter(f"ark:{d}/lat.ark", holder="clat") as w:
+        for u in sorted(sysm["lats_ch"])[:RNN_TOOL_LATS]:
+            w[u] = sysm["lats_ch"][u]
+    for name in ("words.txt", "lm3.arpa", "lm4.arpa"):
+        shutil.copyfile(os.path.join(lat_dir, name), os.path.join(d, name))
+    cli = f"{sys.executable} -m kaldi_tpu_torch.cli"
+    cmd = (f"{cli} rnnlm-get-sampling-lm --vocab-size={cfg.vocab_size} "
+           f"ark,t:{d}/train.txt {d}/sampling.lm && {cli} rnnlm-train "
+           f"--device=cuda --vocab-size={cfg.vocab_size} "
+           f"--embed-dim={cfg.embed_dim} --hidden-dim={cfg.hidden_dim} "
+           f"--num-epochs=1 --learning-rate={RNN_LR} "
+           f"--sample-k={sysm['rnnlm']['sample_k']} ark,t:{d}/train.txt "
+           f"{d}/rnnlm.mdl && {cli} rnnlm-compute-prob --device=cuda "
+           f"{d}/rnnlm.mdl ark,t:{d}/held.txt > {d}/ppl.txt && {cli} "
+           f"lattice-lmrescore-kaldi-rnnlm-pruned --device=cuda "
+           f"{d}/lm3.arpa {d}/rnnlm.mdl {d}/words.txt ark:{d}/lat.ark "
+           f"ark:{d}/rnnlm.ark && {cli} arpa-to-const-arpa {d}/lm4.arpa "
+           f"{d}/lm4.const && {cli} lattice-lmrescore-const-arpa "
+           f"{d}/lm4.const {d}/words.txt ark:{d}/lat.ark ark:{d}/const.ark"
+           f" && {cli} lattice-lmrescore-const-arpa {d}/lm4.arpa "
+           f"{d}/words.txt ark:{d}/lat.ark ark:{d}/text.ark")
+    proc = subprocess.Popen(["bash", "-o", "pipefail", "-c", cmd],
+                            cwd=repo, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, d, time.perf_counter()
+
+
+def _same_lattices(got, want, tol: float) -> float:
+    """Equal structure (states, arcs' words, tids and next states,
+    finals); → the largest weight difference (asserted ≤ tol)."""
+    worst = 0.0
+    if sorted(got) != sorted(want) or not got:
+        raise AssertionError(f"lattice keys differ: {sorted(got)} "
+                             f"{sorted(want)}")
+    for u in want:
+        a, b = got[u], want[u]
+        if (a.start, a.num_states, sorted(a.finals)) != \
+                (b.start, b.num_states, sorted(b.finals)):
+            raise AssertionError(f"{u}: lattices differ in shape")
+        for s in range(b.num_states):
+            if [(x.word, tuple(x.tids), x.nextstate) for x in a.arcs[s]] != \
+                    [(x.word, tuple(x.tids), x.nextstate)
+                     for x in b.arcs[s]]:
+                raise AssertionError(f"{u}: state {s}'s arcs differ")
+            for x, y in zip(a.arcs[s], b.arcs[s]):
+                worst = max(worst, abs(x.graph_cost - y.graph_cost),
+                            abs(x.acoustic_cost - y.acoustic_cost))
+        for s, f in b.finals.items():
+            worst = max(worst, abs(a.finals[s][0] - f[0]),
+                        abs(a.finals[s][1] - f[1]))
+    if not worst <= tol:
+        raise AssertionError(f"lattice weights differ by {worst}")
+    return worst
+
+
+def rnnlm_tools_finish(dev, sysm, started, tag: str) -> None:
+    """13c, checked: the proposal is a distribution; the tool's model
+    reads back and its perplexity on the held-out text equals the
+    library's on the card; the tool's RNNLM-rescored lattices equal the
+    library's pruned rescoring with that model on the card (the same
+    steps in process, each lattice stored as the tools store it); the
+    const-ARPA lattices equal the ARPA text's within the const file's
+    float32 rounding, and its histories ran on the card."""
+    import io
+    from kaldi_tpu_torch.cli.tools_rnnlm import read_sampling_lm
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    from kaldi_tpu_torch.fst.arpa import ArpaModel
+    from kaldi_tpu_torch.lattice.io import (read_compact_lattice,
+                                            write_compact_lattice)
+    from kaldi_tpu_torch.lattice.rescore import lmrescore_pruned
+    from kaldi_tpu_torch.lm.rnnlm import (RnnLmScorer, load_rnnlm,
+                                          perplexity)
+    proc, d, t0 = started
+    stdout, stderr = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"rnnlm tools failed ({proc.returncode}):\n"
+                             f"{stderr[-3000:]}")
+    q = read_sampling_lm(f"{d}/sampling.lm")
+    model = load_rnnlm(f"{d}/rnnlm.mdl", device=dev)
+    held = [[int(x) for x in v] for _, v in
+            SequentialTableReader(f"ark,t:{d}/held.txt", holder="text")]
+    tool_ppl = float(open(f"{d}/ppl.txt").read().split()[-1])
+    lib_ppl = perplexity(model, held)
+
+    def stored(lat):
+        buf = io.BytesIO()
+        write_compact_lattice(buf, lat)
+        buf.seek(0)
+        return read_compact_lattice(buf)
+
+    words = sysm["lang"].words
+    scorer = RnnLmScorer(model, words, device=dev)
+    old = ArpaModel.parse(f"{d}/lm3.arpa")
+    lib = {u: stored(lmrescore_pruned(lat, old, scorer, words, beam=6.0,
+                                      max_arcs=100_000))
+           for u, lat in SequentialTableReader(f"ark:{d}/lat.ark",
+                                               holder="clat")}
+    tool = dict(SequentialTableReader(f"ark:{d}/rnnlm.ark", holder="clat"))
+    rnn_err = _same_lattices(tool, lib, 1e-3)
+    const_err = _same_lattices(
+        dict(SequentialTableReader(f"ark:{d}/const.ark", holder="clat")),
+        dict(SequentialTableReader(f"ark:{d}/text.ark", holder="clat")),
+        1e-3)
+    on_card = "histories scored on cuda" in stderr
+    print(f"tools: rnnlm-get-sampling-lm (sum {q.sum():.6f}) → rnnlm-train "
+          f"(one epoch of {RNN_TOOL_SENTS} sentences) → rnnlm-compute-prob "
+          f"(ppl {tool_ppl:.4f}, library on the card {lib_ppl:.4f}) → "
+          f"lattice-lmrescore-kaldi-rnnlm-pruned on {len(tool)} chain "
+          f"lattices (equal to the library's, weights within {rnn_err:.2e}; "
+          f"scorer on the card: {on_card}); arpa-to-const-arpa → "
+          f"lattice-lmrescore-const-arpa equal to the ARPA text's within "
+          f"{const_err:.2e}; {wall:.1f} s in the background {tag}")
+    if not (abs(q.sum() - 1.0) < 1e-5 and q.min() > 0 and held
+            and abs(tool_ppl - lib_ppl) <= 1e-5 * lib_ppl + 1e-6
+            and math.isfinite(lib_ppl) and on_card):
+        raise AssertionError(f"rnnlm tools: proposal sum {q.sum()}, ppl "
+                             f"{tool_ppl} / {lib_ppl}, on the card "
+                             f"{on_card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3362,27 +3774,39 @@ def main() -> int:
     try:
         f_fb, f_gm, f_den, f_results, fsys, f_wall = flagship_system(dev,
                                                                      tag)
+        rnnlm_rung(f_results, fsys, tag)
+        # 11c's and 13c's tools run in the background from here, beside
+        # 11a's and 11d's checks, 12's and 12b's in-process checks
+        lat_tools = lattice_tools_start(fsys)
+        procs.append(lat_tools)
+        rnn_tools = rnnlm_tools_start(fsys, lat_tools[1])
+        procs.append(rnn_tools)
         flagship_graphs(f_results, fsys)
         f_fb_err, f_gm_err, f_den_err = flagship_kernels(dev, fsys, tag)
         flagship_card_vs_cpu(dev, fsys, tag)
         ivector_card_vs_cpu(dev, fsys, tag)
         print(f"flagship: 11a and 11d took {time.perf_counter() - t0:.1f} s")
-        # 11c's tools and 12b's card run in the background beside 12a's
-        # check and 12b's in-process check
+        # 12b's card run in the background beside 12a's check and 12b's
+        # in-process check
         t1 = time.perf_counter()
-        procs.append(lattice_tools_start(fsys))
         iv_gmm, iv_gmm_err = ivector_tools_finish(dev, iv_tools, tag)
         procs.append(stream_ivectors_start(iv_tools[1]))
         iv_fb = stream_ivectors(dev, waves, iv_tools[1], procs[-1], tag)
-        lattice_tools_finish(fsys, procs[-2])
+        lattice_tools_finish(fsys, lat_tools)
+        rnnlm_tools_finish(dev, fsys, rnn_tools, tag)
+        print(f"ivectors: 12a's check, 12b, 11c's and 13c's checks took "
+              f"{time.perf_counter() - t1:.1f} s")
+        # 13a, 13b: the RNNLM on the card alone
+        t1 = time.perf_counter()
+        rnnlm_card_vs_cpu(dev, fsys, tag)
+        rnnlm_timing(dev, fsys, tag)
+        print(f"rnnlm: 13a and 13b took {time.perf_counter() - t1:.1f} s")
         del fsys
     finally:
         for p in procs:
             if p[0].poll() is None:
                 p[0].kill()
                 p[0].wait()
-    print(f"ivectors: 11c and phase 12 took {time.perf_counter() - t1:.1f} "
-          f"s")
     t1 = time.perf_counter()
     hard_corpus(dev, tag)
     print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phases 11 and "

@@ -10,7 +10,9 @@ gmmbin/gmm-align-compiled.cc, latbin/lattice-1best.cc,
 lattice-oracle.cc, lattice-add-penalty.cc,
 lattice-lmrescore-const-arpa.cc, lattice-lmrescore-pruned.cc),
 registered in cli/tools.py's ``TOOLS``.  The lattice tools are the
-original's host code, copied.
+original's host code, copied, but for lattice-lmrescore-const-arpa,
+ported to intent: it reads an arpa-to-const-arpa file (the original
+reads only ARPA text, and fails on that file) or ARPA text.
 Training graphs and the equal alignment are host code, as in the
 original; gmm-align-compiled runs the GMM kernel and the aligner on
 ``--device`` (default cuda), ``ALIGN_BATCH`` utterances at a time (the
@@ -318,14 +320,22 @@ def lattice_add_penalty(argv):
 
 @tool("lattice-lmrescore-const-arpa")
 def lattice_lmrescore_const_arpa(argv):
+    """Rescore with a const-ARPA LM (an arpa-to-const-arpa file, read by
+    ``read_const_arpa``) or with ARPA text.  The original parses either
+    as ARPA text, so its arpa-to-const-arpa → lattice-lmrescore-const-arpa
+    pipeline fails on the binary file."""
+    from kaldi_tpu_torch.cli.tools_const_arpa import (is_const_arpa,
+                                                      read_const_arpa)
     from kaldi_tpu_torch.fst.arpa import ArpaModel
     from kaldi_tpu_torch.fst.fst import SymbolTable
     from kaldi_tpu_torch.lattice.rescore import compose_lm
     po = ParseOptions("lattice-lmrescore-const-arpa [--lm-scale=1.0] "
-                      "<arpa> <words.txt> <lat-rspec> <lat-wspec>")
+                      "<const-arpa-or-arpa> <words.txt> <lat-rspec> "
+                      "<lat-wspec>")
     po.register("lm-scale", float, 1.0, "LM scale")
     args = po.read(argv)
-    lm = ArpaModel.parse(args[0])
+    lm = (read_const_arpa(args[0]) if is_const_arpa(args[0])
+          else ArpaModel.parse(args[0]))
     words = SymbolTable.read(args[1])
     with TableWriter(args[3], holder="clat") as w:
         for key, clat in SequentialTableReader(args[2], holder="clat"):

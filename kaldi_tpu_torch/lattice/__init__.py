@@ -1,7 +1,10 @@
 # From kaldi_tpu/lattice/__init__.py, down to the copied modules.
 """Lattices: raw and compact lattices, determinization and pruning,
-lattice functions and LM rescoring (copied from kaldi_tpu/lattice/:
-lattice.py, determinize.py, io.py, functions.py, rescore.py)."""
+lattice functions and LM rescoring, structural operations, word and
+phone alignment and CTM output (copied from kaldi_tpu/lattice/:
+lattice.py, determinize.py, io.py, functions.py, rescore.py, ops.py,
+word_align.py, phone_align.py, ctm.py).  The package exports what the
+original's does; the last four are imported as modules, as there."""
 
 from kaldi_tpu_torch.lattice.lattice import (
     CompactArc,

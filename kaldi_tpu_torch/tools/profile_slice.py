@@ -53,6 +53,17 @@ Every line ends with the card's name and power limit (nvidia-smi).
    batch's time per call, and under torch.profiler its kernels a frame
    and the card's busy share, for the frame loop with the backtrace.
    ``--gmm-train`` runs only this section.
+8. The den's plain recursion (``am/chain.py`` ``denominator_reference``,
+   forward and autograd backward: thousands of launches a call) at
+   chip_smoke 8a's bench graph, B = 128, T = 50, timed three ways
+   (``den_plain_methods``): CUDA events around 10 calls queued behind a
+   spin kernel without ``device_ms``'s check (its former reading, which
+   times the host's gaps once the launch queue is full), ``graph_ms``
+   (one call captured into a CUDA graph, launched once) and ``kernel_ms``
+   (CUPTI's kernel durations, summed, over 10 calls); then the den
+   kernels (two launches a call) by ``device_ms``, ``graph_ms`` and
+   ``kernel_ms``, where all three should agree.  ``--den-plain`` runs
+   only this section.
 """
 
 from __future__ import annotations
@@ -103,6 +114,10 @@ def main() -> int:
         return 0
     if "--gmm-train" in sys.argv[1:]:
         gmm_training(dev, tag)
+        return 0
+    if "--den-plain" in sys.argv[1:]:
+        _, tree, den, _ = _bench_den()
+        den_plain_methods(dev, tag, den, tree.num_pdfs)
         return 0
 
     fb = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=40)),
@@ -538,6 +553,63 @@ def den_kernels(dev, tag: str, den, P: int, T: int = 50) -> None:
         print(f"den prefetch={pref} at B={B}, T={T}: forward {fwd:.4f} ms, "
               f"backward {bwd:.4f} ms, both {both:.4f} ms; vs plain max "
               f"|d log Z| {dz:.2e}, max |d grad| {dg:.2e} {tag}")
+
+
+def _spin_events_ms(fn, iters: int) -> float:
+    """``device_ms`` without its check: events around ``iters`` calls
+    queued behind a spin sized to the host's issue time, whether or not
+    the host could queue them all before the spin ended."""
+    from kaldi_tpu_torch.tools.timing import _SLEEP_HZ
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * issue * iters + 1e-3, 2.0) * _SLEEP_HZ))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def den_plain_methods(dev, tag: str, den, P: int, T: int = 50,
+                      B: int = 128) -> None:
+    """Section 8 (see the module's docstring)."""
+    from kaldi_tpu_torch.am.chain import (den_kernel, denominator_logprob,
+                                          denominator_reference)
+    from kaldi_tpu_torch.tools.timing import (LaunchQueueOverflow,
+                                              device_ms, graph_ms, kernel_ms)
+    rng = np.random.default_rng(3)
+    scores = torch.from_numpy((2.0 * rng.standard_normal((B, T, P)))
+                              .astype(np.float32)).to(dev)
+    mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    den_kernel(den, dev)
+
+    def run(fn):
+        s = scores.detach().clone().requires_grad_(True)
+        fn(den, s, mask, 0.1).sum().backward()
+
+    for name, fn in (("plain recursion", denominator_reference),
+                     ("kernels", denominator_logprob)):
+        call = (lambda fn=fn: run(fn))
+        _, n_k, _, _ = profiled(lambda: (call(), torch.cuda.synchronize()))
+        got = {"events behind a spin": _spin_events_ms(call, 10),
+               "graph_ms": min(graph_ms(call) for _ in range(3)),
+               "kernel_ms": kernel_ms(call, 10)}
+        try:
+            got["device_ms"] = device_ms(call, 10)
+        except LaunchQueueOverflow:
+            got["device_ms"] = "raises LaunchQueueOverflow"
+        print(f"den {name} at B={B}, T={T}, forward + backward "
+              f"({n_k} kernels a call): "
+              + ", ".join(f"{k} {v:.4f} ms" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in got.items())
+              + f" {tag}")
 
 
 if __name__ == "__main__":

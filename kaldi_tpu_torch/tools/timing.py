@@ -46,11 +46,22 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+class LaunchQueueOverflow(RuntimeError):
+    """``device_ms`` could not queue its calls behind the spin: the
+    host was still issuing them when the spin ended."""
+
+
 def device_ms(fn, iters: int) -> float:
     """Mean milliseconds per call of ``fn`` on the card alone: the calls
     are queued behind a spin kernel long enough for the host to issue
     all of them, so the events time only the card's work (warm L2, as
-    for a model's tables that stay resident)."""
+    for a model's tables that stay resident).  The launch queue holds
+    about a thousand launches: past that the host waits for the card and
+    the events would time its gaps.  So if the spin has ended before the
+    last call is queued (checked by an event recorded after the spin;
+    once more with a spin four times as long), this raises
+    ``LaunchQueueOverflow``: time such work by ``graph_ms`` or
+    ``kernel_ms``."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -59,13 +70,44 @@ def device_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2.0 * issue * iters + 1e-3, 2.0) * _SLEEP_HZ))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    spun = torch.cuda.Event()
+    for spin_s in (min(2.0 * issue * iters + 1e-3, 2.0),
+                   min(8.0 * issue * iters + 4e-3, 8.0)):
+        torch.cuda._sleep(int(spin_s * _SLEEP_HZ))
+        spun.record()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not spun.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+    raise LaunchQueueOverflow(
+        f"device_ms: {iters} calls were not all queued within a "
+        f"{spin_s:.3f} s spin (more launches than the launch queue holds, "
+        f"or a host that slow): time them by graph_ms or kernel_ms")
+
+
+def kernel_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the card, as the sum of
+    its kernels' durations that CUPTI records (torch.profiler) over
+    ``iters`` calls after one warm call: the card's busy time, whatever
+    the host's gaps and however many launches.  Raises if the profile
+    holds no kernels (one taken after earlier profiles in the same
+    process has come back empty)."""
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+
+    def calls():
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    _, n, dev_ms, _ = profiled(calls)
+    if n == 0:
+        raise RuntimeError("kernel_ms: the profile holds no kernels")
+    return dev_ms / iters
 
 
 def graph_ms(fn) -> float:

@@ -370,10 +370,57 @@ def test_largevocab_batch_matches_jax(lv_task, beta, arc_budget):
         assert ts["n_escalated"] > 0
 
 
+@pytest.fixture(scope="module")
+def jax_native_lib(tmp_path_factory):
+    """The JAX package's native lattice library, compiled here into a
+    directory of this test's own (its loader builds into one shared name
+    that parallel test processes race for, and the loser falls back to
+    numpy), or None without a compiler."""
+    import ctypes
+    import os
+    import subprocess
+    from kaldi_tpu import native as jnative
+    so = str(tmp_path_factory.mktemp("jax_native") / "lib.so")
+    srcs = [os.path.join(os.path.dirname(jnative.__file__), s)
+            for s in jnative._SOURCES]
+    try:
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", *srcs, "-o", so],
+                       check=True, capture_output=True, timeout=180)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lib = ctypes.CDLL(so)
+    jnative._bind(lib)
+    return lib
+
+
+# the two lattice libraries add a lattice's costs in float64 in different
+# orders: a path's total may differ in its last bit
+COST_RTOL = 1e-12
+
+
+def _same_paths(got, want):
+    """Equal label sequences in the same order, costs within COST_RTOL."""
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        assert g == pytest.approx(w, rel=COST_RTOL, abs=0.0)
+
+
+@pytest.mark.parametrize("backend", ["native", "numpy"])
 @pytest.mark.parametrize("beta", [True, False])
-def test_host_methods_in_step_with_original(lv_task, beta):
+def test_host_methods_in_step_with_original(lv_task, jax_native_lib,
+                                            monkeypatch, beta, backend):
     """The copied host methods give the original's outputs on the same
-    host dict (taken from the JAX decoder's fetch)."""
+    host dict (taken from the JAX decoder's fetch), with the original's
+    lattice passes in its native library and in numpy: label sequences
+    exactly, path costs to COST_RTOL."""
+    from kaldi_tpu import native as jnative
+    if backend == "native":
+        if jax_native_lib is None:
+            pytest.skip("no C++ compiler for the JAX package's library")
+        monkeypatch.delenv("KALDI_TPU_NO_NATIVE", raising=False)
+    monkeypatch.setattr(jnative, "_TRIED", True)
+    monkeypatch.setattr(jnative, "_LIB",
+                        jax_native_lib if backend == "native" else None)
     task, jtask, X, lens, _ = lv_task
     kw = dict(beam=13.0, max_active=300, acoustic_scale=1.0,
               lattice_beam=7.0, token_capacity=256, arc_budget=1024,
@@ -391,10 +438,12 @@ def test_host_methods_in_step_with_original(lv_task, beta):
                     jdec._decode_records(host, T, ll)):
         np.testing.assert_array_equal(a, b)
     assert tdec._backtrace(host, T) == jdec._backtrace(host, T)
-    assert tdec.build_compact_lattice(host, T, ll).paths() == \
-        jdec.build_compact_lattice(host, T, ll).paths()
-    assert _lattice_paths(tdec._build_lattice(host, T, ll)) == \
-        _lattice_paths(jdec._build_lattice(host, T, ll))
+    _same_paths(tdec.build_compact_lattice(host, T, ll).paths(),
+                jdec.build_compact_lattice(host, T, ll).paths())
+    _same_paths(sorted(_lattice_paths(tdec._build_lattice(host, T,
+                                                          ll)).items()),
+                sorted(_lattice_paths(jdec._build_lattice(host, T,
+                                                          ll)).items()))
     # the port's own device records decode to the same fields
     thost = tdec._decode_host(ll[None], [T], lattice=True)[0]
     for a, b in zip(tdec._decode_records(thost, T, ll),

@@ -5,17 +5,20 @@ JAX package's, on the CPU at a tiny size.
   ``phrase_texts``, ``render_dataset``) equal the original's bit for
   bit.
 * ``run`` end to end (mono → tri3b-SAT → left-biphone chain → chain +
-  online i-vectors → 4-gram rescore → MBR) at vocab 40, 16 train / 2
-  test utterances, 400 LM sentences, one chain epoch, against JAX's
-  ``run`` with ``with_ivector=True, with_rnnlm=False``.  Both are fed the JAX
+  online i-vectors → 4-gram rescore → RNNLM rescore → MBR) at vocab 40,
+  16 train / 2 test utterances, 400 LM sentences, one chain epoch,
+  against JAX's ``run`` at its defaults (``with_ivector`` and
+  ``with_rnnlm`` on).  Both are fed the JAX
   package's base features (MFCC + CMVN), as the mini ladder's test does,
   and both decode in batches of 2 (the batch size changes no result)
   at run's default arc budget, 4096 (a binding budget amplifies float32
   differences of the log-likelihoods through its cutoff).
   The trained models cross from the JAX run: each GMM stage's model as
-  a ``.mdl`` file with its alignments, and both chain models' weights
-  in the order they were trained (``am/tdnn.py`` ``params_from_flax``).  Training parity is held in
-  tests/test_torch_{recipes,tri,gmm_train,chain_train}.py; here, at 6–12
+  a ``.mdl`` file with its alignments, both chain models' weights
+  in the order they were trained (``am/tdnn.py`` ``params_from_flax``)
+  and the RNNLM's trained weights (``lm/rnnlm.py`` ``params_from_flax``).
+  Training parity is held in tests/test_torch_{recipes,tri,gmm_train,
+  chain_train,rnnlm}.py; here, at 6–12
   frames a Gaussian, mix-up's discrete choices amplify float32
   summation-order differences (two weights of 4/23 come out 0.17391304
   and 0.17391305, and the split heap breaks the tie the other way), so
@@ -23,12 +26,14 @@ JAX package's, on the CPU at a tiny size.
   trainings runs on the port's side: alignment, LDA, MLLT and its
   model transform, fMLLR, the alignment model, graphs, decodes, the
   two-pass fMLLR decode, the chain tree, den graph and egs, rescoring
-  and MBR, and the i-vector rung's UBM, extractor EM and online
-  i-vectors (am/ivector.py in float64).  The records have the same
-  rungs, graph sizes and chain leaves; the mono-GMM and tri3b-SAT rungs
-  the same WER, oracle WER and density; the chain decode, the i-vector
-  rung, the 4-gram rescore and MBR the same WERs; the i-vector rung's
-  augmented training features are the JAX run's to float32 rounding.
+  (the RNNLM's scorer included) and MBR, and the i-vector rung's UBM,
+  extractor EM and online i-vectors (am/ivector.py in float64).  The
+  records have the same rungs, graph sizes and chain leaves; the
+  mono-GMM and tri3b-SAT rungs the same WER, oracle WER and density;
+  the chain decode, the i-vector rung, the 4-gram rescore and MBR the
+  same WERs; the RNNLM rung the reference's record keys, WER, oracle
+  WER, LM scale and delta; the i-vector rung's augmented training
+  features are the JAX run's to float32 rounding.
 * ``build_chain_tree`` inside both runs: the same alignments in, the
   same tree out.
 """
@@ -40,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+import kaldi_tpu.lm.rnnlm as jrnnlm
 import kaldi_tpu.pipelines.chain as jchain
 import kaldi_tpu.pipelines.hard as jhard
 import kaldi_tpu.pipelines.mini as jmini
@@ -50,6 +56,7 @@ from kaldi_tpu.pipelines import flagship as jflag
 import kaldi_tpu_torch.pipelines.chain as tchain
 from kaldi_tpu_torch.am.serialize import read_mdl as t_read_mdl
 from kaldi_tpu_torch.am.tdnn import params_from_flax
+from kaldi_tpu_torch.lm import rnnlm as trnnlm
 from kaldi_tpu_torch.pipelines import flagship as tflag
 from kaldi_tpu_torch.pipelines.mono import MonoModel as TMonoModel
 from kaldi_tpu_torch.pipelines.tri import TriModel as TTriModel
@@ -127,7 +134,8 @@ def jax_run(tmp_path_factory):
     """JAX's run at SMALL, recording its base features, each GMM stage's
     model (a .mdl file, written as the trainer returns it) and
     alignments, its chain tree's inputs and output, the features of each
-    chain egs call and both trained chain models' weights, in order."""
+    chain egs call, both trained chain models' weights, in order, and
+    the trained RNNLM's weights and training arguments."""
     mdl_dir = tmp_path_factory.mktemp("flagship_mdl")
     rec = {"feats": {}, "gmm": [], "chain": []}
 
@@ -172,12 +180,21 @@ def jax_run(tmp_path_factory):
 
         mp.setattr(jmini, "base_feats", feats)
         mp.setattr(jchain.ChainTrainer, "train", train_and_keep)
+        train_lm = jrnnlm.train_rnnlm
+
+        def train_lm_and_keep(sents, cfg, **kw):
+            params, model = train_lm(sents, cfg, **kw)
+            rec["rnnlm"] = (jax.tree_util.tree_map(np.asarray, params),
+                            cfg, [list(x) for x in sents], kw)
+            return params, model
+
+        mp.setattr(jrnnlm, "train_rnnlm", train_lm_and_keep)
         _record_tree(mp, jchain, rec)
         _record_egs_feats(mp, jchain, rec)
         mp.setattr(jhard, "decode_eval",
                    functools.partial(jhard.decode_eval, batch=2,
                                      bucket=32))
-        results = jflag.run(with_ivector=True, with_rnnlm=False, **SMALL)
+        results = jflag.run(**SMALL)
     return results, rec
 
 
@@ -186,7 +203,8 @@ def port_run(jax_run):
     """The port's run at SMALL on the JAX run's base features, each
     training stage returning the JAX run's model (read from its .mdl)
     and alignments, each chain training the JAX run's trained weights of
-    the same rung."""
+    the same rung, the RNNLM's training the JAX run's RNNLM (after
+    checking it was asked for the same training)."""
     _, jrec = jax_run
     rec = {"prev_ali": []}
     stages = iter(jrec["gmm"])
@@ -220,6 +238,17 @@ def port_run(jax_run):
                     "objf": float(final["objf"])}
 
         mp.setattr(tchain.ChainTrainer, "train", train_from_jax)
+
+        def train_lm_from_jax(sents, cfg, device="cuda", stats=None, **kw):
+            params, jcfg, jsents, jkw = jrec["rnnlm"]
+            rec["rnnlm_args"] = ([list(x) for x in sents], cfg, kw,
+                                 jsents, jcfg, jkw)
+            model = trnnlm.RnnLm(cfg)
+            model.load_state_dict(trnnlm.params_from_flax(params))
+            stats.update(steps=0, nll=float("nan"), train_s=0.0)
+            return model.to(device)
+
+        mp.setattr(tflag, "train_rnnlm", train_lm_from_jax)
         _record_tree(mp, tflag, rec)
         _record_egs_feats(mp, tflag, rec)
         mp.setattr(tflag, "decode_eval",
@@ -242,7 +271,7 @@ def test_run_has_the_same_rungs(jax_run, port_run):
     want, got = jax_run[0], port_run[0]
     assert [r["system"] for r in got] == [r["system"] for r in want] == [
         "mono-gmm", "tri3b-sat", "chain-tdnn", "chain-tdnn+ivec",
-        "chain+4gram-rescore", "chain+4gram+mbr"]
+        "chain+4gram-rescore", "chain+rnnlm-rescore", "chain+4gram+mbr"]
     for g, w in zip(got, want):
         assert g["metric"] == w["metric"] == "flagship_results"
         assert g.get("graph_states") == w.get("graph_states")
@@ -273,7 +302,7 @@ def test_chain_tree_matches_jax(jax_run, port_run):
                     jtree.compute([left, ph], pc), (left, ph, pc)
 
 
-@pytest.mark.parametrize("rung", [2, 4, 5], ids=["chain-tdnn",
+@pytest.mark.parametrize("rung", [2, 4, 6], ids=["chain-tdnn",
                                                  "chain+4gram-rescore",
                                                  "chain+4gram+mbr"])
 def test_chain_rungs_match_jax_with_its_weights(jax_run, port_run, rung):
@@ -313,3 +342,29 @@ def test_ivector_rung_features_match_jax(jax_run, port_run):
     # the i-vector columns are not all zero past the first period
     assert max(float(np.abs(f[10:, -16:]).max()) for f in tf[1].values()
                if f.shape[0] > 10) > 1e-3
+
+
+def test_rnnlm_rung_is_trained_as_the_original(jax_run, port_run):
+    """The port asks for the RNNLM the JAX run trained: the same
+    sentences (the first 8000 of the LM text as word ids), config
+    (vocab, E 96, H 192) and training arguments (12 epochs, B 64,
+    lr 4e-3, K = min(512, V), the seed, <s> and </s>)."""
+    sents, cfg, kw, jsents, jcfg, jkw = port_run[1]["rnnlm_args"]
+    assert sents == jsents
+    assert (cfg.vocab_size, cfg.embed_dim, cfg.hidden_dim) == \
+        (jcfg.vocab_size, jcfg.embed_dim, jcfg.hidden_dim)
+    assert (jcfg.embed_dim, jcfg.hidden_dim) == (96, 192)
+    assert kw == jkw
+
+
+@pytest.mark.parametrize("key", ["wer", "oracle_wer", "lm_scale",
+                                 "wer_delta_vs_trigram"])
+def test_rnnlm_rung_matches_jax_with_its_weights(jax_run, port_run, key):
+    """The chain+rnnlm-rescore rung, rescoring the chain lattices with the
+    JAX run's RNNLM through the port's scorer, scores as the JAX run's,
+    under the same record keys."""
+    want, got = jax_run[0][5], port_run[0][5]
+    assert got["system"] == want["system"] == "chain+rnnlm-rescore"
+    assert sorted(got) == sorted(want)
+    assert got[key] == want[key], key
+    assert got["oracle_wer"] <= got["wer"]

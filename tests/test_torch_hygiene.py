@@ -1,15 +1,16 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
 * No module of ``kaldi_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``kaldi_tpu``, ``jax`` or ``flax``, at top level or inside a function
-  (an AST walk of every file).
+  ``kaldi_tpu``, ``jax``, ``flax``, ``optax`` or ``msgpack``, at top
+  level or inside a function (an AST walk of every file; lm/, the
+  msgpack codec and the copied lattice modules among them).
 * The host modules the port copied from the JAX package name their
   original, and build the same graphs: the port's and the JAX package's
   builders give equal CSR arrays on seeded tasks.
 * Every entry point defaults to ``device="cuda"``; without a card it
   raises before doing any work.
-* The flagship's rung that is not ported yet raises, naming the ROADMAP
-  item that brings it; the i-vector rung runs by default.
+* The flagship runs its i-vector and RNNLM rungs by default, and the
+  guards that raised on them are gone.
 * am/ivector.py names its original on its first line, and each of its
   host copies (PLDA, clustering, silence weighting, the PLDA I/O) and
   ports names its original on the line above it.
@@ -32,7 +33,20 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "kaldi_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py"]
-FORBIDDEN = ("kaldi_tpu", "jax", "flax")
+FORBIDDEN = ("kaldi_tpu", "jax", "flax", "optax", "msgpack")
+
+
+@pytest.mark.parametrize("path", ["kaldi_tpu_torch/lm/__init__.py",
+                                  "kaldi_tpu_torch/lm/rnnlm.py",
+                                  "kaldi_tpu_torch/core/msgpack.py",
+                                  "kaldi_tpu_torch/lattice/ops.py",
+                                  "kaldi_tpu_torch/lattice/word_align.py",
+                                  "kaldi_tpu_torch/lattice/phone_align.py",
+                                  "kaldi_tpu_torch/lattice/ctm.py"])
+def test_the_import_check_covers(path):
+    """The RNNLM, its msgpack codec and the copied lattice modules are
+    among the files the import check walks."""
+    assert path in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -62,7 +76,8 @@ COPIED = {
     "native/lattice_build.cpp", "native/lattice_det.cpp",
     "features/pitch.py", "features/resample.py", "pipelines/data.py",
     "fst/context.py", "lattice/functions.py", "decoder/training_graph.py",
-    "lattice/rescore.py"}
+    "lattice/rescore.py", "lattice/ops.py", "lattice/word_align.py",
+    "lattice/phone_align.py", "lattice/ctm.py"}
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -120,7 +135,10 @@ def _entry_points():
     from kaldi_tpu_torch.pipelines.tri import train_tri
     from kaldi_tpu_torch.pipelines import flagship, hard
     from kaldi_tpu_torch.am import ivector
-    return dict(IvectorExtractor=ivector.IvectorExtractor,
+    from kaldi_tpu_torch.lm import rnnlm
+    return dict(train_rnnlm=rnnlm.train_rnnlm, load_rnnlm=rnnlm.load_rnnlm,
+                RnnLmScorer=rnnlm.RnnLmScorer,
+                IvectorExtractor=ivector.IvectorExtractor,
                 train_diag_ubm=ivector.train_diag_ubm,
                 read_ivector_extractor=ivector.read_ivector_extractor,
                 compute_vad_energy=ivector.compute_vad_energy,
@@ -147,7 +165,8 @@ ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
                 "train_mono", "train_tri", "yesno_run", "mini_run",
                 "decode_eval", "run_point", "run_sweep", "flagship_run",
                 "flagship_align", "IvectorExtractor", "train_diag_ubm",
-                "read_ivector_extractor", "compute_vad_energy"]
+                "read_ivector_extractor", "compute_vad_energy",
+                "train_rnnlm", "load_rnnlm", "RnnLmScorer"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -175,6 +194,7 @@ def test_without_a_card_construction_raises(monkeypatch):
     on the CPU."""
     from kaldi_tpu_torch.am.tdnn import TdnnConfig
     from kaldi_tpu_torch.core.logging import KaldiError
+    from kaldi_tpu_torch.lm.rnnlm import RnnLm, RnnLmConfig
     from test_torch_beam import PORT, yesno_graph
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     eps = _entry_points()
@@ -209,25 +229,23 @@ def test_without_a_card_construction_raises(monkeypatch):
                                              np.ones(2) / 2, 2),
              lambda: eps["train_diag_ubm"]([np.zeros((4, 3))], num_gauss=2),
              lambda: eps["read_ivector_extractor"]("never.read"),
-             lambda: eps["compute_vad_energy"](np.zeros((4, 3)))]
+             lambda: eps["compute_vad_energy"](np.zeros((4, 3))),
+             lambda: eps["train_rnnlm"]([[3, 4]], RnnLmConfig(8, 4, 4)),
+             lambda: eps["load_rnnlm"]("never.read"),
+             lambda: eps["RnnLmScorer"](RnnLm(RnnLmConfig(8, 4, 4)),
+                                        lang.words)]
     for call in calls:
         with pytest.raises(KaldiError, match="no CUDA card"):
             call()
 
 
-@pytest.mark.parametrize("option,item", [
-    ("with_rnnlm", "ROADMAP Queue 1 item 5: the flagship's RNNLM rung "
-                   "needs lm/rnnlm.py")])
-def test_flagship_unported_rungs_name_their_roadmap_item(option, item):
-    """``run(with_rnnlm=True)`` raises at once (on any device), naming
-    the ROADMAP item; it defaults off."""
-    from kaldi_tpu_torch.core.logging import KaldiError
+def test_flagship_runs_the_rnnlm_rung_by_default():
+    """``with_rnnlm`` defaults to True, as in the original, and the guard
+    that raised on it (``RNNLM_ITEM``) is gone."""
     from kaldi_tpu_torch.pipelines import flagship
-    assert inspect.signature(flagship.run).parameters[option].default \
-        is False
-    with pytest.raises(KaldiError) as e:
-        flagship.run(device="cpu", **{option: True})
-    assert item in str(e.value)
+    assert inspect.signature(flagship.run).parameters[
+        "with_rnnlm"].default is True
+    assert not hasattr(flagship, "RNNLM_ITEM")
 
 
 def test_flagship_runs_the_ivector_rung_by_default():
