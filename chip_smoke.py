@@ -128,7 +128,8 @@ Phases (each prints lines; any failure raises and exits non-zero):
         WER is above 0 and tri3b's at most mono's;
      c. at the tri3b width (2500 pdfs, 15,000 Gaussians, D = 40):
         accumulate_stats over 32,768 seeded frames, the card against the
-        port's CPU at rtol 1e-4, timed; mle_update and mixup to 18,000
+        port's CPU at rtol 1e-4, timed, then twice under sync debug mode
+        "error", the two equal to the bit; mle_update and mixup to 18,000
         Gaussians; DenseAligner over 32 sentences of phase 6c's 300-word
         task, under sync debug mode "error", its tids equal to the CPU
         aligner's on the same log-likelihoods, timed, with its kernels a
@@ -202,7 +203,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
         CPU (at the end of a's shell): the same words; the streamed
         i-vector-appended features equal the offline assembly.
      11c's and 13c's tools go in the background after 11a's rung, b's card
-     run after 12a's check.
+     run after 12a's check; 14c's with 11c's and 13c's.
  13. the flagship's RNNLM rung on the card (11a's run):
      a. at the rung's widths on seeded weights, the card against the
         port's CPU: the forward on one batch of 64 LM sentences, one
@@ -220,9 +221,41 @@ Phases (each prints lines; any failure raises and exits non-zero):
         the tool's model on the card, and arpa-to-const-arpa →
         lattice-lmrescore-const-arpa on the 4-gram, equal to rescoring
         with the ARPA text.
+ 14. chain training on lattice and end-to-end supervision
+     (am/chain_supervision.py) and the Kaldi chain recipes as tools:
+     a. phase 8b's 48 utterances and phone alignments as alignment
+        lattices of 3 paths (the alignment; every boundary moved by a
+        seeded ±1–2 frames; one phone substituted), the bench den's
+        normalization weights composed in, cut into chunks of 50
+        subsampled frames: the FSA numerator (tolerance 1) at B = 128 on
+        the card against the port's CPU (log-probs rtol 1e-5 / atol
+        1e-5, d/d scores rtol 1e-4 / atol 1e-5), num ≤ den + 1e-3 on the
+        whole-utterance FSAs on the card, the FSAs' arc and state counts,
+        the forward + backward's time on the card (one call as a CUDA
+        graph launch, graph_ms) and its launches a call;
+     b. ChainTrainer with NG-SGD on a's egs at phase 8b's TDNN-F: 10 steps
+        each at float32 B = 32 and bfloat16 B = 128, Mframes/s under
+        lat_f32_B32_Mframes_s and lat_bf16_B128_Mframes_s beside 8b's, the
+        kernels and busy card time a step (2 steps profiled), every
+        objective finite, then one float32 step at B = 4 on the card
+        equal to the port's CPU step (8b's rule);
+     c. (in the background from 11a's rung until before 13a, with 11c
+        and 13c; two threads a process) ``python -m
+        kaldi_tpu_torch.pipelines.chain_cli_recipe`` at its defaults (40
+        / 12 utterances, 8 mono iterations, 8 chain epochs, hidden 48;
+        every stage a port tool, on the card where it computes): each
+        stage's wall and the WER, exit 0 (WER < 20); on its work dir
+        ali-to-phones → nnet3-chain-e2e-get-egs → nnet3-chain-compute-prob
+        → nnet3-chain-train (free boundaries, 2 epochs) →
+        compute-prob, finite and better after; chain-get-supervision's
+        FSAs equal to supervision_from_phone_runs, the recipe's
+        nnet3-chain-get-egs archive equal to make_chain_egs in process;
+        beside them ``python -m kaldi_tpu_torch.pipelines.chain_recipe``
+        at its defaults (50 utterances, 40 epochs, hidden 128), exit 0.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
-kernels' JSON record: launches on the paths, the largest difference from
+kernels' JSON record: launches on the paths (the den's include 14b's
+training), the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
 forward + backward at phase 8a's B = 128) and the
@@ -1112,7 +1145,8 @@ def phone_runs(rng, n_frames: int, phones):
 def chain_egs(dev, topo, tree, den, n_waves: int):
     """Seeded waveforms → Fbank (the fbank kernel, 40 bins) → egs of
     CHAIN_T frames with seeded phone alignments and the den's
-    normalization weights.  → (egs, fbank computer)."""
+    normalization weights.  → (egs, fbank computer, seconds of audio,
+    features, phone runs)."""
     from kaldi_tpu_torch.features.compute import Fbank, FbankOptions
     from kaldi_tpu_torch.features.mel import MelBanksOptions
     from kaldi_tpu_torch.pipelines.chain import make_chain_egs
@@ -1126,7 +1160,7 @@ def chain_egs(dev, topo, tree, den, n_waves: int):
             for u, f in feats.items()}
     egs = make_chain_egs(feats, runs, tree, topo, chunk_size=CHAIN_T,
                          subsample=3, den=den)
-    return egs, fb, sum(len(w) for w in waves) / SAMP_FREQ
+    return egs, fb, sum(len(w) for w in waves) / SAMP_FREQ, feats, runs
 
 
 def tdnn_config(P: int, dtype: str = "float32", hidden: int = 1024,
@@ -1140,10 +1174,15 @@ def tdnn_config(P: int, dtype: str = "float32", hidden: int = 1024,
 
 
 def chain_train_points(dev, den, egs, P: int, tag: str,
-                       points=CHAIN_POINTS, steps: int = 30, **width):
-    """8b: NG-SGD training steps of ChainTrainer at each (B, dtype),
+                       points=CHAIN_POINTS, steps: int = 30,
+                       key_prefix: str = "", profile_steps: int = 0,
+                       **width):
+    """8b (14b): NG-SGD training steps of ChainTrainer at each (B, dtype),
     after 3 warm steps; Mframes/s of input frames over ``steps`` steps
-    between two synchronizes.  → {key: Mframes/s}."""
+    between two synchronizes; with ``profile_steps``, that many more
+    steps under torch.profiler for the kernels and busy card time a
+    step.  → {key: Mframes/s}."""
+    from kaldi_tpu_torch.tools.timing import profiled
     from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
     N = egs.feats.shape[0]
     out = {}
@@ -1160,20 +1199,36 @@ def chain_train_points(dev, den, egs, P: int, tag: str,
             tr._step(*batches[i % 4])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        objf = []
         for i in range(steps):
             loss, diag = tr._step(*batches[i % 4])
+            objf.append(diag["objf"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        key = f"{'f32' if dtype == 'float32' else 'bf16'}_B{B}_Mframes_s"
-        out[key] = B * CHAIN_T * steps / wall / 1e6
+        key = (f"{key_prefix}{'f32' if dtype == 'float32' else 'bf16'}"
+               f"_B{B}_Mframes_s")
+        out[key] = B * egs.feats.shape[1] * steps / wall / 1e6
         params = sum(p.numel() for p in tr.model.parameters())
-        if not math.isfinite(float(loss)):
-            raise AssertionError(f"{key}: loss {float(loss)}")
+        if not (math.isfinite(float(loss))
+                and bool(torch.stack(objf).isfinite().all())):
+            raise AssertionError(f"{key}: loss {float(loss)}, objf "
+                                 f"{torch.stack(objf).tolist()}")
         print(f"train: B={B} {dtype}: {steps} NG-SGD steps in {wall:.3f} s "
               f"= {1e3 * wall / steps:.2f} ms a step, {out[key]:.4f} "
               f"Mframes/s ({params / 1e6:.2f}M params, den "
               f"{den.num_states} states); loss {float(loss):.4f}, objf "
               f"{float(diag['objf']):.4f} {tag}")
+        if profile_steps:
+            def run_steps():
+                for i in range(profile_steps):
+                    tr._step(*batches[i % 4])
+                torch.cuda.synchronize()
+            pwall, n_k, busy, _ = profiled(run_steps)
+            print(f"train: B={B} {dtype}: {profile_steps} steps profiled: "
+                  f"{n_k / profile_steps:.0f} kernels and "
+                  f"{busy / profile_steps:.2f} ms of busy card a step, "
+                  f"{pwall / profile_steps:.2f} ms "
+                  f"wall a step ({100 * busy / pwall:.1f}% busy) {tag}")
     return out
 
 
@@ -1947,6 +2002,15 @@ def tri3b_training(dev, task, tag: str):
     x = torch.from_numpy(feats).to(dev)
     p = torch.from_numpy(pdfs).to(dev)
     acc_ms = device_ms(lambda: accumulate_stats_device(am, x, p), 5)
+    # the sums by pdf need no host sync, and two calls sum in one order
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    runs = [accumulate_stats_device(am, x, p) for _ in range(2)]
+    torch.cuda.set_sync_debug_mode(0)
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("accumulate_stats_device: two calls differ")
+    print("train: accumulate_stats_device ran twice under sync debug mode "
+          "'error': no host sync, the two calls equal to the bit")
     print(f"train: accumulate_stats at the tri3b width ({am.num_pdfs} pdfs, "
           f"{am.num_gauss()} Gaussians, D={am.dim}) over {T} frames: card vs "
           f"the port's CPU accumulators at most {worst:.3f} of the limit "
@@ -2157,8 +2221,9 @@ CHAIN_CHECK_TOL = 1e-4
 CHAIN_CHECK_SAME = 15
 # 11b: the hard corpus at HARDBENCH_r05's noise-1.0 point (20,000 words,
 # noise 1.0, peak 4.0, up to 16 words) on 80 utterances (r5 ran 1200;
-# cut so that the whole script, with its i-vector and RNNLM phases and
-# every decode's card time, stays near its time budget), at the default
+# cut so that the whole script, with its i-vector, RNNLM and lattice-
+# supervision phases and every decode's card time, stays near its time
+# budget), at the default
 # and the loosest arc budget, both with escalation to 16384
 HARD_TASK = dict(vocab=20000)
 HARD_EVAL = dict(n_utts=80, noise=1.0, peak=4.0, max_words=16)
@@ -2195,7 +2260,7 @@ def check_path_loglikes_f64(am, xs, what: str) -> float:
     d = {n: getattr(k, n).double() for n in ("gconst", "mean_invvar",
                                              "inv_var")}
     P, M, D = d["mean_invvar"].shape
-    err, share, plain_share = 0.0, 0.0, 0.0
+    err, share, plain_share, plain_err = 0.0, 0.0, 0.0, 0.0
     for x in xs:
         x = torch.as_tensor(x, dtype=torch.float32).to(k.device)
         x64 = x.double()
@@ -2211,6 +2276,7 @@ def check_path_loglikes_f64(am, xs, what: str) -> float:
         bar = GMM_TOL + GMM_TOL * exact.abs() + GMM_TERMS_TOL * S
         got, plain = k(x).double(), k.reference(x).double()
         err = max(err, float((got - exact).abs().max()))
+        plain_err = max(plain_err, float((plain - exact).abs().max()))
         share = max(share, float(((got - exact).abs() / bar).max()))
         plain_share = max(plain_share,
                           float(((plain - exact).abs() / bar).max()))
@@ -2218,7 +2284,9 @@ def check_path_loglikes_f64(am, xs, what: str) -> float:
           f"|diff| {err:.3e}, at most {share:.3f} of the limit {GMM_TOL:g} + "
           f"{GMM_TOL:g}·|f64| + 2^-18·S (S the terms' magnitudes, up to "
           f"{float(S.max()):.3e}); the plain float32 version at most "
-          f"{plain_share:.3f} of it")
+          f"{plain_share:.3f} of it; max |diff| from float64: kernel "
+          f"{err:.3e}, plain float32 {plain_err:.3e} (kernel / plain "
+          f"{err / max(plain_err, 1e-30):.2f})")
     if not share <= 1.0:
         raise AssertionError(f"{what}: GMM kernel disagrees on the path")
     return err
@@ -3409,6 +3477,336 @@ def rnnlm_tools_finish(dev, sysm, started, tag: str) -> None:
                              f"{on_card}")
 
 
+# phase 14: lattice and end-to-end supervision.  14a's bars are the
+# flexible numerator's parity bars (tests/test_torch_chain.py): log-probs
+# rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol 1e-5
+LAT_T_SUB = CHAIN_T // 3    # chunks of 50 subsampled frames
+LAT_B = 128
+LAT_TOL = 1
+LAT_VAL_RTOL, LAT_VAL_ATOL = 1e-5, 1e-5
+LAT_GRAD_RTOL, LAT_GRAD_ATOL = 1e-4, 1e-5
+# 14a's whole-utterance check, as tests/test_chain_supervision.py's: the
+# normalization-weighted numerator is a weighted subset of the den's
+# paths, so num <= den (no leak) up to float32 rounding
+LAT_NUM_DEN_SLACK = 1e-3
+LAT_POINTS = ((32, "float32"), (128, "bfloat16"))
+LAT_STEPS, LAT_PROFILE_STEPS = 10, 2
+
+
+def _moved_boundaries(rng, runs):
+    """The same phones with every boundary moved by a seeded ±1–2 frames
+    (each phone keeps at least one frame)."""
+    total = sum(d for _, d in runs)
+    b = np.cumsum([d for _, d in runs])[:-1]
+    b = b + rng.choice([-2, -1, 1, 2], len(b))
+    for i in range(len(b)):
+        lo = (b[i - 1] if i else 0) + 1
+        hi = total - (len(b) - i)
+        b[i] = min(max(b[i], lo), hi)
+    d = np.diff(np.concatenate([[0], b, [total]]))
+    return [(ph, int(n)) for (ph, _), n in zip(runs, d)]
+
+
+def _substituted(rng, runs, phones):
+    """The same durations with one seeded phone replaced by another that
+    neither neighbour has."""
+    out = list(runs)
+    i = int(rng.integers(len(runs)))
+    near = {runs[j][0] for j in (i - 1, i, i + 1) if 0 <= j < len(runs)}
+    ph = int(rng.choice([p for p in phones if p not in near]))
+    out[i] = (ph, runs[i][1])
+    return out
+
+
+def alignment_lattices(topo, tree, runs, seed: int):
+    """14a: each utterance's phone alignment → a CompactLattice of three
+    word arcs (graph costs 0, 0.5, 1): the alignment, every boundary
+    moved by a seeded ±1–2 frames, and one phone substituted
+    (tests/test_chain_supervision.py's two_alt_lattice builds them).
+    → (transition model, utt → lattice)."""
+    from kaldi_tpu_torch.am.transitions import TransitionModel
+    from kaldi_tpu_torch.lattice.lattice import CompactArc, CompactLattice
+    tm = TransitionModel(topo, tree)
+    fwd, slf = {}, {}
+    for tid in range(1, tm.num_transition_ids + 1):
+        (slf if tm.is_self_loop(tid) else fwd).setdefault(
+            tm.transition_id_to_phone(tid), tid)
+    rng = np.random.default_rng(seed)
+    lats = {}
+    for u, r in runs.items():
+        clat = CompactLattice()
+        s0, s1 = clat.add_state(), clat.add_state()
+        clat.start = s0
+        for cost, path in ((0.0, r), (0.5, _moved_boundaries(rng, r)),
+                           (1.0, _substituted(rng, r, topo.phones))):
+            tids = []
+            for ph, d in path:
+                tids.extend([fwd[ph]] + [slf[ph]] * (d - 1))
+            clat.arcs[s0].append(CompactArc(1, cost, 0.0, tuple(tids), s1))
+        clat.finals[s1] = (0.0, 0.0, ())
+        lats[u] = clat
+    return tm, lats
+
+
+def _within(got, want, rtol, atol) -> float:
+    """max |got − want| / (atol + rtol·|want|): at most 1 within the bar."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def lattice_numerator(dev, topo, tree, den, feats, runs, tag: str):
+    """14a: phase 8b's utterances and alignments as 3-path alignment
+    lattices with the bench den's normalization weights, cut into chunks
+    of LAT_T_SUB subsampled frames; the FSA numerator on the card
+    against the port's CPU at B = LAT_B chunks, tolerance LAT_TOL (log-
+    probs and d/d scores), num <= den on the whole-utterance FSAs on the
+    card, and the forward + backward's time (one call as a CUDA graph
+    launch, graph_ms) and launches a call.  → (chunk egs, stats)."""
+    from kaldi_tpu_torch.am.chain import denominator_logprob
+    from kaldi_tpu_torch.am.chain_supervision import (
+        make_chain_egs_from_lattices, numerator_fsa_logprob, sup_to_device)
+    from kaldi_tpu_torch.tools.timing import graph_ms, profiled
+    t0 = time.perf_counter()
+    tm, lats = alignment_lattices(topo, tree, runs, SEED + 14)
+    whole = make_chain_egs_from_lattices(feats, lats, tm, tree, topo,
+                                         subsample=3, den=den)
+    egs = make_chain_egs_from_lattices(feats, lats, tm, tree, topo,
+                                       subsample=3, den=den,
+                                       chunk_size=LAT_T_SUB)
+    build_s = time.perf_counter() - t0
+    N, T_sub = egs.mask.shape
+    if N < LAT_B or T_sub != LAT_T_SUB:
+        raise AssertionError(f"{N} lattice egs of {T_sub} frames")
+    ws, cs = whole.sup, egs.sup
+    print(f"lattice: {len(lats)} utterances → 3-path alignment lattices → "
+          f"whole-utterance FSAs with the den's normalization weights: "
+          f"arcs {int(ws['n_arcs'].min())}-{int(ws['n_arcs'].max())} (mean "
+          f"{float(ws['n_arcs'].mean()):.1f}), states "
+          f"{int(ws['n_states'].min())}-{int(ws['n_states'].max())}, "
+          f"{int(ws['num_frames'].min())}-{int(ws['num_frames'].max())} "
+          f"subsampled frames; {N} chunks of {T_sub}: arcs "
+          f"{int(cs['n_arcs'].min())}-{int(cs['n_arcs'].max())} (padded "
+          f"to {cs['src'].shape[1]}), states up to {cs['bt'].shape[1]}, "
+          f"{int(cs['mid_start'].sum())} start and {int(cs['mid_end'].sum())}"
+          f" end mid-utterance (host build {build_s:.1f} s)")
+    P = tree.num_pdfs
+    rng = np.random.default_rng(SEED + 15)
+    scores = torch.from_numpy((2.0 * rng.standard_normal((LAT_B, T_sub, P)))
+                              .astype(np.float32))
+    rows = np.arange(LAT_B)
+    batch = {k: v[rows] for k, v in cs.items()}
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        sup = sup_to_device(batch, d)
+        s = scores.to(d).clone().requires_grad_(True)
+        v = numerator_fsa_logprob(s, sup, LAT_TOL)
+        v.sum().backward()
+        res[d.type] = (v.detach().cpu(), s.grad.cpu())
+    (vg, gg), (vc, gc) = res[dev.type], res["cpu"]
+    dv = _within(vg, vc, LAT_VAL_RTOL, LAT_VAL_ATOL)
+    dg = _within(gg, gc, LAT_GRAD_RTOL, LAT_GRAD_ATOL)
+    active = torch.from_numpy(egs.mask[rows])
+    rows_sum = float((gc.sum(dim=2) - active.float()).abs().max())
+    print(f"lattice: FSA numerator at B={LAT_B}, T={T_sub}, P={P}, "
+          f"tolerance {LAT_TOL}: the card vs the port's CPU: log-prob "
+          f"(range [{float(vc.min()):.1f}, {float(vc.max()):.1f}]) at most "
+          f"{dv:.3f} of the bar rtol {LAT_VAL_RTOL:g} / atol "
+          f"{LAT_VAL_ATOL:g}, d/d scores at most {dg:.3f} of rtol "
+          f"{LAT_GRAD_RTOL:g} / atol {LAT_GRAD_ATOL:g} (max |diff| "
+          f"{float((gg - gc).abs().max()):.3e}); gradient rows sum to 1 "
+          f"on the active frames (0 past them) within {rows_sum:.2e}")
+    if not (dv <= 1.0 and dg <= 1.0 and rows_sum <= 1e-3):
+        raise AssertionError("the FSA numerator on the card differs from "
+                             "the CPU")
+    # num <= den on the whole utterances, on the card (no leak)
+    B_w, T_w = whole.mask.shape
+    sw = torch.from_numpy((2.0 * rng.standard_normal((B_w, T_w, P)))
+                          .astype(np.float32)).to(dev)
+    mask_w = torch.from_numpy(whole.mask).to(dev)
+    with torch.no_grad():
+        num = numerator_fsa_logprob(sw, sup_to_device(ws, dev),
+                                    LAT_TOL).cpu()
+        dl = denominator_logprob(den, sw, mask=mask_w).cpu()
+    gap = float((num - dl).max())
+    print(f"lattice: whole-utterance FSAs on the card: num − den at most "
+          f"{gap:.4f} (limit {LAT_NUM_DEN_SLACK:g}) over {B_w} utterances "
+          f"of up to {T_w} subsampled frames")
+    if not gap <= LAT_NUM_DEN_SLACK:
+        raise AssertionError(f"the FSA numerator exceeds the den: {gap}")
+    # forward + backward on the card: its launches a call (torch.profiler
+    # on one call) and its time as one CUDA graph launch
+    sup = sup_to_device(batch, dev)
+    x = scores.to(dev)
+
+    def fwd_bwd():
+        s = x.clone().requires_grad_(True)
+        numerator_fsa_logprob(s, sup, LAT_TOL).sum().backward()
+        return s.grad
+
+    fwd_bwd()
+
+    def one():
+        fwd_bwd()
+        torch.cuda.synchronize()
+
+    _, n_k, busy, _ = profiled(one)
+    ms = min(graph_ms(fwd_bwd) for _ in range(2))
+    print(f"lattice: FSA numerator forward + backward at B={LAT_B}: "
+          f"{ms:.4f} ms on the card (best of 2 graph launches, graph_ms), "
+          f"{n_k} kernel launches a call ({busy:.4f} ms of kernels under "
+          f"the profiler) {tag}")
+    return egs, {"num_ms": ms, "num_launches": n_k, "num_err": dg}
+
+
+# 14c's work dir and the mono loop's last alignment in the CLI recipe (8
+# iterations, a realignment after every second)
+RECIPES_DIR = os.path.join("build", "chip_smoke_chain_recipes")
+RECIPE_ALI = "ali.8.ark"
+RECIPE_E2E_EPOCHS = 2
+
+
+def chain_recipes_start(dev):
+    """14c (in the background after 11a's rung, beside 11a's checks and
+    11c's and 13c's tools): the chain CLI recipe at its
+    defaults, then on its work dir ali-to-phones →
+    nnet3-chain-e2e-get-egs → nnet3-chain-compute-prob →
+    nnet3-chain-train (free boundaries, RECIPE_E2E_EPOCHS epochs) →
+    compute-prob, chain-get-supervision; in a second process beside
+    them the chain recipe at its defaults; each step's wall in ms.  →
+    (the tools' process, work dir, the chain recipe's process)."""
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    w = os.path.join(repo, RECIPES_DIR)
+    if os.path.isdir(w):
+        import shutil
+        shutil.rmtree(w)
+    os.makedirs(w)
+    c, e = os.path.join(w, "cli"), os.path.join(w, "e2e")
+    py = sys.executable
+    tool = f"{py} -m kaldi_tpu_torch.cli"
+    dv = f"--device={dev.type}"
+    ali = f"ark:{c}/exp/mono/{RECIPE_ALI}"
+    prob = (f"{tool} nnet3-chain-compute-prob {dv} --lm-order=2 "
+            f"--supervision-tolerance=$T {c}/exp/chain/0.mdl")
+    tail = f"ark:{e}/phones.ark ark:{e}/egs.ark"
+    timed = f"""set -e
+t() {{ l=$1; shift; s=$(date +%s%N); "$@"; echo "$l $(( ($(date +%s%N) - s) / 1000000 ))" >> {w}/walls.txt; }}
+"""
+    script = timed + f"""t chain_cli_recipe {py} -m kaldi_tpu_torch.pipelines.chain_cli_recipe --work-dir={c} {dv} > {w}/cli.out 2> {w}/cli.err
+mkdir -p {e}
+t ali-to-phones {tool} ali-to-phones {c}/exp/mono/final.mdl {ali} ark:{e}/phones.ark 2>> {w}/tools.err
+t nnet3-chain-e2e-get-egs {tool} nnet3-chain-e2e-get-egs {c}/exp/chain/0.mdl scp:{c}/mfcc/final_train.scp ark:{e}/phones.ark ark:{e}/egs.ark {e}/den.fst 2>> {w}/tools.err
+T=$({py} -c "from kaldi_tpu_torch.pipelines.egs_io import read_egs_ark; print(read_egs_ark('ark:{e}/egs.ark').mask.shape[1])" 2>> {w}/tools.err)
+echo $T > {e}/tolerance.txt
+t nnet3-chain-compute-prob {prob} {c}/exp/chain/0.raw {tail} > {e}/before.txt 2>> {w}/tools.err
+t nnet3-chain-train {tool} nnet3-chain-train {dv} --lm-order=2 --supervision-tolerance=$T --num-epochs={RECIPE_E2E_EPOCHS} --learning-rate=2e-3 {c}/exp/chain/0.mdl {c}/exp/chain/0.raw {tail} {e}/1.raw 2>> {w}/tools.err
+t nnet3-chain-compute-prob {prob} {e}/1.raw {tail} > {e}/after.txt 2>> {w}/tools.err
+t chain-get-supervision {tool} chain-get-supervision {c}/exp/mono/final.mdl {ali} ark:{e}/sup.ark 2>> {w}/tools.err
+"""
+    recipe = timed + (f"t chain_recipe {py} -m "
+                      f"kaldi_tpu_torch.pipelines.chain_recipe {dv} > "
+                      f"{w}/recipe.out 2> {w}/recipe.err\n")
+    # two threads a process: the flagship's checks run beside them
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(["bash", "-c", sh], cwd=repo, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for sh in (script, recipe)]
+    return procs[0], w, procs[1]
+
+
+def chain_recipes_finish(started, tag: str) -> None:
+    """14c: both recipes exited 0 (the CLI recipe's WER under 20: its exit
+    rule), the e2e tool chain trained to a finite, better objective, the
+    re-run ali-to-phones equals the recipe's, chain-get-supervision's
+    FSAs equal the library's supervision_from_phone_runs, and the
+    recipe's nnet3-chain-get-egs archive equals make_chain_egs in this
+    process."""
+    from kaldi_tpu_torch.am.chain import make_denominator_graph
+    from kaldi_tpu_torch.am.chain_supervision import \
+        supervision_from_phone_runs
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.tools_chain import (_pdfs_for_factory,
+                                                 _subsample_runs)
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    from kaldi_tpu_torch.pipelines.chain import (make_chain_egs,
+                                                 phone_alignment_runs)
+    from kaldi_tpu_torch.pipelines.egs_io import read_egs_ark
+    proc, w, rproc = started
+    t0 = time.perf_counter()
+    err = proc.communicate(timeout=900)[1]
+    rerr = rproc.communicate(timeout=900)[1]
+    waited = time.perf_counter() - t0
+
+    def text(name):
+        path = os.path.join(w, name)
+        return open(path).read() if os.path.exists(path) else ""
+
+    if proc.returncode != 0 or rproc.returncode != 0:
+        raise AssertionError(
+            f"14c failed ({proc.returncode}, {rproc.returncode}):\n"
+            f"{err[-2000:]}\n{rerr[-2000:]}\n"
+            f"{text('cli.err')[-2000:]}{text('tools.err')[-2000:]}"
+            f"{text('recipe.err')[-2000:]}")
+    for line in text("walls.txt").splitlines():
+        what, ms = line.split()
+        print(f"chain-recipes: {what}: {int(ms) / 1e3:.1f} s wall {tag}")
+    cli = text("cli.out").strip().splitlines()
+    print(f"chain-recipes: chain_cli_recipe (defaults: 40 / 12 utterances, 8 "
+          f"mono iterations, 8 chain epochs, hidden 48): {cli[-2]}; "
+          f"{cli[-1]} {tag}")
+    print(f"chain-recipes: chain_recipe (defaults: 50 utterances, 40 epochs,"
+          f" hidden 128): {text('recipe.out').strip().splitlines()[-1]} "
+          f"{tag}")
+    c, e = os.path.join(w, "cli"), os.path.join(w, "e2e")
+    before = float(text("e2e/before.txt").strip().splitlines()[-1])
+    after = float(text("e2e/after.txt").strip().splitlines()[-1])
+    tol = int(text("e2e/tolerance.txt"))
+    print(f"chain-recipes: e2e tools: nnet3-chain-compute-prob {before:.4f} "
+          f"→ nnet3-chain-train {RECIPE_E2E_EPOCHS} epochs at tolerance "
+          f"{tol} (the egs' largest subsampled length) → {after:.4f}")
+    if not (math.isfinite(before) and math.isfinite(after)
+            and after > before):
+        raise AssertionError(f"e2e chain tools: objf {before} → {after}")
+    with open(f"{e}/phones.ark", "rb") as a, \
+            open(f"{c}/exp/chain/phones.ark", "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("ali-to-phones differs from the recipe's")
+    mono, _ = read_mdl(f"{c}/exp/mono/final.mdl", device="cpu")
+    chain, _ = read_mdl(f"{c}/exp/chain/0.mdl", device="cpu")
+    alis = {k: v.tolist() for k, v in SequentialTableReader(
+        f"ark:{c}/exp/mono/{RECIPE_ALI}", holder="ivec")}
+    pf = _pdfs_for_factory(mono.tree, mono.topo)
+    n = 0
+    for key, eg in SequentialTableReader(f"ark:{e}/sup.ark", holder="ceg"):
+        r = _subsample_runs(phone_alignment_runs(mono, alis[key]), 3)
+        want = supervision_from_phone_runs(
+            [r], [0.0], lambda q: pf(q, True), lambda q: pf(q, False),
+            sum(d for _, d in r))
+        for f in ("src", "dst", "entry_pdf", "self_pdf", "weight", "bt",
+                  "final"):
+            if not np.array_equal(getattr(eg.fsa, f), getattr(want, f)):
+                raise AssertionError(f"chain-get-supervision {key}: {f}")
+        n += 1
+    feats = dict(SequentialTableReader(f"scp:{c}/mfcc/final_train.scp",
+                                       holder="mat"))
+    runs = {k: phone_alignment_runs(mono, alis[k]) for k in sorted(feats)}
+    den = make_denominator_graph([[q for q, _ in runs[k]] for k in runs],
+                                 chain.tree, chain.topo, order=3)
+    want = make_chain_egs(feats, runs, chain.tree, chain.topo,
+                          chunk_size=30, subsample=3, den=den)
+    got = read_egs_ark(f"ark:{c}/exp/chain/egs.raw.ark")
+    for f in ("feats", "pdf_ali", "mask", "entry_pdf", "self_pdf",
+              "num_segs", "entry_w", "self_w", "init_w", "final_w"):
+        g, wnt = getattr(got, f), getattr(want, f)
+        if f in ("entry_pdf", "self_pdf", "entry_w", "self_w"):
+            wnt = wnt[:, :g.shape[1]]
+        if not np.array_equal(g, wnt):
+            raise AssertionError(f"nnet3-chain-get-egs differs: {f}")
+    print(f"chain-recipes: chain-get-supervision: {n} FSAs equal to "
+          f"supervision_from_phone_runs; ali-to-phones equal to the recipe's;"
+          f" nnet3-chain-get-egs's {got.feats.shape[0]} egs equal to "
+          f"make_chain_egs in process (waited {waited:.1f} s for 14c)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3722,7 +4120,8 @@ def main() -> int:
     # 0) → the four training points
     dk.launches = 0
     t1 = time.perf_counter()
-    egs, cfb, egs_audio_s = chain_egs(dev, ctopo, ctree, cden, 48)
+    egs, cfb, egs_audio_s, cfeats, cruns = chain_egs(dev, ctopo, ctree,
+                                                     cden, 48)
     t_egs = time.perf_counter() - t1
     rates = chain_train_points(dev, cden, egs, P, tag)
     t_fb = cfb.kernel.launches
@@ -3775,12 +4174,14 @@ def main() -> int:
         f_fb, f_gm, f_den, f_results, fsys, f_wall = flagship_system(dev,
                                                                      tag)
         rnnlm_rung(f_results, fsys, tag)
-        # 11c's and 13c's tools run in the background from here, beside
-        # 11a's and 11d's checks, 12's and 12b's in-process checks
+        # 11c's, 13c's and 14c's tools run in the background from here,
+        # beside 11a's and 11d's checks, 12's and 12b's in-process checks
         lat_tools = lattice_tools_start(fsys)
         procs.append(lat_tools)
         rnn_tools = rnnlm_tools_start(fsys, lat_tools[1])
         procs.append(rnn_tools)
+        recipes = chain_recipes_start(dev)
+        procs += [recipes, recipes[2:]]
         flagship_graphs(f_results, fsys)
         f_fb_err, f_gm_err, f_den_err = flagship_kernels(dev, fsys, tag)
         flagship_card_vs_cpu(dev, fsys, tag)
@@ -3794,9 +4195,11 @@ def main() -> int:
         iv_fb = stream_ivectors(dev, waves, iv_tools[1], procs[-1], tag)
         lattice_tools_finish(fsys, lat_tools)
         rnnlm_tools_finish(dev, fsys, rnn_tools, tag)
-        print(f"ivectors: 12a's check, 12b, 11c's and 13c's checks took "
-              f"{time.perf_counter() - t1:.1f} s")
-        # 13a, 13b: the RNNLM on the card alone
+        chain_recipes_finish(recipes, tag)
+        print(f"ivectors: 12a's check, 12b, 11c's, 13c's and 14c's checks "
+              f"took {time.perf_counter() - t1:.1f} s")
+        # 13a, 13b: the RNNLM on the card alone (every background process
+        # has ended)
         t1 = time.perf_counter()
         rnnlm_card_vs_cpu(dev, fsys, tag)
         rnnlm_timing(dev, fsys, tag)
@@ -3811,6 +4214,27 @@ def main() -> int:
     hard_corpus(dev, tag)
     print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phases 11 and "
           f"12 {time.perf_counter() - t0:.1f} s")
+
+    # 14. chain training on lattice supervision: 14a the FSA numerator on
+    # phase 8b's utterances, 14b the trainer on its egs (the main path:
+    # the den kernels' count zeroed before it and read after)
+    t0 = time.perf_counter()
+    lat_egs, lat = lattice_numerator(dev, ctopo, ctree, cden, cfeats, cruns,
+                                     tag)
+    dk.launches = 0
+    lat_rates = chain_train_points(dev, cden, lat_egs, P, tag,
+                                   points=LAT_POINTS, steps=LAT_STEPS,
+                                   key_prefix="lat_",
+                                   profile_steps=LAT_PROFILE_STEPS)
+    lat_den = dk.launches
+    if lat_den <= 0:
+        raise AssertionError("lattice training launched no den kernel")
+    for key, v in lat_rates.items():
+        print(f"{key} {v:.4f} (phase 8b's {key[4:]}: {rates[key[4:]]:.4f}) "
+              f"{tag}")
+    print(f"train: lattice supervision: den kernel launches {lat_den}")
+    card_step_equals_cpu(dev, cden, lat_egs, P)
+    print(f"lattice: phase 14a and 14b took {time.perf_counter() - t0:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -3851,7 +4275,7 @@ def main() -> int:
         "replaces": "kaldi_tpu/am/chain.py:470",
         "note": "replaces an XLA program (lax.scan + jax.grad), not a "
                 "Pallas kernel; forward and backward kernels, ms for both",
-        "launches": den_launches + f_den,
+        "launches": den_launches + f_den + lat_den,
         "max_abs_err": max(den_err, f_den_err),
         "ms": den_ms, "plain_ms": den_plain_ms,
         "bound_ms": den_bnd[0], "bound_by": den_bnd[1],

@@ -14,9 +14,10 @@ in the other.  The device part is rewritten in PyTorch:
     segment logsumexp above) and takes its gradient from autograd.
   * ``numerator_logprob`` and ``numerator_flexible_logprob``: tensor ops
     with autograd (the flexible numerator is a shift + logaddexp scan).
-  * ``chain_objf``: −objf + l2·mean(scores²) and its diagnostics.  The
-    lattice-derived supervision (``num_fsa``, am/chain_supervision.py of
-    the original) is not ported yet and raises.
+  * ``chain_objf``: −objf + l2·mean(scores²) and its diagnostics; its
+    numerator is the fixed alignment, the flexible-boundary segment
+    chain (``num_graph``) or a lattice-derived / end-to-end supervision
+    FSA (``num_fsa``, am/chain_supervision.py).
 
 Parity targets of the original: src/chain/chain-training.h
 (ComputeChainObjfAndDeriv), chain-den-graph.h, chain-denominator.h
@@ -774,13 +775,17 @@ def chain_objf(den: DenominatorGraph, scores: torch.Tensor,
 
     num_graph = (entry_pdf, self_pdf, num_segs[, entry_w, self_w,
     init_w, final_w]) switches the numerator to the flexible-boundary
-    supervision FST; pdf_ali is ignored then.  num_fsa (lattice-derived
-    supervision) is not ported yet."""
-    if num_fsa is not None:
-        raise KaldiError("chain_objf: lattice-derived supervision FSAs "
-                         "(am/chain_supervision.py) are not ported yet")
+    supervision FST; pdf_ali is ignored then.  num_fsa = (packed
+    supervision dict, tolerance) switches to the lattice-derived or
+    end-to-end supervision FSA (am/chain_supervision.py) and takes
+    precedence over both."""
     mask = mask.to(torch.bool)
-    if num_graph is not None:
+    if num_fsa is not None:
+        from kaldi_tpu_torch.am.chain_supervision import \
+            numerator_fsa_logprob
+        num = numerator_fsa_logprob(scores, num_fsa[0],
+                                    tolerance=num_fsa[1])
+    elif num_graph is not None:
         num = numerator_flexible_logprob(
             scores, num_graph[0], num_graph[1], num_graph[2], mask,
             *num_graph[3:])

@@ -20,9 +20,9 @@ JAX-side model across.
 
 Training: ``component_posteriors`` and ``accumulate_stats`` are tensor
 ops on the model's device (the aligned pdfs' parameters gathered per
-frame, two batched products and a softmax over the mixture slots,
-``index_add_`` for the occupancies and first and second moments, all in
-float32), and the sums go into ``GmmAccs`` as float64 on the host, as
+frame, two batched products and a softmax over the mixture slots, sums
+by pdf for the occupancies and first and second moments in an order
+that does not change from run to run, all in float32), and the sums go into ``GmmAccs`` as float64 on the host, as
 in the original.  Frames are not padded to 64-frame buckets (those only
 served XLA's compile cache).  ``flat_start``, ``GmmAccs``,
 ``mle_update``, ``map_update``, ``mixup`` and ``global_stats`` are
@@ -188,17 +188,31 @@ class GmmAccs:
                        self.tot_frames + other.tot_frames)
 
 
+def _sum_by_pdf(t: torch.Tensor, pdfs: torch.Tensor, P: int) -> torch.Tensor:
+    """Σ over frames of t's rows into P rows by pdf, in an order that does
+    not change from run to run: ``index_put_(..., accumulate=True)``'s
+    sorted accumulation, without its range check on the host (the
+    ``.item()`` of the indices' min and max, a sync; the pdfs come from
+    a transition model)."""
+    out = t.new_zeros((P,) + tuple(t.shape[1:]))
+    return torch._index_put_impl_(out, (pdfs,), t, accumulate=True,
+                                  unsafe=True)
+
+
 def accumulate_stats_device(am: AmDiagGmm, x: torch.Tensor,
                             pdfs: torch.Tensor):
     """The accumulation on the model's device, with no host sync: x (T,
     D) float32, pdfs (T,) int64 → (occ (P, M), mean_acc (P, M, D),
     var_acc (P, M, D), total log-likelihood ()) float32 tensors.
 
-    A model of one pdf (a global GMM) sums over the frames: on a card
-    ``index_add_`` adds every frame into that one row with atomics, in
-    an order that changes from run to run, and EM with mix-ups carries
-    that order into which Gaussians split, so that two runs of
-    gmm-global-init-from-feats could end with other models."""
+    Every sum is taken in an order that does not change from run to run:
+    on a card ``index_add_`` adds the frames with atomics, in the order
+    they land, and EM with mix-ups carries that order into which
+    Gaussians split, so that two runs of a training (gmm-global-init-
+    from-feats, the mini ladder) could end with other models and other
+    WERs.  A model of one pdf (a global GMM) sums over the frames; more
+    pdfs take ``index_put_``'s accumulate (``_sum_by_pdf``), which sorts
+    the frames by pdf (stably) and adds each pdf's run in frame order."""
     comp = am.component_loglikes(x, pdfs)                   # (T, M)
     post = torch.softmax(comp, dim=1)
     P, M, D = am.num_pdfs, am.max_mix, am.dim
@@ -208,9 +222,8 @@ def accumulate_stats_device(am: AmDiagGmm, x: torch.Tensor,
         occ, mean_acc, var_acc = (t.sum(0, keepdim=True)
                                   for t in (post, px, pxx))
     else:
-        occ = x.new_zeros((P, M)).index_add_(0, pdfs, post)
-        mean_acc = x.new_zeros((P, M, D)).index_add_(0, pdfs, px)
-        var_acc = x.new_zeros((P, M, D)).index_add_(0, pdfs, pxx)
+        occ, mean_acc, var_acc = (_sum_by_pdf(t, pdfs, P)
+                                  for t in (post, px, pxx))
     return occ, mean_acc, var_acc, torch.logsumexp(comp, dim=1).sum()
 
 

@@ -10,5 +10,6 @@ import kaldi_tpu_torch.cli.tools_ivector  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_rnnlm  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_const_arpa  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_lattice  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_chain  # noqa: F401  (registers into TOOLS)
 
 __all__ = ["TOOLS", "main"]

@@ -12,7 +12,10 @@ input); the model is a binary nnet3 TDNN-F ``.raw``.
     python -m kaldi_tpu_torch.cli.chain nnet3-chain-compute-prob [opts] \\
         <trans-model> <raw-model> <phone-seqs-rspec> <egs-rspec>
 
-compute-prob prints the objective per frame on its last line.
+compute-prob prints the objective per frame on its last line.  On egs
+that carry supervision FSAs (nnet3-chain-e2e-get-egs, lattice egs) it
+scores the FSA numerator at ``--supervision-tolerance``, as training
+does; the original scores those egs' all-zero pdf alignment instead.
 """
 
 from __future__ import annotations
@@ -96,6 +99,8 @@ def nnet3_chain_compute_prob(argv=None) -> int:
     from kaldi_tpu_torch.pipelines.egs_io import read_egs_ark
     po = ParseOptions("nnet3-chain-compute-prob [opts] <trans-model> "
                       "<raw-model> <phone-seqs-rspec> <egs-rspec>")
+    po.register("supervision-tolerance", int, 1, "numerator boundary "
+                "tolerance (FSA egs), as nnet3-chain-train's")
     _common_opts(po)
     args = po.read(argv)
     if len(args) != 4:
@@ -111,10 +116,16 @@ def nnet3_chain_compute_prob(argv=None) -> int:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    num_fsa = None
+    if egs.sup is not None:
+        from kaldi_tpu_torch.am.chain_supervision import sup_to_device
+        num_fsa = (sup_to_device(egs.sup, device),
+                   po["supervision-tolerance"])
     with torch.no_grad():
         scores = net(dev(egs.feats.astype(np.float32)))
         loss, diag = chain_objf(den, scores, dev(egs.pdf_ali.astype(np.int64)),
-                                dev(egs.mask), ChainTrainingOptions())
+                                dev(egs.mask), ChainTrainingOptions(),
+                                num_fsa=num_fsa)
     log.info("nnet3-chain-compute-prob: objf %.4f (num %.4f den %.4f)",
              -float(loss), float(diag["num"]), float(diag["den"]))
     print(f"{-float(loss):.6f}")

@@ -198,10 +198,15 @@ def determinize_lattice_native(n_states: int, start: int,
     f_gc = c(fin_gc, np.float32)
     f_ac = c(fin_ac, np.float32)
     # det output is bounded by the input size in practice (pruned raw
-    # lattices); grow on overflow up to a hard cap
+    # lattices); grow on overflow, three times and then on until the
+    # state capacity passes max_states, so that a blowup is reported by
+    # the native pass (the original gives up after three and hands the
+    # lattice to the Python pass, ~10x slower, which then blows up too)
     cap_a = max(4 * n_arcs + 64, 1024)
     cap_t = max(16 * n_arcs + 64, 4096)
-    for _attempt in range(3):
+    attempt = 0
+    while attempt < 3 or cap_a + 2 <= 4 * max_states:
+        attempt += 1
         cap_s = cap_a + 2
         o_src = np.empty(cap_a, np.int32)
         o_word = np.empty(cap_a, np.int32)

@@ -16,9 +16,12 @@ writes orbax ones).
 original's host numpy, on the port's tree statistics and questions
 (pipelines/tri.py).
 
-Not ported here: the ``mesh=`` argument (multi-device training) and
-lattice-derived supervision (the original's ``egs.sup`` and ``_step``'s
-``sup``).
+Egs may carry lattice-derived or end-to-end supervision FSAs
+(``ChainEgs.sup``, am/chain_supervision.py): a step then moves its rows
+of them to the device once and the numerator runs through the FSA at
+``ChainTrainConfig.supervision_tolerance``.
+
+Not ported here: the ``mesh=`` argument (multi-device training).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from kaldi_tpu_torch.am.chain import (ChainTrainingOptions,
                                       DenominatorGraph, chain_objf)
+from kaldi_tpu_torch.am.chain_supervision import sup_to_device
 from kaldi_tpu_torch.am.tdnn import (TdnnChain, TdnnConfig, init_tdnn,
                                      semi_orthogonal_penalty)
 from kaldi_tpu_torch.am.topology import HmmTopology
@@ -55,8 +59,9 @@ class ChainEgs:
     entry_pdf/self_pdf/num_segs describe the chunk's phone-segment
     sequence for the flexible-boundary numerator; pdf_ali is the
     fixed-path fallback.  entry_w/self_w/init_w/final_w are the
-    normalization-FST weights.  (The original's ``sup``, lattice-derived
-    supervision, is not ported.)"""
+    normalization-FST weights.  ``sup``, a ``pack_supervisions`` dict of
+    padded FSA arrays (lattice-derived or end-to-end supervision,
+    am/chain_supervision.py), overrides both numerators."""
     feats: np.ndarray       # (N, chunk_T, D)
     pdf_ali: np.ndarray     # (N, chunk_T // sub) int32
     mask: np.ndarray        # (N, chunk_T // sub) bool
@@ -67,6 +72,7 @@ class ChainEgs:
     self_w: np.ndarray = None      # (N, S_max) f32
     init_w: np.ndarray = None      # (N,) f32
     final_w: np.ndarray = None     # (N,) f32
+    sup: Dict[str, np.ndarray] = None
 
 
 def make_chain_egs(feats: Dict[str, np.ndarray],
@@ -252,8 +258,9 @@ class ChainTrainConfig:
     # flexible-boundary supervision numerator; falls back to the fixed
     # alignment path when egs lack segment arrays
     use_flexible_numerator: bool = True
-    # boundary tolerance of lattice-derived supervision: the original's
-    # option, read by nothing until chain_supervision is ported
+    # boundary tolerance (subsampled frames) of supervision FSAs
+    # (egs.sup, chain-supervision's ±tolerance); >= the longest
+    # utterance = free boundaries (end-to-end egs)
     supervision_tolerance: int = 1
     # "ngsgd" = natural-gradient SGD with momentum (ops/natural_gradient.py);
     # "adamw" = optax.adamw's update
@@ -352,25 +359,32 @@ class ChainTrainer:
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(device=self.device, dtype=dtype)
 
-    def _loss_fn(self, feats, pdf_ali, mask, num_graph):
+    def _loss_fn(self, feats, pdf_ali, mask, num_graph, sup=None):
         scores = self.model(feats)
+        num_fsa = ((sup, self.cfg.supervision_tolerance)
+                   if sup is not None else None)
         loss, diag = chain_objf(self.den, scores, pdf_ali, mask,
-                                self.cfg.opts, num_graph=num_graph)
+                                self.cfg.opts, num_graph=num_graph,
+                                num_fsa=num_fsa)
         loss = loss + self.cfg.orthonormal_weight * \
             semi_orthogonal_penalty(self.model)
         return loss, diag
 
-    def _step(self, feats, pdf_ali, mask, num_graph=None):
-        """One step on a batch (arrays or tensors): forward in training
-        mode (the batch-norm statistics move), loss, backward, optimizer
-        update.  → (loss, diagnostics), detached tensors on the device."""
+    def _step(self, feats, pdf_ali, mask, num_graph=None, sup=None):
+        """One step on a batch (arrays or tensors; ``sup`` a batch's rows
+        of a ``pack_supervisions`` dict, numpy or already on the device):
+        forward in training mode (the batch-norm statistics move), loss,
+        backward, optimizer update.  → (loss, diagnostics), detached
+        tensors on the device."""
         self.model.train()
         feats = self._as_tensor(feats, torch.float32)
         pdf_ali = self._as_tensor(pdf_ali, torch.int64)
         mask = self._as_tensor(mask, torch.bool)
         if num_graph is not None:
             num_graph = tuple(self._as_tensor(a) for a in num_graph)
-        loss, diag = self._loss_fn(feats, pdf_ali, mask, num_graph)
+        if sup is not None and not isinstance(sup["src"], torch.Tensor):
+            sup = sup_to_device(sup, self.device)
+        loss, diag = self._loss_fn(feats, pdf_ali, mask, num_graph, sup)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
@@ -400,15 +414,20 @@ class ChainTrainer:
         return self._trained_steps
 
     def batches(self, egs: ChainEgs, idx: np.ndarray):
-        """The ``_step`` arguments of the egs at ``idx``."""
-        num_graph = None
-        if self.cfg.use_flexible_numerator and egs.entry_pdf is not None:
+        """The ``_step`` arguments of the egs at ``idx``: supervision FSAs
+        when the egs carry them, else the flexible numerator's segments
+        when on and present, else the fixed alignment alone."""
+        num_graph = sup = None
+        if egs.sup is not None:
+            sup = {k: v[idx] for k, v in egs.sup.items()}
+        elif self.cfg.use_flexible_numerator and egs.entry_pdf is not None:
             num_graph = (egs.entry_pdf[idx], egs.self_pdf[idx],
                          egs.num_segs[idx])
             if egs.entry_w is not None:
                 num_graph = num_graph + (egs.entry_w[idx], egs.self_w[idx],
                                          egs.init_w[idx], egs.final_w[idx])
-        return egs.feats[idx], egs.pdf_ali[idx], egs.mask[idx], num_graph
+        return (egs.feats[idx], egs.pdf_ali[idx], egs.mask[idx], num_graph,
+                sup)
 
     def train(self, egs: ChainEgs, log_every: int = 20,
               ckpt_dir: Optional[str] = None) -> Dict[str, float]:

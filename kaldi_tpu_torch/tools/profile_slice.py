@@ -64,6 +64,15 @@ Every line ends with the card's name and power limit (nvidia-smi).
    kernels (two launches a call) by ``device_ms``, ``graph_ms`` and
    ``kernel_ms``, where all three should agree.  ``--den-plain`` runs
    only this section.
+9. The GMM kernel's precision (``gmm_precision``) at the tri3b width
+   (2500 pdfs, 15,000 Gaussians, D = 40) on 4096 seeded frames, once of
+   unit scale and once scaled ×4 and shifted by 2 (larger terms, as
+   fMLLR features give): the kernel's and the plain float32 version's
+   max |diff| from float64 of the same function on the same float32
+   tables, and the kernel's time on the card.  ``--gmm`` runs only this
+   section; run as a file with another checkout first on PYTHONPATH
+   (``PYTHONPATH=build/prev python kaldi_tpu_torch/tools/profile_slice.py
+   --gmm``), it measures that checkout's kernel.
 """
 
 from __future__ import annotations
@@ -118,6 +127,9 @@ def main() -> int:
     if "--den-plain" in sys.argv[1:]:
         _, tree, den, _ = _bench_den()
         den_plain_methods(dev, tag, den, tree.num_pdfs)
+        return 0
+    if "--gmm" in sys.argv[1:]:
+        gmm_precision(dev, tag)
         return 0
 
     fb = Fbank(FbankOptions(mel_opts=MelBanksOptions(num_bins=40)),
@@ -431,7 +443,7 @@ def chain_training(dev, tag: str) -> None:
             while (tr.opt.count < 10
                    or tr.opt.count % tr.opt.update_period == 0) != advance:
                 tr._step(*batch)
-            f, a, m, ng = batch
+            f, a, m, ng, _ = batch
             f, m = tr._as_tensor(f, torch.float32), tr._as_tensor(m,
                                                                  torch.bool)
             ng = tuple(tr._as_tensor(x) for x in ng)
@@ -610,6 +622,32 @@ def den_plain_methods(dev, tag: str, den, P: int, T: int = 50,
               + ", ".join(f"{k} {v:.4f} ms" if isinstance(v, float)
                           else f"{k} {v}" for k, v in got.items())
               + f" {tag}")
+
+
+
+def gmm_precision(dev, tag: str, T: int = 4096) -> None:
+    """Section 9: the GMM kernel's and the plain version's error from
+    float64 at the tri3b width, and the kernel's time."""
+    import kaldi_tpu_torch
+    from kaldi_tpu_torch.ops.gmm import gmm_loglikes_reference
+    from kaldi_tpu_torch.tools.synth import tri3b_gmm
+    from kaldi_tpu_torch.tools.timing import device_ms
+    gk = tri3b_gmm(np.random.default_rng(2), device=dev).device_params()
+    d64 = {n: getattr(gk, n).double() for n in ("gconst", "mean_invvar",
+                                                "inv_var")}
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((T, 40)).astype(np.float32)
+    for name, x in (("unit", base), ("x4+2", 4.0 * base + 2.0)):
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+        exact = gmm_loglikes_reference(x.double(), **d64)
+        err = float((gk(x).double() - exact).abs().max())
+        plain = float((gk.reference(x).double() - exact).abs().max())
+        ms = min(device_ms(lambda: gk(x), 20) for _ in range(2))
+        print(f"gmm precision ({kaldi_tpu_torch.__file__}): {T} frames, "
+              f"features {name} (|ll| up to {float(exact.abs().max()):.1f})"
+              f": max |diff| from float64: kernel {err:.3e}, plain float32 "
+              f"{plain:.3e} (kernel / plain {err / max(plain, 1e-30):.2f}); "
+              f"kernel {ms:.4f} ms on the card (best of 2 × 20) {tag}")
 
 
 if __name__ == "__main__":

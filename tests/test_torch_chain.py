@@ -317,11 +317,51 @@ def test_chain_objf_matches_jax(numerator):
 
 
 def test_chain_objf_lattice_supervision_is_not_ported():
-    _, tden, P = tiny_pair()
-    s = torch.zeros((1, 3, P))
-    with pytest.raises(KaldiError, match="not ported"):
-        tc.chain_objf(tden, s, None, torch.ones((1, 3), dtype=torch.bool),
-                      num_fsa=({}, 1))
+    """The lattice-derived supervision that once raised here: chain_objf
+    with num_fsa (a packed FSA batch of a two-path union, a
+    mid-utterance chunk and a shorter one-path FSA, tolerance 1) equals
+    the JAX package's: loss, objf, num, den and d loss / d scores."""
+    from kaldi_tpu.am import chain_supervision as js
+    from kaldi_tpu_torch.am import chain_supervision as ts
+    jden, tden, P = den_pair("mono")
+
+    def e_of(p):
+        return 2 * (p - 1)
+
+    def s_of(p):
+        return 2 * (p - 1) + 1
+
+    union = js.supervision_from_phone_runs(
+        [[(1, 3), (2, 5), (4, 4)], [(1, 5), (3, 3), (2, 4)]], [0.0, -0.5],
+        e_of, s_of, 12)
+    fsas = [union, js.chunk_supervision(union, 2, 10),
+            js.supervision_from_phone_runs([[(3, 4), (1, 5)]], [0.0], e_of,
+                                           s_of, 9)]
+    sup = js.pack_supervisions(fsas)
+    rng = np.random.default_rng(5)
+    B, T = 3, 12
+    scores = rng.standard_normal((B, T, P)).astype(np.float32)
+    mask = np.arange(T)[None, :] < sup["num_frames"][:, None]
+    opts_kw = dict(l2_regularize=5e-3, leaky_hmm_coefficient=0.1)
+
+    def jloss(x):
+        return jc.chain_objf(jden, x, None, jnp.asarray(mask),
+                             jc.ChainTrainingOptions(**opts_kw),
+                             num_fsa=(sup, 1))
+    (jl, jd), jg = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(scores))
+    s = torch.tensor(scores, requires_grad=True)
+    tl, td = tc.chain_objf(tden, s, None, torch.from_numpy(mask),
+                           tc.ChainTrainingOptions(**opts_kw),
+                           num_fsa=(ts.sup_to_device(sup, "cpu"), 1))
+    tl.backward()
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5,
+                               atol=1e-5)
+    for k in ("objf", "num", "den"):
+        np.testing.assert_allclose(float(td[k].detach()), float(jd[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(s.grad.numpy(), np.asarray(jg), rtol=1e-4,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

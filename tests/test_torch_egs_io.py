@@ -73,22 +73,66 @@ def test_egs_without_segments_round_trip(tmp_path):
 
 
 def test_supervision_fsas_are_not_ported(tmp_path):
-    """An eg the JAX package wrote with a lattice-derived supervision FSA
-    raises in the port's reader, and the other training holders stay
-    unported."""
-    from kaldi_tpu.am.chain_supervision import SupervisionFsa
-    from kaldi_tpu.core.table import TableWriter as JTableWriter
-    one = np.zeros(1, np.int32)
-    fsa = SupervisionFsa(src=one, dst=one + 1, entry_pdf=one, self_pdf=one,
-                         weight=np.zeros(1, np.float32),
-                         bt=np.zeros(2, np.int32), start=0,
-                         final=np.array([False, True]), num_frames=1)
-    eg = jeio.ChainEg(feats=np.zeros((3, 2), np.float32), pdf_ali=one,
-                      mask=np.ones(1, bool), fsa=fsa)
-    with JTableWriter(f"ark:{tmp_path}/f.ark", holder="ceg") as w:
-        w["a"] = eg
-    with pytest.raises(KaldiError, match="not ported"):
-        teio.read_egs_ark(f"ark:{tmp_path}/f.ark")
+    """Supervision FSAs, once unported here, now cross: an archive of
+    FSA-carrying egs (lattice-derived, chunked, with normalization
+    weights) written by either package reads back equal in the other,
+    through ``egs_to_list`` / ``list_to_egs`` and ``ChainEgs.sup``; the
+    other training holders stay unported."""
+    from kaldi_tpu.am import chain_supervision as js
+    from kaldi_tpu.am.transitions import TransitionModel as JTm
+    from kaldi_tpu.lattice.lattice import CompactArc, CompactLattice
+    phones = [1, 2, 3]
+    topo = JTopo.chain(phones)
+    tree = JMono(phones, topo)
+    tm = JTm(topo, tree)
+    den = jc.make_denominator_graph([[1, 2, 3, 1], [2, 3, 1]], tree, topo)
+    fwd, slf = {}, {}
+    for tid in range(1, tm.num_transition_ids + 1):
+        (slf if tm.is_self_loop(tid) else fwd).setdefault(
+            tm.transition_id_to_phone(tid), tid)
+
+    def lattice(paths):
+        c = CompactLattice()
+        s0, s1 = c.add_state(), c.add_state()
+        c.start = s0
+        for i, path in enumerate(paths):
+            tids = []
+            for ph, d in path:
+                tids.extend([fwd[ph]] + [slf[ph]] * (d - 1))
+            c.arcs[s0].append(CompactArc(1, 0.5 * i, 0.0, tuple(tids), s1))
+        c.finals[s1] = (0.0, 0.0, ())
+        return c
+
+    rng = np.random.default_rng(2)
+    lats = {"a": lattice([[(1, 12), (2, 9), (3, 15)],
+                          [(1, 9), (2, 12), (3, 15)]]),
+            "b": lattice([[(3, 18), (1, 6), (2, 12)]])}
+    feats = {u: rng.standard_normal((36, 4)).astype(np.float32)
+             for u in lats}
+    egs = js.make_chain_egs_from_lattices(feats, lats, tm, tree, topo,
+                                          subsample=3, den=den, chunk_size=6)
+    assert egs.sup["mid_start"].any()
+    for writer in ("jax", "port"):
+        spec = f"ark:{tmp_path}/{writer}.ark"
+        if writer == "jax":
+            jeio.write_egs_ark(spec, egs)
+            back = teio.read_egs_ark(spec)
+        else:
+            port = tpc.ChainEgs(feats=egs.feats, pdf_ali=egs.pdf_ali,
+                                mask=egs.mask, sup=egs.sup)
+            teio.write_egs_ark(spec, port)
+            back = jeio.read_egs_ark(spec)
+        for f in ("feats", "pdf_ali", "mask"):
+            np.testing.assert_array_equal(getattr(back, f), getattr(egs, f))
+        assert back.entry_pdf is None
+        assert set(back.sup) == set(egs.sup)
+        for k, v in egs.sup.items():
+            assert back.sup[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(back.sup[k], v, err_msg=k)
+    with open(f"{tmp_path}/jax.ark", "rb") as a, \
+            open(f"{tmp_path}/port.ark", "rb") as b:
+        assert a.read() == b.read()
+    eg = teio.egs_to_list(teio.read_egs_ark(f"ark:{tmp_path}/jax.ark"))[0]
     with pytest.raises(KaldiError, match="not ported"):
         with TableWriter(f"ark:{tmp_path}/x.ark", holder="xeg") as w:
             w["a"] = eg

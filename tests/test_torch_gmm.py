@@ -308,3 +308,21 @@ def test_synth_speech_frames_follow_the_alignment():
                      mix_counts(rng, P, 3 * P, 2, 4), device="cpu")
     hit = (am.loglikes(feats).argmax(dim=1).numpy() == align).mean()
     assert hit > 0.9
+
+
+@pytest.mark.parametrize("shape", [(5,), (5, 3), (5, 3, 4)])
+def test_sum_by_pdf_equals_index_add(shape):
+    """am/gmm.py ``_sum_by_pdf`` (the accumulation's sums by pdf, sorted
+    so that a card adds each pdf's frames in one order every run) equals
+    ``index_add_`` on the CPU bit for bit: both add a pdf's frames in
+    frame order there.  Pdfs that take no frame stay zero."""
+    rng = np.random.default_rng(7)
+    T, P = 97, shape[0]
+    pdfs = torch.from_numpy(rng.choice([0, 1, 3], T).astype(np.int64))
+    t = torch.from_numpy(rng.standard_normal((T,) + shape[1:]).astype(
+        np.float32))
+    got = tgmm._sum_by_pdf(t, pdfs, P)
+    want = t.new_zeros((P,) + shape[1:]).index_add_(0, pdfs, t)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert not got[[2, 4]].any()

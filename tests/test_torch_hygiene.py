@@ -13,7 +13,8 @@
   guards that raised on them are gone.
 * am/ivector.py names its original on its first line, and each of its
   host copies (PLDA, clustering, silence weighting, the PLDA I/O) and
-  ports names its original on the line above it.
+  ports names its original on the line above it; so does
+  am/chain_supervision.py.
 * ``ops/build.py`` rebuilds a kernel library when a shared header
   changes.
 """
@@ -77,7 +78,7 @@ COPIED = {
     "features/pitch.py", "features/resample.py", "pipelines/data.py",
     "fst/context.py", "lattice/functions.py", "decoder/training_graph.py",
     "lattice/rescore.py", "lattice/ops.py", "lattice/word_align.py",
-    "lattice/phone_align.py", "lattice/ctm.py"}
+    "lattice/phone_align.py", "lattice/ctm.py", "pipelines/datadir.py"}
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -284,6 +285,37 @@ def test_ivector_module_names_its_originals(name):
     assert above.startswith(f"# {kind} kaldi_tpu/am/ivector.py {name}"), \
         above
     with open(os.path.join(REPO, "kaldi_tpu", "am", "ivector.py")) as f:
+        assert any(n.name == name for n in ast.parse(f.read()).body
+                   if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
+
+
+SUP_COPIES = ["SupervisionFsa", "supervision_from_phone_runs",
+              "supervision_from_text", "supervision_from_lattice",
+              "chunk_supervision", "add_normalization_weights",
+              "pack_supervisions", "make_chain_egs_from_lattices",
+              "make_chain_egs_e2e"]
+SUP_PORTS = ["_batched_segment_logsumexp", "numerator_fsa_logprob"]
+
+
+@pytest.mark.parametrize("name", SUP_COPIES + SUP_PORTS)
+def test_chain_supervision_names_its_originals(name):
+    """am/chain_supervision.py's first line names its original; each host
+    copy's line above it says "Copied from" it, each port "Port of" it,
+    and the original exists there."""
+    rel = os.path.join("am", "chain_supervision.py")
+    with open(os.path.join(REPO, "kaldi_tpu_torch", rel)) as f:
+        src = f.read()
+    lines = src.splitlines()
+    assert "kaldi_tpu/am/chain_supervision.py" in lines[0]
+    node = next(n for n in ast.parse(src).body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                and n.name == name)
+    first = min([node.lineno] + [d.lineno for d in node.decorator_list])
+    kind = "Copied from" if name in SUP_COPIES else "Port of"
+    assert lines[first - 2].startswith(
+        f"# {kind} kaldi_tpu/am/chain_supervision.py {name}"), \
+        lines[first - 2]
+    with open(os.path.join(REPO, "kaldi_tpu", rel)) as f:
         assert any(n.name == name for n in ast.parse(f.read()).body
                    if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
 

@@ -484,7 +484,7 @@ def test_the_port_registers_the_nine_rnnlm_tools_and_const_arpa():
     TTOOLS, JTOOLS = _tools()
     for name in RNNLM_TOOLS_9 + ["arpa-to-const-arpa", "const-arpa-to-arpa"]:
         assert name in TTOOLS and name in JTOOLS
-    assert len(TTOOLS) == 79
+    assert len(TTOOLS) == 92
 
 
 @pytest.mark.parametrize("name,opts", [
