@@ -141,11 +141,12 @@ Phases (each prints lines; any failure raises and exits non-zero):
         call in the same run;
  11. the flagship LVCSR system, the hard corpus and the lattice tools:
      a. pipelines/flagship.py ``run`` on the card at HARDBENCH_r05's
-        operating point (5000 words, 30,000 LM sentences, 400 train / 160
-        test utterances, noise 0.10, warp 0.12; the TDNN of run, 10 chain
-        epochs): MFCC through the fbank kernel, mono → tri → tri2b
-        (LDA+MLLT) → tri3b (SAT) on the GMM kernel, the mono-GMM rung and
-        the two-pass fMLLR tri3b rung on large-vocabulary graphs, the
+        operating point (5000 words, 30,000 LM sentences, 400 train
+        utterances, its 160 test utterances cut to FLAGSHIP_TEST_UTTS
+        (80), noise 0.10, warp 0.12; the TDNN of run, 10 chain epochs):
+        MFCC through the fbank kernel, mono → tri → tri2b (LDA+MLLT) →
+        tri3b (SAT) on the GMM kernel, the mono-GMM rung and the
+        two-pass fMLLR tri3b rung on large-vocabulary graphs, the
         left-biphone chain tree, den graph and training on the den
         kernels, the chain rung, the chain + online i-vector rung (a
         64-Gaussian diag UBM, 3 EM iterations of a 16-dimensional
@@ -252,10 +253,39 @@ Phases (each prints lines; any failure raises and exits non-zero):
         nnet3-chain-get-egs archive equal to make_chain_egs in process;
         beside them ``python -m kaldi_tpu_torch.pipelines.chain_recipe``
         at its defaults (50 utterances, 40 epochs, hidden 128), exit 0.
+ 15. xconfig chain models, the cross-entropy trainer, x-vectors and the
+     LSTM (am/xconfig.py, cnn.py, lstm.py, xvector.py, pipelines/nnet.py):
+     a. ChainTrainer with NG-SGD in float32 on 8b's egs and den at B = 32
+        and 128, 20 timed steps (3 warm, 3 profiled) for two models:
+        xc_tdnnf, 8b's TDNN-F written as xconfig (printed beside 8b's
+        f32_B32), and xc_full, every layer type (Kaldi's CNN-TDNN front
+        end of 64 / 128 filters at height 40, TDNN-F, an LSTMP of cell
+        1024 and projection 256, restricted attention, a stats layer):
+        Mframes/s under xc_*_f32_B{32,128}_Mframes_s, kernels and busy
+        card a step, the den launches; one step of each at B = 4 equal
+        to the port's CPU step (8b's rule); one LSTMP forward + backward
+        at B = 32 profiled (the cuDNN route's kernels);
+     b. (a third process beside 14c) ``python -m
+        kaldi_tpu_torch.pipelines.chain_recipe --xconfig=default``, exit
+        0 (WER under 20);
+     c. ``nnet3-train`` at its defaults on 8b's features and full-rate
+        seeded alignments (in the background), equal to XentTrainer in
+        this process within 1e-5 relative in loss and frame accuracy; the
+        frame accuracy over every chunk rises; one Adam step on the card
+        equal to the CPU's (13a's bar);
+     d. train_xvector at the voxceleb v2 recipe's widths (30 inputs, 512
+        frame layers, 512 embeddings) on 32 seeded speakers × 8
+        utterances (2 held out): same-speaker cosine above
+        different-speaker; nnet3-xvector-compute and -batched on the card
+        (in the background) equal to the library; card embeddings equal
+        to the CPU's within 1e-4 of the largest;
+     e. LstmChain (3 × LSTMP 1024 / 256, ×3) on 8 of 8b's utterances
+        streamed in 21-frame chunks equal to offline within 1e-5 of the
+        largest, the card equal to the CPU within 1e-4.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths (the den's include 14b's
-training), the largest difference from
+and 15a's training), the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
 forward + backward at phase 8a's B = 128) and the
@@ -1176,12 +1206,13 @@ def tdnn_config(P: int, dtype: str = "float32", hidden: int = 1024,
 def chain_train_points(dev, den, egs, P: int, tag: str,
                        points=CHAIN_POINTS, steps: int = 30,
                        key_prefix: str = "", profile_steps: int = 0,
-                       **width):
-    """8b (14b): NG-SGD training steps of ChainTrainer at each (B, dtype),
-    after 3 warm steps; Mframes/s of input frames over ``steps`` steps
-    between two synchronizes; with ``profile_steps``, that many more
-    steps under torch.profiler for the kernels and busy card time a
-    step.  → {key: Mframes/s}."""
+                       model=None, **width):
+    """8b (14b, 15a): NG-SGD training steps of ChainTrainer at each (B,
+    dtype), after 3 warm steps; Mframes/s of input frames over ``steps``
+    steps between two synchronizes; with ``profile_steps``, that many
+    more steps under torch.profiler for the kernels and busy card time a
+    step.  ``model(P)`` builds the model (default: the bench's TDNN-F
+    config at each dtype).  → {key: Mframes/s}."""
     from kaldi_tpu_torch.tools.timing import profiled
     from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
     N = egs.feats.shape[0]
@@ -1189,7 +1220,8 @@ def chain_train_points(dev, den, egs, P: int, tag: str,
     for B, dtype in points:
         if N < B:
             raise AssertionError(f"{N} egs for a batch of {B}")
-        tr = ChainTrainer(tdnn_config(P, dtype, **width), den,
+        tr = ChainTrainer(model(P) if model is not None
+                          else tdnn_config(P, dtype, **width), den,
                           ChainTrainConfig(batch_size=B, optimizer="ngsgd",
                                            total_steps=0),
                           seed=SEED, device=dev)
@@ -1232,14 +1264,17 @@ def chain_train_points(dev, den, egs, P: int, tag: str,
     return out
 
 
-def card_step_equals_cpu(dev, den, egs, P: int, B: int = 4, **width):
-    """8b: one f32 NG-SGD step at B on the card against the port's CPU
-    step on the same egs and seed (TF32 off): loss and every parameter
-    within 1e-4 of its largest value."""
+def card_step_equals_cpu(dev, den, egs, P: int, B: int = 4, model=None,
+                         **width):
+    """8b (14b, 15a): one f32 NG-SGD step at B on the card against the
+    port's CPU step on the same egs and seed (TF32 off): loss and every
+    parameter within 1e-4 of its largest value.  ``model(P)`` builds the
+    model (default: the bench's TDNN-F config)."""
     from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
     res = []
     for d in (dev, "cpu"):
-        tr = ChainTrainer(tdnn_config(P, **width), den,
+        tr = ChainTrainer(model(P) if model is not None
+                          else tdnn_config(P, **width), den,
                           ChainTrainConfig(batch_size=B, optimizer="ngsgd",
                                            total_steps=0),
                           seed=SEED, device=d)
@@ -1250,14 +1285,15 @@ def card_step_equals_cpu(dev, den, egs, P: int, B: int = 4, **width):
                     {k: v.detach().cpu() for k, v in
                      tr.model.state_dict().items()}))
     (lg, bg, pg), (lc, bc, pc) = res
-    rel = max(float((pg[k] - pc[k]).abs().max()
-                    / max(float(pc[k].abs().max()), 1e-12)) for k in pc)
+    rel, worst = max((float((pg[k] - pc[k]).abs().max()
+                            / max(float(pc[k].abs().max()), 1e-12)), k)
+                     for k in pc)
     moved = max(float((pc[k] - bc[k]).abs().max()) for k in pc)
     lrel = abs(lg - lc) / max(abs(lc), 1e-12)
     print(f"train: one step at B={B} on the card vs the port's CPU step: "
           f"loss {lg:.6f} vs {lc:.6f} (relative {lrel:.2e}), parameters "
-          f"within {rel:.2e} of each tensor's largest (limit 1e-4; the step "
-          f"moved them by up to {moved:.3e})")
+          f"within {rel:.2e} of each tensor's largest ({worst}; limit 1e-4; "
+          f"the step moved them by up to {moved:.3e})")
     if not (lrel <= 1e-4 and rel <= 1e-4 and moved > 0):
         raise AssertionError("the card's training step differs from the CPU's")
 
@@ -2213,6 +2249,11 @@ def gmm_tools_finish(dev, sysm, started, tag: str) -> int:
 
 # r5's WERs were 0.84-3.95; a broken rung is far above this
 FLAGSHIP_MAX_WER = 30.0
+# 11a's test set: r5's 160 utterances cut to 80 when phase 15 came; the
+# five test decodes and their CUDA-graph replays (device_s) took 155 s of
+# the run's 478 s at 160 (NVIDIA H100 80GB HBM3, 700.00 W), and the
+# script's 1200 s limit held 77 s of slack
+FLAGSHIP_TEST_UTTS = 80
 # the chain model on the card against the CPU: test utterances compared,
 # the float32 bar of tests/test_torch_chain.py, and the best paths that
 # must agree
@@ -2350,7 +2391,8 @@ def r05_flagship():
 def flagship_system(dev, tag: str):
     """11a: pipelines/flagship.py ``run`` on the card at its R05_POINT
     (HARDBENCH_r05's operating point at run's widths: 5000 words, 30,000
-    LM sentences, 400 train / 160 test utterances, the TDNN of run: hidden
+    LM sentences, 400 train utterances, its 160 test utterances cut to
+    FLAGSHIP_TEST_UTTS, the TDNN of run: hidden
     256, bottleneck 64, 7 layers, subsampling 3; 10 chain epochs): every
     rung's record beside r5's WER; the rungs' WERs within
     FLAGSHIP_MAX_WER and their oracle WERs at most their WERs.  → (fbank,
@@ -2360,7 +2402,8 @@ def flagship_system(dev, tag: str):
     zero_totals()
     t0 = time.perf_counter()
     results, sysm = flagship.run(device=dev, return_systems=True,
-                                 **flagship.R05_POINT)
+                                 **dict(flagship.R05_POINT,
+                                        test_utts=FLAGSHIP_TEST_UTTS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fb, gm = totals()
@@ -3705,12 +3748,17 @@ t chain-get-supervision {tool} chain-get-supervision {c}/exp/mono/final.mdl {ali
     recipe = timed + (f"t chain_recipe {py} -m "
                       f"kaldi_tpu_torch.pipelines.chain_recipe {dv} > "
                       f"{w}/recipe.out 2> {w}/recipe.err\n")
+    # 15b: the same recipe on default_xconfig's model (am/xconfig.py)
+    xrecipe = timed + (f"t chain_recipe_xconfig {py} -m "
+                       f"kaldi_tpu_torch.pipelines.chain_recipe "
+                       f"--xconfig=default {dv} > {w}/xrecipe.out 2> "
+                       f"{w}/xrecipe.err\n")
     # two threads a process: the flagship's checks run beside them
     env = dict(os.environ, OMP_NUM_THREADS="2")
     procs = [subprocess.Popen(["bash", "-c", sh], cwd=repo, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for sh in (script, recipe)]
-    return procs[0], w, procs[1]
+                              text=True) for sh in (script, recipe, xrecipe)]
+    return procs[0], w, procs[1], procs[2]
 
 
 def chain_recipes_finish(started, tag: str) -> None:
@@ -3730,22 +3778,25 @@ def chain_recipes_finish(started, tag: str) -> None:
     from kaldi_tpu_torch.pipelines.chain import (make_chain_egs,
                                                  phone_alignment_runs)
     from kaldi_tpu_torch.pipelines.egs_io import read_egs_ark
-    proc, w, rproc = started
+    proc, w, rproc, xproc = started
     t0 = time.perf_counter()
     err = proc.communicate(timeout=900)[1]
     rerr = rproc.communicate(timeout=900)[1]
+    xerr = xproc.communicate(timeout=900)[1]
     waited = time.perf_counter() - t0
 
     def text(name):
         path = os.path.join(w, name)
         return open(path).read() if os.path.exists(path) else ""
 
-    if proc.returncode != 0 or rproc.returncode != 0:
+    if proc.returncode != 0 or rproc.returncode != 0 \
+            or xproc.returncode != 0:
         raise AssertionError(
-            f"14c failed ({proc.returncode}, {rproc.returncode}):\n"
-            f"{err[-2000:]}\n{rerr[-2000:]}\n"
+            f"14c/15b failed ({proc.returncode}, {rproc.returncode}, "
+            f"{xproc.returncode}):\n{err[-2000:]}\n{rerr[-2000:]}\n"
+            f"{xerr[-2000:]}\n"
             f"{text('cli.err')[-2000:]}{text('tools.err')[-2000:]}"
-            f"{text('recipe.err')[-2000:]}")
+            f"{text('recipe.err')[-2000:]}{text('xrecipe.err')[-2000:]}")
     for line in text("walls.txt").splitlines():
         what, ms = line.split()
         print(f"chain-recipes: {what}: {int(ms) / 1e3:.1f} s wall {tag}")
@@ -3756,6 +3807,10 @@ def chain_recipes_finish(started, tag: str) -> None:
     print(f"chain-recipes: chain_recipe (defaults: 50 utterances, 40 epochs,"
           f" hidden 128): {text('recipe.out').strip().splitlines()[-1]} "
           f"{tag}")
+    print(f"xconfig: 15b: chain_recipe --xconfig=default (default_xconfig's "
+          f"TDNN-F as an xconfig model, the recipe's defaults): "
+          f"{text('xrecipe.out').strip().splitlines()[-1]}, exit 0 (WER "
+          f"under 20) {tag}")
     c, e = os.path.join(w, "cli"), os.path.join(w, "e2e")
     before = float(text("e2e/before.txt").strip().splitlines()[-1])
     after = float(text("e2e/after.txt").strip().splitlines()[-1])
@@ -3805,6 +3860,419 @@ def chain_recipes_finish(started, tag: str) -> None:
           f"supervision_from_phone_runs; ali-to-phones equal to the recipe's;"
           f" nnet3-chain-get-egs's {got.feats.shape[0]} egs equal to "
           f"make_chain_egs in process (waited {waited:.1f} s for 14c)")
+
+
+# 15. xconfig chain models, cross-entropy training, x-vectors, the LSTM
+XC_POINTS = ((32, "float32"), (128, "float32"))
+XC_STEPS, XC_PROFILE_STEPS = 20, 3
+XC_TOL = 1e-4              # 8b's bar: card step = CPU step
+XENT_DIR = os.path.join("build", "chip_smoke_xent")
+XENT_TOL = 1e-5            # nnet3-train = XentTrainer in process, relative
+XVEC_SPK, XVEC_UTTS, XVEC_HELD = 32, 8, 2
+XVEC_TOL = 1e-4            # card embeddings = CPU, of the largest
+XVEC_TOOL_TOL = 1e-5       # the tools = the library on the card
+LSTM_UTTS, LSTM_CHUNK, LSTM_CPU_UTTS = 8, 21, 2
+LSTM_STREAM_TOL = 1e-5     # streamed = offline, of the largest
+LSTM_CPU_TOL = 1e-4        # card = CPU, of the largest
+
+
+def xconfig_text(kind: str, P: int) -> str:
+    """15a's two models.  xc_tdnnf: 8b's TDNN-F as xconfig (40 inputs,
+    relu-batchnorm over Append(-1,0,1), 13 TDNN-F layers 1024 / 128 at
+    time strides 1, 1, 1, 3 × 10, a 1024 prefinal, the output).  xc_full:
+    every layer type: Kaldi's CNN-TDNN front end (64 then 128 filters at
+    height 40, the second halving the height), TDNN-F, an LSTMP of
+    Switchboard's TDNN-LSTM widths (cell 1024, projection 256),
+    restricted attention (4 heads, 9 / 9 inputs), a stats layer, the
+    prefinal and the output."""
+    out = (f"relu-batchnorm-layer name=prefinal-chain dim=1024\n"
+           f"output-layer name=output dim={P} include-log-softmax=false\n")
+    if kind == "xc_tdnnf":
+        body = "".join(
+            f"tdnnf-layer name=tdnnf{i + 2} dim=1024 bottleneck-dim=128 "
+            f"time-stride={s}\n" for i, s in enumerate([1, 1, 1] + [3] * 10))
+        return ("input name=input dim=40\n"
+                "relu-batchnorm-layer name=tdnn1 input=Append(-1,0,1) "
+                "dim=1024\n" + body + out)
+    return ("input name=input dim=40\n"
+            "conv-relu-batchnorm-layer name=cnn1 height-in=40 "
+            "num-filters-out=64\n"
+            "conv-relu-batchnorm-layer name=cnn2 height-in=40 "
+            "num-filters-out=128 height-subsample-out=2\n"
+            "relu-batchnorm-layer name=tdnn1 input=Append(-1,0,1) dim=1024\n"
+            "tdnnf-layer name=tdnnf2 dim=1024 bottleneck-dim=128 "
+            "time-stride=1\n"
+            "tdnnf-layer name=tdnnf3 dim=1024 bottleneck-dim=128 "
+            "time-stride=1\n"
+            "fast-lstmp-layer name=lstm1 cell-dim=1024 "
+            "recurrent-projection-dim=256\n"
+            "relu-batchnorm-layer name=tdnn4 input=Append(-3,0,3) dim=1024\n"
+            "attention-relu-batchnorm-layer name=att1 dim=1024\n"
+            "stats-layer name=stats1 config=mean+stddev(-99:3:9:99)\n" + out)
+
+
+def xconfig_model(kind: str):
+    """→ P ↦ a fresh xconfig chain model of ``kind`` (×3 subsampled)."""
+    from kaldi_tpu_torch.am.xconfig import chain_model_from_xconfig
+    return lambda P: chain_model_from_xconfig(xconfig_text(kind, P), 3)
+
+
+def xconfig_training(dev, den, egs, P: int, rates, tag: str):
+    """15a: ChainTrainer with NG-SGD, float32, on 8b's egs and den at B =
+    32 and 128 for each model: Mframes/s, kernels and busy card a step.
+    → {key: Mframes/s}."""
+    out = {}
+    for kind in ("xc_tdnnf", "xc_full"):
+        m = xconfig_model(kind)(P)
+        print(f"xconfig: {kind}: {len(m.net.xlines)} lines, "
+              f"{sum(p.numel() for p in m.parameters()) / 1e6:.2f}M "
+              f"parameters, layer types "
+              f"{sorted({l.layer_type for l in m.net.xlines})}")
+        out.update(chain_train_points(
+            dev, den, egs, P, tag, points=XC_POINTS, steps=XC_STEPS,
+            key_prefix=f"{kind}_", profile_steps=XC_PROFILE_STEPS,
+            model=xconfig_model(kind)))
+    for key, v in out.items():
+        print(f"{key} {v:.4f}" + (f" (phase 8b's f32_B32_Mframes_s: "
+                                  f"{rates['f32_B32_Mframes_s']:.4f})"
+                                  if key == "xc_tdnnf_f32_B32_Mframes_s"
+                                  else "") + f" {tag}")
+    return out
+
+
+def lstm_route(dev, tag: str) -> None:
+    """15a: the LSTM recurrence's kernels: one forward + backward of
+    xc_full's LSTMP layer (cell 1024, projection 256) at B = 32 × 150
+    frames, profiled."""
+    from kaldi_tpu_torch.am.lstm import LstmpLayer
+    from kaldi_tpu_torch.am.tdnn import init_like_flax
+    from kaldi_tpu_torch.tools.timing import profiled
+    layer = init_like_flax(LstmpLayer(1024, 1024, 256), SEED).to(dev)
+    x = torch.randn(32, CHAIN_T, 1024, device=dev,
+                    generator=torch.Generator(dev).manual_seed(SEED))
+
+    def run():
+        layer(x)[0].square().sum().backward()
+        torch.cuda.synchronize()
+
+    run()
+    wall, n_k, busy, _ = profiled(run)
+    print(f"xconfig: the LSTM route (cuDNN through functional_call, "
+          f"float32 without TF32): one LSTMP forward + backward at B = 32, "
+          f"T = {CHAIN_T}: {n_k} kernels, {busy:.2f} ms busy card, "
+          f"{wall:.2f} ms wall {tag}")
+
+
+def pdf_alignment(tree, topo, runs):
+    """Full-rate pdfs of (phone, frames) runs through the chain topology:
+    a run's first frame its forward pdf, the rest its self-loop pdf."""
+    out = []
+    for ph, d in runs:
+        st = topo.topology_for_phone(ph)[0]
+        out.append(tree.compute([ph], st.forward_pdf_class))
+        out += [tree.compute([ph], st.self_loop_pdf_class)] * (d - 1)
+    return np.asarray(out, np.int32)
+
+
+def xent_start(dev, feats, runs, tree, topo):
+    """15c (in the background from here): ``nnet3-train`` at its defaults
+    on 8b's features and its seeded alignments at the full frame rate.
+    → (process, work dir, feats, pdf alignments, pdfs)."""
+    import subprocess
+    from kaldi_tpu_torch.core.table import TableWriter
+    repo = os.path.dirname(os.path.abspath(__file__))
+    w = os.path.join(repo, XENT_DIR)
+    os.makedirs(w, exist_ok=True)
+    ali = {u: pdf_alignment(tree, topo, runs[u])[:len(f)]
+           for u, f in feats.items()}
+    with TableWriter(f"ark:{w}/feats.ark", holder="mat") as wf, \
+            TableWriter(f"ark:{w}/ali.ark", holder="ivec") as wa:
+        for u in sorted(feats):
+            wf[u] = feats[u]
+            wa[u] = ali[u]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli", "nnet3-train",
+         f"--num-pdfs={tree.num_pdfs}", f"--device={dev.type}",
+         f"ark:{w}/feats.ark", f"ark:{w}/ali.ark", f"{w}/final.raw"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, w, feats, ali, tree.num_pdfs
+
+
+def _first_adam_step(tr, X, Y, M):
+    """One XentTrainer step that keeps each parameter's gradient → (loss,
+    {name: gradient})."""
+    grads = {}
+    step = tr.opt.step
+
+    def spy(*a, **kw):
+        for n, p in tr.model.named_parameters():
+            grads[n] = p.grad.detach().cpu().clone()
+        return step(*a, **kw)
+
+    tr.opt.step = spy
+    loss, _ = tr._step(X, Y, M)
+    tr.opt.step = step
+    return float(loss), grads
+
+
+def xent_training(dev, started, tag: str) -> dict:
+    """15c: XentTrainer in this process at nnet3-train's defaults on the
+    same data: its loss and frame accuracy; the frame accuracy over
+    every chunk before and after training (it must rise);
+    one Adam step on the card equal to the CPU's (13a's bar: 1e-3·lr
+    plus the step's sensitivity to a gradient error of 1e-5 of the
+    largest).  → the in-process run's stats."""
+    from kaldi_tpu_torch.am.tdnn import TdnnConfig
+    from kaldi_tpu_torch.pipelines.nnet import XentTrainConfig, XentTrainer
+    _, _, feats, ali, P = started
+    cfg = TdnnConfig(feat_dim=40, num_pdfs=P, hidden_dim=256,
+                     bottleneck_dim=64, num_layers=5,
+                     frame_subsampling_factor=1)
+    tr = XentTrainer(cfg, XentTrainConfig(num_epochs=4), device=dev)
+    n_frames = sum(len(a) for a in ali.values())
+    X, Y, M = tr.make_egs(feats, ali)
+
+    def accuracy():
+        # the trainer's own measure (masked argmax of the outputs in
+        # training mode) over every chunk in batches of 16, the batch-norm
+        # statistics put back after
+        keep = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        tr.model.train()
+        hits = 0
+        with torch.no_grad():
+            for i in range(0, len(X), 16):
+                out = tr.model(torch.from_numpy(X[i:i + 16]).to(dev))
+                hits += int(((out.argmax(-1).cpu().numpy() == Y[i:i + 16])
+                             & M[i:i + 16]).sum())
+        tr.model.load_state_dict(keep)
+        return hits / int(M.sum())
+
+    before = accuracy()
+    t0 = time.perf_counter()
+    stats = tr.train(feats, ali)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = accuracy()
+    steps = 4 * (len(X) // 16)
+    print(f"xent: XentTrainer at nnet3-train's defaults (TDNN-F 256 / 64, 5 "
+          f"layers, 4 epochs, Adam 1e-3) on {len(feats)} utterances, "
+          f"{n_frames} frames, {cfg.num_pdfs} pdfs: {steps} steps in "
+          f"{wall:.2f} s = {steps * 16 * 64 / wall / 1e6:.4f} Mframes/s; "
+          f"loss {stats['loss']:.6f}, last batch frame accuracy "
+          f"{stats['frame_acc']:.4f}; frame accuracy over every chunk "
+          f"{before:.4f} → {after:.4f} {tag}")
+    if not (math.isfinite(stats["loss"]) and after > before):
+        raise AssertionError(f"xent training: accuracy {before} → {after}, "
+                             f"loss {stats['loss']}")
+    # one Adam step on the card and on the CPU from the same weights
+    res = []
+    for d in (dev, torch.device("cpu")):
+        t = XentTrainer(cfg, XentTrainConfig(num_epochs=4), device=d)
+        loss, grads = _first_adam_step(t, X[:16], Y[:16], M[:16])
+        res.append((loss, grads, {k: v.detach().cpu() for k, v in
+                                  t.model.state_dict().items()}))
+    (lg, _, sg), (lc, gc, sc) = res
+    worst = max(_adam_step_ok(sg[k], sc[k], gc[k], 1e-3, 1e-5) for k in gc)
+    lrel = abs(lg - lc) / abs(lc)
+    print(f"xent: one Adam step at B = 16, card vs CPU: loss {lg:.6f} vs "
+          f"{lc:.6f} (relative {lrel:.2e}), weights at most {worst:.3f} of "
+          f"the first step's bar")
+    if not (lrel <= 1e-5 and worst <= 1.0):
+        raise AssertionError("xent: the card's Adam step differs from the "
+                             "CPU's")
+    return stats
+
+
+def xent_finish(started, want, tag: str) -> None:
+    """15c: nnet3-train exited 0; its logged loss and frame accuracy equal
+    the in-process run's within XENT_TOL relative; its raw model reads
+    back."""
+    import ast
+    from kaldi_tpu_torch.am.nnet3_io import read_nnet3_path
+    proc, w = started[0], started[1]
+    err = proc.communicate(timeout=600)[1]
+    if proc.returncode != 0:
+        raise AssertionError(f"nnet3-train failed:\n{err[-3000:]}")
+    line = [ln for ln in err.splitlines() if "nnet3-train: {" in ln][-1]
+    got = ast.literal_eval(line[line.index("{"):])
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    n = len(read_nnet3_path(f"{w}/final.raw").components)
+    print(f"xent: nnet3-train --device=cuda at its defaults: loss "
+          f"{got['loss']:.6f}, frame accuracy {got['frame_acc']:.4f}, "
+          f"within {rel:.2e} of the in-process run (limit {XENT_TOL:g}); "
+          f"final.raw holds {n} components {tag}")
+    if not rel <= XENT_TOL:
+        raise AssertionError(f"nnet3-train differs from XentTrainer: {rel}")
+
+
+def speaker_corpus(rng, n_spk: int, n_utt: int, D: int = 30):
+    """Seeded speakers (tests/test_xvector.py's corpus at the recipe's
+    30 MFCC dims): a per-speaker offset over shared frame noise, 2-4 s
+    (200-400 frames) an utterance."""
+    feats, utt2spk = {}, {}
+    for s in range(n_spk):
+        off = 3.0 * rng.standard_normal(D)
+        for j in range(n_utt):
+            u = f"spk{s:02d}-u{j}"
+            T = int(rng.integers(200, 401))
+            feats[u] = (off + rng.standard_normal((T, D))).astype(np.float32)
+            utt2spk[u] = f"spk{s:02d}"
+    return feats, utt2spk
+
+
+def xvectors(dev, tag: str):
+    """15d: train_xvector on the card at the voxceleb v2 recipe's widths
+    (30 inputs, 512-wide frame layers, 512-wide embeddings; its
+    1500-wide fifth layer is not expressible in XvectorConfig) on
+    XVEC_SPK seeded speakers × XVEC_UTTS utterances, XVEC_HELD a speaker
+    held out: same-speaker cosine above different-speaker cosine on the
+    held-out utterances; the model's file; then both extraction tools
+    on the card in the background.  → (model, held-out feats, work
+    dir, tool processes)."""
+    import subprocess
+    from kaldi_tpu_torch.am.xvector import (XvectorConfig, extract_xvector,
+                                            save_xvector_model,
+                                            train_xvector)
+    from kaldi_tpu_torch.core.table import TableWriter
+    feats, utt2spk = speaker_corpus(np.random.default_rng(SEED + 15),
+                                    XVEC_SPK, XVEC_UTTS)
+    held = {u: f for u, f in feats.items()
+            if int(u[-1]) >= XVEC_UTTS - XVEC_HELD}
+    train = {u: f for u, f in feats.items() if u not in held}
+    cfg = XvectorConfig(feat_dim=30, hidden_dim=512, embed_dim=512)
+    t0 = time.perf_counter()
+    model, spks = train_xvector(train, {u: utt2spk[u] for u in train}, cfg,
+                                seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    embs = {u: extract_xvector(model, f) for u, f in held.items()}
+    same, diff = [], []
+    keys = sorted(embs)
+    for i, a in enumerate(keys):
+        for b in keys[i + 1:]:
+            ea, eb = embs[a], embs[b]
+            c = float(ea @ eb / (np.linalg.norm(ea) * np.linalg.norm(eb)))
+            (same if utt2spk[a] == utt2spk[b] else diff).append(c)
+    steps = 30 * (len(train) // 16)
+    print(f"xvector: train_xvector on the card (30 → 512 × 5 frame layers, "
+          f"512 embeddings, {len(spks)} speakers, {len(train)} utterances, "
+          f"30 epochs of B = 16 chunks of 64 frames, Adam): {steps} steps in "
+          f"{wall:.2f} s = {steps * 16 * 64 / wall / 1e6:.4f} Mframes/s; "
+          f"held-out cosine: same speaker {np.mean(same):.4f}, different "
+          f"{np.mean(diff):.4f} ({len(held)} utterances) {tag}")
+    if not np.mean(same) > np.mean(diff):
+        raise AssertionError("x-vectors do not separate speakers")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    w = os.path.join(repo, "build", "chip_smoke_xvector")
+    os.makedirs(w, exist_ok=True)
+    save_xvector_model(f"{w}/final.raw", model, spks)
+    with TableWriter(f"ark:{w}/feats.ark", holder="mat") as wf:
+        for u in sorted(held):
+            wf[u] = held[u]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli", tool,
+         f"--device={dev.type}"] + opts + [f"{w}/final.raw",
+                                           f"ark:{w}/feats.ark",
+                                           f"ark:{w}/{tool}.ark"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for tool, opts in (("nnet3-xvector-compute", []),
+                           ("nnet3-xvector-compute-batched", []))]
+    return model, held, w, procs
+
+
+def xvectors_finish(model, held, w, procs, tag: str) -> None:
+    """15d: both extraction tools equal the library on the card (whole
+    utterances; the mean over 100-frame windows) within XVEC_TOOL_TOL of
+    the largest; the card's embeddings equal the CPU's within XVEC_TOL
+    of the largest."""
+    import copy
+    from kaldi_tpu_torch.am.xvector import extract_xvector
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    worst = {}
+    for p, tool in zip(procs, ("nnet3-xvector-compute",
+                               "nnet3-xvector-compute-batched")):
+        err = p.communicate(timeout=600)[1]
+        if p.returncode != 0:
+            raise AssertionError(f"{tool} failed:\n{err[-3000:]}")
+        got = dict(SequentialTableReader(f"ark:{w}/{tool}.ark",
+                                         holder="vec"))
+        if sorted(got) != sorted(held):
+            raise AssertionError(f"{tool}: keys differ")
+        err = 0.0
+        for u, f in held.items():
+            if tool == "nnet3-xvector-compute":
+                lib = extract_xvector(model, f)
+            else:
+                lib = np.mean([extract_xvector(model, f[lo:lo + 100])
+                               for lo in range(0, len(f) - 99, 100)], axis=0)
+            err = max(err, float(np.abs(got[u] - lib).max()
+                                 / np.abs(lib).max()))
+        worst[tool] = err
+    cpu = copy.deepcopy(model).cpu()
+    rel = max(float(np.abs(extract_xvector(model, f)
+                           - extract_xvector(cpu, f)).max()
+                    / np.abs(extract_xvector(cpu, f)).max())
+              for f in held.values())
+    print(f"xvector: nnet3-xvector-compute and -batched on the card equal "
+          f"the library within {worst['nnet3-xvector-compute']:.2e} and "
+          f"{worst['nnet3-xvector-compute-batched']:.2e} of the largest "
+          f"(limit {XVEC_TOOL_TOL:g}); card vs CPU embeddings within "
+          f"{rel:.2e} of the largest (limit {XVEC_TOL:g}) {tag}")
+    if not (max(worst.values()) <= XVEC_TOOL_TOL and rel <= XVEC_TOL):
+        raise AssertionError("x-vector extraction disagrees")
+
+
+def lstm_scorer(dev, feats, P: int, tag: str) -> None:
+    """15e: LstmChain at cell 1024, projection 256, 3 layers, ×3 (seeded
+    weights, the output kernel drawn too) on LSTM_UTTS of 8b's
+    utterances: streamed in LSTM_CHUNK-frame chunks equal to offline
+    within LSTM_STREAM_TOL of the largest, the card's offline scores
+    equal to the CPU's on LSTM_CPU_UTTS within LSTM_CPU_TOL."""
+    import copy
+    from kaldi_tpu_torch.am.lstm import (LstmChain, LstmConfig,
+                                         StreamingLstmScorer)
+    from kaldi_tpu_torch.am.tdnn import init_like_flax
+    model = init_like_flax(LstmChain(LstmConfig(
+        feat_dim=40, num_pdfs=P, hidden_dim=1024, proj_dim=256,
+        num_layers=3, frame_subsampling_factor=3)), SEED)
+    with torch.no_grad():
+        model.output_affine.weight.normal_(
+            0.0, 0.1, generator=torch.Generator().manual_seed(SEED))
+    cpu = copy.deepcopy(model).eval()
+    model = model.to(dev).eval()
+    utts = sorted(feats)[:LSTM_UTTS]
+    sc = StreamingLstmScorer(model)
+    t_stream = t_off = 0.0
+    s_err = c_err = 0.0
+    frames = 0
+    for i, u in enumerate(utts):
+        f = feats[u][:len(feats[u]) // 3 * 3]
+        frames += len(f)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            off = model(torch.from_numpy(f).to(dev)[None])[0][0].cpu().numpy()
+        t1 = time.perf_counter()
+        sc.reset()
+        streamed = np.concatenate([sc.accept_features(f[lo:lo + LSTM_CHUNK])
+                                   for lo in range(0, len(f), LSTM_CHUNK)])
+        t2 = time.perf_counter()
+        t_off += t1 - t0
+        t_stream += t2 - t1
+        scale = float(np.abs(off).max())
+        s_err = max(s_err, float(np.abs(streamed - off).max()) / scale)
+        if i < LSTM_CPU_UTTS:
+            with torch.no_grad():
+                want = cpu(torch.from_numpy(f)[None])[0][0].numpy()
+            c_err = max(c_err, float(np.abs(off - want).max())
+                        / float(np.abs(want).max()))
+    print(f"lstm: LstmChain (3 × LSTMP 1024 / 256, ×3) on {len(utts)} "
+          f"utterances, {frames} frames: streamed in {LSTM_CHUNK}-frame "
+          f"chunks vs offline within {s_err:.2e} of the largest (limit "
+          f"{LSTM_STREAM_TOL:g}); card vs CPU on {LSTM_CPU_UTTS} within "
+          f"{c_err:.2e} (limit {LSTM_CPU_TOL:g}); offline {t_off:.3f} s, "
+          f"streamed {t_stream:.3f} s wall {tag}")
+    if not (s_err <= LSTM_STREAM_TOL and c_err <= LSTM_CPU_TOL):
+        raise AssertionError("the LSTM scorer disagrees")
 
 
 def main() -> int:
@@ -4181,7 +4649,7 @@ def main() -> int:
         rnn_tools = rnnlm_tools_start(fsys, lat_tools[1])
         procs.append(rnn_tools)
         recipes = chain_recipes_start(dev)
-        procs += [recipes, recipes[2:]]
+        procs += [recipes, recipes[2:], recipes[3:]]
         flagship_graphs(f_results, fsys)
         f_fb_err, f_gm_err, f_den_err = flagship_kernels(dev, fsys, tag)
         flagship_card_vs_cpu(dev, fsys, tag)
@@ -4236,6 +4704,40 @@ def main() -> int:
     card_step_equals_cpu(dev, cden, lat_egs, P)
     print(f"lattice: phase 14a and 14b took {time.perf_counter() - t0:.1f} s")
 
+    # 15. xconfig chain models on 8b's egs (the main path: the den
+    # kernels' count zeroed before 15a's training and read after), the
+    # cross-entropy trainer and nnet3-train (in the background), x-vectors
+    # and their tools (in the background), the LSTM scorer; 15b ran
+    # beside 14c
+    t0 = time.perf_counter()
+    dk.launches = 0
+    xc_rates = xconfig_training(dev, cden, egs, P, rates, tag)
+    xc_den = dk.launches
+    if xc_den <= 0:
+        raise AssertionError("xconfig training launched no den kernel")
+    print(f"xconfig: den kernel launches {xc_den} in 15a's "
+          f"{len(xc_rates)} training points")
+    for model_kind in ("xc_tdnnf", "xc_full"):
+        print(f"xconfig: {model_kind}: one step at B = 4, card vs CPU:")
+        card_step_equals_cpu(dev, cden, egs, P,
+                             model=xconfig_model(model_kind))
+    lstm_route(dev, tag)
+    xent = xent_start(dev, cfeats, cruns, ctree, ctopo)
+    procs = [xent]
+    try:
+        xent_stats = xent_training(dev, xent, tag)
+        xmodel, xheld, xdir, xprocs = xvectors(dev, tag)
+        procs += [(p,) for p in xprocs]
+        lstm_scorer(dev, cfeats, P, tag)
+        xvectors_finish(xmodel, xheld, xdir, xprocs, tag)
+        xent_finish(xent, xent_stats, tag)
+    finally:
+        for p in procs:
+            if p[0].poll() is None:
+                p[0].kill()
+                p[0].wait()
+    print(f"xconfig: phase 15 took {time.perf_counter() - t0:.1f} s")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
@@ -4275,7 +4777,7 @@ def main() -> int:
         "replaces": "kaldi_tpu/am/chain.py:470",
         "note": "replaces an XLA program (lax.scan + jax.grad), not a "
                 "Pallas kernel; forward and backward kernels, ms for both",
-        "launches": den_launches + f_den + lat_den,
+        "launches": den_launches + f_den + lat_den + xc_den,
         "max_abs_err": max(den_err, f_den_err),
         "ms": den_ms, "plain_ms": den_plain_ms,
         "bound_ms": den_bnd[0], "bound_by": den_bnd[1],

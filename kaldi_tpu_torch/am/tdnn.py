@@ -1,8 +1,8 @@
 """TDNN-F chain acoustic model: forward, training mode and converters.
 
 Port of kaldi_tpu/am/tdnn.py (``splice``, ``TdnnFLayer``,
-``TdnnConfig``, ``TdnnChain``, ``semi_orthogonal_penalty``) to
-``torch.nn``.  Batch norm has flax's semantics (``BatchNorm``): no scale
+``TdnnConfig``, ``TdnnChain``, ``RestrictedAttentionLayer``,
+``semi_orthogonal_penalty``) to ``torch.nn``.  Batch norm has flax's semantics (``BatchNorm``): no scale
 or bias, eps 1e-5; in training mode it normalizes by the batch mean and
 the biased batch variance over (B, T) and moves the running statistics
 by momentum 0.99, in eval mode it uses them.  Dense layers are
@@ -12,7 +12,16 @@ bfloat16 by explicit casts, as flax's ``dtype=`` does: the parameters
 stay float32, and each ReLU output goes back to float32 before its batch
 norm.  ``params_from_flax`` / ``params_to_flax`` convert between a flax
 ``{"params", "batch_stats"}`` tree (as numpy) and this module's state
-dict.
+dict; ``state_dict_from_flax`` / ``state_dict_to_flax`` do it for any
+model whose torch module names are flax's (the xconfig, LSTM and
+x-vector models).  ``init_like_flax`` draws fresh weights from flax's
+initializers' distributions.
+
+``TdnnFLayer``'s dropout is ported to its intent: the original builds an
+``nn.Dropout`` that its trainers give no random key, so a model with
+``dropout-proportion`` cannot train there.  Here training mode draws the
+mask from the layer's ``generator`` (the trainer's seeded one), and eval
+mode is the identity.
 """
 
 from __future__ import annotations
@@ -49,8 +58,13 @@ def dense(layer: nn.Linear, x: torch.Tensor,
 class BatchNorm(nn.Module):
     """flax ``BatchNorm(use_scale=False, use_bias=False)``: (x − mean)·
     rsqrt(var + eps) over the last axis.  Training mode takes mean and
-    var of the batch (var = E[x²] − E[x]², floored at 0, flax's fast
-    variance) and moves the running ones: r ← 0.99·r + 0.01·batch."""
+    var of the batch and moves the running ones: r ← 0.99·r + 0.01·batch.
+    The variance is the two-pass E[(x − E[x])²], equal in exact
+    arithmetic to flax's fast E[x²] − E[x]², whose float32 rounding error
+    grows as mean²/var: on a channel whose mean is tens of its deviation
+    (a stats layer's window means feed the prefinal layer so) it moved the
+    normalised outputs by ~1e-4 of their largest, with the order of the
+    sums (card against CPU)."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__()
@@ -64,7 +78,7 @@ class BatchNorm(nn.Module):
             return (x - self.mean) * torch.rsqrt(self.var + self.eps)
         dims = tuple(range(x.dim() - 1))
         mu = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mu * mu, min=0.0)
+        var = ((x - mu) ** 2).mean(dim=dims)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mu)
@@ -78,10 +92,15 @@ class TdnnFLayer(nn.Module):
     scaled bypass when the widths match."""
 
     def __init__(self, in_dim: int, dim: int, bottleneck: int,
-                 time_stride: int = 1, bypass_scale: float = 0.66):
+                 time_stride: int = 1, bypass_scale: float = 0.66,
+                 dropout: float = 0.0):
         super().__init__()
         self.time_stride = time_stride
         self.bypass_scale = bypass_scale
+        self.dropout = dropout
+        # the dropout masks' source in training mode (None: torch's
+        # global generator); trainers set their own
+        self.generator: Optional[torch.Generator] = None
         ctx = 2 if time_stride else 1
         self.linear = nn.Linear(in_dim * ctx, bottleneck, bias=False)
         self.affine = nn.Linear(bottleneck * ctx, dim)
@@ -93,9 +112,63 @@ class TdnnFLayer(nn.Module):
         h = dense(self.linear, splice(x, (-s, 0) if s else (0,)), dtype)
         h = dense(self.affine, splice(h, (0, s) if s else (0,)), dtype)
         h = self.batchnorm(torch.relu(h).float())
+        if self.dropout > 0.0 and self.training:
+            h = dropout(h, self.dropout, self.generator)
         if x.shape[-1] == self.dim:
             h = h + self.bypass_scale * x
         return h
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` in training mode: each entry kept with
+    probability 1 − rate and scaled by 1 / (1 − rate), the mask drawn
+    from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class RestrictedAttentionLayer(nn.Module):
+    """Time-restricted self-attention (nnet-attention-component.h
+    RestrictedAttentionComponent), as the original computes it: Q, K, V
+    denses, QKᵀ/√dh over all T frames with the band [t − left_ctx,
+    t + right_ctx] kept and the rest set to −1e30, softmax, ·V, the
+    ``out`` dense, batch norm, and a 0.66-scaled bypass when the widths
+    are equal."""
+
+    def __init__(self, in_dim: int, dim: int, num_heads: int = 4,
+                 left_ctx: int = 9, right_ctx: int = 9,
+                 bypass_scale: float = 0.66):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.left_ctx, self.right_ctx = left_ctx, right_ctx
+        self.bypass_scale = bypass_scale
+        inner = num_heads * (dim // num_heads)
+        self.query = nn.Linear(in_dim, inner)
+        self.key = nn.Linear(in_dim, inner)
+        self.value = nn.Linear(in_dim, inner)
+        self.out = nn.Linear(inner, dim)
+        self.batchnorm = BatchNorm(dim)
+
+    def forward(self, x):
+        B, T, D = x.shape
+        H = self.num_heads
+        dh = self.dim // H
+        q = self.query(x).reshape(B, T, H, dh)
+        k = self.key(x).reshape(B, T, H, dh)
+        v = self.value(x).reshape(B, T, H, dh)
+        logits = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(dh)
+        t = torch.arange(T, device=x.device)
+        band = ((t[None, :] >= t[:, None] - self.left_ctx)
+                & (t[None, :] <= t[:, None] + self.right_ctx))
+        logits = torch.where(band, logits, torch.full_like(logits, -1e30))
+        att = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhts,bshd->bthd", att, v).reshape(B, T, H * dh)
+        out = self.batchnorm(self.out(out))
+        if D == self.dim:
+            out = out + self.bypass_scale * x
+        return out
 
 
 @dataclasses.dataclass
@@ -138,6 +211,7 @@ class TdnnChain(nn.Module):
         self.prefinal = nn.Linear(H, H)
         self.prefinal_bn = BatchNorm(H)
         self.output_affine = nn.Linear(H, cfg.num_pdfs)
+        self.output_affine.zero_init = True
 
     def forward(self, x):
         dt = self.matmul_dtype
@@ -152,41 +226,71 @@ class TdnnChain(nn.Module):
         return self.output_affine(h)
 
 
-def init_tdnn(model: TdnnChain, seed: int = 0) -> TdnnChain:
-    """Fresh weights drawn as flax initialises the original: dense
-    kernels from lecun_normal (a normal truncated at ±2, scaled to
-    variance 1/fan_in), biases zero, the output layer's kernel zero,
-    batch-norm statistics (0, 1).  flax's bits differ (its own RNG);
-    only the distributions agree."""
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   gen: torch.Generator) -> None:
+    """flax's lecun_normal: a normal truncated at ±2, scaled to variance
+    1/fan_in (the truncated normal's std is 0.8796 of its scale)."""
+    v = torch.empty(w.shape)
+    nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    w.copy_(v * (math.sqrt(1.0 / fan_in) / .87962566103423978))
+
+
+def init_like_flax(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Fresh weights drawn as flax initialises the originals: dense and
+    convolution kernels from lecun_normal, a dense layer marked
+    ``zero_init`` (the output layers) all zero, one marked ``orthogonal``
+    (an LSTM's recurrent kernels) from flax's orthogonal initializer,
+    biases zero, batch-norm statistics (0, 1).  flax's bits differ (its
+    own RNG); only the distributions agree."""
+    from kaldi_tpu_torch.am.cnn import TimeHeightConv
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, nn.Linear):
-                if name == "output_affine":
-                    w = torch.zeros(mod.weight.shape)
-                else:
+                if getattr(mod, "zero_init", False):
+                    mod.weight.zero_()
+                elif getattr(mod, "orthogonal", False):
                     w = torch.empty(mod.weight.shape)
-                    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                          generator=gen)
-                    # the truncated normal's std is 0.8796 of its scale
-                    w *= (math.sqrt(1.0 / mod.in_features)
-                          / .87962566103423978)
-                mod.weight.copy_(w)
+                    nn.init.orthogonal_(w, generator=gen)
+                    mod.weight.copy_(w)
+                else:
+                    _lecun_normal_(mod.weight, mod.in_features, gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, TimeHeightConv):
+                _lecun_normal_(mod.weight, mod.weight[0].numel(), gen)
+                mod.bias.zero_()
             elif isinstance(mod, BatchNorm):
                 mod.mean.zero_()
                 mod.var.fill_(1.0)
     return model
 
 
-def semi_orthogonal_penalty(model: TdnnChain) -> torch.Tensor:
-    """Σ ‖MMᵀ − scale·I‖² over every TDNN-F first factor M (bottleneck,
-    in), scale = tr(MMᵀ)/bottleneck (nnet-utils.cc ConstrainOrthonormal's
-    floating-scale objective).  A torch weight is flax's kernel
-    transposed, so M is the weight itself."""
+def init_tdnn(model: TdnnChain, seed: int = 0) -> TdnnChain:
+    """``init_like_flax`` of a TdnnChain: dense kernels from
+    lecun_normal, biases zero, the output layer's kernel zero."""
+    return init_like_flax(model, seed)
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Every TDNN-F layer of ``model`` draws its dropout masks from
+    ``generator``."""
+    for mod in model.modules():
+        if isinstance(mod, TdnnFLayer):
+            mod.generator = generator
+
+
+def semi_orthogonal_penalty(model: nn.Module) -> torch.Tensor:
+    """Σ ‖MMᵀ − scale·I‖² over the first factor M (bottleneck, in) of
+    every TDNN-F layer in ``model``, scale = tr(MMᵀ)/bottleneck
+    (nnet-utils.cc ConstrainOrthonormal's floating-scale objective).  A
+    torch weight is flax's kernel transposed, so M is the weight
+    itself."""
     total = 0.0
-    for layer in model.tdnnf:
+    for layer in model.modules():
+        if not isinstance(layer, TdnnFLayer):
+            continue
         m = layer.linear.weight
         p = m @ m.T
         scale = torch.trace(p) / p.shape[0]
@@ -263,4 +367,49 @@ def params_to_flax(state_dict) -> Dict[str, dict]:
         else:
             put(out["batch_stats"], bpath + ("mean",), sd[f"{src}.mean"])
             put(out["batch_stats"], bpath + ("var",), sd[f"{src}.var"])
+    return out
+
+
+def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` (leaves as numpy arrays) of a
+    model whose torch modules carry flax's module names (the xconfig,
+    LSTM and x-vector models) → its state dict: a leaf's path joined by
+    dots, ``kernel`` → ``weight`` (a dense kernel (in, out) transposed, a
+    convolution's HWIO kernel to torch's OIHW), ``bias``, ``mean`` and
+    ``var`` as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                walk(v, path + (k,))
+                continue
+            a = np.asarray(v, np.float32)
+            if k == "kernel":
+                k = "weight"
+                a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+            # a copy: the tree's arrays may share memory with a JAX buffer
+            sd[".".join(path + (k,))] = torch.tensor(np.ascontiguousarray(a))
+
+    for coll in ("params", "batch_stats"):
+        walk(variables.get(coll, {}), ())
+    return sd
+
+
+def state_dict_to_flax(state_dict) -> Dict[str, dict]:
+    """The inverse of ``state_dict_from_flax`` for models whose flax
+    module names hold no dot: ``{"params", "batch_stats"}`` with numpy
+    float32 leaves."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, v in state_dict.items():
+        path = key.split(".")
+        a = v.detach().cpu().numpy().astype(np.float32)
+        coll = "batch_stats" if path[-1] in ("mean", "var") else "params"
+        if path[-1] == "weight":
+            path[-1] = "kernel"
+            a = a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)
+        tree = out[coll]
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = np.ascontiguousarray(a)
     return out

@@ -1,8 +1,8 @@
 # Copied from kaldi_tpu/core/table.py; imports rewritten to kaldi_tpu_torch.
-# The chain egs holder (ceg) reads and writes the port's
-# pipelines/egs_io.py; the other training-example holders (xeg, deg,
-# dteg) are left out until their trainers are ported: asking for one
-# raises KaldiError.
+# The chain and xent egs holders (ceg, xeg) read and write the port's
+# pipelines/egs_io.py; the other training-example holders (deg, dteg)
+# are left out until their trainers are ported: asking for one raises
+# KaldiError.
 """Ark/scp table I/O.
 
 Parity target: src/util/kaldi-table.h — SequentialTableReader,
@@ -36,7 +36,7 @@ from kaldi_tpu_torch.core import io as kio
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 
 # holders of the original whose training pipelines are not ported yet
-_TRAINING_HOLDERS = ("xeg", "deg", "dteg")
+_TRAINING_HOLDERS = ("deg", "dteg")
 
 log = get_logger(__name__)
 
@@ -156,6 +156,10 @@ class _Holders:
             from kaldi_tpu_torch.pipelines.egs_io import write_chain_eg
             kio.init_kaldi_output_stream(f)
             write_chain_eg(f, value)
+        elif holder == "xeg":
+            from kaldi_tpu_torch.pipelines.egs_io import write_xent_eg
+            kio.init_kaldi_output_stream(f)
+            write_xent_eg(f, value)
         elif holder in _TRAINING_HOLDERS:
             raise KaldiError(f"holder '{holder}' is not ported")
         elif holder == "post":
@@ -191,6 +195,9 @@ class _Holders:
         if holder == "ceg":
             from kaldi_tpu_torch.pipelines.egs_io import read_chain_eg
             return read_chain_eg(f)
+        if holder == "xeg":
+            from kaldi_tpu_torch.pipelines.egs_io import read_xent_eg
+            return read_xent_eg(f)
         if holder in _TRAINING_HOLDERS:
             raise KaldiError(f"holder '{holder}' is not ported")
         if holder == "mat":

@@ -3,7 +3,8 @@
 Port of kaldi_tpu/pipelines/chain.py (parity target:
 steps/nnet3/chain/train.py + nnet3-chain-train): egs from phone
 alignments (``make_chain_egs``, host numpy), and ``ChainTrainer``, which
-runs egs → ``TdnnChain`` in training mode → ``chain_objf`` (the
+runs egs → the model (a ``TdnnChain`` or an xconfig chain model,
+am/xconfig.py) in training mode → ``chain_objf`` (the
 denominator through the forward-backward kernel on the card) →
 backward → NG-SGD or AdamW with max-change → updated model, with the
 original's optax semantics: a continuous exponential learning-rate
@@ -37,8 +38,9 @@ import torch
 from kaldi_tpu_torch.am.chain import (ChainTrainingOptions,
                                       DenominatorGraph, chain_objf)
 from kaldi_tpu_torch.am.chain_supervision import sup_to_device
-from kaldi_tpu_torch.am.tdnn import (TdnnChain, TdnnConfig, init_tdnn,
-                                     semi_orthogonal_penalty)
+from kaldi_tpu_torch.am.tdnn import (TdnnChain, TdnnConfig, init_like_flax,
+                                     semi_orthogonal_penalty,
+                                     set_dropout_generator)
 from kaldi_tpu_torch.am.topology import HmmTopology
 from kaldi_tpu_torch.am.transitions import TransitionModel
 from kaldi_tpu_torch.am.tree import GaussStats, build_tree
@@ -322,12 +324,23 @@ class ChainTrainer:
     """Owns the model, the denominator graph and the optimizer; ``_step``
     is one training step on a batch."""
 
-    def __init__(self, model_cfg: TdnnConfig, den: DenominatorGraph,
+    def __init__(self, model_cfg, den: DenominatorGraph,
                  cfg: ChainTrainConfig = None, seed: int = 0,
                  device: torch.device | str = "cuda"):
+        """``model_cfg`` is a TdnnConfig (the trainer builds a TdnnChain)
+        or a model with the chain contract: forward (B, T, feat_dim) →
+        (B, T // sub, num_pdfs) scores, and a ``feat_dim`` (an xconfig
+        chain model, am/xconfig.py ``chain_model_from_xconfig``).  Either
+        gets fresh weights from flax's distributions (``init_like_flax``,
+        seeded by ``seed``); dropout masks come from the trainer's
+        ``generator``, seeded by ``seed`` on ``device``."""
         self.device = resolve_device(device)
         self.cfg = cfg or ChainTrainConfig()
-        self.model = init_tdnn(TdnnChain(model_cfg), seed).to(self.device)
+        model = (TdnnChain(model_cfg) if isinstance(model_cfg, TdnnConfig)
+                 else model_cfg)
+        self.model = init_like_flax(model, seed).to(self.device)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        set_dropout_generator(self.model, self.generator)
         self.den = den
         self._trained_steps = 0
         self._build_tx(self.cfg.total_steps or 0)

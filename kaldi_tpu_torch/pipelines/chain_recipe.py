@@ -11,9 +11,9 @@ subsampled frame rate (nnet3-latgen-faster with
 kernel, the GMM kernel and the batched aligner, the chain training (den
 kernels) and the dense decoder.  It exits 0 when the WER is below 20.
 
-``--xconfig`` (a model written in the xconfig language) needs
-am/xconfig.py, which is not ported yet: it raises rather than train
-the built-in TDNN-F instead.
+``--xconfig`` trains a model written in the xconfig language
+(am/xconfig.py) instead of the built-in TDNN-F: a file, or ``default``
+for ``default_xconfig``, the recipe's model as xconfig text.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from kaldi_tpu_torch.am.tdnn import TdnnConfig
 from kaldi_tpu_torch.am.topology import HmmTopology
 from kaldi_tpu_torch.am.transitions import TransitionModel
 from kaldi_tpu_torch.am.tree import MonophoneContextDependency
-from kaldi_tpu_torch.core.logging import KaldiError, Timer, get_logger
+from kaldi_tpu_torch.core.logging import Timer, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
 from kaldi_tpu_torch.decoder.dense import DenseDecoder, DenseDecoderConfig
 from kaldi_tpu_torch.device import resolve_device
@@ -62,12 +62,30 @@ def gmm_alignments(model, feats, text, lang,
     return realign(model.am, aligner, dict(zip(utts, dense)), utts, feats)
 
 
+# Copied from kaldi_tpu/pipelines/chain_recipe.py default_xconfig.
+def default_xconfig(feat_dim: int, num_pdfs: int, hidden: int) -> str:
+    """The recipe's model written in the xconfig language (the
+    reference recipes define their chain models as xconfig text that
+    steps/nnet3/xconfig_to_configs.py expands; here am/xconfig.py
+    interprets it directly as the model)."""
+    bn = max(hidden // 4, 1)
+    return f"""
+input name=input dim={feat_dim}
+relu-batchnorm-layer name=tdnn1 input=Append(-1,0,1) dim={hidden}
+tdnnf-layer name=tdnnf2 dim={hidden} bottleneck-dim={bn} time-stride=1
+tdnnf-layer name=tdnnf3 dim={hidden} bottleneck-dim={bn} time-stride=1
+tdnnf-layer name=tdnnf4 dim={hidden} bottleneck-dim={bn} time-stride=3
+tdnnf-layer name=tdnnf5 dim={hidden} bottleneck-dim={bn} time-stride=3
+relu-batchnorm-layer name=prefinal-chain dim={hidden}
+output-layer name=output dim={num_pdfs} include-log-softmax=false
+"""
+
+
 def run(num_utts: int = 50, num_test: int = 12, num_epochs: int = 40,
         hidden: int = 128, seed: int = 1, xconfig: str = None,
         device: torch.device | str = "cuda"):
-    if xconfig is not None:
-        raise KaldiError("chain_recipe: xconfig models need am/xconfig.py, "
-                         "which the port has not ported yet")
+    """``xconfig``: xconfig text, ``"default"`` (``default_xconfig``) or
+    None (the built-in TDNN-F)."""
     device = resolve_device(device)
     timer = Timer()
     lex = mini_lexicon()
@@ -106,9 +124,15 @@ def run(num_utts: int = 50, num_test: int = 12, num_epochs: int = 40,
     log.info("stage 3: %d egs chunks of %d frames", egs.feats.shape[0],
              egs.feats.shape[1])
 
-    cfg = TdnnConfig(feat_dim=feat_dim, num_pdfs=chain_tree.num_pdfs,
-                     hidden_dim=hidden, bottleneck_dim=hidden // 4,
-                     num_layers=5, frame_subsampling_factor=3)
+    if xconfig is not None:
+        from kaldi_tpu_torch.am.xconfig import chain_model_from_xconfig
+        if xconfig == "default":
+            xconfig = default_xconfig(feat_dim, chain_tree.num_pdfs, hidden)
+        cfg = chain_model_from_xconfig(xconfig, frame_subsampling_factor=3)
+    else:
+        cfg = TdnnConfig(feat_dim=feat_dim, num_pdfs=chain_tree.num_pdfs,
+                         hidden_dim=hidden, bottleneck_dim=hidden // 4,
+                         num_layers=5, frame_subsampling_factor=3)
     trainer = ChainTrainer(cfg, den, ChainTrainConfig(
         num_epochs=num_epochs, batch_size=16, learning_rate=2e-3),
         device=device)
@@ -145,12 +169,15 @@ def main(argv=None):
     po.register("num-epochs", int, 40, "training epochs")
     po.register("xconfig", str, "",
                 "xconfig file defining the model ('default' = the "
-                "built-in TDNN-F xconfig; needs am/xconfig.py, not "
-                "ported yet)")
+                "built-in TDNN-F xconfig)")
     po.register("device", str, "cuda", "torch device to run on")
     po.read(argv)
+    xc = po["xconfig"] or None
+    if xc and xc != "default":
+        with open(xc) as f:
+            xc = f.read()
     wer = run(num_utts=po["num-utts"], num_epochs=po["num-epochs"],
-              xconfig=po["xconfig"] or None, device=po["device"])
+              xconfig=xc, device=po["device"])
     return 0 if wer.wer < 20.0 else 1
 
 

@@ -9,8 +9,9 @@ pdf alignment and mask, the flexible-boundary segments with their
 normalization weights, and optionally a whole supervision FSA
 (lattice-derived or end-to-end, am/chain_supervision.py; the wire format
 carries no phone array, so an FSA read back has ``phone=None``, as in
-the original).  The xent, dense and discriminative egs wait for their
-trainers.
+the original).  ``XentEg`` (holder ``xeg``) is the cross-entropy egs'
+entry, the x-vector egs' too; the dense and discriminative egs wait
+for their trainers.
 """
 
 from __future__ import annotations
@@ -233,3 +234,42 @@ def read_egs_ark(rspecifier: str) -> ChainEgs:
                SequentialTableReader(rspecifier, holder="ceg")]
     log.info("read %d chain egs from %s", len(entries), rspecifier)
     return list_to_egs(entries)
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py XentEg.
+@dataclasses.dataclass
+class XentEg:
+    """One cross-entropy training chunk (nnet3bin/nnet3-get-egs role):
+    a minibatch of B chunks of T frames with per-frame pdf targets."""
+    feats: np.ndarray            # (B, T, D) f32
+    pdfs: np.ndarray             # (B, T) i32
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py write_xent_eg.
+def write_xent_eg(f, eg: XentEg) -> None:
+    feats = np.asarray(eg.feats, np.float32)
+    pdfs = np.asarray(eg.pdfs, np.int32)
+    if feats.ndim != 3 or pdfs.shape != feats.shape[:2]:
+        raise KaldiError("XentEg: feats must be (B,T,D), pdfs (B,T)")
+    B, T, D = feats.shape
+    kio.write_token(f, "<XentEg>")
+    kio.write_basic_int32(f, B)
+    kio.write_basic_int32(f, T)
+    kio.write_token(f, "<Feats>")
+    kio.write_matrix(f, feats.reshape(B * T, D))
+    kio.write_token(f, "<Pdfs>")
+    kio.write_int_vector(f, pdfs.reshape(-1))
+    kio.write_token(f, "</XentEg>")
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py read_xent_eg.
+def read_xent_eg(f) -> XentEg:
+    kio.expect_token(f, "<XentEg>")
+    B = kio.read_basic_int32(f)
+    T = kio.read_basic_int32(f)
+    kio.expect_token(f, "<Feats>")
+    feats = np.asarray(kio.read_matrix(f), np.float32)
+    kio.expect_token(f, "<Pdfs>")
+    pdfs = np.asarray(kio.read_int_vector(f), np.int32)
+    kio.expect_token(f, "</XentEg>")
+    return XentEg(feats.reshape(B, T, -1), pdfs.reshape(B, T))

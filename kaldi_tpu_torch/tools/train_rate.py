@@ -1,13 +1,17 @@
 """Chain training's rate at chip_smoke phase 8b's points, for one tree.
 
     python kaldi_tpu_torch/tools/train_rate.py [--root=DIR] [--steps=30]
-        [--points=32:float32,32:bfloat16,...]
+        [--points=32:float32,32:bfloat16,...] [--models=tdnn,xc_tdnnf]
+        [--rounds=1]
 
 Imports ``chip_smoke`` and ``kaldi_tpu_torch`` from ``--root`` (default:
 this checkout), builds that tree's kernels, and runs its phase 8b: the
 48 seeded waveforms' egs on the bench's den graph, then ChainTrainer
 with NG-SGD at each of its (B, dtype) points (or those of
-``--points``), ``--steps`` timed steps a point after 3 warm ones.  Run
+``--points``), ``--steps`` timed steps a point after 3 warm ones.
+``--models`` names the models, each measured at every point in turn,
+``--rounds`` times over: ``tdnn`` is 8b's TdnnChain, ``xc_tdnnf`` and
+``xc_full`` phase 15a's xconfig models (float32 only).  Run
 as a script (not ``-m``) so that a second checkout, such as a parent
 commit unpacked under ``build/``, is measured by its own code: run
 parent, change, change, parent in one session on one card to compare
@@ -47,8 +51,13 @@ def main(argv=None) -> int:
     if "points" in opts:
         points = tuple((int(b), d) for b, d in
                        (p.split(":") for p in opts["points"].split(",")))
-    rates = cs.chain_train_points(dev, den, egs, tree.num_pdfs, f"[{card}]",
-                                  points=points, steps=steps)
+    rates = {}
+    for r in range(int(opts.get("rounds", 1))):
+        for m in opts.get("models", "tdnn").split(","):
+            rates.update(cs.chain_train_points(
+                dev, den, egs, tree.num_pdfs, f"[{card}]", points=points,
+                steps=steps, key_prefix=f"{m}_r{r}_" if "models" in opts
+                else "", model=None if m == "tdnn" else cs.xconfig_model(m)))
     print(json.dumps({"root": root, "card": card, "steps": steps,
                       "Mframes_s": rates,
                       "wall_s": time.perf_counter() - t0}))

@@ -80,14 +80,27 @@ def test_cli_recipe_end_to_end(work):
     assert sorted(stage_s) == [f"stage {i}" for i in range(9)]
 
 
-def test_chain_recipe_end_to_end():
-    """pipelines/chain_recipe.py at a tiny size: a finite WER; --xconfig
-    raises and names am/xconfig.py instead of training the TDNN-F."""
-    from kaldi_tpu_torch.pipelines.chain_recipe import main, run
-    wer = run(num_utts=8, num_test=4, num_epochs=1, hidden=16, device="cpu")
+def test_chain_recipe_end_to_end(monkeypatch):
+    """pipelines/chain_recipe.py at a tiny size: a finite WER with the
+    built-in TDNN-F; --xconfig=default trains default_xconfig's model
+    (am/xconfig.py) in its place and decodes with it."""
+    from kaldi_tpu_torch.am.xconfig import XconfigChainModel
+    from kaldi_tpu_torch.pipelines import chain_recipe
+    wer = chain_recipe.run(num_utts=8, num_test=4, num_epochs=1, hidden=16,
+                           device="cpu")
     assert math.isfinite(wer.wer) and wer.ref_words > 0
-    with pytest.raises(KaldiError, match="am/xconfig.py"):
-        main(["--xconfig=default", "--device=cpu"])
+    seen = []
+    real = chain_recipe.ChainTrainer
+
+    def trainer(cfg, *a, **kw):
+        seen.append(cfg)
+        return real(cfg, *a, **kw)
+
+    monkeypatch.setattr(chain_recipe, "ChainTrainer", trainer)
+    assert chain_recipe.main(["--xconfig=default", "--device=cpu",
+                              "--num-utts=8", "--num-epochs=1"]) in (0, 1)
+    assert isinstance(seen[-1], XconfigChainModel)
+    assert seen[-1].net.tdnnf5.linear.weight.shape == (32, 2 * 128)
 
 
 @pytest.mark.parametrize("module", ["chain_cli_recipe", "chain_recipe",

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
 * No module of ``kaldi_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``kaldi_tpu``, ``jax``, ``flax``, ``optax`` or ``msgpack``, at top
+  ``kaldi_tpu``, ``jax``, ``flax``, ``optax``, ``msgpack`` or
+  ``tensorstore``, at top
   level or inside a function (an AST walk of every file; lm/, the
   msgpack codec and the copied lattice modules among them).
 * The host modules the port copied from the JAX package name their
@@ -34,7 +35,7 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "kaldi_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py"]
-FORBIDDEN = ("kaldi_tpu", "jax", "flax", "optax", "msgpack")
+FORBIDDEN = ("kaldi_tpu", "jax", "flax", "optax", "msgpack", "tensorstore")
 
 
 @pytest.mark.parametrize("path", ["kaldi_tpu_torch/lm/__init__.py",
@@ -137,7 +138,11 @@ def _entry_points():
     from kaldi_tpu_torch.pipelines import flagship, hard
     from kaldi_tpu_torch.am import ivector
     from kaldi_tpu_torch.lm import rnnlm
-    return dict(train_rnnlm=rnnlm.train_rnnlm, load_rnnlm=rnnlm.load_rnnlm,
+    from kaldi_tpu_torch.am import xvector
+    from kaldi_tpu_torch.pipelines.nnet import XentTrainer
+    return dict(XentTrainer=XentTrainer,
+                train_xvector=xvector.train_xvector,
+                load_xvector_model=xvector.load_xvector_model,train_rnnlm=rnnlm.train_rnnlm, load_rnnlm=rnnlm.load_rnnlm,
                 RnnLmScorer=rnnlm.RnnLmScorer,
                 IvectorExtractor=ivector.IvectorExtractor,
                 train_diag_ubm=ivector.train_diag_ubm,
@@ -167,7 +172,8 @@ ENTRY_POINTS = ["BeamDecoder", "DenseDecoder", "_LatgenDecoder", "Fbank",
                 "decode_eval", "run_point", "run_sweep", "flagship_run",
                 "flagship_align", "IvectorExtractor", "train_diag_ubm",
                 "read_ivector_extractor", "compute_vad_energy",
-                "train_rnnlm", "load_rnnlm", "RnnLmScorer"]
+                "train_rnnlm", "load_rnnlm", "RnnLmScorer", "XentTrainer",
+                "train_xvector", "load_xvector_model"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -195,6 +201,7 @@ def test_without_a_card_construction_raises(monkeypatch):
     on the CPU."""
     from kaldi_tpu_torch.am.tdnn import TdnnConfig
     from kaldi_tpu_torch.core.logging import KaldiError
+    from kaldi_tpu_torch.am.xvector import XvectorConfig
     from kaldi_tpu_torch.lm.rnnlm import RnnLm, RnnLmConfig
     from test_torch_beam import PORT, yesno_graph
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -234,7 +241,12 @@ def test_without_a_card_construction_raises(monkeypatch):
              lambda: eps["train_rnnlm"]([[3, 4]], RnnLmConfig(8, 4, 4)),
              lambda: eps["load_rnnlm"]("never.read"),
              lambda: eps["RnnLmScorer"](RnnLm(RnnLmConfig(8, 4, 4)),
-                                        lang.words)]
+                                        lang.words),
+             lambda: eps["XentTrainer"](TdnnConfig(
+                 num_pdfs=P, frame_subsampling_factor=1)),
+             lambda: eps["train_xvector"]({"u": np.zeros((4, 3))},
+                                          {"u": "s"}, XvectorConfig()),
+             lambda: eps["load_xvector_model"]("never.read")]
     for call in calls:
         with pytest.raises(KaldiError, match="no CUDA card"):
             call()
@@ -416,3 +428,49 @@ def test_card_scripts_refuse_without_a_card(argv):
     assert res.returncode != 0
     assert res.stdout == ""
     assert "no CUDA device" in res.stderr
+
+
+PR14_PORTS = {"am/xconfig.py": ["am/xconfig.py"], "am/cnn.py": ["am/cnn.py"],
+              "am/lstm.py": ["am/lstm.py"], "am/xvector.py": ["am/xvector.py"],
+              "pipelines/nnet.py": ["pipelines/nnet.py"],
+              "cli/tools_nnet.py": ["cli/tools_bank6.py", "cli/tools_bank9.py",
+                                    "cli/tools_bank16.py",
+                                    "cli/tools_bank29.py"]}
+
+
+@pytest.mark.parametrize("rel", sorted(PR14_PORTS))
+def test_xconfig_slice_modules_name_their_originals(rel):
+    """The xconfig, LSTM, CNN, x-vector, xent and tool modules say on
+    their first line which file of the JAX package they port, and that
+    file exists; each copied or ported function or class above which a
+    "Copied from" / "Port of" line stands names a function or class of
+    that original."""
+    with open(os.path.join(REPO, "kaldi_tpu_torch", rel)) as f:
+        src = f.read()
+    lines = src.splitlines()
+    for orig in PR14_PORTS[rel]:
+        assert orig.split("/")[-1] in lines[0], lines[0]
+        assert os.path.isfile(os.path.join(REPO, "kaldi_tpu", orig))
+    names = set()
+    for orig in PR14_PORTS[rel]:
+        with open(os.path.join(REPO, "kaldi_tpu", orig)) as f:
+            for n in ast.walk(ast.parse(f.read())):
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+                    names.add(n.name)
+    marked = [ln.split()[-1].rstrip(".") for ln in lines
+              if ln.startswith(("# Copied from kaldi_tpu/",
+                                "# Port of kaldi_tpu/"))][1:]
+    assert marked and all(n.split(".")[-1] in names for n in marked), marked
+
+
+def test_chip_smoke_main_binds_the_device_kind_once():
+    """The last line's ``kind`` is torch.cuda.get_device_name(0): no
+    later assignment or loop in ``main`` rebinds the name."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    stores = [n.lineno for n in ast.walk(main)
+              if isinstance(n, ast.Name) and n.id == "kind"
+              and isinstance(n.ctx, ast.Store)]
+    assert len(stores) == 1, stores
