@@ -141,9 +141,11 @@ Phases (each prints lines; any failure raises and exits non-zero):
         call in the same run;
  11. the flagship LVCSR system, the hard corpus and the lattice tools:
      a. pipelines/flagship.py ``run`` on the card at HARDBENCH_r05's
-        operating point (5000 words, 30,000 LM sentences, 400 train
-        utterances, its 160 test utterances cut to FLAGSHIP_TEST_UTTS
-        (80), noise 0.10, warp 0.12; the TDNN of run, 10 chain epochs):
+        operating point (5000 words, 30,000 LM sentences, its 400 train
+        utterances cut to FLAGSHIP_TRAIN_UTTS (300), its 160 test
+        utterances to FLAGSHIP_TEST_UTTS (40), noise 0.10, warp 0.12; the
+        TDNN of run, r5's 10 chain epochs cut to FLAGSHIP_CHAIN_EPOCHS
+        (5)):
         MFCC through the fbank kernel, mono → tri → tri2b (LDA+MLLT) →
         tri3b (SAT) on the GMM kernel, the mono-GMM rung and the
         two-pass fMLLR tri3b rung on large-vocabulary graphs, the
@@ -184,7 +186,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
         ``device_ms`` (the work queued behind a spin kernel, as the
         kernels are timed);
      b. pipelines/hard.py ``run_point`` on the 20,000-word hard corpus
-        (80 utterances, noise 1.0, peak 4.0, up to 16 words) at arc
+        (40 utterances, noise 1.0, peak 4.0, up to 16 words) at arc
         budgets 4096 and 12288 with escalation to 16384: WER, oracle,
         density, rates, dropped arcs, escalations; each oracle WER at most
         its WER, 4096 within 0.1 oracle WER of 12288, and each point's
@@ -282,10 +284,33 @@ Phases (each prints lines; any failure raises and exits non-zero):
      e. LstmChain (3 × LSTMP 1024 / 256, ×3) on 8 of 8b's utterances
         streamed in 21-frame chunks equal to offline within 1e-5 of the
         largest, the card equal to the CPU within 1e-4.
+ 16. decode and chain training across processes (kaldi_tpu_torch/parallel/):
+     N = max(2, cards) ranks, one process each, joined through
+     ``torch.distributed`` on a file store: NCCL with a card each where
+     there are enough cards, else gloo with every rank on cuda:0; the
+     backend and the rank→device map are printed.
+     a. ``python -m kaldi_tpu_torch.parallel.distributed`` on the N
+        ranks: stat reduction, the data-parallel gradient, the sharded
+        lattice decode equal to each rank's single decode, one
+        ChainTrainer(mesh=) step equal on every rank to the bit;
+     b. phase 4's 32 utterances on its 20k graph (handed over as an
+        .npz, packed and uploaded by each rank) by
+        ShardedBeamDecoder.decode_compact_local, each rank its
+        contiguous rows: every best path equal to phase 4's (words
+        exactly, cost within 1e-3); audio-s/s over the wall in
+        aggregate and per rank beside phase 4's; then every rank the
+        whole batch (N times the work), its aggregate audio-s/s;
+     c. ChainTrainer(mesh=) with NG-SGD in float32 on 8b's TDNN-F and
+        egs at B = 128 (B / N a rank) for 10 steps: the ranks' weights
+        equal to the bit after the first and the last step, the first
+        step equal to one process's within 1e-4 of each tensor's
+        largest; aggregate Mframes/s beside 15a's xc_tdnnf_f32_B128.
+     The ranks' den kernel launches (a's step, c's training) come back in
+     their output files.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
-kernels' JSON record: launches on the paths (the den's include 14b's
-and 15a's training), the largest difference from
+kernels' JSON record: launches on the paths (the den's include 14b's,
+15a's and the ranks' of phase 16), the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
 forward + backward at phase 8a's B = 128) and the
@@ -2249,11 +2274,17 @@ def gmm_tools_finish(dev, sysm, started, tag: str) -> int:
 
 # r5's WERs were 0.84-3.95; a broken rung is far above this
 FLAGSHIP_MAX_WER = 30.0
-# 11a's test set: r5's 160 utterances cut to 80 when phase 15 came; the
+# 11a's test set: r5's 160 utterances cut to 80 when phase 15 came (the
 # five test decodes and their CUDA-graph replays (device_s) took 155 s of
-# the run's 478 s at 160 (NVIDIA H100 80GB HBM3, 700.00 W), and the
-# script's 1200 s limit held 77 s of slack
-FLAGSHIP_TEST_UTTS = 80
+# the run's 478 s at 160), then to 40, its training set from r5's 400
+# utterances to 300 and its chain trainings from r5's 10 epochs to 5
+# when phase 16 came: at 80 / 400 / 10 the whole script took 1267.6 s on
+# a slow host, the run 451.5 s of it, its test decodes and replays 113
+# s, the GMM ladder to tri3b 192 s and each chain training ~70 s (NVIDIA
+# H100 80GB HBM3, 700.00 W)
+FLAGSHIP_TEST_UTTS = 40
+FLAGSHIP_TRAIN_UTTS = 300
+FLAGSHIP_CHAIN_EPOCHS = 5
 # the chain model on the card against the CPU: test utterances compared,
 # the float32 bar of tests/test_torch_chain.py, and the best paths that
 # must agree
@@ -2261,13 +2292,14 @@ CHAIN_CHECK_UTTS = 16
 CHAIN_CHECK_TOL = 1e-4
 CHAIN_CHECK_SAME = 15
 # 11b: the hard corpus at HARDBENCH_r05's noise-1.0 point (20,000 words,
-# noise 1.0, peak 4.0, up to 16 words) on 80 utterances (r5 ran 1200;
-# cut so that the whole script, with its i-vector, RNNLM and lattice-
-# supervision phases and every decode's card time, stays near its time
-# budget), at the default
-# and the loosest arc budget, both with escalation to 16384
+# noise 1.0, peak 4.0, up to 16 words) on 40 utterances (r5 ran 1200;
+# cut so that the whole script, with its i-vector, RNNLM, lattice-
+# supervision and multi-process phases and every decode's card time,
+# stays within its time budget: 80 took 53.6 s of the slow host's 1267.6
+# s), at the default and the loosest arc budget, both with escalation to
+# 16384
 HARD_TASK = dict(vocab=20000)
-HARD_EVAL = dict(n_utts=80, noise=1.0, peak=4.0, max_words=16)
+HARD_EVAL = dict(n_utts=40, noise=1.0, peak=4.0, max_words=16)
 HARD_BUDGETS = (4096, 12288)
 HARD_ESCALATE = 16384
 # the module's own acceptance (pipelines/hard.py): the default budget
@@ -2391,9 +2423,10 @@ def r05_flagship():
 def flagship_system(dev, tag: str):
     """11a: pipelines/flagship.py ``run`` on the card at its R05_POINT
     (HARDBENCH_r05's operating point at run's widths: 5000 words, 30,000
-    LM sentences, 400 train utterances, its 160 test utterances cut to
-    FLAGSHIP_TEST_UTTS, the TDNN of run: hidden
-    256, bottleneck 64, 7 layers, subsampling 3; 10 chain epochs): every
+    LM sentences, 400 train and 160 test utterances cut to
+    FLAGSHIP_TRAIN_UTTS and FLAGSHIP_TEST_UTTS, the TDNN of run: hidden
+    256, bottleneck 64, 7 layers, subsampling 3; FLAGSHIP_CHAIN_EPOCHS
+    chain epochs): every
     rung's record beside r5's WER; the rungs' WERs within
     FLAGSHIP_MAX_WER and their oracle WERs at most their WERs.  → (fbank,
     GMM and den launches of the run, its records, its systems, wall s)."""
@@ -2403,7 +2436,9 @@ def flagship_system(dev, tag: str):
     t0 = time.perf_counter()
     results, sysm = flagship.run(device=dev, return_systems=True,
                                  **dict(flagship.R05_POINT,
-                                        test_utts=FLAGSHIP_TEST_UTTS))
+                                        test_utts=FLAGSHIP_TEST_UTTS,
+                                        train_utts=FLAGSHIP_TRAIN_UTTS,
+                                        chain_epochs=FLAGSHIP_CHAIN_EPOCHS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fb, gm = totals()
@@ -4275,6 +4310,369 @@ def lstm_scorer(dev, feats, P: int, tag: str) -> None:
         raise AssertionError("the LSTM scorer disagrees")
 
 
+# phase 16: decode and chain training across processes (parallel/).  N
+# ranks, one process each: NCCL with a card each where there are enough
+# cards, else gloo with every rank on cuda:0
+POD_B = 128                # 16c's global batch (8b's egs and TDNN-F)
+POD_STEPS = 10             # 16c's steps; the first is held to one process
+POD_TIMEOUT = 240          # each rank's rendezvous, collectives and wait
+POD_DIR = os.path.join("build", "chip_smoke_pod")
+
+
+def pod_layout(dev_type: str = "cuda"):
+    """(ranks, backend): max(2, cards) ranks, NCCL when each has a card of
+    its own, else gloo sharing cuda:0 (or the CPU)."""
+    cards = torch.cuda.device_count() if dev_type == "cuda" else 0
+    n = max(2, cards)
+    return n, ("nccl" if cards >= n else "gloo")
+
+
+def _pod_wait(procs, what: str) -> None:
+    """Wait for every rank within POD_TIMEOUT; kill them all if one fails
+    or runs over."""
+    try:
+        for p in procs:
+            _out, err = p.communicate(timeout=POD_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"{what}: a rank exited "
+                                     f"{p.returncode}:\n"
+                                     f"{err.decode()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def save_csr(path: str, csr) -> None:
+    """A CsrGraph as an .npz (the ranks' copy of phase 4's graph)."""
+    import dataclasses
+    arrs = {}
+    for f in dataclasses.fields(csr):
+        v = getattr(csr, f.name)
+        if v is None:
+            continue
+        arrs[f.name] = (np.asarray(v, dtype=object) if isinstance(v, list)
+                        else np.asarray(v))
+    np.savez(path, **arrs)
+
+
+def load_csr(path: str):
+    from kaldi_tpu_torch.fst.csr import CsrGraph
+    z = np.load(path, allow_pickle=True)
+    kw = {}
+    for k in z.files:
+        v = z[k]
+        kw[k] = (v.tolist() if v.dtype == object
+                 else v.item() if v.ndim == 0 else v)
+    return CsrGraph(**kw)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _state_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pod_worker(argv) -> int:
+    """One rank of 16b and 16c (``python3 chip_smoke.py --pod-worker
+    <store> <ranks> <rank> <dir> <cuda|cpu> <backend>``): joins the
+    process group through parallel/distributed.py, decodes its rows of
+    phase 4's batch with ``ShardedBeamDecoder.decode_compact_local`` on
+    the graph the parent wrote, then trains ``ChainTrainer(mesh=)`` for
+    POD_STEPS steps on the parent's egs; pickles what it measured to
+    ``<dir>/out.<rank>.pkl``."""
+    import pickle
+    import torch.distributed as dist
+    store, n, pid, d, dev_type, backend = (argv[0], int(argv[1]),
+                                           int(argv[2]), argv[3], argv[4],
+                                           argv[5])
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from kaldi_tpu_torch.decoder.beam import BeamDecoder, BeamDecoderConfig
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
+    from kaldi_tpu_torch.parallel import distributed, make_mesh
+    from kaldi_tpu_torch.parallel.decode import ShardedBeamDecoder
+    from kaldi_tpu_torch.pipelines.chain import (ChainEgs, ChainTrainConfig,
+                                                 ChainTrainer)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed.initialize(store, n, pid, backend=backend,
+                                 device=dev_type, timeout_s=POD_TIMEOUT)
+    out = {"device": str(dev), "backend": dist.get_backend()}
+    try:
+        with open(os.path.join(d, "inputs.pkl"), "rb") as f:
+            inp = pickle.load(f)
+        mesh = make_mesh()
+        # 16b: this rank's rows of phase 4's batch, on its own graph copy
+        t0 = time.perf_counter()
+        dec = BeamDecoder(load_csr(os.path.join(d, "graph.npz")),
+                          inp["tid_to_pdf"], BeamDecoderConfig(**inp["cfg"]),
+                          device=dev)
+        out["pack_s"] = time.perf_counter() - t0
+        sharded = ShardedBeamDecoder(dec, mesh)
+        B = len(inp["lens"])               # contiguous rows, any N
+        rows = slice(pid * B // n, (pid + 1) * B // n)
+        X, lens = inp["X"][rows], inp["lens"][rows]
+        sharded.decode_compact_local(X[:2], lens[:2])          # warm
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        stats = {}
+        lats = sharded.decode_compact_local(X, lens, stats=stats)
+        out["decode_wall"] = time.perf_counter() - t0
+        dist.barrier()
+        out["decode_all_wall"] = time.perf_counter() - t0
+        out["rows"] = (rows.start, rows.stop)
+        out["best"] = [lat.best_path() for lat in lats]
+        out["decode_stats"] = stats
+        # every rank the whole batch: N times phase 4's work
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        lats = sharded.decode_compact_local(inp["X"], inp["lens"])
+        dist.barrier()
+        out["full_all_wall"] = time.perf_counter() - t0
+        out["full_best"] = [lat.best_path() for lat in lats]
+        # 16c: ChainTrainer(mesh=) on 8b's egs and TDNN-F
+        tr = ChainTrainer(tdnn_config(inp["P"], **inp["width"]), inp["den"],
+                          ChainTrainConfig(batch_size=inp["B"],
+                                           optimizer="ngsgd", total_steps=0),
+                          seed=SEED, mesh=mesh)
+        egs = ChainEgs(**inp["egs"])
+        N = egs.feats.shape[0]
+        batches = [tr.batches(egs, (np.arange(inp["B"]) + i * inp["B"]) % N)
+                   for i in range(4)]
+        CudaChainDen.total_launches = 0
+        tr._step(*batches[0])
+        if pid == 0:
+            torch.save({k: v.cpu() for k, v in
+                        tr.model.state_dict().items()},
+                       os.path.join(d, "step1.pt"))
+        out["digest1"] = _state_digest(tr.model)
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        objf = []
+        for i in range(1, inp["steps"]):
+            loss, diag = tr._step(*batches[i % 4])
+            objf.append(float(diag["objf"]))
+        _sync(dev)
+        out["train_wall"] = time.perf_counter() - t0
+        dist.barrier()
+        out["train_all_wall"] = time.perf_counter() - t0
+        out["den_launches"] = CudaChainDen.total_launches
+        out["loss"], out["objf"] = float(loss), objf
+        out["digest"] = _state_digest(tr.model)
+        # the step's gradient all-reduce alone, on a buffer of its size
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in tr.model.parameters()])
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            mesh.all_reduce_data(flat)
+        _sync(dev)
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["allreduce_mb"] = flat.numel() * 4 / 2 ** 20
+        dist.barrier()
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(d, f"out.{pid}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def pod_worker_main_start(dev, n: int, backend: str, d: str):
+    """16a: ``python -m kaldi_tpu_torch.parallel.distributed`` on n ranks
+    (the original's four checks: stat reduction, the data-parallel
+    gradient, the sharded lattice decode against the single one in each
+    rank, one ChainTrainer(mesh=) step equal across ranks), started.
+    → (processes, start time)."""
+    import subprocess
+    return [subprocess.Popen(
+        [sys.executable, "-m", "kaldi_tpu_torch.parallel.distributed",
+         f"file://{os.path.abspath(d)}/store_a", str(n), str(pid),
+         os.path.join(d, "a"), f"--device={dev.type}",
+         f"--backend={backend}"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for pid in range(n)], time.perf_counter()
+
+
+def pod_worker_main_finish(dev, n: int, backend: str, d: str, started,
+                           tag: str) -> int:
+    """16a's checks on what its ranks wrote.  → the den kernels' launches
+    of its chain step over every rank."""
+    procs, t0 = started
+    _pod_wait(procs, "16a")
+    wall = time.perf_counter() - t0
+    r = [dict(np.load(os.path.join(d, f"a.{pid}.npz"))) for pid in range(n)]
+    want = sum(np.random.default_rng(100 + pid).standard_normal(
+        (4, 3)).astype(np.float32) for pid in range(n))
+    gb = np.random.default_rng(7).standard_normal((n * 4, 8)).astype(
+        np.float32)
+    W = np.linspace(-1, 1, 8).astype(np.float32)
+    grad = 2 * gb.T @ (gb @ W - gb @ (np.arange(8) * 0.1)) / len(gb)
+    stat_err = max(float(np.abs(x["total"] - want).max()) for x in r)
+    grad_err = max(float(np.abs(x["grad"] - grad).max()) for x in r)
+    same = all(np.array_equal(x["chain_params"], r[0]["chain_params"])
+               and float(x["chain_loss"]) == float(r[0]["chain_loss"])
+               for x in r)
+    print(f"pod: 16a: python -m kaldi_tpu_torch.parallel.distributed on "
+          f"{n} ranks ({backend}; ranks on "
+          f"{[str(x['device']) for x in r]}) in {wall:.1f} s: stats "
+          f"|diff| {stat_err:.2e}, gradient |diff| {grad_err:.2e}, sharded "
+          f"lattice decode = single {[int(x['decode_ok']) for x in r]}, "
+          f"chain step loss {float(r[0]['chain_loss']):.6f} equal on every "
+          f"rank to the bit: {same} {tag}")
+    if not (stat_err <= 1e-5 and grad_err <= 1e-4 and same
+            and all(int(x["decode_ok"]) == 1 and int(x["n_lats"]) == 2
+                    for x in r)
+            and all(str(x["backend"]) == backend for x in r)):
+        raise AssertionError("16a: the distributed worker's checks failed")
+    launches = sum(int(x["den_launches"]) for x in r)
+    if dev.type == "cuda" and launches <= 0:
+        raise AssertionError("16a: the chain step launched no den kernel")
+    return launches
+
+
+def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
+              den, egs, P: int, xc_rate, tag: str,
+              B: int = POD_B, steps: int = POD_STEPS, **width):
+    """16: N = max(2, cards) ranks, each a process.  16a the port's
+    distributed worker; 16b phase 4's batch by decode_compact_local, each
+    utterance's best path equal to phase 4's (words exactly, cost within
+    1e-3), audio-s/s over the wall and per rank beside phase 4's; 16c
+    ChainTrainer(mesh=) at B (B / N a rank) for ``steps`` steps, the
+    ranks' weights equal to the bit after the first and the last, the
+    first step equal to one process's within 1e-4 of each tensor's
+    largest, Mframes/s over the wall.  → the den kernels' launches over
+    every rank (16a's step and 16c's training)."""
+    import dataclasses
+    import pickle
+    import shutil
+    import subprocess
+    from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
+    n, backend = pod_layout(dev.type)
+    B -= B % n                          # 16c's batch divides over the ranks
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()        # the ranks share this card
+    shutil.rmtree(POD_DIR, ignore_errors=True)
+    os.makedirs(POD_DIR)
+    # 16a checks correctness only: it runs while the parent writes 16b's
+    # and 16c's inputs and takes one process's training step
+    started = pod_worker_main_start(dev, n, backend, POD_DIR)
+    # 16b / 16c inputs: the graph as an .npz, the rest pickled
+    save_csr(os.path.join(POD_DIR, "graph.npz"), csr)
+    eg_fields = ("feats", "pdf_ali", "mask", "entry_pdf", "self_pdf",
+                 "num_segs", "entry_w", "self_w", "init_w", "final_w")
+    with open(os.path.join(POD_DIR, "inputs.pkl"), "wb") as f:
+        pickle.dump(dict(tid_to_pdf=tid_to_pdf, cfg=dataclasses.asdict(cfg),
+                         X=X, lens=lens, P=P, den=den, B=B, steps=steps,
+                         width=width,
+                         egs={k: getattr(egs, k) for k in eg_fields}), f)
+    # one process's first step on 16c's first batch, from the same seed
+    tr = ChainTrainer(tdnn_config(P, **width), den,
+                      ChainTrainConfig(batch_size=B, optimizer="ngsgd",
+                                       total_steps=0), seed=SEED, device=dev)
+    tr._step(*tr.batches(egs, np.arange(B) % egs.feats.shape[0]))
+    single = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()        # the ranks share this card
+    a_launches = pod_worker_main_finish(dev, n, backend, POD_DIR, started,
+                                        tag)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pod-worker",
+         f"file://{os.path.abspath(POD_DIR)}/store_b", str(n), str(pid),
+         POD_DIR, dev.type, backend], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for pid in range(n)]
+    _pod_wait(procs, "16b/16c")
+    wall = time.perf_counter() - t0
+    r = []
+    for pid in range(n):
+        with open(os.path.join(POD_DIR, f"out.{pid}.pkl"), "rb") as f:
+            r.append(pickle.load(f))
+    print(f"pod: 16b/16c: {n} ranks ({backend}): rank→device "
+          f"{ {pid: x['device'] for pid, x in enumerate(r)} }, "
+          f"{wall:.1f} s in all")
+    # 16b
+    got = [bp for x in r for bp in x["best"]]
+    if len(got) != len(best):
+        raise AssertionError(f"16b: {len(got)} lattices for {len(best)}")
+    worst = 0.0
+    for b, (g, w) in enumerate(zip(got, best)):
+        if g[0] != w[0] or abs(g[2] - w[2]) > 1e-3:
+            raise AssertionError(f"16b: utt {b}: {g[0]} {g[2]} vs phase 4's "
+                                 f"{w[0]} {w[2]}")
+        worst = max(worst, abs(g[2] - w[2]))
+    frames = lens.astype(np.float64) * 0.03
+    audio = float(frames.sum())
+    agg = audio / max(x["decode_all_wall"] for x in r)
+    per = [float(frames[slice(*x["rows"])].sum()) / x["decode_wall"]
+           for x in r]
+    print(f"pod: 16b: {len(got)} utterances of phase 4's batch by "
+          f"decode_compact_local over {n} ranks: every best path equals "
+          f"phase 4's (words exactly, cost within {worst:.2e}; limit 1e-3); "
+          f"{audio:.2f} audio-s in {max(x['decode_all_wall'] for x in r):.3f}"
+          f" s = {agg:.1f} audio-s/s aggregate (phase 4, one process: "
+          f"{p4_rate:.1f}), per rank {[round(v, 1) for v in per]} audio-s/s; "
+          f"graph packed and uploaded by each rank in "
+          f"{max(x['pack_s'] for x in r):.1f} s; escalated "
+          f"{sum(x['decode_stats']['n_escalated'] for x in r)} {tag}")
+    for x in r:
+        for g, w in zip(x["full_best"], best):
+            if g[0] != w[0] or abs(g[2] - w[2]) > 1e-3:
+                raise AssertionError("16b: a rank's decode of the whole "
+                                     "batch differs from phase 4's")
+    full = max(x["full_all_wall"] for x in r)
+    print(f"pod: 16b: every rank the whole batch ({n} × {len(best)} "
+          f"utterances, best paths equal to phase 4's): {n * audio:.2f} "
+          f"audio-s in {full:.3f} s = {n * audio / full:.1f} audio-s/s "
+          f"aggregate (phase 4, one process: {p4_rate:.1f}) {tag}")
+    # 16c
+    with_step1 = torch.load(os.path.join(POD_DIR, "step1.pt"),
+                            weights_only=True)
+    rel, worst_k = max((float((with_step1[k] - single[k]).abs().max()
+                              / max(float(single[k].abs().max()), 1e-12)), k)
+                       for k in single)
+    same1 = len({x["digest1"] for x in r}) == 1
+    same = len({x["digest"] for x in r}) == 1
+    frames_step = B * egs.feats.shape[1]
+    rate = frames_step * (steps - 1) / max(x["train_all_wall"]
+                                           for x in r) / 1e6
+    launches = sum(x["den_launches"] for x in r)
+    objf = r[0]["objf"]
+    print(f"pod: 16c: ChainTrainer(mesh=) NG-SGD float32 at B={B} "
+          f"({B // n} a rank) for {steps} steps: weights equal on every rank "
+          f"to the bit after step 1: {same1}, after step {steps}: {same}; "
+          f"step 1 against one process's: {rel:.2e} of each tensor's largest"
+          f" ({worst_k}; limit 1e-4); steps 2-{steps} "
+          f"{1e3 * max(x['train_all_wall'] for x in r) / (steps - 1):.1f} ms "
+          f"a step = {rate:.4f} Mframes/s aggregate"
+          + (f" (15a's xc_tdnnf_f32_B128, one process: {xc_rate:.4f})"
+             if xc_rate is not None else "")
+          + f"; the gradients' all-reduce alone "
+          f"({r[0]['allreduce_mb']:.1f} MiB) "
+          f"{max(x['allreduce_ms'] for x in r):.1f} ms; loss "
+          f"{r[0]['loss']:.4f}; den kernel launches {launches} {tag}")
+    if not (same1 and same and rel <= 1e-4
+            and all(math.isfinite(v) for v in objf)
+            and math.isfinite(r[0]["loss"])):
+        raise AssertionError("16c: the data-parallel trainer failed its "
+                             "checks")
+    if dev.type == "cuda" and launches <= 0:
+        raise AssertionError("16c: the training launched no den kernel")
+    return a_launches + launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4449,6 +4847,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lats = dec.decode_compact_batch(X, lens, stats=stats)
     wall = time.perf_counter() - t0
+    p4_rate = audio_s / wall
     best = [lat.best_path() for lat in lats]
     hyps = {u: [task.words.find(o) for o in bp[0]]
             for u, bp in zip(utts, best)}
@@ -4738,6 +5137,15 @@ def main() -> int:
                 p[0].wait()
     print(f"xconfig: phase 15 took {time.perf_counter() - t0:.1f} s")
 
+    # 16. decode and chain training across processes (parallel/): the
+    # workers zero their den kernels' count before their training and
+    # report it
+    t0 = time.perf_counter()
+    pod_den = pod_phase(dev, csr, task.tm.tid_to_pdf_array, cfg, X, lens,
+                        best, p4_rate, cden, egs, P,
+                        xc_rates.get("xc_tdnnf_f32_B128_Mframes_s"), tag)
+    print(f"pod: phase 16 took {time.perf_counter() - t0:.1f} s")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
@@ -4777,7 +5185,7 @@ def main() -> int:
         "replaces": "kaldi_tpu/am/chain.py:470",
         "note": "replaces an XLA program (lax.scan + jax.grad), not a "
                 "Pallas kernel; forward and backward kernels, ms for both",
-        "launches": den_launches + f_den + lat_den + xc_den,
+        "launches": den_launches + f_den + lat_den + xc_den + pod_den,
         "max_abs_err": max(den_err, f_den_err),
         "ms": den_ms, "plain_ms": den_plain_ms,
         "bound_ms": den_bnd[0], "bound_by": den_bnd[1],
@@ -4789,4 +5197,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pod-worker"]:
+        sys.exit(pod_worker(sys.argv[2:]))
     sys.exit(main())

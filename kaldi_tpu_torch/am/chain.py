@@ -769,7 +769,8 @@ def chain_objf(den: DenominatorGraph, scores: torch.Tensor,
                pdf_ali: Optional[torch.Tensor], mask: torch.Tensor,
                opts: ChainTrainingOptions = ChainTrainingOptions(),
                num_graph: Optional[Tuple[torch.Tensor, ...]] = None,
-               num_fsa: Optional[Tuple] = None
+               num_fsa: Optional[Tuple] = None,
+               norm: Optional[Tuple[torch.Tensor, int]] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Negative LF-MMI objective per frame (to minimize) + diagnostics.
 
@@ -778,7 +779,10 @@ def chain_objf(den: DenominatorGraph, scores: torch.Tensor,
     supervision FST; pdf_ali is ignored then.  num_fsa = (packed
     supervision dict, tolerance) switches to the lattice-derived or
     end-to-end supervision FSA (am/chain_supervision.py) and takes
-    precedence over both."""
+    precedence over both.  norm = (frames, scores) of a batch spread over
+    data-parallel ranks (ChainTrainer(mesh=)): the batch's unmasked
+    frame count and score count, which divide this rank's sums, so the
+    loss and diagnostics are this rank's shares of the batch's."""
     mask = mask.to(torch.bool)
     if num_fsa is not None:
         from kaldi_tpu_torch.am.chain_supervision import \
@@ -794,11 +798,14 @@ def chain_objf(den: DenominatorGraph, scores: torch.Tensor,
     den_lp = denominator_logprob(
         den, scores, mask=mask,
         leaky_hmm_coefficient=opts.leaky_hmm_coefficient)
-    num_frames = torch.clamp(mask.sum(), min=1).to(scores.dtype)
+    frames = mask.sum() if norm is None else norm[0]
+    num_frames = torch.clamp(frames, min=1).to(scores.dtype)
     objf = (num.sum() - den_lp.sum()) / num_frames
     loss = -objf
     if opts.l2_regularize > 0:
-        loss = loss + opts.l2_regularize * torch.mean(scores ** 2)
+        l2 = (torch.mean(scores ** 2) if norm is None
+              else torch.sum(scores ** 2) / norm[1])
+        loss = loss + opts.l2_regularize * l2
     return loss, {"objf": objf, "num": num.sum() / num_frames,
                   "den": den_lp.sum() / num_frames}
 

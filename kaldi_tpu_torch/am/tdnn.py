@@ -72,18 +72,69 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
+        # the data-parallel ranks whose batches the statistics span, and
+        # their count (1: this process's batch alone); set by
+        # set_batch_norm_group
+        self.group = None
+        self.group_size = 1
 
     def forward(self, x):
         if not self.training:
             return (x - self.mean) * torch.rsqrt(self.var + self.eps)
         dims = tuple(range(x.dim() - 1))
-        mu = x.mean(dim=dims)
-        var = ((x - mu) ** 2).mean(dim=dims)
+        if self.group_size > 1:
+            mu, var = self._global_moments(x, dims)
+        else:
+            mu = x.mean(dim=dims)
+            var = ((x - mu) ** 2).mean(dim=dims)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mu)
             self.var.copy_(m * self.var + (1 - m) * var)
         return (x - mu) * torch.rsqrt(var + self.eps)
+
+    def _global_moments(self, x, dims):
+        """Mean and two-pass variance over the whole batch of the group's
+        ranks: each rank's sums all-reduced by ``AllReduceSum`` (whose
+        backward sums the ranks' gradients), so every rank normalizes, and
+        moves its running statistics, by the same values.  The ranks hold
+        equal shards (ChainTrainer(mesh=))."""
+        n = (x.numel() // x.shape[-1]) * self.group_size
+        mu = AllReduceSum.apply(x.sum(dim=dims), self.group) / n
+        var = AllReduceSum.apply(((x - mu) ** 2).sum(dim=dims),
+                                 self.group) / n
+        return mu, var
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over a process group's ranks, differentiable:
+    the gradient of each rank's input is the sum of the ranks' output
+    gradients (every rank's loss depends on every rank's input).  What
+    ``torch.distributed.nn.functional.all_reduce`` computes, without its
+    deprecation."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def set_batch_norm_group(model: nn.Module, group, size: int) -> None:
+    """Every ``BatchNorm`` of ``model`` takes its training statistics over
+    the ``size`` ranks of ``group`` (a data axis' process group)."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.group, mod.group_size = group, size
 
 
 class TdnnFLayer(nn.Module):

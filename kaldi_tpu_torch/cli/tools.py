@@ -16,7 +16,7 @@ registry also holds the port's other tools: ``gmm-latgen-faster``
 ``nnet3-chain-train`` and ``nnet3-chain-compute-prob`` (cli/chain.py),
 and those of cli/tools_extra.py, tools_bank3.py, tools_bank5.py,
 tools_bank10.py, tools_ivector.py, tools_rnnlm.py, tools_const_arpa.py,
-tools_lattice.py and tools_chain.py.
+tools_lattice.py, tools_chain.py, tools_nnet.py and tools_parallel.py.
 
     python -m kaldi_tpu_torch.cli <tool-name> [options] args...
 """

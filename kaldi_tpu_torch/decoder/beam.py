@@ -692,14 +692,24 @@ class BeamDecoder:
         ll_host = self._host_array(loglikes_padded)
         num_frames = np.asarray(num_frames)
         hosts = self._decode_host(loglikes_padded, num_frames, lattice=True)
+        return self.compact_lattices(hosts, ll_host, num_frames, pool, stats)
+
+    def compact_lattices(self, hosts: List[Dict], ll_host: np.ndarray,
+                         num_frames: np.ndarray, pool=None,
+                         stats: Optional[Dict] = None):
+        """The fetched rows ``hosts`` (``_decode_host(..., lattice=True)``;
+        the first len(hosts) rows of ``ll_host`` and ``num_frames``) →
+        determinized CompactLattices, each re-decoded at the escalated
+        budget when its deficit trigger fires; ``stats`` as in
+        ``decode_compact_batch``."""
         if stats is not None:
             stats.setdefault("min_eff_beam", float("inf"))
             stats.setdefault("n_escalated", 0)
             stats.setdefault("dropped_arcs", 0)
             stats["arcs_peak"] = max(stats.get("arcs_peak", 0), max(
-                int(h["max_arcs_demand"]) for h in hosts))
+                (int(h["max_arcs_demand"]) for h in hosts), default=0))
             stats["heads_peak"] = max(stats.get("heads_peak", 0), max(
-                int(h["max_heads"]) for h in hosts))
+                (int(h["max_heads"]) for h in hosts), default=0))
         futs = []
         for b, host in enumerate(hosts):
             T = int(num_frames[b])

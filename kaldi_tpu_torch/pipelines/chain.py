@@ -22,7 +22,19 @@ Egs may carry lattice-derived or end-to-end supervision FSAs
 of them to the device once and the numerator runs through the FSA at
 ``ChainTrainConfig.supervision_tolerance``.
 
-Not ported here: the ``mesh=`` argument (multi-device training).
+``ChainTrainer(mesh=)`` (parallel/mesh.py) trains data-parallel across
+the ranks of a process group with global-batch semantics: the sharded
+step equals the unsharded step on the same batch.  Every rank draws the
+same batch order and takes its contiguous rows; the loss is normalized
+by the batch's frame count (all-reduced), the l2 term by its score
+count, and the orthonormal penalty, a parameter term, is added on data
+rank 0 only; batch norm takes its statistics over the whole batch
+(am/tdnn.py ``set_batch_norm_group``); after ``backward`` one flat
+all-reduce sums the ranks' gradients (with the loss and diagnostics), so
+NG-SGD / AdamW and max-change see the same gradients on every rank and
+the parameters stay equal to the bit.  Dropout cannot draw the unsharded
+masks: each rank's generator is seeded ``seed + data rank``.  A model
+axis above 1 (tensor parallelism) raises.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from kaldi_tpu_torch.am.chain import (ChainTrainingOptions,
 from kaldi_tpu_torch.am.chain_supervision import sup_to_device
 from kaldi_tpu_torch.am.tdnn import (TdnnChain, TdnnConfig, init_like_flax,
                                      semi_orthogonal_penalty,
+                                     set_batch_norm_group,
                                      set_dropout_generator)
 from kaldi_tpu_torch.am.topology import HmmTopology
 from kaldi_tpu_torch.am.transitions import TransitionModel
@@ -326,20 +339,34 @@ class ChainTrainer:
 
     def __init__(self, model_cfg, den: DenominatorGraph,
                  cfg: ChainTrainConfig = None, seed: int = 0,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         """``model_cfg`` is a TdnnConfig (the trainer builds a TdnnChain)
         or a model with the chain contract: forward (B, T, feat_dim) →
         (B, T // sub, num_pdfs) scores, and a ``feat_dim`` (an xconfig
         chain model, am/xconfig.py ``chain_model_from_xconfig``).  Either
         gets fresh weights from flax's distributions (``init_like_flax``,
         seeded by ``seed``); dropout masks come from the trainer's
-        ``generator``, seeded by ``seed`` on ``device``."""
-        self.device = resolve_device(device)
+        ``generator``, seeded by ``seed`` on ``device``.  With ``mesh``
+        (parallel/mesh.py ``make_mesh``; every rank constructs the
+        trainer) it trains data-parallel on the mesh's device, whatever
+        ``device`` says, rank 0's weights broadcast to every rank (module
+        docstring)."""
+        from kaldi_tpu_torch.parallel.mesh import replicate, shard_params
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.cfg = cfg or ChainTrainConfig()
         model = (TdnnChain(model_cfg) if isinstance(model_cfg, TdnnConfig)
                  else model_cfg)
-        self.model = init_like_flax(model, seed).to(self.device)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.model = init_like_flax(model, seed)
+        rank = 0
+        if mesh is not None:
+            self.model = replicate(shard_params(self.model, mesh), mesh)
+            rank = mesh.data_index
+            if mesh.data > 1:
+                set_batch_norm_group(self.model, mesh.data_group, mesh.data)
+        self.model = self.model.to(self.device)
+        self.generator = torch.Generator(self.device).manual_seed(seed + rank)
         set_dropout_generator(self.model, self.generator)
         self.den = den
         self._trained_steps = 0
@@ -372,16 +399,43 @@ class ChainTrainer:
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(device=self.device, dtype=dtype)
 
+    @property
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.data > 1
+
     def _loss_fn(self, feats, pdf_ali, mask, num_graph, sup=None):
         scores = self.model(feats)
         num_fsa = ((sup, self.cfg.supervision_tolerance)
                    if sup is not None else None)
+        norm = None
+        if self._sharded:
+            frames = self.mesh.all_reduce_data(mask.sum().to(scores.dtype))
+            norm = (frames, scores.numel() * self.mesh.data)
         loss, diag = chain_objf(self.den, scores, pdf_ali, mask,
                                 self.cfg.opts, num_graph=num_graph,
-                                num_fsa=num_fsa)
-        loss = loss + self.cfg.orthonormal_weight * \
-            semi_orthogonal_penalty(self.model)
+                                num_fsa=num_fsa, norm=norm)
+        if not self._sharded or self.mesh.data_index == 0:
+            loss = loss + self.cfg.orthonormal_weight * \
+                semi_orthogonal_penalty(self.model)
         return loss, diag
+
+    def _all_reduce_grads(self, loss, diag):
+        """One flat all-reduce over the data axis of every gradient, the
+        loss and the diagnostics (each rank's share of the batch's) →
+        the batch's (loss, diagnostics); the summed gradients are written
+        back."""
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        keys = sorted(diag)
+        flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack(
+            [loss.detach()] + [diag[k].detach() for k in keys]).to(
+                grads[0].dtype)])
+        self.mesh.all_reduce_data(flat)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return flat[off], {k: flat[off + 1 + i] for i, k in enumerate(keys)}
 
     def _step(self, feats, pdf_ali, mask, num_graph=None, sup=None):
         """One step on a batch (arrays or tensors; ``sup`` a batch's rows
@@ -400,6 +454,8 @@ class ChainTrainer:
         loss, diag = self._loss_fn(feats, pdf_ali, mask, num_graph, sup)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self._sharded:
+            loss, diag = self._all_reduce_grads(loss, diag)
         self.opt.step()
         return loss.detach(), {k: v.detach() for k, v in diag.items()}
 
@@ -429,7 +485,12 @@ class ChainTrainer:
     def batches(self, egs: ChainEgs, idx: np.ndarray):
         """The ``_step`` arguments of the egs at ``idx``: supervision FSAs
         when the egs carry them, else the flexible numerator's segments
-        when on and present, else the fixed alignment alone."""
+        when on and present, else the fixed alignment alone.  With a
+        mesh, this rank's contiguous rows of ``idx`` (every rank passes
+        the same ``idx``, whose length must divide over the data axis)."""
+        if self._sharded:
+            from kaldi_tpu_torch.parallel.mesh import batch_sharding
+            idx = np.asarray(idx)[batch_sharding(self.mesh, len(idx))]
         num_graph = sup = None
         if egs.sup is not None:
             sup = {k: v[idx] for k, v in egs.sup.items()}
