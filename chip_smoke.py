@@ -307,10 +307,46 @@ Phases (each prints lines; any failure raises and exits non-zero):
         largest; aggregate Mframes/s beside 15a's xc_tdnnf_f32_B128.
      The ranks' den kernel launches (a's step, c's training) come back in
      their output files.
+ 17. the tri3b GMM stack as Kaldi's tools (steps/train_deltas.sh →
+     train_lda_mllt.sh → train_sat.sh → decode_fmllr.sh) on 10b's corpus:
+     a. from 10b's waveforms, transcripts, speakers, mono model and mono
+        alignments, one background process (``python3 chip_smoke.py
+        --tri-tools``, started after 10b, beside 10c to 13) calls the
+        port's tools in turn: compute-mfcc-feats (13 cepstra) →
+        compute-cmvn-stats → apply-cmvn → add-deltas; tri1 (acc-tree-stats
+        → sum-tree-stats → cluster-phones → compile-questions → build-tree
+        → gmm-init-model → convert-ali → compile-train-graphs →
+        {gmm-acc-stats-ali → gmm-est --mix-up → gmm-align-compiled} ×
+        TRI_PASSES); tri2b (splice-feats ±3 → ali-to-post →
+        weight-silence-post → acc-lda → est-lda (40) → transform-feats →
+        the tree as tri1 → the passes, with gmm-acc-mllt → est-mllt →
+        gmm-transform-means → compose-transforms → transform-feats after
+        the passes of TRI_MLLT_AFTER); tri3b (gmm-boost-silence 1.25 →
+        gmm-align-compiled → ali-to-post → weight-silence-post →
+        gmm-est-fmllr --spk2utt → transform-feats by speaker → the passes
+        → gmm-acc-stats-twofeats → gmm-est: the alignment model); each
+        system decoded by compile-graph → gmm-latgen-faster →
+        lattice-best-path → compute-wer, tri3b in two passes (the
+        alignment model → lattice-to-post → weight-silence-post 0.01 →
+        gmm-est-fmllr → transform-feats → the SAT model).  Then every
+        call but the MFCC and CMVN tools (held in 9d) is held against the
+        library on its own input files on the card (the bars at
+        TRI_ACC_TOL).  Checked after phase 13: every call held, the GMM
+        kernel's launches from the tools' log lines, mono's WER above 0
+        and tri3b's no worse than mono's, printed beside 10b's;
+     b. gmm-global-to-fgmm on 12a's UBM → fgmm-global-acc-stats →
+        fgmm-global-est → fgmm-global-get-frame-likes, card = CPU;
+     c. gmm-acc-stats on 10b's tri3b alignments and on lattice-to-post of
+        its lattices of 8 test utterances → gmm-est-gaussians-ebw, card =
+        CPU;
+     d. the ladder's chain rung (``ladder.chain_stage``) on 10b's
+        systems, LADDER_EPOCHS epochs: a finite objf, its WER beside the
+        GMM rungs' (its den launches counted).
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths (the den's include 14b's,
-15a's and the ranks' of phase 16), the largest difference from
+15a's, the ranks' of phase 16 and 17d's; the GMM's 17a's and 17c's),
+the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
 forward + backward at phase 8a's B = 128) and the
@@ -329,6 +365,7 @@ There is no CPU fallback: without a CUDA device the script exits
 non-zero before printing any result.
 """
 
+import atexit
 import json
 import math
 import os
@@ -1996,7 +2033,8 @@ MINI_LADDER = dict(num_utts=100, num_test=30, seed=1, noise=0.12,
 
 def mini_recipe(dev, tag: str):
     """10b: the mini_librispeech ladder (mini.run) on the ladder's hard
-    corpus on the card.  → (fbank launches, GMM launches)."""
+    corpus on the card.  → (fbank launches, GMM launches, WERs, the
+    systems: phase 17's inputs)."""
     from kaldi_tpu_torch.pipelines import mini
     from kaldi_tpu_torch.pipelines.data import (confusable_formants,
                                                 confusable_lexicon)
@@ -2008,9 +2046,10 @@ def mini_recipe(dev, tag: str):
 
     zero_totals()
     t0 = time.perf_counter()
-    wers = mini.run(lexicon=confusable_lexicon(),
-                    formants=confusable_formants(), device=dev,
-                    report=report, **MINI_LADDER)
+    wers, sysd = mini.run(lexicon=confusable_lexicon(),
+                          formants=confusable_formants(), device=dev,
+                          report=report, return_systems=True,
+                          **MINI_LADDER)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fb, gm = totals()
@@ -2030,7 +2069,7 @@ def mini_recipe(dev, tag: str):
                              f"{wers['tri3b']}")
     if min(fb, gm) <= 0:
         raise AssertionError(f"mini launches: fbank {fb}, GMM {gm}")
-    return fb, gm
+    return fb, gm, wers, sysd
 
 
 def tri3b_training(dev, task, tag: str):
@@ -4673,6 +4712,1018 @@ def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
     return a_launches + launches
 
 
+# ---------------------------------------------------------------------------
+# 17. tri3b as Kaldi's tools: train_deltas.sh → train_lda_mllt.sh →
+# train_sat.sh → decode_fmllr.sh, each step a tool of the port
+# ---------------------------------------------------------------------------
+
+TRI_DIR = os.path.join("build", "chip_smoke_tri_tools")
+# mini_librispeech run.sh's shapes: 13 cepstra (mfcc.conf), splice ±3
+# (train_lda_mllt.sh's --splice-opts), LDA to 40, --boost-silence 1.25;
+# the tree at 10b's ladder sizes (MINI_LADDER: 30 leaves, 600 Gaussians)
+TRI_CEPS = 13
+TRI_SPLICE = 3
+TRI_LDA_DIM = 40
+TRI_BOOST = 1.25
+# {gmm-acc-stats-ali → gmm-est → gmm-align-compiled} passes of each of
+# tri1, tri2b and tri3b (run.sh's scripts run 35; the depth knob), the
+# mix-up reaching 600 Gaussians over the first TRI_MIX_PASSES, the MLLT
+# re-estimated after the tri2b passes in TRI_MLLT_AFTER
+TRI_PASSES = 8
+TRI_MIX_PASSES = 6
+TRI_MLLT_AFTER = (1, 3)
+TRI_DECODE = ("--beam=16", "--max-active=2000", "--acoustic-scale=0.1")
+# 17's bars, tool against library on the same input files in the same
+# run on the card (the host code is the same code: equal files):
+#  * accumulators through the GMM's mixture posteriors (gmm-acc-stats-ali,
+#    gmm-acc-stats-twofeats, gmm-acc-mllt's float32 file): 10d's 1e-5
+#    relative, of the largest entry;
+#  * fMLLR matrices (float64 row updates from those statistics, written
+#    as float32): 1e-5 of the largest entry;
+#  * features out of add-deltas, splice-feats and transform-feats (the
+#    same float32 device ops in another process): 1e-6 of the largest;
+#  * decodes: the best path's words equal, its cost within 1e-4
+#    relative (the tool determinizes with pruning, the library without);
+#  * trees, tree statistics, questions, models, LDA, MLLT and composed
+#    matrices, alignments, posteriors and graphs: equal.
+TRI_ACC_TOL = 1e-5
+TRI_MAT_TOL = 1e-5
+TRI_FEAT_TOL = 1e-6
+TRI_COST_TOL = 1e-4
+# 17's other parts: the full-covariance GMM card = CPU (float64 both);
+# the EBW statistics card = CPU at 10c's card-vs-CPU accumulator bar
+# (1e-4 of each entry plus 1e-4 of the largest: float32 mixture
+# posteriors of another device; at 10d's 1e-5 the card's were 1.112 of
+# the bar on 10b's 40-dimensional SAT features) and the EBW update within
+# 1e-4 of each parameter's largest; the ladder's chain rung at
+# LADDER_EPOCHS epochs (ladder.py's 40 cut: its TDNN and data are the
+# original's) on 10b's systems
+FGMM_TOL = 1e-10
+EBW_ACC_TOL = 1e-4
+EBW_TOL = 1e-4
+EBW_LATTICE_UTTS = 8
+LADDER_EPOCHS = 6
+
+
+def tri_tools_start(dev, sysd):
+    """17, started: 10b's waveforms, transcripts, speakers, lexicon,
+    topology, words, G, mono model, mono alignments and mono test
+    features written into TRI_DIR, then ``python3 chip_smoke.py
+    --tri-tools`` (``tri_tools_worker``) in the background.  → (process,
+    dir, start time)."""
+    import subprocess
+    from kaldi_tpu_torch.am.serialize import write_mdl, write_topology
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.fst.openfst_io import write_fst_path
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, TRI_DIR)
+    os.makedirs(d, exist_ok=True)
+    lang, mono = sysd["lang"], sysd["mono"]
+    for s, data in (("tr", sysd["train"]), ("te", sysd["test"])):
+        with TableWriter(f"ark:{d}/wav_{s}.ark", holder="wav") as w:
+            for u in data.utts:
+                w[u] = data.wavs[u]
+        with TableWriter(f"ark:{d}/text_{s}.ark", holder="text") as w:
+            for u in data.utts:
+                w[u] = data.text[u]
+        with open(f"{d}/spk2utt_{s}", "w") as f:
+            for spk, utts in data.spk2utt().items():
+                f.write(f"{spk} {' '.join(utts)}\n")
+        with open(f"{d}/utt2spk_{s}", "w") as f:
+            for u in data.utts:
+                f.write(f"{u} {data.utt2spk[u]}\n")
+    with TableWriter(f"ark:{d}/mono_delta_te.ark", holder="mat") as w:
+        for u, x in sysd["delta_te"].items():
+            w[u] = x
+    with TableWriter(f"ark:{d}/mono_ali.ark", holder="ivec") as w:
+        for u, a in sysd["mono_ali"].items():
+            w[u] = np.asarray(a, np.int32)
+    with open(f"{d}/lexicon.txt", "w") as f:
+        for word, pron in lang.lexicon.entries:
+            f.write(f"{word} {' '.join(pron)}\n")
+    with open(f"{d}/topo", "wb") as f:
+        kio.init_kaldi_output_stream(f)
+        write_topology(f, mono.tm.topo)
+    lang.words.write(f"{d}/words.txt")
+    write_fst_path(f"{d}/G.fst", sysd["G"])
+    write_mdl(f"{d}/mono.mdl", mono.tm, mono.am)
+    with open(f"{d}/meta.json", "w") as f:
+        json.dump({"sil": ":".join(str(p) for p in lang.silence_phones),
+                   "leaves": MINI_LADDER["tri_leaves"],
+                   "gauss": MINI_LADDER["tri_gauss"]}, f)
+    out = open(f"{d}/worker.out", "w")
+    err = open(f"{d}/worker.err", "w")
+    # two host threads: the process runs beside 11a's lattice builds
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tri-tools", d,
+         dev.type], cwd=repo, stdout=out, stderr=err,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    out.close()
+    err.close()
+    return proc, d, time.perf_counter()
+
+
+def _tri_read(d, name):
+    with open(f"{d}/{name}") as f:
+        return {p[0]: p[1:] for p in (line.split() for line in f) if p}
+
+
+def tri_tools_worker(argv) -> int:
+    """17's background process: the tri3b recipe as tools (each a call of
+    ``kaldi_tpu_torch.cli.tools.main``'s registry in this one process),
+    then every call held against the library on its own input files
+    (``tri_tools_check``).  Writes ``report.json`` (stage walls, WERs,
+    each check) into the directory; exits 1 if a check fails."""
+    import contextlib
+    import io
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    t_start = time.perf_counter()
+    d, dv = argv[0], argv[1]
+    dev = f"--device={dv}"
+    meta = json.load(open(f"{d}/meta.json"))
+    sil = meta["sil"]
+    calls, walls, wers = [], {}, {}
+
+    def T(name, *args):
+        args = [str(a) for a in args]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = TOOLS[name](args)
+        if rc:
+            raise AssertionError(f"{name} {' '.join(args)}: rc {rc}")
+        calls.append((name, args, buf.getvalue()))
+        return buf.getvalue()
+
+    def decode(stage, mdl, feats):
+        """compile-graph → gmm-latgen-faster → lattice-best-path →
+        compute-wer on the test set."""
+        s = f"{d}/{stage}"
+        T("compile-graph", f"{d}/lexicon.txt", mdl, f"{d}/G.fst",
+          f"{s}/HCLG.fst")
+        T("gmm-latgen-faster", dev, *TRI_DECODE, mdl, f"{s}/HCLG.fst",
+          feats, f"ark:{s}/lat.ark")
+        T("lattice-best-path", f"--word-symbol-table={d}/words.txt",
+          f"ark:{s}/lat.ark", f"ark,t:{s}/hyp.txt")
+        return T("compute-wer", f"ark:{d}/text_te.ark",
+                 f"ark,t:{s}/hyp.txt").strip()
+
+    def tree(stage, prev_mdl, feats, prev_ali):
+        """acc-tree-stats → sum-tree-stats → cluster-phones →
+        compile-questions → build-tree → gmm-init-model → convert-ali →
+        compile-train-graphs (train_deltas.sh's head)."""
+        s = f"{d}/{stage}"
+        os.makedirs(s, exist_ok=True)
+        T("acc-tree-stats", prev_mdl, feats, prev_ali, f"{s}/1.treeacc")
+        T("sum-tree-stats", f"{s}/treeacc", f"{s}/1.treeacc")
+        T("cluster-phones", f"{s}/treeacc", f"{s}/sets.txt")
+        T("compile-questions", f"{s}/sets.txt", f"{s}/questions.txt")
+        T("build-tree", f"--max-leaves={meta['leaves']}", f"{s}/treeacc",
+          f"{s}/questions.txt", f"{s}/tree")
+        T("gmm-init-model", f"{s}/tree", f"{s}/treeacc", f"{d}/topo",
+          f"{s}/0.mdl")
+        T("convert-ali", prev_mdl, f"{s}/0.mdl", f"{s}/tree", prev_ali,
+          f"ark:{s}/ali.0.ark")
+        T("compile-train-graphs", f"{d}/lexicon.txt", f"{s}/0.mdl",
+          f"ark:{d}/text_tr.ark", f"ark:{s}/graphs.ark")
+
+    def passes(stage, feats, after=None, graphs=None):
+        """{gmm-acc-stats-ali → gmm-est (--mix-up) → gmm-align-compiled}
+        TRI_PASSES times from ``0.mdl`` and ``ali.0.ark``; ``after(k, i,
+        feats, mdl)`` may hand the next pass new features and a new
+        model.  → (final model, final alignment rspec, features)."""
+        s = f"{d}/{stage}"
+        graphs = graphs or f"ark:{s}/graphs.ark"
+        mdl = f"{s}/0.mdl"
+        _, am = read_mdl(mdl, device="cpu")
+        n0, want = am.num_gauss(), meta["gauss"]
+        for i in range(TRI_PASSES):
+            T("gmm-acc-stats-ali", dev, mdl, feats, f"ark:{s}/ali.{i}.ark",
+              f"{s}/{i}.acc")
+            mix = ([f"--mix-up={n0 + (want - n0) * (i + 1) // TRI_MIX_PASSES}"]
+                   if i < TRI_MIX_PASSES and n0 < want else [])
+            T("gmm-est", *mix, mdl, f"{s}/{i}.acc", f"{s}/{i + 1}.mdl")
+            mdl = f"{s}/{i + 1}.mdl"
+            T("gmm-align-compiled", dev, mdl, graphs, feats,
+              f"ark:{s}/ali.{i + 1}.ark")
+            if after is not None:
+                feats, mdl = after(i, i + 1, feats, mdl)
+        return mdl, f"ark:{s}/ali.{TRI_PASSES}.ark", feats
+
+    def by_speaker(stage, trans, feats, sset, out):
+        """transform-feats takes one matrix: split the set by speaker
+        (utils/split_data.sh's role) and run it once a speaker with that
+        speaker's matrix; → an scp of the adapted features."""
+        s = f"{d}/{stage}"
+        mats = dict(SequentialTableReader(f"ark:{trans}", holder="mat"))
+        allf = dict(SequentialTableReader(feats, holder="mat"))
+        lines = []
+        for spk, utts in _tri_read(d, f"spk2utt_{sset}").items():
+            with open(f"{s}/{out}.{spk}.mat", "wb") as f:
+                kio.init_kaldi_output_stream(f)
+                kio.write_matrix(f, mats[spk])
+            with TableWriter(f"ark:{s}/{out}.{spk}.in.ark",
+                             holder="mat") as w:
+                for u in utts:
+                    w[u] = allf[u]
+            T("transform-feats", dev, f"{s}/{out}.{spk}.mat",
+              f"ark:{s}/{out}.{spk}.in.ark",
+              f"ark,scp:{s}/{out}.{spk}.ark,{s}/{out}.{spk}.scp")
+            lines.append(open(f"{s}/{out}.{spk}.scp").read())
+        with open(f"{s}/{out}.scp", "w") as f:
+            f.write("".join(lines))
+        return f"scp:{s}/{out}.scp"
+
+    t0 = time.perf_counter()
+    # features (make_mfcc.sh, compute_cmvn_stats.sh, the Δ+ΔΔ pipe)
+    for s in ("tr", "te"):
+        T("compute-mfcc-feats", dev, "--sample-frequency=8000",
+          "--dither=0", "--num-mel-bins=15", f"--num-ceps={TRI_CEPS}",
+          f"ark:{d}/wav_{s}.ark", f"ark:{d}/raw_{s}.ark")
+        T("compute-cmvn-stats", dev, f"--spk2utt={d}/spk2utt_{s}",
+          f"ark:{d}/raw_{s}.ark", f"ark:{d}/cmvn_{s}.ark")
+        T("apply-cmvn", dev, f"--utt2spk={d}/utt2spk_{s}",
+          f"ark:{d}/cmvn_{s}.ark", f"ark:{d}/raw_{s}.ark",
+          f"ark:{d}/base_{s}.ark")
+        T("add-deltas", dev, f"ark:{d}/base_{s}.ark",
+          f"ark:{d}/delta_{s}.ark")
+    walls["features"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(f"{d}/mono", exist_ok=True)
+    wers["mono"] = decode("mono", f"{d}/mono.mdl",
+                          f"ark:{d}/mono_delta_te.ark")
+    walls["mono"] = time.perf_counter() - t0
+
+    # tri1: train_deltas.sh
+    t0 = time.perf_counter()
+    tree("tri1", f"{d}/mono.mdl", f"ark:{d}/delta_tr.ark",
+         f"ark:{d}/mono_ali.ark")
+    mdl1, ali1, _ = passes("tri1", f"ark:{d}/delta_tr.ark")
+    wers["tri1"] = decode("tri1", mdl1, f"ark:{d}/delta_te.ark")
+    walls["tri1"] = time.perf_counter() - t0
+
+    # tri2b: train_lda_mllt.sh
+    t0 = time.perf_counter()
+    s = f"{d}/tri2b"
+    os.makedirs(s, exist_ok=True)
+    ctx = (f"--left-context={TRI_SPLICE}", f"--right-context={TRI_SPLICE}")
+    for x in ("tr", "te"):
+        T("splice-feats", dev, *ctx, f"ark:{d}/base_{x}.ark",
+          f"ark:{s}/splice_{x}.ark")
+    T("ali-to-post", ali1, f"ark:{s}/post.ark")
+    T("weight-silence-post", "0.0", sil, mdl1, f"ark:{s}/post.ark",
+      f"ark:{s}/wpost.ark")
+    T("acc-lda", mdl1, f"ark:{s}/splice_tr.ark", f"ark:{s}/wpost.ark",
+      f"{s}/lda.acc")
+    T("est-lda", f"--dim={TRI_LDA_DIM}", f"{s}/0.mat", f"{s}/lda.acc")
+    T("transform-feats", dev, f"{s}/0.mat", f"ark:{s}/splice_tr.ark",
+      f"ark:{s}/feats_tr.0.ark")
+    tree("tri2b", mdl1, f"ark:{s}/feats_tr.0.ark", ali1)
+    cur = {"mat": f"{s}/0.mat"}
+
+    def mllt(k, i, feats, mdl):
+        """gmm-acc-mllt → est-mllt → gmm-transform-means →
+        compose-transforms → transform-feats after pass ``k``."""
+        if k not in TRI_MLLT_AFTER:
+            return feats, mdl
+        T("gmm-acc-mllt", dev, mdl, feats, f"ark:{s}/ali.{i}.ark",
+          f"{s}/{i}.macc")
+        T("est-mllt", f"{s}/{i}.mllt", f"{s}/{i}.macc")
+        T("gmm-transform-means", f"{s}/{i}.mllt", mdl, f"{s}/{i}.mllt.mdl")
+        T("compose-transforms", f"{s}/{i}.mllt", cur["mat"], f"{s}/{i}.mat")
+        cur["mat"] = f"{s}/{i}.mat"
+        T("transform-feats", dev, cur["mat"], f"ark:{s}/splice_tr.ark",
+          f"ark:{s}/feats_tr.{i}.ark")
+        return f"ark:{s}/feats_tr.{i}.ark", f"{s}/{i}.mllt.mdl"
+
+    mdl2, ali2, lda_tr = passes("tri2b", f"ark:{s}/feats_tr.0.ark",
+                                after=mllt)
+    T("transform-feats", dev, cur["mat"], f"ark:{s}/splice_te.ark",
+      f"ark:{s}/feats_te.ark")
+    lda_te = f"ark:{s}/feats_te.ark"
+    wers["tri2b"] = decode("tri2b", mdl2, lda_te)
+    walls["tri2b"] = time.perf_counter() - t0
+
+    # tri3b: train_sat.sh (fMLLR by speaker on the boosted alignment)
+    t0 = time.perf_counter()
+    s3 = f"{d}/tri3b"
+    os.makedirs(s3, exist_ok=True)
+    T("gmm-boost-silence", f"--boost={TRI_BOOST}", sil, mdl2,
+      f"{s3}/boost.mdl")
+    T("gmm-align-compiled", dev, f"{s3}/boost.mdl", f"ark:{s}/graphs.ark",
+      lda_tr, f"ark:{s3}/ali.0.ark")
+    T("ali-to-post", f"ark:{s3}/ali.0.ark", f"ark:{s3}/post.ark")
+    T("weight-silence-post", "0.0", sil, mdl2, f"ark:{s3}/post.ark",
+      f"ark:{s3}/wpost.ark")
+    T("gmm-est-fmllr", dev, f"--spk2utt={d}/spk2utt_tr", mdl2, lda_tr,
+      f"ark:{s3}/wpost.ark", f"ark:{s3}/trans.ark")
+    sat_tr = by_speaker("tri3b", f"{s3}/trans.ark", lda_tr, "tr", "sat_tr")
+    with open(mdl2, "rb") as f, open(f"{s3}/0.mdl", "wb") as g:
+        g.write(f.read())
+    mdl3, ali3, _ = passes("tri3b", sat_tr, graphs=f"ark:{s}/graphs.ark")
+    T("gmm-acc-stats-twofeats", dev, mdl3, sat_tr, lda_tr, ali3,
+      f"{s3}/twofeats.acc")
+    T("gmm-est", mdl3, f"{s3}/twofeats.acc", f"{s3}/final.alimdl")
+    walls["tri3b"] = time.perf_counter() - t0
+
+    # decode_fmllr.sh: the alignment model's pass, lattice posteriors with
+    # silence at 0.01, fMLLR by speaker, the SAT model's pass
+    t0 = time.perf_counter()
+    T("compile-graph", f"{d}/lexicon.txt", mdl3, f"{d}/G.fst",
+      f"{s3}/HCLG.fst")
+    T("gmm-latgen-faster", dev, *TRI_DECODE, f"{s3}/final.alimdl",
+      f"{s3}/HCLG.fst", lda_te, f"ark:{s3}/lat_si.ark")
+    T("lattice-to-post", f"ark:{s3}/lat_si.ark", f"ark:{s3}/post_te.ark")
+    T("weight-silence-post", "0.01", sil, f"{s3}/final.alimdl",
+      f"ark:{s3}/post_te.ark", f"ark:{s3}/wpost_te.ark")
+    T("gmm-est-fmllr", dev, f"--spk2utt={d}/spk2utt_te", mdl3, lda_te,
+      f"ark:{s3}/wpost_te.ark", f"ark:{s3}/trans_te.ark")
+    sat_te = by_speaker("tri3b", f"{s3}/trans_te.ark", lda_te, "te",
+                        "sat_te")
+    T("gmm-latgen-faster", dev, *TRI_DECODE, mdl3, f"{s3}/HCLG.fst", sat_te,
+      f"ark:{s3}/lat.ark")
+    T("lattice-best-path", f"--word-symbol-table={d}/words.txt",
+      f"ark:{s3}/lat.ark", f"ark,t:{s3}/hyp.txt")
+    wers["tri3b"] = T("compute-wer", f"ark:{d}/text_te.ark",
+                      f"ark,t:{s3}/hyp.txt").strip()
+    walls["tri3b decode"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    checks = tri_tools_check(d, torch.device(dv), calls)
+    walls["checks"] = time.perf_counter() - t0
+    with open(f"{d}/report.json", "w") as f:
+        json.dump({"walls": walls, "wers": wers, "checks": checks,
+                   "calls": len(calls),
+                   "total": time.perf_counter() - t_start}, f)
+    bad = [c for c in checks if not c[2]]
+    if bad:
+        print(f"tri tools: {len(bad)} checks failed: {bad[:5]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _tri_opts(args):
+    """A tool call's arguments → ({option: value}, [positional])."""
+    opts, pos = {}, []
+    for a in args:
+        if a.startswith("--"):
+            k, _, v = a[2:].partition("=")
+            opts[k] = v
+        else:
+            pos.append(a)
+    return opts, pos
+
+
+def tri_tools_check(d, dev, calls):
+    """Each tool call of 17's worker against the library on the same input
+    files, on ``dev`` (the bars are TRI_*'s).  → [(tool, output, held,
+    detail)]."""
+    import tempfile
+    from kaldi_tpu_torch.am.gmm import (GmmAccs, accumulate_stats,
+                                        accumulate_stats_twofeats, mixup,
+                                        mle_update)
+    from kaldi_tpu_torch.am.serialize import (read_mdl, read_topology,
+                                              read_tree, write_mdl,
+                                              write_tree)
+    from kaldi_tpu_torch.am.transforms import (FmllrAccs, LdaEstimate,
+                                               MlltAccs,
+                                               accumulate_fmllr_from_post,
+                                               apply_transform,
+                                               compose_transforms)
+    from kaldi_tpu_torch.am.transitions import TransitionModel
+    from kaldi_tpu_torch.am.tree import (read_tree_stats, sum_tree_stats,
+                                         build_tree, write_tree_stats)
+    from kaldi_tpu_torch.cli.tools_bank3 import _lang_from_lexicon
+    from kaldi_tpu_torch.cli.tools_bank5 import (_read_phone_sets,
+                                                 _write_phone_sets)
+    from kaldi_tpu_torch.cli.tools_bank9 import read_lda_accs
+    from kaldi_tpu_torch.cli.tools_extra import read_gmm_accs
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    from kaldi_tpu_torch.decoder.align import (DenseAligner,
+                                               pack_training_graphs)
+    from kaldi_tpu_torch.decoder.training_graph import TrainingGraphCompiler
+    from kaldi_tpu_torch.features import (DeltaFeaturesOptions, add_deltas,
+                                          splice_frames)
+    from kaldi_tpu_torch.fst import mkgraph
+    from kaldi_tpu_torch.fst.openfst_io import read_fst_path, write_fst_path
+    from kaldi_tpu_torch.lattice.functions import frame_posteriors
+    from kaldi_tpu_torch.pipelines.decode import decode_gmm_lattice
+    from kaldi_tpu_torch.pipelines.mono import realign
+    from kaldi_tpu_torch.pipelines.score import compute_wer
+    from kaldi_tpu_torch.pipelines.tri import (accumulate_tree_stats,
+                                               cluster_phone_questions,
+                                               convert_alignment,
+                                               init_model_from_tree_stats)
+    tmp = tempfile.mkdtemp(dir=d)
+    lang = _lang_from_lexicon(f"{d}/lexicon.txt", "SIL")
+
+    def table(spec, holder):
+        """A table by its rspecifier, or an output's by its wspecifier
+        (``ark,scp:a.ark,a.scp`` reads ``ark:a.ark``)."""
+        head, _, rest = spec.partition(":")
+        if "scp" in head.split(",")[1:]:
+            spec = "ark:" + rest.split(",")[0]
+        return dict(SequentialTableReader(spec, holder=holder))
+
+    def mat(path):
+        with kio.open_rxfilename(path) as f:
+            kio.init_kaldi_input_stream(f)
+            return kio.read_matrix(f)
+
+    def same_bytes(path, write):
+        """``write(tmp path)`` writes the library's result: the files'
+        bytes equal."""
+        out = os.path.join(tmp, "lib")
+        write(out)
+        with open(out, "rb") as f, open(path, "rb") as g:
+            return f.read() == g.read()
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.abs(got - want).max()
+                     / max(float(np.abs(want).max()), 1e-30))
+
+    def model(path, where=dev):
+        return read_mdl(path, device=where)
+
+    def lib_mdl(tm, am):
+        return lambda out: write_mdl(out, tm, am)
+
+    def feats_of(rspec):
+        return {k: np.asarray(v, np.float32)
+                for k, v in table(rspec, "mat").items()}
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def feats_close(out_rspec, lib):
+        got = feats_of(out_rspec)
+        worst = max(rel(got[u], lib[u]) for u in lib)
+        return sorted(got) == sorted(lib) and worst <= TRI_FEAT_TOL, \
+            f"{worst:.2e}"
+
+    def pdf_posts(tm, frames):
+        return [[(int(tm.tid_to_pdf_array[t]), p) for t, p in fr]
+                for fr in frames]
+
+    def c_acc_tree_stats(o, p):
+        tm, _ = model(p[0], "cpu")
+        feats, alis = feats_of(p[1]), table(p[2], "ivec")
+        both = {k: feats[k] for k in feats if k in alis}
+        stats = accumulate_tree_stats(
+            both, {k: [int(x) for x in alis[k]] for k in both}, tm,
+            int(o.get("context-width", 3)), int(o.get("central-position", 1)))
+        return same_bytes(p[3], lambda out: write_tree_stats(out, stats)), ""
+
+    def c_sum_tree_stats(o, p):
+        total = sum_tree_stats(read_tree_stats(x) for x in p[1:])
+        return same_bytes(p[0], lambda out: write_tree_stats(out, total)), ""
+
+    def c_cluster_phones(o, p):
+        qs = cluster_phone_questions(read_tree_stats(p[0]),
+                                     int(o.get("central-position", 1)))
+        return same_bytes(p[1], lambda out: _write_phone_sets(out, qs)), \
+            f"{len(qs)} sets"
+
+    def c_compile_questions(o, p):
+        sets = _read_phone_sets(p[0])
+        sets += [frozenset([q]) for q in sorted({x for s in sets for x in s})
+                 if frozenset([q]) not in sets]
+        return same_bytes(p[1], lambda out: _write_phone_sets(out, sets)), ""
+
+    def c_build_tree(o, p):
+        tree = build_tree(read_tree_stats(p[0]), _read_phone_sets(p[1]),
+                          int(o.get("context-width", 3)),
+                          int(o.get("central-position", 1)),
+                          int(o["max-leaves"]), float(o.get("thresh", 0.0)))
+
+        def write(out):
+            with kio.open_wxfilename(out) as f:
+                write_tree(f, tree)
+        return same_bytes(p[2], write), f"{tree.num_pdfs} leaves"
+
+    def c_gmm_init_model(o, p):
+        with kio.open_rxfilename(p[0]) as f:
+            kio.init_kaldi_input_stream(f)
+            tree = read_tree(f)
+        with kio.open_rxfilename(p[2]) as f:
+            kio.init_kaldi_input_stream(f)
+            topo = read_topology(f)
+        am = init_model_from_tree_stats(tree, read_tree_stats(p[1]),
+                                        device=dev)
+        return same_bytes(p[3], lib_mdl(TransitionModel(topo, tree), am)), ""
+
+    def c_convert_ali(o, p):
+        (tm0, _), (tm1, _) = model(p[0], "cpu"), model(p[1], "cpu")
+        got = table(p[-1], "ivec")
+        want = {k: convert_alignment(tm0, tm1, list(a),
+                                     tm1.tree.context_width,
+                                     tm1.tree.central_position)
+                for k, a in table(p[-2], "ivec").items()}
+        return sorted(got) == sorted(want) and all(
+            list(got[k]) == want[k] for k in want), ""
+
+    def arcs(fst):
+        return [[(a.ilabel, a.olabel, np.float32(a.weight), a.nextstate)
+                 for a in arcs] for arcs in fst.arcs]
+
+    def c_compile_train_graphs(o, p):
+        tm, _ = model(p[1], "cpu")
+        comp = TrainingGraphCompiler(lang, tm)
+        got = table(p[3], "fst")
+        return all(arcs(got[k]) == arcs(comp.compile_text(list(t)))
+                   for k, t in table(p[2], "text").items()), ""
+
+    def c_gmm_acc_stats_ali(o, p):
+        tm, am = model(p[0])
+        feats, alis = feats_of(p[1]), table(p[2], "ivec")
+        accs = GmmAccs.zeros(am.num_pdfs, am.max_mix, am.dim)
+        for k in feats:
+            accumulate_stats(am, feats[k], tm.tid_to_pdf_array[
+                np.asarray(alis[k])], accs)
+        got = read_gmm_accs(p[3])
+        worst = max(rel(getattr(got, n), getattr(accs, n))
+                    for n in ("occ", "mean_acc", "var_acc"))
+        return worst <= TRI_ACC_TOL, f"{worst:.2e}"
+
+    def c_gmm_est(o, p):
+        tm, am = model(p[0], "cpu")
+        mle_update(am, read_gmm_accs(p[1]),
+                   min_occ=float(o.get("min-gaussian-occupancy", 3.0)))
+        if int(o.get("mix-up", 0)):
+            am = mixup(am, int(o["mix-up"]))
+        return same_bytes(p[2], lib_mdl(tm, am)), f"{am.num_gauss()} gauss"
+
+    def c_gmm_align_compiled(o, p):
+        tm, am = model(p[0])
+        graphs, feats = table(p[1], "fst"), feats_of(p[2])
+        utts = [u for u in feats if u in graphs]
+        dense = dict(zip(utts, pack_training_graphs([graphs[u]
+                                                     for u in utts])))
+        want = realign(am, DenseAligner(tm.tid_to_pdf_array, device=dev),
+                       dense, utts, feats)
+        got = table(p[3], "ivec")
+        return sorted(got) == sorted(want) and all(
+            list(got[u]) == list(want[u]) for u in utts), ""
+
+    def c_add_deltas(o, p):
+        return feats_close(p[1], {
+            k: add_deltas(on(x), DeltaFeaturesOptions()).cpu().numpy()
+            for k, x in feats_of(p[0]).items()})
+
+    def c_splice_feats(o, p):
+        return feats_close(p[1], {
+            k: splice_frames(on(x), int(o["left-context"]),
+                             int(o["right-context"])).cpu().numpy()
+            for k, x in feats_of(p[0]).items()})
+
+    def c_transform_feats(o, p):
+        m = mat(p[0])
+        return feats_close(p[2], {k: apply_transform(on(x), m).cpu().numpy()
+                                  for k, x in feats_of(p[1]).items()})
+
+    def c_ali_to_post(o, p):
+        got = table(p[1], "post")
+        return all([[(int(t), 1.0)] for t in a] ==
+                   [[(int(t), float(w)) for t, w in fr] for fr in got[k]]
+                   for k, a in table(p[0], "ivec").items()), ""
+
+    def c_weight_silence_post(o, p):
+        w, sil = float(p[0]), {int(x) for x in p[1].split(":") if x}
+        tm, _ = model(p[2], "cpu")
+        got = table(p[4], "post")
+        want = {k: [[(t, q * w if tm.transition_id_to_phone(t) in sil
+                      else q) for t, q in fr] for fr in post]
+                for k, post in table(p[3], "post").items()}
+        want = {k: [[(t, q) for t, q in fr if q > 0] for fr in post]
+                for k, post in want.items()}
+        return all(len(got[k]) == len(want[k]) and all(
+            [t for t, _ in g] == [t for t, _ in h]
+            and np.allclose([q for _, q in g], [q for _, q in h], rtol=1e-6)
+            for g, h in zip(got[k], want[k])) for k in want), ""
+
+    def c_acc_lda(o, p):
+        tm, _ = model(p[0], "cpu")
+        posts = table(p[2], "post")
+        lda = None
+        for k, x in feats_of(p[1]).items():
+            if k not in posts:
+                continue
+            if lda is None:
+                lda = LdaEstimate(tm.num_pdfs, x.shape[1])
+            for t, fr in enumerate(posts[k]):
+                for tid, q in fr:
+                    lda.accumulate(x[t], tm.transition_id_to_pdf(int(tid)),
+                                   float(q))
+        got = read_lda_accs(p[3])
+        ok = all(np.array_equal(g, np.float32(w)) for g, w in
+                 zip(got, (lda.counts, lda.first, lda.total_second)))
+        return ok, ""
+
+    def c_est_lda(o, p):
+        counts, first, second = read_lda_accs(p[1])
+        lda = LdaEstimate(len(counts), first.shape[1])
+        lda.counts += counts
+        lda.first += first
+        lda.total_second += second
+        m = lda.estimate(int(o["dim"]))
+        return np.array_equal(mat(p[0]), np.float32(m)), f"{m.shape}"
+
+    def c_gmm_acc_mllt(o, p):
+        tm, am = model(p[0])
+        alis = table(p[2], "ivec")
+        accs = None
+        for k, x in feats_of(p[1]).items():
+            accs = accs or MlltAccs(x.shape[1])
+            pdfs = tm.tid_to_pdf_array[np.asarray(alis[k], np.int64)]
+            post = am.component_posteriors(x, pdfs).cpu().numpy()
+            accs.accumulate(post, x, am.means[pdfs], 1.0 / am.vars[pdfs])
+        with kio.open_rxfilename(p[3]) as f:
+            kio.init_kaldi_input_stream(f)
+            kio.expect_token(f, "<MLLTACCS>")
+            beta = kio.read_basic_float(f)
+            G = np.stack([kio.read_matrix(f) for _ in range(accs.G.shape[0])])
+        worst = max(rel(G, accs.G), abs(beta - accs.beta) / accs.beta)
+        return worst <= TRI_ACC_TOL, f"{worst:.2e}"
+
+    def c_est_mllt(o, p):
+        with kio.open_rxfilename(p[1]) as f:
+            kio.init_kaldi_input_stream(f)
+            kio.expect_token(f, "<MLLTACCS>")
+            beta = kio.read_basic_float(f)
+            G0 = kio.read_matrix(f)
+            G = np.stack([G0] + [kio.read_matrix(f)
+                                 for _ in range(G0.shape[0] - 1)])
+        accs = MlltAccs(G0.shape[0])
+        accs.beta += beta
+        accs.G += G
+        m, impr = accs.update()
+        return np.array_equal(mat(p[0]), np.float32(m)), \
+            f"objf impr {impr:.4f}"
+
+    def c_gmm_transform_means(o, p):
+        T_ = mat(p[0])
+        tm, am = model(p[1], "cpu")
+        D = am.dim
+        b = T_[:, D] if T_.shape[1] == D + 1 else np.zeros(D)
+        am.means = am.means @ T_[:, :D].T + b
+        am.refresh()
+        return same_bytes(p[2], lib_mdl(tm, am)), ""
+
+    def c_compose_transforms(o, p):
+        c = compose_transforms(mat(p[0]), mat(p[1]),
+                               b_is_affine=o.get("b-is-affine") == "true")
+        return np.array_equal(mat(p[2]), np.float32(c)), f"{c.shape}"
+
+    def c_gmm_boost_silence(o, p):
+        sil = {int(x) for x in p[0].split(":") if x}
+        tm, am = model(p[1], "cpu")
+        pdfs = {int(tm.tid_to_pdf_array[t])
+                for t in range(1, tm.num_transition_ids + 1)
+                if tm.transition_id_to_phone(t) in sil}
+        for q in sorted(pdfs):
+            am.weights[q] *= float(o.get("boost", 1.5))
+        am.refresh()
+        return same_bytes(p[2], lib_mdl(tm, am)), f"{len(pdfs)} pdfs"
+
+    def c_gmm_est_fmllr(o, p):
+        tm, am = model(p[0])
+        feats, posts = feats_of(p[1]), table(p[2], "post")
+        got = table(p[3], "mat")
+        groups = (_tri_read(d, os.path.basename(o["spk2utt"]))
+                  if "spk2utt" in o else {u: [u] for u in feats})
+        worst = 0.0
+        for spk, utts in groups.items():
+            accs = FmllrAccs(am.dim)
+            for u in utts:
+                accumulate_fmllr_from_post(
+                    accs, am, feats[u],
+                    pdf_posts(tm, posts[u][:len(feats[u])]))
+            W, _ = accs.update()
+            worst = max(worst, rel(got[spk], W.astype(np.float32)))
+        return sorted(got) == sorted(groups) and worst <= TRI_MAT_TOL, \
+            f"{worst:.2e} over {len(groups)} speakers"
+
+    def c_gmm_acc_stats_twofeats(o, p):
+        tm, am = model(p[0])
+        f1, f2, alis = feats_of(p[1]), feats_of(p[2]), table(p[3], "ivec")
+        accs = GmmAccs.zeros(am.num_pdfs, am.max_mix, am.dim)
+        for k in f1:
+            accumulate_stats_twofeats(am, f1[k], f2[k], tm.tid_to_pdf_array[
+                np.asarray(alis[k], np.int64)], accs)
+        got = read_gmm_accs(p[4])
+        worst = max(rel(getattr(got, n), getattr(accs, n))
+                    for n in ("occ", "mean_acc", "var_acc"))
+        return worst <= TRI_ACC_TOL, f"{worst:.2e}"
+
+    def c_compile_graph(o, p):
+        tm, _ = model(p[1], "cpu")
+        G = read_fst_path(p[2])
+        H = mkgraph(lang, tm, G, self_loop_scale=float(
+            o.get("self-loop-scale", 0.1)))
+        return same_bytes(p[3], lambda out: write_fst_path(out, H)), \
+            f"{H.num_states} states"
+
+    def c_gmm_latgen_faster(o, p):
+        tm, am = model(p[0])
+        res = decode_gmm_lattice(feats_of(p[2]), am, tm, read_fst_path(p[1]),
+                                 lang, beam=float(o["beam"]),
+                                 lattice_beam=float(o.get("lattice-beam", 6)),
+                                 acoustic_scale=float(o["acoustic-scale"]),
+                                 device=dev)
+        got = table(p[3], "clat")
+        worst, same = 0.0, sorted(got) == sorted(res.lattices)
+        for k, clat in got.items():
+            words, _, cost = clat.best_path()
+            lw, _, lc = res.lattices[k].best_path()
+            same = same and words == lw
+            worst = max(worst, abs(cost - lc) / max(abs(lc), 1.0))
+        return same and worst <= TRI_COST_TOL, f"cost {worst:.2e}"
+
+    def c_lattice_to_post(o, p):
+        got = table(p[1], "post")
+        sc = float(o.get("acoustic-scale", 1.0))
+        ok = True
+        for k, clat in table(p[0], "clat").items():
+            want = frame_posteriors(clat, acoustic_scale=sc)
+            ok = ok and len(got[k]) == len(want) and all(
+                [t for t, _ in g] == [t for t, _ in h]
+                and np.allclose([q for _, q in g], [q for _, q in h],
+                                rtol=1e-6, atol=1e-7)
+                for g, h in zip(got[k], want))
+        return ok, ""
+
+    def c_lattice_best_path(o, p):
+        got = table(p[1], "text")
+        return all(got[k] == [lang.words.find(w) for w in
+                              clat.best_path()[0]]
+                   for k, clat in table(p[0], "clat").items()), ""
+
+    def c_compute_wer(o, p, out):
+        want = str(compute_wer(table(p[0], "text"), table(p[1], "text")))
+        return out.strip() == want, want
+
+    checks = {n[2:].replace("_", "-"): f for n, f in locals().items()
+              if n.startswith("c_")}
+    held = []
+    for name, args, out in calls:
+        o, p = _tri_opts(args)
+        if name not in checks:
+            continue
+        ok, detail = (checks[name](o, p, out) if name == "compute-wer"
+                      else checks[name](o, p))
+        held.append((name, p[-1], bool(ok), detail))
+    return held
+
+
+def _wer_of(line: str) -> float:
+    import re
+    return float(re.search(r"%WER ([0-9.]+)", line).group(1))
+
+
+def tri_tools_finish(started, lib_wers, tag: str):
+    """17a, checked: the background run's exit, its checks (each tool
+    against the library), the GMM kernel's launches from the tools' log
+    lines, the ladder's rule on the tools' WERs (mono above 0, tri3b no
+    worse than mono), printed beside 10b's library WERs with each stage's
+    wall.  → (GMM launches, the tools' WERs)."""
+    import re
+    proc, d, t0 = started
+    proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    with open(f"{d}/worker.err") as f:
+        err = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"tri tools failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    with open(f"{d}/report.json") as f:
+        rep = json.load(f)
+    launches = sum(int(n) for n in
+                   re.findall(r"GMM kernel launches (\d+)", err))
+    by_tool = {}
+    for name, out, held, detail in rep["checks"]:
+        n, k, det = by_tool.get(name, (0, 0, []))
+        by_tool[name] = (n + 1, k + int(held), det + ([detail] if detail
+                                                    else []))
+    print(f"tri: tri3b as tools, {rep['calls']} tool calls in one "
+          f"background process ({rep['total']:.1f} s after its imports; "
+          f"started {wall:.1f} s before this check, at 10b); each call "
+          f"against the library on its input files:")
+    for name, (n, k, det) in by_tool.items():
+        print(f"tri:   {name}: {k} of {n} equal the library"
+              + (f" ({'; '.join(det[:3])}{'; …' if len(det) > 3 else ''})"
+                 if det else ""))
+    wers = {k: _wer_of(v) for k, v in rep["wers"].items()}
+    for stage in ("mono", "tri1", "tri2b", "tri3b"):
+        print(f"tri: {stage}: tools {rep['wers'][stage]}; 10b's library "
+              f"{lib_wers[stage]}")
+    print("tri: walls " + ", ".join(f"{k} {v:.1f} s"
+                                     for k, v in rep["walls"].items())
+          + f"; GMM kernel launches {launches} (the tools' log lines) {tag}")
+    if not all(k == n for n, k, _ in by_tool.values()):
+        raise AssertionError(f"tri tools vs library: {by_tool}")
+    if not (wers["mono"] > 0 and wers["tri3b"] <= wers["mono"]):
+        raise AssertionError(f"tri tools ladder: {rep['wers']}")
+    if launches <= 0:
+        raise AssertionError("tri tools launched no GMM kernel")
+    return launches, wers
+
+
+def fgmm_card_vs_cpu(dev, tag: str) -> None:
+    """17b: gmm-global-to-fgmm on 12a's diagonal UBM →
+    fgmm-global-acc-stats → fgmm-global-est →
+    fgmm-global-get-frame-likes on 12a's features, on the card and on the
+    CPU; the library's float64 statistics and frame likes on the card
+    equal the CPU's within FGMM_TOL relative, and the tools' files (whose
+    readers round to float32) within float32 rounding."""
+    from kaldi_tpu_torch.am.full_gmm import AccumFullGmm
+    from kaldi_tpu_torch.cli.tools import main as tool
+    from kaldi_tpu_torch.cli.tools_bank13 import (_read_full_accs,
+                                                  _read_full_gmm)
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d12 = os.path.join(repo, "build", "chip_smoke_ivector")
+    d = os.path.join(repo, TRI_DIR, "fgmm")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    feats = f"ark:{d12}/feats.ark"
+    assert tool(["gmm-global-to-fgmm", f"{d12}/ubm", f"{d}/0.fubm"]) == 0
+    for side, dv in (("card", dev.type), ("cpu", "cpu")):
+        for argv in (["fgmm-global-acc-stats", f"--device={dv}",
+                      f"{d}/0.fubm", feats, f"{d}/{side}.acc"],
+                     ["fgmm-global-est", f"{d}/0.fubm", f"{d}/{side}.acc",
+                      f"{d}/{side}.fubm"],
+                     ["fgmm-global-get-frame-likes", f"--device={dv}",
+                      f"{d}/{side}.fubm", feats, f"ark:{d}/{side}.likes"]):
+            if tool(argv) != 0:
+                raise AssertionError(f"{argv[0]} --device={dv} failed")
+    f32 = 2.0 ** -23
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    ca, pa = _read_full_accs(f"{d}/card.acc"), _read_full_accs(f"{d}/cpu.acc")
+    tool_acc = max(rel(getattr(ca, n), getattr(pa, n))
+                   for n in ("occ", "mean_acc", "cov_acc"))
+    with open(f"{d}/card.fubm", "rb") as f, open(f"{d}/cpu.fubm", "rb") as g:
+        same_est = f.read() == g.read()
+    cl = dict(SequentialTableReader(f"ark:{d}/card.likes", holder="vec"))
+    pl = dict(SequentialTableReader(f"ark:{d}/cpu.likes", holder="vec"))
+    tool_likes = max(rel(cl[k], pl[k]) for k in pl)
+    # the library in float64 on both devices
+    xs = [np.asarray(x, np.float64) for _, x in
+          SequentialTableReader(feats, holder="mat")]
+    g0 = {dv: _read_full_gmm(f"{d}/0.fubm", dv) for dv in (dev, "cpu")}
+    acc = {dv: AccumFullGmm(g.num_mix, g.dim) for dv, g in g0.items()}
+    for x in xs:
+        for dv, g in g0.items():
+            acc[dv].accumulate(g, x)
+    lib_acc = max(rel(getattr(acc[dev], n), getattr(acc["cpu"], n))
+                  for n in ("occ", "mean_acc", "cov_acc"))
+    g1 = {dv: _read_full_gmm(f"{d}/cpu.fubm", dv) for dv in (dev, "cpu")}
+    lib_likes = max(rel(g1[dev].loglikes(x).cpu().numpy(),
+                        g1["cpu"].loglikes(x).numpy()) for x in xs)
+    gain = float(np.mean(np.concatenate([pl[k] for k in pl]))) - float(
+        np.mean([g0["cpu"].loglikes(x).numpy().mean() for x in xs]))
+    print(f"fgmm: 12a's {g0['cpu'].num_mix}-Gaussian UBM (D = "
+          f"{g0['cpu'].dim}) as a full-covariance GMM, one EM step on "
+          f"{len(xs)} utterances by the tools, card and CPU: the "
+          f"library's float64 statistics {lib_acc:.2e} and frame likes "
+          f"{lib_likes:.2e} relative apart (limit {FGMM_TOL:.0e}); the "
+          f"tools' statistics {tool_acc:.2e}, frame likes "
+          f"{tool_likes:.2e} (float32 files, limit {f32:.2e}), estimated "
+          f"models {'equal' if same_est else 'DIFFERENT'}; like/frame "
+          f"+{gain:.4f} after the step; {time.perf_counter() - t0:.1f} s "
+          f"{tag}")
+    if not (lib_acc <= FGMM_TOL and lib_likes <= FGMM_TOL and same_est
+            and tool_acc <= f32 and tool_likes <= f32):
+        raise AssertionError("full GMM: card and CPU disagree")
+
+
+def ebw_card_vs_cpu(dev, sysd, tag: str) -> int:
+    """17c: gmm-acc-stats on 10b's tri3b alignments (ali-to-post) and on
+    lattice-to-post of the library's lattices of EBW_LATTICE_UTTS of its
+    test utterances, then gmm-est-gaussians-ebw, on the card and on the
+    CPU: statistics within 10c's card-vs-CPU bar (EBW_ACC_TOL of each
+    entry plus EBW_ACC_TOL of the largest), the updated means and
+    variances within EBW_TOL of each one's largest.  → GMM kernel
+    launches of the lattice decode."""
+    from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+    from kaldi_tpu_torch.cli.tools import main as tool
+    from kaldi_tpu_torch.cli.tools_extra import read_gmm_accs
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.fst import mkgraph
+    from kaldi_tpu_torch.ops.gmm import CudaGmm
+    from kaldi_tpu_torch.pipelines.decode import decode_gmm_lattice
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, TRI_DIR, "ebw")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    sys3, lang = sysd["tri3b"], sysd["lang"]
+    write_mdl(f"{d}/tri3b.mdl", sys3.tm, sys3.am)
+    test = sorted(sysd["sat_te"])[:EBW_LATTICE_UTTS]
+    with TableWriter(f"ark:{d}/num_feats.ark", holder="mat") as w:
+        for u, x in sysd["sat_tr"].items():
+            w[u] = x
+    with TableWriter(f"ark:{d}/ali.ark", holder="ivec") as w:
+        for u, a in sysd["tri3b_ali"].items():
+            w[u] = np.asarray(a, np.int32)
+    n0 = CudaGmm.total_launches
+    res = decode_gmm_lattice({u: sysd["sat_te"][u] for u in test}, sys3.am,
+                             sys3.tm, mkgraph(lang, sys3.tm, sysd["G"]),
+                             lang, device=dev)
+    launches = CudaGmm.total_launches - n0
+    with TableWriter(f"ark:{d}/den_feats.ark", holder="mat") as w:
+        for u in test:
+            w[u] = sysd["sat_te"][u]
+    with TableWriter(f"ark:{d}/lat.ark", holder="clat") as w:
+        for u in test:
+            w[u] = res.lattices[u]
+    steps = [["ali-to-post", f"ark:{d}/ali.ark", f"ark:{d}/num.post"],
+             ["lattice-to-post", f"ark:{d}/lat.ark", f"ark:{d}/den.post"]]
+    for side, dv in (("card", dev.type), ("cpu", "cpu")):
+        steps += [["gmm-acc-stats", f"--device={dv}", f"{d}/tri3b.mdl",
+                   f"ark:{d}/num_feats.ark", f"ark:{d}/num.post",
+                   f"{d}/{side}.num"],
+                  ["gmm-acc-stats", f"--device={dv}", f"{d}/tri3b.mdl",
+                   f"ark:{d}/den_feats.ark", f"ark:{d}/den.post",
+                   f"{d}/{side}.den"],
+                  ["gmm-est-gaussians-ebw", f"{d}/tri3b.mdl",
+                   f"{d}/{side}.num", f"{d}/{side}.den",
+                   f"{d}/{side}.ebw.mdl"]]
+    for argv in steps:
+        if tool(argv) != 0:
+            raise AssertionError(f"{' '.join(argv[:2])} failed")
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def acc_share(a, b):
+        # 10c's bar: |card - cpu| ≤ tol·|cpu| + tol·max|cpu|, as a share
+        return float((np.abs(a - b) / (EBW_ACC_TOL * np.abs(b) + EBW_ACC_TOL
+                                        * np.abs(b).max())).max())
+
+    acc = max(acc_share(getattr(read_gmm_accs(f"{d}/card.{k}"), n),
+                        getattr(read_gmm_accs(f"{d}/cpu.{k}"), n))
+              for k in ("num", "den") for n in ("occ", "mean_acc", "var_acc"))
+    (_, ca), (_, pa) = (read_mdl(f"{d}/{dv}.ebw.mdl", device="cpu")
+                        for dv in ("card", "cpu"))
+    upd = max(rel(ca.means, pa.means), rel(ca.vars, pa.vars))
+    moved = float(np.abs(pa.means - sys3.am.means).max())
+    den_occ = float(read_gmm_accs(f"{d}/cpu.den").occ.sum())
+    print(f"ebw: 10b's tri3b ({sys3.am.num_pdfs} pdfs, "
+          f"{sys3.am.num_gauss()} Gaussians): numerator from its "
+          f"{len(sysd['tri3b_ali'])} training alignments, denominator from "
+          f"the lattices of {len(test)} test utterances ({den_occ:.0f} "
+          f"frames of posterior); gmm-acc-stats card vs CPU at most "
+          f"{acc:.3f} of 10c's limit {EBW_ACC_TOL:.0e}·|cpu| + "
+          f"{EBW_ACC_TOL:.0e}·max|cpu|, gmm-est-gaussians-ebw's means and "
+          f"variances {upd:.2e} (limit {EBW_TOL:.0e}); the update moved "
+          f"the means by up to {moved:.3f}; GMM launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
+    if not (acc <= 1.0 and upd <= EBW_TOL and moved > 0):
+        raise AssertionError("EBW: card and CPU disagree")
+    if launches <= 0:
+        raise AssertionError("EBW's lattice decode launched no GMM kernel")
+    return launches
+
+
+def ladder_rung(dev, sysd, lib_wers, tool_wers, tag: str) -> int:
+    """17d: the ladder's chain rung (``ladder.chain_stage``, den-LM order
+    3, LADDER_EPOCHS epochs) on 10b's systems on the card: a finite objf,
+    its WER beside the GMM rungs'.  → den kernel launches."""
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
+    from kaldi_tpu_torch.pipelines import ladder
+    CudaChainDen.total_launches = 0
+    t0 = time.perf_counter()
+    stats = {}
+    wer = ladder.chain_stage(sysd, order=3, num_epochs=LADDER_EPOCHS,
+                             device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    den = CudaChainDen.total_launches
+    print(f"ladder: chain rung on 10b's tri3b alignments and SAT "
+          f"features, {LADDER_EPOCHS} epochs (ladder.py's 40 cut): objf "
+          f"{stats['objf']:.4f}, {wer}; {wall:.1f} s; den kernel launches "
+          f"{den} {tag}")
+    print("ladder: WER by rung, 10b's library / 17a's tools: "
+          + ", ".join(f"{s} {lib_wers[s].wer:.2f} / {tool_wers[s]:.2f}"
+                      for s in ("mono", "tri1", "tri2b", "tri3b"))
+          + f", chain {wer.wer:.2f}")
+    if not math.isfinite(stats["objf"]):
+        raise AssertionError(f"ladder chain rung: objf {stats['objf']}")
+    if den <= 0:
+        raise AssertionError("ladder chain rung launched no den kernel")
+    return den
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -5020,7 +6071,10 @@ def main() -> int:
     y_fb, y_gmm, ysys = yesno_recipe(dev, tag)
     tools = gmm_tools_start(dev, ysys)
     try:
-        m_fb, m_gmm = mini_recipe(dev, tag)
+        m_fb, m_gmm, m_wers, msys = mini_recipe(dev, tag)
+        # 17a's tools start here, in the background beside 10c to 13
+        tri = tri_tools_start(dev, msys)
+        atexit.register(_stop, tri[0])
         tri3b_training(dev, task300, tag)
         tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
     finally:
@@ -5077,6 +6131,16 @@ def main() -> int:
             if p[0].poll() is None:
                 p[0].kill()
                 p[0].wait()
+    # 17. tri3b as Kaldi's tools (17a, in the background since 10b), the
+    # full-covariance GMM, EBW and the ladder's chain rung on 10b's systems
+    t1 = time.perf_counter()
+    tri_gmm, tri_wers = tri_tools_finish(tri, m_wers, tag)
+    fgmm_card_vs_cpu(dev, tag)
+    ebw_gmm = ebw_card_vs_cpu(dev, msys, tag)
+    ladder_den = ladder_rung(dev, msys, m_wers, tri_wers, tag)
+    del msys
+    print(f"tri: phase 17 took {time.perf_counter() - t1:.1f} s after phase "
+          f"13")
     t1 = time.perf_counter()
     hard_corpus(dev, tag)
     print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phases 11 and "
@@ -5174,7 +6238,7 @@ def main() -> int:
         "source": "kaldi_tpu_torch/csrc/gmm.cu",
         "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
         "launches": b_gmm + d_gmm + p_gmm + y_gmm + m_gmm + tool_gmm
-        + f_gm + iv_gmm,
+        + f_gm + iv_gmm + tri_gmm + ebw_gmm,
         "max_abs_err": max(gmm_err, b_err, d_err, p_err, f_gm_err,
                            iv_gmm_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
@@ -5185,7 +6249,8 @@ def main() -> int:
         "replaces": "kaldi_tpu/am/chain.py:470",
         "note": "replaces an XLA program (lax.scan + jax.grad), not a "
                 "Pallas kernel; forward and backward kernels, ms for both",
-        "launches": den_launches + f_den + lat_den + xc_den + pod_den,
+        "launches": den_launches + f_den + lat_den + xc_den + pod_den
+        + ladder_den,
         "max_abs_err": max(den_err, f_den_err),
         "ms": den_ms, "plain_ms": den_plain_ms,
         "bound_ms": den_bnd[0], "bound_by": den_bnd[1],
@@ -5196,7 +6261,16 @@ def main() -> int:
     return 0
 
 
+def _stop(proc) -> None:
+    """Kill ``proc`` if it still runs (phase 17's worker, at exit)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pod-worker"]:
         sys.exit(pod_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tri-tools"]:
+        sys.exit(tri_tools_worker(sys.argv[2:]))
     sys.exit(main())

@@ -13,5 +13,10 @@ import kaldi_tpu_torch.cli.tools_lattice  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_chain  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_nnet  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_parallel  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank6  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank9  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank12  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank13  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank22  # noqa: F401  (registers into TOOLS)
 
 __all__ = ["TOOLS", "main"]

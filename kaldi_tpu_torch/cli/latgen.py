@@ -174,7 +174,8 @@ def gmm_latgen_faster(argv=None) -> int:
             tot_frames += ll.shape[0]
     if wwriter:
         wwriter.close()
-    log.info("decoded %d utterances, %d frames", n, tot_frames)
+    log.info("decoded %d utterances, %d frames; GMM kernel launches %d", n,
+             tot_frames, am.device_params().launches)
     return 0
 
 

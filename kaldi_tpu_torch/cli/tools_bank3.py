@@ -1,22 +1,32 @@
-"""compute-kaldi-pitch-feats, process-kaldi-pitch-feats,
-compile-train-graphs, align-equal-compiled, gmm-align-compiled and the
-lattice tools lattice-1best, lattice-oracle, lattice-add-penalty,
-lattice-lmrescore-const-arpa and lattice-lmrescore-pruned.
+"""Port of kaldi_tpu/cli/tools_bank3.py: compute-kaldi-pitch-feats,
+process-kaldi-pitch-feats, compile-train-graphs, align-equal-compiled,
+gmm-align-compiled, the posterior tools ali-to-post, weight-silence-post and lattice-to-post,
+gmm-boost-silence, gmm-est-fmllr and the lattice tools lattice-1best,
+lattice-oracle, lattice-add-penalty, lattice-lmrescore-const-arpa and
+lattice-lmrescore-pruned.
 
 Port of those tools of kaldi_tpu/cli/tools_bank3.py (parity targets
 featbin/compute-kaldi-pitch-feats.cc, process-kaldi-pitch-feats.cc,
 bin/compile-train-graphs.cc, align-equal-compiled.cc,
-gmmbin/gmm-align-compiled.cc, latbin/lattice-1best.cc,
-lattice-oracle.cc, lattice-add-penalty.cc,
-lattice-lmrescore-const-arpa.cc, lattice-lmrescore-pruned.cc),
-registered in cli/tools.py's ``TOOLS``.  The lattice tools are the
-original's host code, copied, but for lattice-lmrescore-const-arpa,
-ported to intent: it reads an arpa-to-const-arpa file (the original
-reads only ARPA text, and fails on that file) or ARPA text.
-Training graphs and the equal alignment are host code, as in the
-original; gmm-align-compiled runs the GMM kernel and the aligner on
-``--device`` (default cuda), ``ALIGN_BATCH`` utterances at a time (the
-original aligns one at a time; the alignments are the same).
+bin/ali-to-post.cc, weight-silence-post.cc,
+gmmbin/gmm-align-compiled.cc, gmm-boost-silence.cc, gmm-est-fmllr.cc,
+latbin/lattice-1best.cc, lattice-oracle.cc, lattice-add-penalty.cc,
+lattice-to-post.cc, lattice-lmrescore-const-arpa.cc,
+lattice-lmrescore-pruned.cc), registered in cli/tools.py's ``TOOLS``.
+The lattice and posterior tools are the original's host code, copied,
+but for lattice-lmrescore-const-arpa, ported to intent: it reads an
+arpa-to-const-arpa file (the original reads only ARPA text, and fails
+on that file) or ARPA text.
+Training graphs, the equal alignment and gmm-boost-silence are host
+code, as in the original; gmm-align-compiled runs the GMM kernel and the
+aligner on ``--device`` (default cuda), ``ALIGN_BATCH`` utterances at a
+time (the original aligns one at a time; the alignments are the same).
+gmm-est-fmllr takes ``--device`` too, where the mixture posteriors of
+its statistics run; it is ported to intent: the original hands a
+(frames × pdfs) weight matrix to ``accumulate_fmllr_for_utt`` as if it
+were a pdf alignment and fails, the port accumulates each frame's pdf
+posteriors through ``accumulate_fmllr_from_post`` (Kaldi's
+AccumulateFromPosteriors).
 Pitch is host numpy (features/pitch.py), as in the original.  As there,
 compute-kaldi-pitch-feats divides the int16-scale wave by 32768 and
 compute-and-process-kaldi-pitch-feats (cli/tools_bank10.py) does not.
@@ -189,6 +199,124 @@ def gmm_align_compiled(argv):
 
 
 # ---------------------------------------------------------------------------
+# bin: posteriors (host code, copied from kaldi_tpu/cli/tools_bank3.py)
+# ---------------------------------------------------------------------------
+
+@tool("ali-to-post")
+def ali_to_post(argv):
+    po = ParseOptions("ali-to-post <ali-rspec> <post-wspec>")
+    args = po.read(argv)
+    with TableWriter(args[1], holder="post") as w:
+        for key, ali in SequentialTableReader(args[0], holder="ivec"):
+            w[key] = [[(int(t), 1.0)] for t in np.asarray(ali)]
+    return 0
+
+
+@tool("weight-silence-post")
+def weight_silence_post(argv):
+    """Scale the posterior weight of entries whose tid belongs to a
+    silence phone (bin/weight-silence-post.cc: the SAT recipe's fMLLR
+    pre-step)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    po = ParseOptions("weight-silence-post <weight> <silence-phones> "
+                      "<model> <post-rspec> <post-wspec>")
+    args = po.read(argv)
+    weight = float(args[0])
+    sil = {int(x) for x in args[1].split(":") if x}
+    tm, _ = read_mdl(args[2], device="cpu")
+    with TableWriter(args[4], holder="post") as w:
+        for key, post in SequentialTableReader(args[3], holder="post"):
+            out = []
+            for frame in post:
+                nf = []
+                for tid, p in frame:
+                    if tm.transition_id_to_phone(tid) in sil:
+                        p *= weight
+                    if p > 0:
+                        nf.append((tid, p))
+                out.append(nf)
+            w[key] = out
+    return 0
+
+
+@tool("gmm-boost-silence")
+def gmm_boost_silence(argv):
+    """Scale mixture weights of every pdf reachable from the silence
+    phones (gmmbin/gmm-boost-silence.cc)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+    po = ParseOptions("gmm-boost-silence [--boost=1.5] <silence-phones> "
+                      "<model-in> <model-out>")
+    po.register("boost", float, 1.5, "weight multiplier")
+    args = po.read(argv)
+    sil = {int(x) for x in args[0].split(":") if x}
+    tm, am = read_mdl(args[1], device="cpu")
+    pdfs = set()
+    for tid in range(1, tm.num_transition_ids + 1):
+        if tm.transition_id_to_phone(tid) in sil:
+            pdfs.add(int(tm.tid_to_pdf_array[tid]))
+    for p in sorted(pdfs):
+        am.weights[p] *= po["boost"]
+    am.refresh()
+    write_mdl(args[2], tm, am)
+    log.info("gmm-boost-silence: boosted %d pdfs by %.2f", len(pdfs),
+             po["boost"])
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank3.py gmm_est_fmllr, ported to intent
+# (module docstring).
+@tool("gmm-est-fmllr")
+def gmm_est_fmllr(argv):
+    """One fMLLR transform per speaker (``--spk2utt``) or utterance from
+    tid posteriors: each frame's posteriors mapped to pdfs, the mixture
+    posteriors on ``--device``, the statistics and the row update on the
+    host (``FmllrAccs``)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.am.transforms import (FmllrAccs,
+                                               accumulate_fmllr_from_post)
+    po = ParseOptions("gmm-est-fmllr [--spk2utt=rspec] <model> "
+                      "<feats-rspec> <post-rspec> <trans-wspec>")
+    po.register("spk2utt", str, "", "speaker→utt map file (text)")
+    _device_po(po)
+    args = po.read(argv)
+    if len(args) != 4:
+        po.print_usage()
+        return 1
+    tm, am = read_mdl(args[0], device=resolve_device(po["device"]))
+    posts = RandomAccessTableReader(args[2], holder="post")
+    feats = dict(SequentialTableReader(args[1], holder="mat"))
+    groups: Dict[str, List[str]] = {}
+    if po["spk2utt"]:
+        with open(po["spk2utt"]) as f:
+            for line in f:
+                parts = line.split()
+                if parts:
+                    groups[parts[0]] = parts[1:]
+    else:
+        groups = {u: [u] for u in feats}
+    with TableWriter(args[3], holder="mat") as w:
+        for spk, utts in groups.items():
+            accs = FmllrAccs(am.dim)
+            n = 0
+            for u in utts:
+                if u not in feats or u not in posts:
+                    continue
+                x = np.asarray(feats[u])
+                frames = [[(int(tm.tid_to_pdf_array[tid]), p)
+                           for tid, p in frame]
+                          for frame in posts[u][:x.shape[0]]]
+                accumulate_fmllr_from_post(accs, am, x, frames)
+                n += 1
+            if not n:
+                continue
+            W, objf = accs.update()
+            w[spk] = W.astype(np.float32)
+            log.info("gmm-est-fmllr: spk %s (%d utts) objf-impr %.4f",
+                     spk, n, objf)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # latbin (host code, copied from kaldi_tpu/cli/tools_bank3.py)
 # ---------------------------------------------------------------------------
 
@@ -315,6 +443,22 @@ def lattice_add_penalty(argv):
                     if a.word != 0:
                         a.graph_cost += pen
             w[key] = clat
+    return 0
+
+
+@tool("lattice-to-post")
+def lattice_to_post(argv):
+    """Arc posteriors → per-frame tid posteriors
+    (latbin/lattice-to-post.cc)."""
+    from kaldi_tpu_torch.lattice.functions import frame_posteriors
+    po = ParseOptions("lattice-to-post [--acoustic-scale=1.0] <rspec> "
+                      "<post-wspec>")
+    po.register("acoustic-scale", float, 1.0, "acoustic scale")
+    args = po.read(argv)
+    with TableWriter(args[1], holder="post") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            w[key] = frame_posteriors(
+                clat, acoustic_scale=po["acoustic-scale"])
     return 0
 
 

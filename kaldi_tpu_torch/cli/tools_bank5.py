@@ -1,16 +1,24 @@
-"""gmm-init-mono and the global (one-pdf) GMM tools.
+"""Port of kaldi_tpu/cli/tools_bank5.py: gmm-init-mono, the tree tools,
+gmm-compute-likes, compose-transforms and the global (one-pdf) GMMs.
 
 Port of the tools of kaldi_tpu/cli/tools_bank5.py (parity targets
-gmmbin/gmm-init-mono.cc, gmm-global-init-from-feats.cc,
+gmmbin/gmm-init-mono.cc, bin/acc-tree-stats.cc, sum-tree-stats.cc,
+cluster-phones.cc, compile-questions.cc, build-tree.cc,
+gmmbin/gmm-init-model.cc, gmm-compute-likes.cc,
+featbin/compose-transforms.cc, gmmbin/gmm-global-init-from-feats.cc,
 gmm-global-acc-stats.cc, gmm-global-est.cc, gmm-global-get-post.cc),
-registered in cli/tools.py's ``TOOLS``.  The flat start is host numpy
-(``AmDiagGmm.flat_start``, ``global_stats``), as in the original.  A
-global GMM is the port's ``AmDiagGmm`` with one pdf: the tools that
-compute with it take ``--device`` (default cuda), where its EM
-accumulation and posteriors run as tensor ops (am/gmm.py
-``accumulate_stats_device``, ``component_posteriors``).  The GMM kernel
-runs once, for gmm-global-init-from-feats's closing like/frame log
-line, which also logs the kernel's launches.
+registered in cli/tools.py's ``TOOLS``.  The flat start, the tree
+statistics, questions and tree, gmm-init-model's single Gaussians and
+compose-transforms are host numpy (``AmDiagGmm.flat_start``,
+``global_stats``, pipelines/tri.py, am/tree.py, am/transforms.py), as
+in the original, and take no ``--device``.  gmm-compute-likes takes
+``--device`` (default cuda): its output rows are the GMM kernel's, and
+it logs the kernel's launches.  A global GMM is the port's
+``AmDiagGmm`` with one pdf: the tools that compute with it take
+``--device``, where its EM accumulation and posteriors run as tensor
+ops (am/gmm.py ``accumulate_stats_device``, ``component_posteriors``).
+The GMM kernel runs once, for gmm-global-init-from-feats's closing
+like/frame log line, which also logs the kernel's launches.
 """
 
 from __future__ import annotations
@@ -59,6 +67,199 @@ def gmm_init_mono_tool(argv):
     with kio.open_wxfilename(args[3]) as f:
         write_tree(f, tree)
     log.info("gmm-init-mono: %d pdfs dim %d", tree.num_pdfs, dim)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# tree building (bin/; host code, copied)
+# ---------------------------------------------------------------------------
+
+# Copied from kaldi_tpu/cli/tools_bank5.py acc_tree_stats_tool.
+@tool("acc-tree-stats")
+def acc_tree_stats_tool(argv):
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.am.tree import write_tree_stats
+    from kaldi_tpu_torch.pipelines.tri import accumulate_tree_stats
+    po = ParseOptions("acc-tree-stats [--context-width=3] "
+                      "[--central-position=1] <model> <feats-rspec> "
+                      "<ali-rspec> <tree-accs-out>")
+    po.register("context-width", int, 3, "phone context window")
+    po.register("central-position", int, 1, "central phone position")
+    args = po.read(argv)
+    tm, _ = read_mdl(args[0], device="cpu")
+    feats = {k: np.asarray(v) for k, v in
+             SequentialTableReader(args[1], holder="mat")}
+    alis = {k: [int(x) for x in v] for k, v in
+            SequentialTableReader(args[2], holder="ivec")}
+    both = {k: feats[k] for k in feats if k in alis}
+    stats = accumulate_tree_stats(both, {k: alis[k] for k in both}, tm,
+                                  po["context-width"],
+                                  po["central-position"])
+    write_tree_stats(args[3], stats)
+    log.info("acc-tree-stats: %d events from %d utterances",
+             len(stats), len(both))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py sum_tree_stats_tool.
+@tool("sum-tree-stats")
+def sum_tree_stats_tool(argv):
+    from kaldi_tpu_torch.am.tree import (read_tree_stats, sum_tree_stats,
+                                         write_tree_stats)
+    po = ParseOptions("sum-tree-stats <tree-accs-out> <tree-accs-in1> ...")
+    args = po.read(argv)
+    write_tree_stats(args[0],
+                     sum_tree_stats(read_tree_stats(p) for p in args[1:]))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py _write_phone_sets.
+def _write_phone_sets(path: str, sets) -> None:
+    with open(path, "w") as f:
+        for s in sets:
+            f.write(" ".join(str(p) for p in sorted(s)) + "\n")
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py _read_phone_sets.
+def _read_phone_sets(path: str):
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                out.append(frozenset(int(x) for x in line.split()))
+    return out
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py cluster_phones_tool.
+@tool("cluster-phones")
+def cluster_phones_tool(argv):
+    from kaldi_tpu_torch.am.tree import read_tree_stats
+    from kaldi_tpu_torch.pipelines.tri import cluster_phone_questions
+    po = ParseOptions("cluster-phones [--central-position=1] "
+                      "<tree-stats-in> <phone-sets-out>")
+    po.register("central-position", int, 1, "central phone position")
+    args = po.read(argv)
+    stats = read_tree_stats(args[0])
+    questions = cluster_phone_questions(stats, po["central-position"])
+    _write_phone_sets(args[1], questions)
+    log.info("cluster-phones: %d phone sets", len(questions))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py compile_questions_tool.
+@tool("compile-questions")
+def compile_questions_tool(argv):
+    po = ParseOptions("compile-questions <phone-sets-in> <questions-out> "
+                      "(adds singleton sets; text phone-set lines)")
+    args = po.read(argv)
+    sets = _read_phone_sets(args[0])
+    phones = sorted({p for s in sets for p in s})
+    for p in phones:
+        if frozenset([p]) not in sets:
+            sets.append(frozenset([p]))
+    _write_phone_sets(args[1], sets)
+    log.info("compile-questions: %d questions over %d phones",
+             len(sets), len(phones))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py build_tree_tool.
+@tool("build-tree")
+def build_tree_tool(argv):
+    from kaldi_tpu_torch.am.serialize import write_tree
+    from kaldi_tpu_torch.am.tree import build_tree, read_tree_stats
+    from kaldi_tpu_torch.core import io as kio
+    po = ParseOptions("build-tree [--max-leaves=1000] [--thresh=0] "
+                      "[--context-width=3] [--central-position=1] "
+                      "<tree-stats-in> <questions-in> <tree-out>")
+    po.register("max-leaves", int, 1000, "max pdf leaves")
+    po.register("thresh", float, 0.0, "min likelihood-gain to split")
+    po.register("context-width", int, 3, "phone context window")
+    po.register("central-position", int, 1, "central phone position")
+    args = po.read(argv)
+    stats = read_tree_stats(args[0])
+    questions = _read_phone_sets(args[1])
+    tree = build_tree(stats, questions, po["context-width"],
+                      po["central-position"], po["max-leaves"],
+                      po["thresh"])
+    with kio.open_wxfilename(args[2]) as f:
+        write_tree(f, tree)
+    log.info("build-tree: %d leaves", tree.num_pdfs)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py gmm_init_model_tool (the model
+# is built on the CPU: its single Gaussians are host numpy).
+@tool("gmm-init-model")
+def gmm_init_model_tool(argv):
+    from kaldi_tpu_torch.am.serialize import (read_topology, read_tree,
+                                              write_mdl)
+    from kaldi_tpu_torch.am.transitions import TransitionModel
+    from kaldi_tpu_torch.am.tree import read_tree_stats
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.pipelines.tri import init_model_from_tree_stats
+    po = ParseOptions("gmm-init-model <tree-in> <tree-stats-in> <topo-in> "
+                      "<model-out>")
+    args = po.read(argv)
+    with kio.open_rxfilename(args[0]) as f:
+        kio.init_kaldi_input_stream(f)
+        tree = read_tree(f)
+    stats = read_tree_stats(args[1])
+    with kio.open_rxfilename(args[2]) as f:
+        kio.init_kaldi_input_stream(f)
+        topo = read_topology(f)
+    am = init_model_from_tree_stats(tree, stats, device="cpu")
+    tm = TransitionModel(topo, tree)
+    write_mdl(args[3], tm, am)
+    log.info("gmm-init-model: %d pdfs", am.num_pdfs)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank5.py gmm_compute_likes_tool.
+@tool("gmm-compute-likes")
+def gmm_compute_likes_tool(argv):
+    """Each utterance's (T, P) log-likelihoods: the GMM kernel's rows on
+    ``--device``."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    po = ParseOptions("gmm-compute-likes <model> <feats-rspec> "
+                      "<loglikes-wspec>")
+    _device_po(po)
+    args = po.read(argv)
+    if len(args) != 3:
+        po.print_usage()
+        return 1
+    _, am = read_mdl(args[0], device=resolve_device(po["device"]))
+    n = 0
+    with TableWriter(args[2], holder="mat") as w:
+        for key, feats in SequentialTableReader(args[1], holder="mat"):
+            w[key] = am.loglikes(np.asarray(feats)).cpu().numpy()
+            n += 1
+    log.info("gmm-compute-likes: %d utterances; GMM kernel launches %d", n,
+             am.device_params().launches)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py compose_transforms_tool.
+@tool("compose-transforms")
+def compose_transforms_tool(argv):
+    from kaldi_tpu_torch.am.transforms import compose_transforms
+    from kaldi_tpu_torch.core import io as kio
+    po = ParseOptions("compose-transforms [--b-is-affine=false] <a-in> "
+                      "<b-in> <out>  (result applies b then a)")
+    po.register("b-is-affine", bool, False,
+                "treat b's last column as an offset")
+    args = po.read(argv)
+
+    def load(path):
+        with kio.open_rxfilename(path) as f:
+            kio.init_kaldi_input_stream(f)
+            return kio.read_matrix(f)
+
+    c = compose_transforms(load(args[0]), load(args[1]),
+                           b_is_affine=po["b-is-affine"])
+    with kio.open_wxfilename(args[2]) as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_matrix(f, c)
     return 0
 
 

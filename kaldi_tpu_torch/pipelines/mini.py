@@ -1,16 +1,20 @@
-"""Multi-stage GMM recipe: mono → tri1 (deltas) → tri2b (LDA+MLLT) →
-tri3b (SAT/fMLLR), runnable as a module:
+"""Port of kaldi_tpu/pipelines/mini.py: the multi-stage GMM recipe, mono →
+tri1 (deltas) → tri2b (LDA+MLLT) → tri3b (SAT/fMLLR), runnable as a
+module:
 
     python -m kaldi_tpu_torch.pipelines.mini [--device=cuda]
 
-Port of kaldi_tpu/pipelines/mini.py (parity target
-egs/mini_librispeech/s5/run.sh stage flow: 'mini_librispeech tri3b
-(LDA+MLLT+SAT) decode'), on the synthetic corpus with a larger lexicon
+Parity target egs/mini_librispeech/s5/run.sh's stage flow
+('mini_librispeech tri3b (LDA+MLLT+SAT) decode'), on the synthetic corpus with a larger lexicon
 than yesno.  MFCC (the fbank kernel), CMVN, deltas, splicing and the
 feature transforms run on ``device`` (the transforms in float64, as the
 original's numpy products), the features then stay on the host as the
 trainers take them; training, alignment and decoding run on the
 device.  The exit rule is the original's: tri3b WER ≤ mono WER.
+``main`` runs it on the WER ladder's hard corpus (``ladder_corpus``),
+where the rule can fail; the original's ``main`` runs ``run``'s easy
+defaults, where mono already scores 0.00 and the original fails its own
+rule whenever a later stage errs.
 """
 
 from __future__ import annotations
@@ -303,15 +307,47 @@ def run(num_utts: int = 60, num_test: int = 15, seed: int = 1,
     return wers
 
 
+def ladder_corpus(num_utts: int = 100, num_test: int = 30,
+                  noise: float = 0.12, speaker_warp: float = 0.12,
+                  coarticulation: float = 0.35, lexicon=None,
+                  formants=None) -> Dict:
+    """``run``'s keywords for the WER ladder's hard corpus
+    (pipelines/ladder.py ``run``; the 12-word confusable lexicon unless
+    given): held-out test speakers, the tree and the speaker counts
+    scaled with the corpus.  At ``run``'s own defaults mono already
+    scores 0.00 and the recipe's exit rule cannot tell the stages
+    apart."""
+    from kaldi_tpu_torch.pipelines.data import (confusable_formants,
+                                                confusable_lexicon)
+    # tree size scales with the corpus, as Kaldi recipes tune
+    # <num-leaves> <tot-gauss> per corpus: swept at ~100 utts, 30
+    # leaves/600 gauss generalizes best (100-leaf trees over-split and
+    # regress below mono); grow ~linearly beyond that.
+    leaves = max(30, num_utts // 4)
+    # speaker count scales with the corpus (a few training speakers let
+    # the tree's context splits latch onto the speakers' warps)
+    return dict(num_utts=num_utts, num_test=num_test,
+                lexicon=lexicon or confusable_lexicon(),
+                formants=formants or confusable_formants(),
+                noise=noise, speaker_warp=speaker_warp,
+                heldout_speakers=True, coarticulation=coarticulation,
+                tri_leaves=leaves, tri_gauss=20 * leaves,
+                num_speakers=max(4, num_utts // 20),
+                num_test_speakers=max(3, num_test // 20))
+
+
 def main(argv=None):
+    """The recipe on the ladder's corpus (``ladder_corpus``); exit 0 when
+    tri3b's WER is no worse than mono's."""
     po = ParseOptions("Usage: python -m kaldi_tpu_torch.pipelines.mini "
                       "[options]")
-    po.register("num-utts", int, 60, "training utterances")
+    po.register("num-utts", int, 100, "training utterances")
+    po.register("num-test", int, 30, "test utterances")
     po.register("quick", bool, False, "reduced iterations")
     po.register("device", str, "cuda", "torch device to run on")
     po.read(argv)
-    wers = run(num_utts=po["num-utts"], quick=po["quick"],
-               device=po["device"])
+    wers = run(quick=po["quick"], device=po["device"],
+               **ladder_corpus(po["num-utts"], po["num-test"]))
     return 0 if wers["tri3b"].wer <= wers["mono"].wer else 1
 
 

@@ -1,7 +1,8 @@
-"""Scoring: WER via Levenshtein alignment.
+"""Copy of kaldi_tpu/pipelines/score.py: WER via Levenshtein alignment.
 
-Copy of kaldi_tpu/pipelines/score.py's ``WerStats``, ``edit_distance``
-and ``compute_wer`` (parity target src/bin/compute-wer.cc): that module
+Its ``WerStats``, ``edit_distance``, ``compute_wer`` (parity target
+src/bin/compute-wer.cc) and ``wilson_interval`` (the WER ladder's error
+bars), copied: that module
 is jax-free itself, but importing it loads ``kaldi_tpu.pipelines``,
 whose package imports JAX.
 """
@@ -9,6 +10,7 @@ whose package imports JAX.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Sequence, Tuple
 
 
@@ -73,3 +75,22 @@ def compute_wer(refs: Dict[str, List[str]], hyps: Dict[str, List[str]]
         if tot > 0:
             stats.sentence_errors += 1
     return stats
+
+
+# Copied from kaldi_tpu/pipelines/score.py wilson_interval.
+def wilson_interval(errors: int, total: int, z: float = 1.96
+                    ) -> Tuple[float, float]:
+    """95% Wilson score interval for an error PROPORTION, in percent —
+    the statistical-power annotation for small WER evals (treats word
+    errors as Bernoulli; correlated within-utterance errors make the
+    true interval somewhat wider, so read it as a lower bound on the
+    uncertainty)."""
+    if total <= 0:
+        return (0.0, 100.0)
+    p = errors / total
+    denom = 1.0 + z * z / total
+    center = (p + z * z / (2 * total)) / denom
+    half = (z / denom) * math.sqrt(p * (1 - p) / total
+                                   + z * z / (4 * total * total))
+    return (100.0 * max(0.0, center - half),
+            100.0 * min(1.0, center + half))

@@ -252,6 +252,42 @@ def test_without_a_card_construction_raises(monkeypatch):
             call()
 
 
+# the tensor-computing tools of the tri3b stack, full GMMs and EBW, with
+# their positional argument counts
+CARD_TOOLS = {"gmm-acc-mllt": 4, "gmm-est-fmllr": 4,
+              "gmm-acc-stats-twofeats": 5, "gmm-acc-stats": 4,
+              "gmm-compute-likes": 3, "gmm-adapt-map": 4,
+              "fgmm-global-acc-stats": 3, "fgmm-global-get-frame-likes": 3,
+              "fgmm-gselect": 3}
+
+
+@pytest.mark.parametrize("name", sorted(CARD_TOOLS))
+def test_tensor_tools_default_to_the_card(name, monkeypatch):
+    """Without ``--device`` the tool asks for the card, and without a card
+    it raises before reading its inputs; nothing falls back to the
+    CPU."""
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.core.logging import KaldiError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KaldiError, match="no CUDA card"):
+        TOOLS[name]([f"never.read.{i}" for i in range(CARD_TOOLS[name])])
+
+
+def test_full_gmm_and_ladder_default_to_the_card(monkeypatch):
+    from kaldi_tpu_torch.am.full_gmm import FullGmm
+    from kaldi_tpu_torch.core.logging import KaldiError
+    from kaldi_tpu_torch.pipelines import ladder, mini
+    for fn in (FullGmm.__init__, FullGmm.from_diag, ladder.chain_stage,
+               ladder.run):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KaldiError, match="no CUDA card"):
+        FullGmm(np.ones(1), np.zeros((1, 2)), np.ones((1, 2, 2)) * np.eye(2))
+    for main in (ladder.main, mini.main):
+        with pytest.raises(KaldiError, match="no CUDA card"):
+            main(["--num-utts=4"])
+
+
 def test_flagship_runs_the_rnnlm_rung_by_default():
     """``with_rnnlm`` defaults to True, as in the original, and the guard
     that raised on it (``RNNLM_ITEM``) is gone."""
