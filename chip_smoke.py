@@ -342,10 +342,50 @@ Phases (each prints lines; any failure raises and exits non-zero):
      d. the ladder's chain rung (``ladder.chain_stage``) on 10b's
         systems, LADDER_EPOCHS epochs: a finite objf, its WER beside the
         GMM rungs' (its den launches counted).
+ 18. Kaldi's other decoders, grammars, keyword search and MMI/sMBR
+     sequence training, in one background process (``python3
+     chip_smoke.py --seq-tools``, started after 10b beside 17a's, joined
+     after 17d; its wall and the main process's wait at the join
+     printed), every tool a call of the port's registry on the card,
+     held against its library call on the same card:
+     a. on 10b's tri3b model and SAT test features (30 utterances):
+        gmm-decode-faster, gmm-decode-simple and gmm-latgen-simple on
+        the unigram HCLG; gmm-latgen-biglm-faster and
+        gmm-decode-biglm-faster on it with the bigram ARPA of the
+        training transcripts, their best paths equal to SimpleDecoder's
+        on the bigram HCLG (words equal, cost within SEQ_BIGLM_TOL);
+        each tool's WER and wall;
+     b. once 17d's model is written: make-grammar-fst (the chain
+        topology's 8-word HCLG with a nonterminal slotted by a one-word
+        list of the other 4), nnet3-latgen-grammar with 17d's model and
+        online2-wav-nnet3-latgen-grammar (4 waveforms at 16 kHz, a
+        seeded TDNN-F of 17d's widths on 13 MFCCs), each equal to the
+        decode over ``replace_nonterminals``' expanded graph;
+     c. lattice-to-kws-index over a's lattices in two shards,
+        kws-index-union, kws-search of the 12 words, compute-atwv
+        against the transcripts; the union's search equal to the direct
+        ``keyword_search``;
+     d. an xent TDNN-F at TdnnConfig's widths (512 / 128, 9 layers,
+        frame rate 1) on 10b's 100 training utterances and tri3b
+        alignments, den lattices from the DenseDecoder on the unigram
+        HCLG, sMBR and then MMI through ``discriminative_finetune`` on
+        the first SEQ_FT_UTTS (50) of them (each from the xent weights;
+        the objective rises), test WERs before and after; the card's
+        first step equal to the CPU's; then
+        nnet3-discriminative-get-egs → -train → -compute-objf, equal to
+        the library's steps on the same egs; last, once the main
+        process waits at the join and the card is otherwise idle, ms a
+        step, kernels a step and the busy share.
+     The kernels' counts are set to 0 before each tool call and read
+     after it; the GMM kernel's launches of 18a's five tools and the
+     fbank kernel's of online2-wav-nnet3-latgen-grammar join the
+     kernels line (not those of 18b's reference run on the expanded
+     graph).
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths (the den's include 14b's,
-15a's, the ranks' of phase 16 and 17d's; the GMM's 17a's and 17c's),
+15a's, the ranks' of phase 16, 17d's and 18's, none expected; the GMM's
+17a's, 17c's and 18a's; the fbank's 18b's streaming grammar tool's),
 the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
@@ -5695,17 +5735,18 @@ def ebw_card_vs_cpu(dev, sysd, tag: str) -> int:
     return launches
 
 
-def ladder_rung(dev, sysd, lib_wers, tool_wers, tag: str) -> int:
+def ladder_rung(dev, sysd, lib_wers, tool_wers, tag: str, keep=None) -> int:
     """17d: the ladder's chain rung (``ladder.chain_stage``, den-LM order
     3, LADDER_EPOCHS epochs) on 10b's systems on the card: a finite objf,
-    its WER beside the GMM rungs'.  → den kernel launches."""
+    its WER beside the GMM rungs'; ``keep`` receives the trained model
+    (18b decodes with it).  → den kernel launches."""
     from kaldi_tpu_torch.ops.chain_den import CudaChainDen
     from kaldi_tpu_torch.pipelines import ladder
     CudaChainDen.total_launches = 0
     t0 = time.perf_counter()
     stats = {}
     wer = ladder.chain_stage(sysd, order=3, num_epochs=LADDER_EPOCHS,
-                             device=dev, stats=stats)
+                             device=dev, stats=stats, keep=keep)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     den = CudaChainDen.total_launches
@@ -5722,6 +5763,872 @@ def ladder_rung(dev, sysd, lib_wers, tool_wers, tag: str) -> int:
     if den <= 0:
         raise AssertionError("ladder chain rung launched no den kernel")
     return den
+
+
+# ---------------------------------------------------------------------------
+# 18. Kaldi's other decoders (simple, biglm), grammars, keyword search and
+# MMI/sMBR sequence training, as tools and library calls, in one background
+# process started after 10b
+# ---------------------------------------------------------------------------
+
+SEQ_DIR = os.path.join("build", "chip_smoke_seq_tools")
+# the GMM decoders' search (the ladder's decode, pipelines/mini.py dcfg:
+# beam 16, acoustic scale 0.1); gmm-latgen-simple's lattice beam
+SEQ_DECODE = ("--beam=16", "--max-active=7000", "--acoustic-scale=0.1")
+SEQ_LATTICE_BEAM = 6.0
+# 18's bars: a tool against its library call on the same card, words and
+# alignments equal, best-path costs within SEQ_COST_TOL relative; biglm's
+# best path against SimpleDecoder on the bigram graph, words equal and the
+# cost within SEQ_BIGLM_TOL (tests/test_biglm.py's bar); the union index's
+# search against the direct search, posteriors within SEQ_KWS_TOL relative
+# (the index file stores α and β as float32, and the GMM lattices' totals
+# run to ~10^3 nats: 2^-24 of that is ~6e-5 a term)
+SEQ_COST_TOL = 1e-5
+SEQ_BIGLM_TOL = 1e-3
+SEQ_KWS_TOL = 1e-3
+# kws-search's decision threshold (its --min-posterior): ATWV charges each
+# false alarm β / (trials) = 999.9 / ~58 s of test audio
+SEQ_KWS_THRESHOLD = 0.5
+SEQ_NT = 9000              # the grammar's nonterminal: above every tid
+# nnet3-latgen-grammar's lattice beam: a chain model a few epochs old is
+# near flat, and its lattices at the tool's 8 determinize for minutes
+SEQ_GRAMMAR_LATTICE_BEAM = 5.0
+SEQ_LIST_WORDS = 4         # its word-list sub-grammar: the lexicon's last 4
+SEQ_ONLINE_WAVES = 4       # test waveforms through the streaming grammar tool
+# 18d: the xent model at TdnnConfig's default widths, frame rate 1 (10 of
+# XentTrainConfig's 20 epochs) on all of 10b's training utterances; the
+# sequence epochs of each criterion at the original's acoustic scale (2 of
+# DiscriminativeConfig's 4) on the first SEQ_FT_UTTS of them (a step is
+# one utterance, ~13,000 launches and ~0.2 s of host: at 100 utterances
+# the two criteria took ~110 s of host beside 11a); the tools on the first
+# SEQ_TOOL_UTTS; the card's first step against the CPU's (objective
+# relative, each gradient tensor within the bar of its largest entry); the
+# tools' objective against the library's on the same egs (float32 atomics
+# of another process's run: relative); the step's timing once the main
+# process has reached the join, with the card otherwise idle
+SEQ_XENT = dict(num_epochs=10, batch_size=16, chunk_size=64,
+                learning_rate=1e-3)
+SEQ_EPOCHS = 2
+SEQ_FT_UTTS = 50
+SEQ_LR = 2e-5
+SEQ_KAPPA = 0.1
+SEQ_TOOL_UTTS = 10
+SEQ_TOOL_EPOCHS = 2
+SEQ_STEP_TOL = 1e-4
+SEQ_OBJF_TOL = 1e-4
+# the step's timing at the join: its wall over SEQ_TIME_STEPS, kernels
+# and busy card time from a window of SEQ_PROFILE_STEPS recording the
+# card's activity alone (with the host's operators, 5 steps' profile took
+# 40.8 s of the join; NVIDIA H100 80GB HBM3, 700.00 W)
+SEQ_TIME_STEPS = 10
+SEQ_PROFILE_STEPS = 2
+SEQ_CHAIN_WAIT = 1500.0    # the worker's wait for 17d's model, seconds
+# the 18 tools whose kernel launches join the kernels line: the GMM
+# decoders of 18a and the streaming grammar tool of 18b (not the
+# streaming tool run on the expanded graph as 18b's reference)
+SEQ_GMM_TOOLS = ("gmm-decode-faster", "gmm-decode-simple",
+                 "gmm-latgen-simple", "gmm-latgen-biglm-faster",
+                 "gmm-decode-biglm-faster")
+SEQ_FBANK_TOOL = "online2-wav-nnet3-latgen-grammar"
+
+
+def seq_tools_start(dev, sysd):
+    """18, started: 10b's lexicon, G, tri3b transition model, alignments,
+    SAT features, transcripts (``systems.pkl``), tri3b model and test
+    waveforms written into SEQ_DIR, then ``python3 chip_smoke.py
+    --seq-tools`` (``seq_tools_worker``) in the background.  → (process,
+    dir, start time)."""
+    import pickle
+    import subprocess
+    from kaldi_tpu_torch.am.serialize import write_mdl
+    from kaldi_tpu_torch.core.table import TableWriter
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, SEQ_DIR)
+    os.makedirs(d, exist_ok=True)
+    for stale in ("chain_ready", "joined", "report.json"):
+        if os.path.exists(f"{d}/{stale}"):
+            os.remove(f"{d}/{stale}")
+    tri3b = sysd["tri3b"]
+    train, test = sysd["train"], sysd["test"]
+    with open(f"{d}/systems.pkl", "wb") as f:
+        pickle.dump({
+            "lang": sysd["lang"], "G": sysd["G"], "tm": tri3b.tm,
+            "ali": {u: np.asarray(a, np.int32)
+                    for u, a in sysd["tri3b_ali"].items()},
+            "sat_tr": {u: np.asarray(x, np.float32)
+                       for u, x in sysd["sat_tr"].items()},
+            "sat_te": {u: np.asarray(x, np.float32)
+                       for u, x in sysd["sat_te"].items()},
+            "text_tr": {u: list(train.text[u]) for u in train.utts},
+            "text_te": {u: list(test.text[u]) for u in test.utts}}, f)
+    write_mdl(f"{d}/tri3b.mdl", tri3b.tm, tri3b.am)
+    with TableWriter(f"ark:{d}/wav_te.ark", holder="wav") as w:
+        for u in test.utts[:SEQ_ONLINE_WAVES]:
+            w[u] = test.wavs[u]
+    out = open(f"{d}/worker.out", "w")
+    err = open(f"{d}/worker.err", "w")
+    # two host threads: the process runs beside 11a's lattice builds
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seq-tools", d,
+         dev.type], cwd=repo, stdout=out, stderr=err,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    out.close()
+    err.close()
+    return proc, d, time.perf_counter()
+
+
+def seq_chain_ready(started, keep) -> None:
+    """17d's chain model for 18b: its transition model (in a .mdl beside a
+    flat one-Gaussian GMM: the nnet3 tools read only the transition
+    model) and the raw TDNN-F, then the flag the worker waits for."""
+    from kaldi_tpu_torch.am.gmm import AmDiagGmm
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.am.serialize import write_mdl
+    _, d, _ = started
+    cfg = keep["config"]
+    write_mdl(f"{d}/chain.mdl", keep["tm"], AmDiagGmm.flat_start(
+        keep["tm"].num_pdfs, np.zeros(cfg.feat_dim), np.ones(cfg.feat_dim),
+        device="cpu"))
+    write_raw_model(f"{d}/chain.raw", keep["model"].state_dict(), cfg)
+    with open(f"{d}/chain_ready", "w") as f:
+        f.write("ok\n")
+
+
+def _seq_read(spec, holder):
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    return dict(SequentialTableReader(spec, holder=holder))
+
+
+def _best_same(got, want, what: str, tol: float = SEQ_COST_TOL):
+    """Two (words, tids, cost) best paths: → (held, detail)."""
+    ok = (list(got[0]) == list(want[0]) and list(got[1]) == list(want[1])
+          and abs(got[2] - want[2]) <= tol * max(abs(want[2]), 1.0))
+    return ok, (None if ok else f"{what}: {got[0]} {got[2]:.6f} against "
+                f"{want[0]} {want[2]:.6f}")
+
+
+def seq_gmm_decoders(T, held, d, dev, sysd, walls, wers):
+    """18a: gmm-decode-faster, gmm-decode-simple and gmm-latgen-simple on
+    the unigram HCLG, gmm-latgen-biglm-faster and gmm-decode-biglm-faster
+    on the unigram HCLG with the training transcripts' bigram ARPA; each
+    equal to its library call on the card; biglm's best paths equal to
+    SimpleDecoder's on the bigram HCLG."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _load_hclg
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.decoder import SimpleDecoder
+    from kaldi_tpu_torch.decoder.biglm import (BiglmDecoderConfig,
+                                               BiglmFasterDecoder)
+    from kaldi_tpu_torch.decoder.dense import (DenseDecoder,
+                                               DenseDecoderConfig)
+    from kaldi_tpu_torch.fst import ArpaModel, arpa_to_fst, mkgraph
+    from kaldi_tpu_torch.fst.arpa import (estimate_arpa, make_unigram_arpa,
+                                          write_arpa)
+    from kaldi_tpu_torch.fst.openfst_io import write_fst_path
+    from kaldi_tpu_torch.lattice.determinize import \
+        determinize_lattice_pruned
+    lang, tm = sysd["lang"], sysd["tm"]
+    vocab = {w: 1.0 for w, _ in lang.lexicon.entries}
+    with open(f"{d}/small.arpa", "w") as f:
+        f.write(make_unigram_arpa(vocab))
+    write_arpa(estimate_arpa([sysd["text_tr"][u]
+                              for u in sorted(sysd["text_tr"])],
+                             order=2, prune_count=1, vocab=list(vocab)),
+               f"{d}/big.arpa")
+    small = ArpaModel.parse(f"{d}/small.arpa")
+    big = ArpaModel.parse(f"{d}/big.arpa")
+    write_fst_path(f"{d}/HCLG.fst", mkgraph(lang, tm, arpa_to_fst(
+        small, lang.words)))
+    write_fst_path(f"{d}/HCLG_big.fst", mkgraph(lang, tm, arpa_to_fst(
+        big, lang.words)))
+    lang.words.write(f"{d}/words.txt")
+    with TableWriter(f"ark:{d}/sat_te.ark", holder="mat") as w:
+        for u in sorted(sysd["sat_te"]):
+            w[u] = sysd["sat_te"][u]
+    with TableWriter(f"ark:{d}/text_te.ark", holder="text") as w:
+        for u in sorted(sysd["text_te"]):
+            w[u] = sysd["text_te"][u]
+    dv = f"--device={dev.type}"
+    mdl, feats = f"{d}/tri3b.mdl", f"ark:{d}/sat_te.ark"
+    wsym = f"--word-symbol-table={d}/words.txt"
+
+    def timed(name, *args):
+        t0 = time.perf_counter()
+        T(name, *args)
+        walls[name] = time.perf_counter() - t0
+
+    for name in ("gmm-decode-faster", "gmm-decode-simple"):
+        timed(name, dv, "--acoustic-scale=0.1", wsym, mdl, f"{d}/HCLG.fst",
+              feats, f"ark,t:{d}/{name}.tra", f"ark:{d}/{name}.ali")
+    timed("gmm-latgen-simple", dv, f"--lattice-beam={SEQ_LATTICE_BEAM}",
+          "--acoustic-scale=0.1", mdl, f"{d}/HCLG.fst", feats,
+          f"ark:{d}/lat.ark")
+    T("lattice-best-path", wsym, f"ark:{d}/lat.ark",
+      f"ark,t:{d}/gmm-latgen-simple.tra")
+    for name in ("gmm-latgen-biglm-faster", "gmm-decode-biglm-faster"):
+        outs = [f"ark,t:{d}/{name}.tra"] + (
+            [f"ark:{d}/{name}.ali"] if "decode" in name else [])
+        timed(name, dv, *SEQ_DECODE, wsym, mdl, f"{d}/HCLG.fst",
+              f"{d}/small.arpa", f"{d}/big.arpa", feats, *outs)
+    for name in ("gmm-decode-faster", "gmm-decode-simple",
+                 "gmm-latgen-simple", "gmm-latgen-biglm-faster",
+                 "gmm-decode-biglm-faster"):
+        wers[name] = T("compute-wer", f"ark:{d}/text_te.ark",
+                       f"ark,t:{d}/{name}.tra").strip()
+
+    # the library calls on the same card
+    _, am = read_mdl(mdl, device=dev)
+    t2p = tm.tid_to_pdf_array
+    HCLG, HCLG_big = _load_hclg(f"{d}/HCLG.fst"), _load_hclg(
+        f"{d}/HCLG_big.fst")
+    dense = DenseDecoder(HCLG, t2p, DenseDecoderConfig(
+        beam=16.0, acoustic_scale=0.1), device=dev)
+    simple, oracle = (SimpleDecoder(g, acoustic_scale=0.1)
+                      for g in (HCLG, HCLG_big))
+    latgen = DenseDecoder(HCLG, t2p, DenseDecoderConfig(
+        beam=1e9, lattice_beam=SEQ_LATTICE_BEAM, acoustic_scale=0.1),
+        device=dev)
+    biglm = BiglmFasterDecoder(HCLG, t2p, small.score, big.score,
+                               lang.words, BiglmDecoderConfig(
+                                   beam=16.0, max_active=7000,
+                                   acoustic_scale=0.1, history_len=1))
+    tra = {n: _seq_read(f"ark,t:{d}/{n}.tra", "text") for n in wers}
+    ali = {n: _seq_read(f"ark:{d}/{n}.ali", "ivec") for n in
+           ("gmm-decode-faster", "gmm-decode-simple",
+            "gmm-decode-biglm-faster")}
+    lats = _seq_read(f"ark:{d}/lat.ark", "clat")
+    worst = 0.0
+    for u, x in sorted(sysd["sat_te"].items()):
+        ll = am.loglikes(x)
+        ll_np = ll.cpu().numpy()
+        lib = {"gmm-decode-faster": dense.decode(ll),
+               "gmm-decode-simple": simple.decode(ll_np, t2p),
+               "gmm-decode-biglm-faster": biglm.decode(ll_np)}
+        lib["gmm-latgen-biglm-faster"] = lib["gmm-decode-biglm-faster"]
+        for n, (tids, ols, _) in lib.items():
+            ok = tra[n][u] == [lang.words.find(o) for o in ols] and (
+                n not in ali or list(ali[n][u]) == list(tids))
+            held(n, ok, None if ok else f"{u}: {tra[n][u]} against "
+                 f"{[lang.words.find(o) for o in ols]}")
+        lat = determinize_lattice_pruned(latgen.decode_lattice(ll)[0],
+                                         SEQ_LATTICE_BEAM)
+        held("gmm-latgen-simple", *_best_same(lats[u].best_path(),
+                                              lat.best_path(), u))
+        _, ols_o, cost_o = oracle.decode(ll_np, t2p)
+        _, ols_b, cost_b = lib["gmm-decode-biglm-faster"]
+        ok = ols_b == ols_o and abs(cost_b - cost_o) <= SEQ_BIGLM_TOL
+        worst = max(worst, float(abs(cost_b - cost_o)))
+        held("biglm = SimpleDecoder on the bigram HCLG", ok,
+             None if ok else f"{u}: {ols_b} {cost_b:.4f} against {ols_o} "
+             f"{cost_o:.4f}")
+    return {"biglm_cost_diff": worst,
+            "hclg_states": [HCLG.num_states, HCLG_big.num_states]}
+
+
+def seq_kws(T, held, d, sysd, walls):
+    """18c: lattice-to-kws-index over 18a's lattices in two shards,
+    kws-index-union, kws-search of every word, compute-atwv against the
+    test transcripts (each occurrence a reference spanning its
+    utterance); the union's search equal to the direct search, the
+    search tool equal to the library's index search."""
+    from kaldi_tpu_torch import kws
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import TableWriter
+    lang = sysd["lang"]
+    lats = _seq_read(f"ark:{d}/lat.ark", "clat")
+    keys = sorted(lats)
+    half = len(keys) // 2
+    t0 = time.perf_counter()
+    for name, part in (("a", keys[:half]), ("b", keys[half:])):
+        with TableWriter(f"ark:{d}/lat_{name}.ark", holder="clat") as w:
+            for k in part:
+                w[k] = lats[k]
+        T("lattice-to-kws-index", f"ark:{d}/lat_{name}.ark",
+          f"{d}/kws.{name}.idx")
+    T("kws-index-union", f"{d}/kws.idx", f"{d}/kws.a.idx", f"{d}/kws.b.idx")
+    vocab = list(dict.fromkeys(w for w, _ in lang.lexicon.entries))
+    kwl = {f"KW{i:02d}": [lang.words[w]] for i, w in enumerate(vocab)}
+    with open(f"{d}/keywords.txt", "w") as f:
+        for kw, seq in kwl.items():
+            f.write(f"{kw} {' '.join(map(str, seq))}\n")
+    T("kws-search", f"--min-posterior={SEQ_KWS_THRESHOLD}",
+      f"ark:{d}/lat.ark", f"{d}/keywords.txt", f"ark,t:{d}/hits.txt")
+    n = {}
+    frames = {u: x.shape[0] for u, x in sysd["sat_te"].items()}
+    with TableWriter(f"ark,t:{d}/kws_ref.txt", holder="text") as w:
+        for i, word in enumerate(vocab):
+            for u in sorted(sysd["text_te"]):
+                for _ in range(sysd["text_te"][u].count(word)):
+                    n[i] = n.get(i, 0) + 1
+                    w[f"KW{i:02d}-{n[i]}"] = [u, "0", str(frames[u] - 1)]
+    atwv = float(T("compute-atwv", str(sum(frames.values())),
+                   f"ark,t:{d}/kws_ref.txt",
+                   f"ark,t:{d}/hits.txt").strip().splitlines()[-1])
+    walls["kws"] = time.perf_counter() - t0
+    with kio.open_rxfilename(f"{d}/kws.idx") as f:
+        kio.init_kaldi_input_stream(f)
+        union = kws.read_lattice_index(f)
+    direct = kws.keyword_search(lats, kwl, 0.0)
+    index = kws.LatticeIndex.build(lats)
+    hits = _seq_read(f"ark,t:{d}/hits.txt", "text")
+    n_hits, worst = 0, 0.0
+    for kw, seq in kwl.items():
+        got = sorted((h.utt, h.begin_frame, h.end_frame, h.posterior)
+                     for h in union.search(seq))
+        want = sorted((h.utt, h.begin_frame, h.end_frame, h.posterior)
+                      for h in direct[kw])
+        rel = [abs(g[3] - x[3]) / x[3] for g, x in zip(got, want)]
+        worst = max([worst] + rel)
+        ok = [g[:3] for g in got] == [x[:3] for x in want] and all(
+            r <= SEQ_KWS_TOL for r in rel)
+        held("index search = direct search", ok,
+             None if ok else f"{kw}: {got[:3]} against {want[:3]}")
+        lib = index.search(seq, SEQ_KWS_THRESHOLD)
+        ok = all(hits.get(f"{kw}-{i + 1}") == [
+            h.utt, str(h.begin_frame), str(h.end_frame),
+            f"{h.posterior:.4f}"] for i, h in enumerate(lib)) and \
+            f"{kw}-{len(lib) + 1}" not in hits
+        held("kws-search", ok, None if ok else f"{kw}")
+        n_hits += len(lib)
+    return {"atwv": atwv, "keywords": len(kwl), "hits": n_hits,
+            "index_utts": len(union.utts), "posterior_rel": worst}
+
+
+def _seq_grads(model):
+    return {k: p.grad.detach().cpu().clone()
+            for k, p in model.named_parameters() if p.grad is not None}
+
+
+def seq_training(T, held, d, dev, sysd, walls, wers):
+    """18d: the xent TDNN-F at TdnnConfig's default widths on 10b's SAT
+    features and tri3b alignments, den lattices from the DenseDecoder on
+    the unigram HCLG, sMBR and then MMI through discriminative_finetune
+    on the first SEQ_FT_UTTS utterances (each from the xent weights), the
+    card's first step against the CPU's, and the tools (get-egs → train →
+    compute-objf) against the library on the same egs.  → (numbers, the
+    step's timing: a function to call when the card is otherwise idle,
+    None off the card)."""
+    import copy
+    from kaldi_tpu_torch.am.discriminative import frame_accuracy
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.am.tdnn import TdnnConfig
+    from kaldi_tpu_torch.cli.latgen import _load_hclg
+    from kaldi_tpu_torch.cli.tools_bank16 import _read_raw_auto
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.decoder.dense import (DenseDecoder,
+                                               DenseDecoderConfig)
+    from kaldi_tpu_torch.lattice.determinize import \
+        determinize_lattice_pruned
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
+    from kaldi_tpu_torch.pipelines import discriminative as disc
+    from kaldi_tpu_torch.pipelines.nnet import XentTrainConfig, XentTrainer
+    from kaldi_tpu_torch.pipelines.score import compute_wer
+    lang, tm = sysd["lang"], sysd["tm"]
+    t2p = tm.tid_to_pdf_array
+    feats = sysd["sat_tr"]
+    num_ali = {u: t2p[np.asarray(a)].astype(np.int32)
+               for u, a in sysd["ali"].items() if u in feats}
+    feats = {u: feats[u] for u in num_ali}
+    D = next(iter(feats.values())).shape[1]
+    out = {"frames_per_utt": float(np.mean([x.shape[0]
+                                            for x in feats.values()])),
+           "utts": len(feats)}
+    t0 = time.perf_counter()
+    xent = XentTrainer(TdnnConfig(feat_dim=D, num_pdfs=tm.num_pdfs,
+                                  frame_subsampling_factor=1),
+                       XentTrainConfig(**SEQ_XENT), device=dev)
+    out["xent"] = xent.train(feats, num_ali)
+    walls["xent"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in xent.model.parameters())
+    dec = DenseDecoder(_load_hclg(f"{d}/HCLG.fst"), t2p,
+                       DenseDecoderConfig(beam=16.0, acoustic_scale=0.1,
+                                          lattice_beam=8.0), device=dev)
+
+    def test_wer(trainer):
+        scorer = trainer.loglikes_fn()
+        hyps = {u: [lang.words.find(o) for o in
+                    dec.decode(scorer(x))[1]]
+                for u, x in sysd["sat_te"].items()}
+        return str(compute_wer(sysd["text_te"], hyps))
+
+    wers["xent"] = test_wer(xent)
+    start = copy.deepcopy(xent.model.state_dict())
+
+    # the card's first step against the CPU's, from the xent weights on
+    # the first training utterance's den lattice
+    u0 = sorted(feats)[0]
+    lat0 = disc.make_degs(dec, {u0: xent.loglikes_fn()(feats[u0])})[u0]
+    acc0 = frame_accuracy(lat0, num_ali[u0])
+    steps = {}
+    for where in (dev, torch.device("cpu")):
+        m = copy.deepcopy(xent.model).to(where)
+        opt = disc.adam(m, SEQ_LR)
+        lp = torch.from_numpy(xent.log_priors).to(where)
+        o = disc.sequence_step(m, opt, "smbr", *disc.utterance_tensors(
+            feats[u0], num_ali[u0], lat0, acc0, where), SEQ_KAPPA, lp)
+        steps[where.type] = (float(o), _seq_grads(m))
+    (oc, gc), (oh, gh) = steps[dev.type], steps["cpu"]
+    rel_o = abs(oc - oh) / max(abs(oh), 1e-30)
+    rel_g = max(float((gc[k] - gh[k]).abs().max())
+                / max(float(gh[k].abs().max()), 1e-30) for k in gh)
+    out["first_step"] = {"objf_card": oc, "objf_cpu": oh, "objf_rel": rel_o,
+                         "grad_rel": rel_g}
+    held("card first step = CPU", rel_o <= SEQ_STEP_TOL
+         and rel_g <= SEQ_STEP_TOL, f"objf {rel_o:.2e}, gradients "
+         f"{rel_g:.2e} of each tensor's largest (bar {SEQ_STEP_TOL})")
+
+    timing = None
+    if dev.type == "cuda":
+        timing = _seq_step_timing(copy.deepcopy(xent.model), xent.log_priors,
+                                  disc.utterance_tensors(feats[u0],
+                                                         num_ali[u0], lat0,
+                                                         acc0, dev), dev)
+        out["frames_step"] = int(lat0.T)
+
+    # sMBR, then MMI, each from the xent weights
+    ft = sorted(feats)[:SEQ_FT_UTTS]
+    out["ft_utts"] = len(ft)
+    hists = {}
+    for crit in ("smbr", "mmi"):
+        xent.model.load_state_dict(start)
+        t1 = time.perf_counter()
+        hists[crit] = disc.discriminative_finetune(
+            xent, dec, {u: feats[u] for u in ft}, num_ali,
+            disc.DiscriminativeConfig(
+                criterion=crit, num_epochs=SEQ_EPOCHS,
+                learning_rate=SEQ_LR, acoustic_scale=SEQ_KAPPA))["objf"]
+        walls[crit] = time.perf_counter() - t1
+        wers[crit] = test_wer(xent)
+        h = hists[crit]
+        held(f"{crit} objective rises", all(np.isfinite(h))
+             and h[-1] > h[0], f"{crit} objf/utt by epoch {h}")
+    out["objf"] = hists
+
+    # the tools: den lattices of the first SEQ_TOOL_UTTS training
+    # utterances (the xent model's scores, determinized: get_degs.sh's
+    # role), get-egs, train, compute-objf before and after
+    xent.model.load_state_dict(start)
+    tool_utts = sorted(feats)[:SEQ_TOOL_UTTS]
+    scorer = xent.loglikes_fn()
+    with TableWriter(f"ark:{d}/seq_feats.ark", holder="mat") as wf, \
+            TableWriter(f"ark:{d}/seq_ali.ark", holder="ivec") as wa, \
+            TableWriter(f"ark:{d}/denlats.ark", holder="clat") as wl:
+        for u in tool_utts:
+            wf[u], wa[u] = feats[u], num_ali[u]
+            wl[u] = determinize_lattice_pruned(
+                dec.decode_lattice(scorer(feats[u]))[0], 8.0)
+    write_raw_model(f"{d}/xent.raw", start, xent.model_cfg)
+    dv = f"--device={dev.type}"
+    t1 = time.perf_counter()
+    T("nnet3-discriminative-get-egs", f"{d}/tri3b.mdl",
+      f"ark:{d}/seq_feats.ark", f"ark:{d}/seq_ali.ark",
+      f"ark:{d}/denlats.ark", f"ark:{d}/degs.ark")
+    egs = _seq_read(f"ark:{d}/degs.ark", "deg")
+    tools = {}
+    for crit in ("smbr", "mmi"):
+        c = f"--criterion={crit}"
+
+        def objf(raw):
+            return float(T("nnet3-discriminative-compute-objf", dv, c, raw,
+                           f"ark:{d}/degs.ark").split()[1])
+
+        before = objf(f"{d}/xent.raw")
+        T("nnet3-discriminative-train", dv, c,
+          f"--num-epochs={SEQ_TOOL_EPOCHS}", f"--learning-rate={SEQ_LR}",
+          f"--acoustic-scale={SEQ_KAPPA}", f"{d}/xent.raw",
+          f"ark:{d}/degs.ark", f"{d}/{crit}.raw")
+        after = objf(f"{d}/{crit}.raw")
+        # the library on the same egs from the same weights
+        net, _ = _read_raw_auto(f"{d}/xent.raw", dev)
+        opt = disc.adam(net, SEQ_LR)
+        data = [disc.eg_tensors(eg, crit, dev) for eg in egs.values()]
+
+        def lib_objf():
+            with torch.no_grad():
+                return float(np.mean([float(disc.sequence_objf(
+                    crit, lat, torch.log_softmax(net(x[None])[0], dim=-1),
+                    num, acc, SEQ_KAPPA)) for x, num, acc, lat in data]))
+
+        lib_before = lib_objf()
+        for _ in range(SEQ_TOOL_EPOCHS):
+            for x, num, acc, lat in data:
+                disc.sequence_step(net, opt, crit, x, num, acc, lat,
+                                   SEQ_KAPPA)
+        lib_after = lib_objf()
+        tools[crit] = {"before": before, "after": after,
+                       "lib_before": lib_before, "lib_after": lib_after}
+        for a, b, what in ((before, lib_before, "before"),
+                           (after, lib_after, "after")):
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            held(f"nnet3-discriminative tools = library ({crit})",
+                 rel <= SEQ_OBJF_TOL, f"{what} training: tools {a:.6f}, "
+                 f"library {b:.6f} ({rel:.2e})")
+        held(f"nnet3-discriminative-train raises {crit}", after > before,
+             f"{before:.6f} → {after:.6f}")
+    walls["seq tools"] = time.perf_counter() - t1
+    out["tools"] = tools
+    out["egs"] = len(egs)
+    out["den_launches"] = CudaChainDen.total_launches
+    return out, timing
+
+
+def _seq_step_timing(m, log_priors, tensors, dev):
+    """18d's sMBR step on the card, timed when called: wall a step over
+    SEQ_TIME_STEPS, kernels and busy card time from a profile of
+    SEQ_PROFILE_STEPS, and the objective's forward and backward as one
+    CUDA graph.  → a function returning those numbers."""
+    from kaldi_tpu_torch.pipelines import discriminative as disc
+    from kaldi_tpu_torch.tools.timing import graph_ms, profiled
+    opt = disc.adam(m, SEQ_LR)
+    lp = torch.from_numpy(log_priors).to(dev)
+    x0, n0, a0, l0 = tensors
+
+    def step():
+        disc.sequence_step(m, opt, "smbr", x0, n0, a0, l0, SEQ_KAPPA, lp)
+
+    def steps():
+        for _ in range(SEQ_PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+
+    def objf_backward():
+        m.eval()
+        s = torch.log_softmax(m(x0[None])[0], dim=-1) - lp[None, :]
+        disc.smbr_objf(l0, s, a0, SEQ_KAPPA).backward()
+
+    def timing():
+        out = {}
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(SEQ_TIME_STEPS):
+            step()
+        torch.cuda.synchronize()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t1) / SEQ_TIME_STEPS
+        wall, n_k, k_ms, _ = profiled(steps, cpu_ops=False)
+        if n_k <= 0:
+            raise AssertionError("18d: the profile saw no kernel")
+        out["kernels_per_step"] = n_k / SEQ_PROFILE_STEPS
+        out["busy_ms_per_step"] = k_ms / SEQ_PROFILE_STEPS
+        out["busy_share"] = k_ms / wall
+        # warm on a side stream, as graph capture wants
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            objf_backward()
+        torch.cuda.current_stream().wait_stream(side)
+        out["graph_ms"] = graph_ms(objf_backward)
+        return out
+
+    return timing
+
+
+def seq_grammar(T, held, d, dev, sysd, walls, wers):
+    """18b, once 17d's model is written: make-grammar-fst (the chain
+    topology's unigram HCLG over all but the lexicon's last
+    SEQ_LIST_WORDS words, with a nonterminal self-loop at its start and at
+    each final state, slotted by the HCLG of one word of that list), then
+    nnet3-latgen-grammar with 17d's model on the SAT test features and
+    online2-wav-nnet3-latgen-grammar on SEQ_ONLINE_WAVES test waveforms
+    (resampled to 16 kHz) with a TDNN-F of 17d's widths reading 13 MFCCs
+    (seeded weights: 17d's model reads the SAT front-end, whose fMLLR
+    needs a first pass, so it cannot stream); each against the library
+    decode over ``replace_nonterminals``' expanded graph."""
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnConfig
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder, _load_hclg
+    from kaldi_tpu_torch.cli.online2 import _load_tdnn
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.features.resample import linear_resample
+    from kaldi_tpu_torch.fst import (ArpaModel, Arc, VectorFst, arpa_to_fst,
+                                     mkgraph)
+    from kaldi_tpu_torch.fst.arpa import make_unigram_arpa
+    from kaldi_tpu_torch.fst.csr import csr_to_vector_fst, pack_fst
+    from kaldi_tpu_torch.fst.grammar import replace_nonterminals
+    from kaldi_tpu_torch.fst.openfst_io import write_fst_path
+    from kaldi_tpu_torch.pipelines.score import compute_wer
+    walls["waited for 17d"] = _seq_wait(f"{d}/chain_ready",
+                                        "18b: 17d's chain model")
+    t0 = time.perf_counter()
+    lang = sysd["lang"]
+    tm, _ = read_mdl(f"{d}/chain.mdl", device="cpu")
+    vocab = list(dict.fromkeys(w for w, _ in lang.lexicon.entries))
+    top_words, list_words = vocab[:-SEQ_LIST_WORDS], vocab[-SEQ_LIST_WORDS:]
+
+    top = mkgraph(lang, tm, arpa_to_fst(ArpaModel.parse(make_unigram_arpa(
+        {w: 1.0 for w in top_words})), lang.words), self_loop_scale=1.0)
+    for s in sorted({top.start, *top.finals}):
+        top.add_arc(s, Arc(SEQ_NT, 0, 0.0, s))
+    # the slot: exactly one word of the list (no empty path, so no ε
+    # cycle through the nonterminal's self-loop)
+    G = VectorFst()
+    g0, g1 = G.add_state(), G.add_state()
+    G.set_start(g0)
+    G.set_final(g1, 0.0)
+    for w in list_words:
+        G.add_arc(g0, Arc(lang.words[w], lang.words[w],
+                          math.log(len(list_words)), g1))
+    write_fst_path(f"{d}/top.fst", top)
+    write_fst_path(f"{d}/list.fst", mkgraph(lang, tm, G,
+                                            self_loop_scale=1.0))
+    T("make-grammar-fst", f"{d}/top.fst", str(SEQ_NT), f"{d}/list.fst",
+      f"{d}/grammar.fst")
+    expanded = replace_nonterminals(pack_fst(_load_hclg(f"{d}/top.fst")),
+                                    {SEQ_NT: pack_fst(_load_hclg(
+                                        f"{d}/list.fst"))})
+    got = pack_fst(_load_hclg(f"{d}/grammar.fst"))
+    lib = pack_fst(csr_to_vector_fst(expanded))
+    held("make-grammar-fst", all(
+        np.array_equal(getattr(got, k), getattr(lib, k)) for k in
+        ("e_offsets", "e_ilabel", "e_olabel", "e_weight", "e_nextstate",
+         "n_offsets", "n_olabel", "n_weight", "n_nextstate",
+         "final_costs")), f"{got.num_states} states")
+    write_fst_path(f"{d}/expanded.fst", csr_to_vector_fst(expanded))
+    walls["make-grammar-fst"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    T("nnet3-latgen-grammar", f"--device={dev.type}",
+      "--frame-subsampling-factor=3", "--acoustic-scale=1.0",
+      f"--lattice-beam={SEQ_GRAMMAR_LATTICE_BEAM}",
+      f"{d}/chain.mdl", f"{d}/chain.raw", f"{d}/top.fst", str(SEQ_NT),
+      f"{d}/list.fst", f"ark:{d}/sat_te.ark", f"ark:{d}/grammar_lat.ark")
+    walls["nnet3-latgen-grammar"] = time.perf_counter() - t0
+    lats = _seq_read(f"ark:{d}/grammar_lat.ark", "clat")
+    _, net = _load_tdnn(f"{d}/chain.raw", 3, dev)
+    dec = _LatgenDecoder(csr_to_vector_fst(expanded), tm.tid_to_pdf_array,
+                         15.0, SEQ_GRAMMAR_LATTICE_BEAM, 1.0, device=dev)
+    hyps = {}
+    for u, x in sorted(sysd["sat_te"].items()):
+        with torch.no_grad():
+            lib = dec.decode_to_clat(net(torch.from_numpy(x).to(dev)[None])[0])
+        bp = lats[u].best_path()
+        held("nnet3-latgen-grammar", *_best_same(bp, lib.best_path(), u))
+        hyps[u] = [lang.words.find(w) for w in bp[0]]
+    wers["nnet3-latgen-grammar"] = str(compute_wer(sysd["text_te"], hyps))
+
+    # the streaming grammar tool: 16 kHz waveforms, 13 MFCCs
+    waves = _seq_read(f"ark:{d}/wav_te.ark", "wav")
+    with TableWriter(f"ark:{d}/wav16_te.ark", holder="wav") as w:
+        for u, (x, rate) in waves.items():
+            y = linear_resample(np.asarray(x, np.float32), rate, 16000)
+            w[u] = (np.clip(y, -32768, 32767).astype(np.int16), 16000)
+    cfg = TdnnConfig(feat_dim=13, num_pdfs=tm.num_pdfs, hidden_dim=96,
+                     bottleneck_dim=24, num_layers=5,
+                     frame_subsampling_factor=3)
+    rng = np.random.default_rng(SEED + 18)
+    sd = {k: torch.from_numpy((1.0 + rng.random(v.shape)) if
+                              k.endswith(".var") else 0.3 *
+                              rng.standard_normal(v.shape)).float()
+          for k, v in TdnnChain(cfg).state_dict().items()}
+    write_raw_model(f"{d}/online.raw", sd, cfg)
+    common = [f"--device={dev.type}", "--frame-subsampling-factor=3",
+              "--acoustic-scale=1.0", f"--word-symbol-table={d}/words.txt"]
+    t0 = time.perf_counter()
+    T("online2-wav-nnet3-latgen-grammar", *common, f"{d}/chain.mdl",
+      f"{d}/online.raw", f"{d}/top.fst", str(SEQ_NT), f"{d}/list.fst",
+      f"ark:{d}/wav16_te.ark", f"ark,t:{d}/online_grammar.tra")
+    walls["online2-wav-nnet3-latgen-grammar"] = time.perf_counter() - t0
+    T("online2-wav-nnet3-latgen-faster", *common, f"{d}/chain.mdl",
+      f"{d}/online.raw", f"{d}/expanded.fst", f"ark:{d}/wav16_te.ark",
+      f"ark,t:{d}/online_expanded.tra")
+    a = _seq_read(f"ark,t:{d}/online_grammar.tra", "text")
+    b = _seq_read(f"ark,t:{d}/online_expanded.tra", "text")
+    held("online2-wav-nnet3-latgen-grammar", a == b and len(a) == len(waves),
+         None if a == b else f"{a} against {b}")
+    return {"grammar_states": int(expanded.num_states),
+            "top_words": len(top_words), "list_words": len(list_words)}
+
+
+def _seq_wait(path: str, what: str) -> float:
+    """Wait for the flag file ``path`` (at most SEQ_CHAIN_WAIT s).
+    → seconds waited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > SEQ_CHAIN_WAIT:
+            raise AssertionError(f"{what} never came")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def seq_tools_worker(argv) -> int:
+    """18's background process: 18a, 18c and 18d as soon as it starts,
+    18b once 17d's model is written, 18d's step timing once the main
+    process waits at the join; every tool a call of the port's registry
+    in this process, each held against its library call on the same
+    card, the fbank and GMM kernels' counts set to 0 before each call and
+    read after it.  Writes ``report.json`` (walls, WERs, the numbers,
+    each check, each tool's launches) into the directory; exits 1 if a
+    check fails."""
+    import contextlib
+    import io
+    import pickle
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import kaldi_tpu_torch.features  # noqa: F401  (before ops.fbank)
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    from kaldi_tpu_torch.ops.gmm import CudaGmm
+    t_start = time.perf_counter()
+    d, dv = argv[0], argv[1]
+    dev = torch.device(dv, 0) if dv == "cuda" else torch.device(dv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(f"{d}/systems.pkl", "rb") as f:
+        sysd = pickle.load(f)
+    calls, checks, walls, wers, rep = [], [], {}, {}, {}
+    launches = {"gmm": {}, "fbank": {}}
+
+    def T(name, *args):
+        args = [str(a) for a in args]
+        buf = io.StringIO()
+        CudaGmm.total_launches = CudaFbank.total_launches = 0
+        with contextlib.redirect_stdout(buf):
+            rc = TOOLS[name](args)
+        for k, n in (("gmm", CudaGmm.total_launches),
+                     ("fbank", CudaFbank.total_launches)):
+            launches[k][name] = launches[k].get(name, 0) + n
+        if rc:
+            raise AssertionError(f"{name} {' '.join(args)}: rc {rc}")
+        calls.append(name)
+        return buf.getvalue()
+
+    def held(name, ok, detail):
+        checks.append((name, bool(ok), detail))
+
+    t0 = time.perf_counter()
+    rep["gmm"] = seq_gmm_decoders(T, held, d, dev, sysd, walls, wers)
+    walls["18a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["kws"] = seq_kws(T, held, d, sysd, walls)
+    walls["18c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["seq"], timing = seq_training(T, held, d, dev, sysd, walls, wers)
+    walls["18d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["grammar"] = seq_grammar(T, held, d, dev, sysd, walls, wers)
+    walls["18b"] = time.perf_counter() - t0
+    if timing is not None:
+        walls["waited for the join"] = _seq_wait(f"{d}/joined",
+                                                 "18d: the join")
+        t0 = time.perf_counter()
+        rep["seq"].update(timing())
+        walls["18d step timing"] = time.perf_counter() - t0
+    with open(f"{d}/report.json", "w") as f:
+        json.dump({"walls": walls, "wers": wers, "checks": checks,
+                   "calls": len(calls), "tools": sorted(set(calls)),
+                   "launches": launches,
+                   "total": time.perf_counter() - t_start, **rep}, f,
+                  default=float)
+    bad = [c for c in checks if not c[1]]
+    if bad:
+        print(f"seq tools: {len(bad)} checks failed: {bad[:5]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def seq_tools_finish(started, tag: str):
+    """18, joined after 17d: the flag that lets the worker time 18d's
+    step on the otherwise idle card, then the background run's exit, its
+    checks, the kernels' launches in the tools under test (the GMM
+    kernel's in 18a's SEQ_GMM_TOOLS, the fbank kernel's in
+    SEQ_FBANK_TOOL), the den kernel's (none expected), each tool's wall
+    and WER, the ATWV and the sequence step's numbers; the worker's wall
+    and the main process's wait here.  → (GMM launches, fbank launches,
+    den launches)."""
+    proc, d, t0 = started
+    with open(f"{d}/joined", "w") as f:
+        f.write("ok\n")
+    t_wait = time.perf_counter()
+    proc.wait(timeout=900)
+    wait = time.perf_counter() - t_wait
+    wall = time.perf_counter() - t0
+    with open(f"{d}/worker.err") as f:
+        err = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"seq tools failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    with open(f"{d}/report.json") as f:
+        rep = json.load(f)
+    gmm = sum(rep["launches"]["gmm"].get(n, 0) for n in SEQ_GMM_TOOLS)
+    fb = rep["launches"]["fbank"].get(SEQ_FBANK_TOOL, 0)
+    den = rep["seq"]["den_launches"]
+    by = {}
+    for name, ok, detail in rep["checks"]:
+        n, k, det = by.get(name, (0, 0, []))
+        by[name] = (n + 1, k + int(ok), det + ([detail] if detail else []))
+    print(f"seq: {rep['calls']} tool calls of {len(rep['tools'])} tools in "
+          f"one background process started at 10b: {wall:.1f} s to the "
+          f"join ({rep['total']:.1f} s of work after its imports); the main "
+          f"process waited {wait:.1f} s here, "
+          f"{rep['walls'].get('18d step timing', 0.0):.1f} s of it 18d's "
+          f"step timing on the otherwise idle card {tag}")
+    for name, (n, k, det) in by.items():
+        print(f"seq:   {name}: {k} of {n} held"
+              + (f" ({'; '.join(det[:2])})" if det else ""))
+    g = rep["gmm"]
+    print(f"seq: 18a on 10b's tri3b and SAT test features (HCLG "
+          f"{g['hclg_states'][0]} states, bigram HCLG "
+          f"{g['hclg_states'][1]}): biglm against SimpleDecoder on the "
+          f"bigram HCLG, largest cost difference {g['biglm_cost_diff']:.2e} "
+          f"(bar {SEQ_BIGLM_TOL})")
+    for name, w in rep["wers"].items():
+        print(f"seq:   {name}: {w}"
+              + (f"; {rep['walls'][name]:.2f} s" if name in rep["walls"]
+                 else ""))
+    k = rep["kws"]
+    print(f"seq: 18c: {k['keywords']} keywords over {k['index_utts']} "
+          f"lattices, {k['hits']} hits at posterior ≥ {SEQ_KWS_THRESHOLD}, "
+          f"ATWV {k['atwv']:.4f}; the union index's search against the "
+          f"direct search: posteriors within {k['posterior_rel']:.2e} "
+          f"relative (bar {SEQ_KWS_TOL}); {rep['walls']['kws']:.2f} s")
+    s = rep["seq"]
+    print(f"seq: 18d: xent TDNN-F {s['params']} parameters on {s['utts']} "
+          f"utterances of {s['frames_per_utt']:.1f} frames on average "
+          f"(loss {s['xent']['loss']:.4f}, frame accuracy "
+          f"{s['xent']['frame_acc']:.3f}; {rep['walls']['xent']:.1f} s); "
+          f"sequence training on the first {s['ft_utts']} of them")
+    for crit in ("smbr", "mmi"):
+        print(f"seq:   {crit}: objf/utt by epoch "
+              f"{[round(x, 5) for x in s['objf'][crit]]}; "
+              f"{rep['walls'][crit]:.1f} s")
+    fs = s["first_step"]
+    print(f"seq:   card's first sMBR step against the CPU's: objf "
+          f"{fs['objf_card']:.6f} / {fs['objf_cpu']:.6f} ({fs['objf_rel']:.2e}),"
+          f" gradients {fs['grad_rel']:.2e} of each tensor's largest (bar "
+          f"{SEQ_STEP_TOL})")
+    if "step_ms" in s:
+        print(f"seq:   an sMBR step on the card ({s['frames_step']} frames):"
+              f" {s['step_ms']:.2f} ms wall over {SEQ_TIME_STEPS} steps; "
+              f"{s['kernels_per_step']:.1f} kernels and "
+              f"{s['busy_ms_per_step']:.3f} busy card ms a step "
+              f"({100 * s['busy_share']:.1f}% busy, {SEQ_PROFILE_STEPS} "
+              f"profiled); the objective's forward and backward as one "
+              f"CUDA graph {s['graph_ms']:.3f} ms; timed at the join, the "
+              f"card otherwise idle {tag}")
+    for crit, t in s["tools"].items():
+        print(f"seq:   tools ({crit}, {s['egs']} egs, {SEQ_TOOL_EPOCHS} "
+              f"epochs): compute-objf {t['before']:.6f} → {t['after']:.6f}; "
+              f"library {t['lib_before']:.6f} → {t['lib_after']:.6f}")
+    gr = rep["grammar"]
+    print(f"seq: 18b: grammar of {gr['top_words']} top words and a "
+          f"{gr['list_words']}-word list: {gr['grammar_states']} states; "
+          f"17d's model ready after {rep['walls']['waited for 17d']:.1f} s "
+          f"of waiting")
+    print(f"seq: walls " + ", ".join(f"{n} {v:.1f} s" for n, v in
+                                     rep["walls"].items()))
+    ref_fb = sum(n for t, n in rep["launches"]["fbank"].items()
+                 if t != SEQ_FBANK_TOOL)
+    print(f"seq: GMM kernel launches {gmm} ({', '.join(SEQ_GMM_TOOLS)}), "
+          f"fbank {fb} ({SEQ_FBANK_TOOL}; {ref_fb} more in the reference "
+          f"runs, not counted), den {den} {tag}")
+    bad = [c for c in rep["checks"] if not c[1]]
+    if bad:
+        raise AssertionError(f"18: {len(bad)} checks failed: {bad[:3]}")
+    if torch.cuda.is_available() and min(gmm, fb) <= 0:
+        raise AssertionError(f"18: launches GMM {gmm}, fbank {fb}")
+    return gmm, fb, den
 
 
 def main() -> int:
@@ -6072,9 +6979,12 @@ def main() -> int:
     tools = gmm_tools_start(dev, ysys)
     try:
         m_fb, m_gmm, m_wers, msys = mini_recipe(dev, tag)
-        # 17a's tools start here, in the background beside 10c to 13
+        # 17a's tools start here, in the background beside 10c to 13, and
+        # 18's worker beside them
         tri = tri_tools_start(dev, msys)
         atexit.register(_stop, tri[0])
+        seq = seq_tools_start(dev, msys)
+        atexit.register(_stop, seq[0])
         tri3b_training(dev, task300, tag)
         tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
     finally:
@@ -6137,10 +7047,16 @@ def main() -> int:
     tri_gmm, tri_wers = tri_tools_finish(tri, m_wers, tag)
     fgmm_card_vs_cpu(dev, tag)
     ebw_gmm = ebw_card_vs_cpu(dev, msys, tag)
-    ladder_den = ladder_rung(dev, msys, m_wers, tri_wers, tag)
+    keep = {}
+    ladder_den = ladder_rung(dev, msys, m_wers, tri_wers, tag, keep=keep)
     del msys
     print(f"tri: phase 17 took {time.perf_counter() - t1:.1f} s after phase "
           f"13")
+    # 18. the other decoders, grammars, KWS and sequence training (in the
+    # background since 10b; 18b decodes with 17d's model, written here)
+    seq_chain_ready(seq, keep)
+    del keep
+    seq_gmm, seq_fb, seq_den = seq_tools_finish(seq, tag)
     t1 = time.perf_counter()
     hard_corpus(dev, tag)
     print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phases 11 and "
@@ -6216,7 +7132,8 @@ def main() -> int:
         "source": "kaldi_tpu_torch/csrc/fbank.cu",
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
-        + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb + iv_fb,
+        + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb + iv_fb
+        + seq_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err,
                            f_fb_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
@@ -6238,7 +7155,7 @@ def main() -> int:
         "source": "kaldi_tpu_torch/csrc/gmm.cu",
         "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
         "launches": b_gmm + d_gmm + p_gmm + y_gmm + m_gmm + tool_gmm
-        + f_gm + iv_gmm + tri_gmm + ebw_gmm,
+        + f_gm + iv_gmm + tri_gmm + ebw_gmm + seq_gmm,
         "max_abs_err": max(gmm_err, b_err, d_err, p_err, f_gm_err,
                            iv_gmm_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
@@ -6250,7 +7167,7 @@ def main() -> int:
         "note": "replaces an XLA program (lax.scan + jax.grad), not a "
                 "Pallas kernel; forward and backward kernels, ms for both",
         "launches": den_launches + f_den + lat_den + xc_den + pod_den
-        + ladder_den,
+        + ladder_den + seq_den,
         "max_abs_err": max(den_err, f_den_err),
         "ms": den_ms, "plain_ms": den_plain_ms,
         "bound_ms": den_bnd[0], "bound_by": den_bnd[1],
@@ -6262,7 +7179,8 @@ def main() -> int:
 
 
 def _stop(proc) -> None:
-    """Kill ``proc`` if it still runs (phase 17's worker, at exit)."""
+    """Kill ``proc`` if it still runs (phase 17's and 18's workers, at
+    exit)."""
     if proc.poll() is None:
         proc.kill()
         proc.wait()
@@ -6273,4 +7191,6 @@ if __name__ == "__main__":
         sys.exit(pod_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--tri-tools"]:
         sys.exit(tri_tools_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--seq-tools"]:
+        sys.exit(seq_tools_worker(sys.argv[2:]))
     sys.exit(main())

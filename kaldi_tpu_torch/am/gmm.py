@@ -189,12 +189,18 @@ class GmmAccs:
 
 
 def _sum_by_pdf(t: torch.Tensor, pdfs: torch.Tensor, P: int) -> torch.Tensor:
-    """Σ over frames of t's rows into P rows by pdf, in an order that does
-    not change from run to run: ``index_put_(..., accumulate=True)``'s
-    sorted accumulation, without its range check on the host (the
-    ``.item()`` of the indices' min and max, a sync; the pdfs come from
-    a transition model)."""
+    """Σ over frames of t's rows into P rows by pdf, each pdf's frames
+    added in frame order, the same order every run.  On a card that is
+    ``index_put_(..., accumulate=True)``'s sorted accumulation, without
+    its range check on the host (the ``.item()`` of the indices' min and
+    max, a sync; the pdfs come from a transition model).  On the CPU it
+    is ``index_add_``, which adds the frames one after another: the
+    CPU's ``index_put_`` accumulate adds them with atomics from every
+    thread once the tensor is large and torch has more than one thread,
+    and then sums in another order each run."""
     out = t.new_zeros((P,) + tuple(t.shape[1:]))
+    if t.device.type == "cpu":
+        return out.index_add_(0, pdfs, t)
     return torch._index_put_impl_(out, (pdfs,), t, accumulate=True,
                                   unsafe=True)
 

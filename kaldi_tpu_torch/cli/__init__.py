@@ -18,5 +18,15 @@ import kaldi_tpu_torch.cli.tools_bank9  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_bank12  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_bank13  # noqa: F401  (registers into TOOLS)
 import kaldi_tpu_torch.cli.tools_bank22  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank4  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank16  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank17  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank21  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank23  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank24  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank27  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank28  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank29  # noqa: F401  (registers into TOOLS)
+import kaldi_tpu_torch.cli.tools_bank30  # noqa: F401  (registers into TOOLS)
 
 __all__ = ["TOOLS", "main"]

@@ -1,0 +1,65 @@
+"""Port of kaldi_tpu/cli/tools_bank29.py nnet3-latgen-grammar (parity
+target nnet3bin/nnet3-latgen-grammar.cc), registered in cli/tools.py's
+``TOOLS``.  It takes ``--device`` (default cuda): the raw TDNN-F's
+forward and the latgen decoder (cli/latgen.py ``_LatgenDecoder``) run
+there; the grammar's splice is host code (fst/grammar.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kaldi_tpu_torch.cli.tools import _device_po, tool
+from kaldi_tpu_torch.core.logging import KaldiError, get_logger
+from kaldi_tpu_torch.core.options import ParseOptions
+from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.device import resolve_device
+
+log = get_logger(__name__)
+
+
+# Port of kaldi_tpu/cli/tools_bank29.py nnet3_latgen_grammar_tool.
+@tool("nnet3-latgen-grammar")
+def nnet3_latgen_grammar_tool(argv):
+    """Lattice decoding over a grammar FST: nonterminal sub-HCLGs are
+    spliced into the top-level graph, then the standard latgen runs
+    (nnet3bin/nnet3-latgen-grammar.cc; expansion via
+    fst/grammar.py replace_nonterminals — the offline reading of the
+    reference's lazily-expanded GrammarFst)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder
+    from kaldi_tpu_torch.cli.online2 import _load_tdnn
+    from kaldi_tpu_torch.cli.tools_bank24 import read_grammar
+    from kaldi_tpu_torch.fst.csr import csr_to_vector_fst
+    from kaldi_tpu_torch.fst.grammar import replace_nonterminals
+    po = ParseOptions("nnet3-latgen-grammar [opts] <trans-model> "
+                      "<raw-nnet3> <top-hclg> <nonterm-int1> "
+                      "<sub-hclg1> [...] <feats-rspec> <lat-wspec>")
+    po.register("beam", float, 15.0, "decoding beam")
+    po.register("lattice-beam", float, 8.0, "lattice beam")
+    po.register("max-active", int, 7000, "max active states")
+    po.register("acoustic-scale", float, 1.0, "acoustic scale")
+    po.register("frame-subsampling-factor", int, 3, "subsampling")
+    _device_po(po)
+    args = po.read(argv)
+    if len(args) < 7 or (len(args) - 5) % 2:
+        raise KaldiError("nnet3-latgen-grammar: need trans-model, "
+                         "nnet, top, (nonterm, sub)+, feats, lats")
+    device = resolve_device(po["device"])
+    tm, _am = read_mdl(args[0], device="cpu")
+    _cfg, net = _load_tdnn(args[1], po["frame-subsampling-factor"], device)
+    top, subs = read_grammar(args[2], args[3:-2])
+    HCLG = csr_to_vector_fst(replace_nonterminals(top, subs))
+    dec = _LatgenDecoder(HCLG, tm.tid_to_pdf_array, po["beam"],
+                         po["lattice-beam"], po["acoustic-scale"],
+                         max_active=po["max-active"], device=device)
+    n = 0
+    with TableWriter(args[-1], holder="clat") as lw, torch.no_grad():
+        for key, feats in SequentialTableReader(args[-2], holder="mat"):
+            x = torch.as_tensor(np.asarray(feats, np.float32)).to(device)
+            lw[key] = dec.decode_to_clat(net(x[None])[0])
+            n += 1
+    log.info("nnet3-latgen-grammar: %d utterances (%d nonterminals)",
+             n, len(subs))
+    return 0

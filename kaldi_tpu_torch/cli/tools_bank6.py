@@ -1,8 +1,12 @@
 """Port of kaldi_tpu/cli/tools_bank6.py gmm-adapt-map (parity target
-gmmbin/gmm-adapt-map.cc), registered in cli/tools.py's ``TOOLS``.  It
-takes ``--device`` (default cuda): the aligned frames' statistics are
-accumulated there (am/gmm.py ``accumulate_stats``), and the MAP update
-is the original's host numpy (``map_update``).
+gmmbin/gmm-adapt-map.cc) and gmm-latgen-biglm-faster (gmmbin/
+gmm-latgen-biglm-faster.cc), registered in cli/tools.py's ``TOOLS``.
+Both take ``--device`` (default cuda).  gmm-adapt-map accumulates the
+aligned frames' statistics there (am/gmm.py ``accumulate_stats``), and
+the MAP update is the original's host numpy (``map_update``).
+gmm-latgen-biglm-faster computes each utterance's GMM log-likelihoods
+there (the GMM kernel on a card) and searches on the host
+(decoder/biglm.py, the original's numpy).
 """
 
 from __future__ import annotations
@@ -56,4 +60,56 @@ def gmm_adapt_map_tool(argv):
                weight_tau=po["weight-tau"], var_tau=po["var-tau"])
     write_mdl(args[3], tm, am)
     log.info("MAP-adapted on %d utterances", n)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank6.py gmm_latgen_biglm_faster_tool.
+@tool("gmm-latgen-biglm-faster")
+def gmm_latgen_biglm_faster_tool(argv):
+    """Decode with on-the-fly big-LM composition (difference LM).
+
+    Usage: gmm-latgen-biglm-faster [opts] <model> <fst> <old-arpa>
+           <new-arpa> <feats-rspec> <words-wspec>
+    <fst> is the HCLG compiled with the OLD (small) LM; word scores are
+    swapped for the new LM's during the search."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _load_hclg
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.decoder.biglm import (BiglmDecoderConfig,
+                                               BiglmFasterDecoder)
+    from kaldi_tpu_torch.fst.arpa import ArpaModel
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    po = ParseOptions(
+        "gmm-latgen-biglm-faster [opts] <model> <fst> <old-arpa> "
+        "<new-arpa> <feats-rspec> <words-wspec>")
+    po.register("beam", float, 13.0, "decoding beam")
+    po.register("max-active", int, 7000, "max active tokens")
+    po.register("acoustic-scale", float, 0.1, "acoustic scale")
+    po.register("word-symbol-table", str, "", "words.txt (REQUIRED)")
+    _device_po(po)
+    args = po.read(argv)
+    if len(args) != 6 or not po["word-symbol-table"]:
+        po.print_usage()
+        return 1
+    tm, am = read_mdl(args[0], device=resolve_device(po["device"]))
+    HCLG = _load_hclg(args[1])
+    old_lm = ArpaModel.parse(args[2])
+    new_lm = ArpaModel.parse(args[3])
+    words = SymbolTable.read(po["word-symbol-table"])
+    dec = BiglmFasterDecoder(
+        HCLG, tm.tid_to_pdf_array, old_lm.score, new_lm.score, words,
+        BiglmDecoderConfig(beam=po["beam"], max_active=po["max-active"],
+                           acoustic_scale=po["acoustic-scale"],
+                           history_len=max(new_lm.order - 1, 1)))
+    n = 0
+    with TableWriter(args[5], holder="text") as w:
+        for key, feats in SequentialTableReader(args[4], holder="mat"):
+            ll = am.loglikes(np.asarray(feats, np.float32)).cpu().numpy()
+            _, ols, cost = dec.decode(ll)
+            text = [words.find(o) for o in ols]
+            w[key] = text
+            log.info("%s: %s (cost %.2f)", key, " ".join(text), cost)
+            n += 1
+    log.info("decoded %d utterances with big-LM composition; GMM kernel "
+             "launches %d", n, am.device_params().launches)
     return 0

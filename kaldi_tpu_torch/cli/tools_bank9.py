@@ -1,7 +1,10 @@
-"""Port of kaldi_tpu/cli/tools_bank9.py convert-ali, acc-lda, est-lda,
-gmm-acc-mllt and est-mllt (parity targets bin/convert-ali.cc,
-acc-lda.cc, est-lda.cc, gmm-acc-mllt.cc, est-mllt.cc), registered in
-cli/tools.py's ``TOOLS``.
+"""Port of kaldi_tpu/cli/tools_bank9.py convert-ali, gmm-decode-faster,
+acc-lda, est-lda, gmm-acc-mllt and est-mllt (parity targets
+bin/convert-ali.cc, gmmbin/gmm-decode-faster.cc, bin/acc-lda.cc,
+est-lda.cc, gmmbin/gmm-acc-mllt.cc, bin/est-mllt.cc), registered in
+cli/tools.py's ``TOOLS``.  gmm-decode-faster takes ``--device`` (default
+cuda): the GMM log-likelihoods (the GMM kernel on a card) and the dense
+decoder's Viterbi run there.
 
 convert-ali, the LDA statistics and both estimators are the original's
 host numpy, copied, and take no ``--device``.  gmm-acc-mllt takes
@@ -53,6 +56,51 @@ def convert_ali(argv):
                 np.int32)
             n += 1
     log.info("convert-ali: converted %d alignments", n)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank9.py gmm_decode_faster.
+@tool("gmm-decode-faster")
+def gmm_decode_faster(argv):
+    """Best-path GMM decoding, words + alignment out (no lattice)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _load_hclg
+    from kaldi_tpu_torch.decoder.dense import (DenseDecoder,
+                                               DenseDecoderConfig)
+    po = ParseOptions("gmm-decode-faster [opts] <model> <fst> "
+                      "<feats-rspec> <words-wspec> [<ali-wspec>]")
+    po.register("beam", float, 16.0, "decoding beam")
+    po.register("acoustic-scale", float, 0.1, "acoustic scale")
+    po.register("word-symbol-table", str, "", "words.txt")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    tm, am = read_mdl(args[0], device=device)
+    fst = _load_hclg(args[1])
+    dec = DenseDecoder(fst, tm.tid_to_pdf_array,
+                       DenseDecoderConfig(beam=po["beam"],
+                                          acoustic_scale=po["acoustic-scale"]),
+                       device=device)
+    words_tab = None
+    if po["word-symbol-table"]:
+        from kaldi_tpu_torch.fst.fst import SymbolTable
+        words_tab = SymbolTable.read(po["word-symbol-table"])
+    awriter = (TableWriter(args[4], holder="ivec")
+               if len(args) > 4 else None)
+    n = 0
+    with TableWriter(args[3], holder="text") as ww:
+        for key, feats in SequentialTableReader(args[2], holder="mat"):
+            tids, ols, cost = dec.decode(
+                am.loglikes(np.asarray(feats, np.float32)))
+            ww[key] = [words_tab.find(o) if words_tab else str(o)
+                       for o in ols]
+            if awriter:
+                awriter[key] = np.asarray(tids, np.int32)
+            n += 1
+    if awriter:
+        awriter.close()
+    log.info("gmm-decode-faster: decoded %d utterances; GMM kernel "
+             "launches %d", n, am.device_params().launches)
     return 0
 
 

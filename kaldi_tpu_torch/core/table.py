@@ -1,8 +1,7 @@
 # Copied from kaldi_tpu/core/table.py; imports rewritten to kaldi_tpu_torch.
-# The chain and xent egs holders (ceg, xeg) read and write the port's
-# pipelines/egs_io.py; the other training-example holders (deg, dteg)
-# are left out until their trainers are ported: asking for one raises
-# KaldiError.
+# The chain, xent and discriminative egs holders (ceg, xeg, deg) read and
+# write the port's pipelines/egs_io.py; the dense-target holder (dteg) is
+# left out until its trainer is ported: asking for it raises KaldiError.
 """Ark/scp table I/O.
 
 Parity target: src/util/kaldi-table.h — SequentialTableReader,
@@ -36,7 +35,7 @@ from kaldi_tpu_torch.core import io as kio
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 
 # holders of the original whose training pipelines are not ported yet
-_TRAINING_HOLDERS = ("deg", "dteg")
+_TRAINING_HOLDERS = ("dteg",)
 
 log = get_logger(__name__)
 
@@ -160,6 +159,10 @@ class _Holders:
             from kaldi_tpu_torch.pipelines.egs_io import write_xent_eg
             kio.init_kaldi_output_stream(f)
             write_xent_eg(f, value)
+        elif holder == "deg":
+            from kaldi_tpu_torch.pipelines.egs_io import write_disc_eg
+            kio.init_kaldi_output_stream(f)
+            write_disc_eg(f, value)
         elif holder in _TRAINING_HOLDERS:
             raise KaldiError(f"holder '{holder}' is not ported")
         elif holder == "post":
@@ -198,6 +201,9 @@ class _Holders:
         if holder == "xeg":
             from kaldi_tpu_torch.pipelines.egs_io import read_xent_eg
             return read_xent_eg(f)
+        if holder == "deg":
+            from kaldi_tpu_torch.pipelines.egs_io import read_disc_eg
+            return read_disc_eg(f)
         if holder in _TRAINING_HOLDERS:
             raise KaldiError(f"holder '{holder}' is not ported")
         if holder == "mat":

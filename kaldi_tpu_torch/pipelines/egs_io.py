@@ -10,8 +10,10 @@ normalization weights, and optionally a whole supervision FSA
 (lattice-derived or end-to-end, am/chain_supervision.py; the wire format
 carries no phone array, so an FSA read back has ``phone=None``, as in
 the original).  ``XentEg`` (holder ``xeg``) is the cross-entropy egs'
-entry, the x-vector egs' too; the dense and discriminative egs wait
-for their trainers.
+entry, the x-vector egs' too.  ``DiscEg`` (holder ``deg``) is the
+discriminative (sequence-training) egs' entry, written through the
+original's ``write_pytree`` format; the dense-target egs wait for their
+trainer.
 """
 
 from __future__ import annotations
@@ -273,3 +275,53 @@ def read_xent_eg(f) -> XentEg:
     pdfs = np.asarray(kio.read_int_vector(f), np.int32)
     kio.expect_token(f, "</XentEg>")
     return XentEg(feats.reshape(B, T, -1), pdfs.reshape(B, T))
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py DiscEg.
+@dataclasses.dataclass
+class DiscEg:
+    """One discriminative (sequence-training) example: an utterance's
+    feats + numerator pdf alignment + its DENSE denominator lattice
+    (nnet3/nnet-discriminative-example.h NnetDiscriminativeExample
+    role; the lattice is stored pre-compiled to the padded
+    time-synchronous arrays am/discriminative.DenseLattice trains
+    on)."""
+    feats: np.ndarray            # (T, D) f32
+    num_ali: np.ndarray          # (T,) i32
+    src: np.ndarray              # (T, A) i32
+    dst: np.ndarray              # (T, A) i32
+    pdf: np.ndarray              # (T, A) i32
+    w: np.ndarray                # (T, A) f32
+    mask: np.ndarray             # (T, A) f32
+    final: np.ndarray            # (K,) f32
+
+    def dense_lattice(self):
+        from kaldi_tpu_torch.am.discriminative import DenseLattice
+        return DenseLattice(src=self.src, dst=self.dst, pdf=self.pdf,
+                            w=self.w, mask=self.mask, final=self.final,
+                            num_states=None)
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py write_disc_eg.
+def write_disc_eg(f, eg: DiscEg) -> None:
+    from kaldi_tpu_torch.am.serialize import write_pytree
+    kio.write_token(f, "<DiscEg>")
+    write_pytree(f, {
+        "feats": np.asarray(eg.feats, np.float32),
+        "num_ali": np.asarray(eg.num_ali, np.int32),
+        "src": np.asarray(eg.src, np.int32),
+        "dst": np.asarray(eg.dst, np.int32),
+        "pdf": np.asarray(eg.pdf, np.int32),
+        "w": np.asarray(eg.w, np.float32),
+        "mask": np.asarray(eg.mask, np.float32),
+        "final": np.asarray(eg.final, np.float32)})
+    kio.write_token(f, "</DiscEg>")
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py read_disc_eg.
+def read_disc_eg(f) -> DiscEg:
+    from kaldi_tpu_torch.am.serialize import read_pytree
+    kio.expect_token(f, "<DiscEg>")
+    d = read_pytree(f)
+    kio.expect_token(f, "</DiscEg>")
+    return DiscEg(**d)

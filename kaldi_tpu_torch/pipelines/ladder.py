@@ -40,10 +40,12 @@ from kaldi_tpu_torch.pipelines.score import compute_wer, wilson_interval
 log = get_logger(__name__)
 
 
-# Port of kaldi_tpu/pipelines/ladder.py chain_stage (+ device, stats).
+# Port of kaldi_tpu/pipelines/ladder.py chain_stage (+ device, stats,
+# keep).
 def chain_stage(sysd: Dict, order: int, num_epochs: int = 40,
                 hidden: int = 96, seed: int = 0,
-                device: torch.device | str = "cuda", stats=None):
+                device: torch.device | str = "cuda", stats=None,
+                keep=None):
     """Train + decode an LF-MMI TDNN on the ladder's data, with an
     order-`order` denominator phone LM, on ``device``.
 
@@ -53,7 +55,9 @@ def chain_stage(sysd: Dict, order: int, num_epochs: int = 40,
     best front-end (steps/nnet3/chain/get_egs.sh uses tri3b lats;
     test-side transforms come from the GMM first pass, the
     decode_fmllr.sh contract).  ``stats``, a dict, receives the final
-    training step's diagnostics."""
+    training step's diagnostics; ``keep``, a dict, the trained model
+    (``model``, ``config``), the chain transition model (``tm``) and the
+    decoding graph (``HCLG``)."""
     device = resolve_device(device)
     lang = sysd["lang"]
     test = sysd["test"]
@@ -85,6 +89,8 @@ def chain_stage(sysd: Dict, order: int, num_epochs: int = 40,
 
     tm_chain = TransitionModel(chain_topo, chain_tree)
     HCLG = mkgraph(lang, tm_chain, sysd["G"], self_loop_scale=1.0)
+    if keep is not None:
+        keep.update(model=trainer.model, config=cfg, tm=tm_chain, HCLG=HCLG)
     dec = DenseDecoder(HCLG, tm_chain.tid_to_pdf_array,
                        DenseDecoderConfig(beam=16.0, acoustic_scale=1.0),
                        device=device)

@@ -134,13 +134,16 @@ def graph_ms(fn) -> float:
     return ms
 
 
-def profiled(fn):
+def profiled(fn, cpu_ops: bool = True):
     """Run ``fn`` (which ends in a device synchronisation) under
     torch.profiler → (wall ms, CUDA kernels launched, their device ms,
-    the profile)."""
+    the profile).  ``cpu_ops=False`` records the card's activity alone:
+    for windows of many thousand launches, whose host operator events
+    take the profiler seconds to record and parse."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         wall = (time.perf_counter() - t0) * 1e3

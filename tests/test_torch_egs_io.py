@@ -134,7 +134,7 @@ def test_supervision_fsas_are_not_ported(tmp_path):
         assert a.read() == b.read()
     eg = teio.egs_to_list(teio.read_egs_ark(f"ark:{tmp_path}/jax.ark"))[0]
     with pytest.raises(KaldiError, match="not ported"):
-        with TableWriter(f"ark:{tmp_path}/x.ark", holder="deg") as w:
+        with TableWriter(f"ark:{tmp_path}/x.ark", holder="dteg") as w:
             w["a"] = eg
 
 

@@ -326,3 +326,25 @@ def test_sum_by_pdf_equals_index_add(shape):
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.equal(got, want)
     assert not got[[2, 4]].any()
+
+
+@pytest.mark.parametrize("threads", [2, 4])
+def test_sum_by_pdf_is_one_order_on_many_threads(threads):
+    """On the CPU with more than one torch thread, ``_sum_by_pdf`` gives
+    the same bits every run, equal to its one-thread sums: the CPU's
+    ``index_put_`` accumulate adds a large float32 tensor's frames with
+    atomics from every thread, and the yesno training run on the CPU
+    then ended at another loglike per frame each run."""
+    rng = np.random.default_rng(8)
+    T, P = 4000, 7
+    pdfs = torch.from_numpy(rng.integers(0, P, T).astype(np.int64))
+    t = torch.from_numpy(rng.standard_normal((T, 6, 13)).astype(
+        np.float32))
+    one = tgmm._sum_by_pdf(t, pdfs, P)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        runs = [tgmm._sum_by_pdf(t, pdfs, P) for _ in range(4)]
+    finally:
+        torch.set_num_threads(before)
+    assert all(torch.equal(r, one) for r in runs)

@@ -79,7 +79,8 @@ COPIED = {
     "features/pitch.py", "features/resample.py", "pipelines/data.py",
     "fst/context.py", "lattice/functions.py", "decoder/training_graph.py",
     "lattice/rescore.py", "lattice/ops.py", "lattice/word_align.py",
-    "lattice/phone_align.py", "lattice/ctm.py", "pipelines/datadir.py"}
+    "lattice/phone_align.py", "lattice/ctm.py", "pipelines/datadir.py",
+    "decoder/simple.py", "decoder/biglm.py", "fst/grammar.py", "kws.py"}
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -510,3 +511,94 @@ def test_chip_smoke_main_binds_the_device_kind_once():
               if isinstance(n, ast.Name) and n.id == "kind"
               and isinstance(n.ctx, ast.Store)]
     assert len(stores) == 1, stores
+
+
+# the sequence-training modules and the tool banks of the host decoders,
+# grammars, keyword search and sequence training: each names its original
+# on line 1, and each marked function or class names one of the original
+SEQ_PORTS = {"am/discriminative.py": "am/discriminative.py",
+             "pipelines/discriminative.py": "pipelines/discriminative.py",
+             **{f"cli/tools_bank{n}.py": f"cli/tools_bank{n}.py"
+                for n in (4, 16, 17, 21, 23, 24, 27, 28, 29, 30)}}
+
+
+@pytest.mark.parametrize("rel", sorted(SEQ_PORTS))
+def test_sequence_slice_modules_name_their_originals(rel):
+    orig = SEQ_PORTS[rel]
+    with open(os.path.join(REPO, "kaldi_tpu_torch", rel)) as f:
+        lines = f.read().splitlines()
+    assert f"kaldi_tpu/{orig}" in lines[0], lines[0]
+    with open(os.path.join(REPO, "kaldi_tpu", orig)) as f:
+        names = {n.name for n in ast.walk(ast.parse(f.read()))
+                 if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    marked = [ln.split()[-1].rstrip(".") for ln in lines[1:]
+              if ln.startswith((f"# Copied from kaldi_tpu/{orig} ",
+                                f"# Port of kaldi_tpu/{orig} "))]
+    assert marked and all(n in names for n in marked), marked
+
+
+# the tools of the host decoders, grammars and sequence training that
+# compute with tensors, each with an argument list it never reads
+SEQ_CARD_TOOLS = {
+    "gmm-latgen-biglm-faster": ["--word-symbol-table=w"] + ["x"] * 6,
+    "gmm-decode-biglm-faster": ["--word-symbol-table=w"] + ["x"] * 6,
+    "gmm-latgen-simple": ["x"] * 4, "gmm-decode-simple": ["x"] * 4,
+    "gmm-decode-faster": ["x"] * 4, "decode-faster": ["x"] * 3,
+    "decode-faster-mapped": ["x"] * 4,
+    "nnet3-latgen-grammar": ["x"] * 7,
+    "online2-wav-nnet3-latgen-grammar": ["x"] * 7,
+    "nnet3-discriminative-train": ["x"] * 3,
+    "nnet3-discriminative-compute-objf": ["x"] * 2,
+    "nnet3-discriminative-compute-from-egs": ["x"] * 3}
+
+
+@pytest.mark.parametrize("name", sorted(SEQ_CARD_TOOLS))
+def test_sequence_slice_tools_default_to_the_card(name, monkeypatch):
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.core.logging import KaldiError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KaldiError, match="no CUDA card"):
+        TOOLS[name]([a.replace("x", f"never.read.{i}") if a == "x" else a
+                     for i, a in enumerate(SEQ_CARD_TOOLS[name])])
+
+
+def test_sequence_entry_points_default_to_the_card(monkeypatch):
+    """The sequence objectives run where their scores are; the trainer's
+    tensors where the XentTrainer is, on the card by default."""
+    import inspect
+    from kaldi_tpu_torch.core.logging import KaldiError
+    from kaldi_tpu_torch.pipelines.nnet import XentTrainer
+    from kaldi_tpu_torch.am.tdnn import TdnnConfig
+    assert inspect.signature(XentTrainer).parameters["device"].default \
+        == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KaldiError, match="no CUDA card"):
+        XentTrainer(TdnnConfig(frame_subsampling_factor=1))
+
+
+def test_dteg_holder_still_raises_and_deg_reads(tmp_path):
+    """``deg`` (DiscEg) is ported: an archive round-trips; ``dteg`` waits
+    for its trainer and raises on write and read."""
+    from kaldi_tpu_torch.core.logging import KaldiError
+    from kaldi_tpu_torch.core.table import (SequentialTableReader,
+                                            TableWriter)
+    from kaldi_tpu_torch.pipelines.egs_io import DiscEg
+    eg = DiscEg(feats=np.ones((2, 3), np.float32),
+                num_ali=np.array([1, 2], np.int32),
+                src=np.zeros((2, 1), np.int32),
+                dst=np.zeros((2, 1), np.int32),
+                pdf=np.array([[1], [2]], np.int32),
+                w=np.zeros((2, 1), np.float32),
+                mask=np.ones((2, 1), np.float32),
+                final=np.zeros(1, np.float32))
+    with TableWriter(f"ark:{tmp_path}/d.ark", holder="deg") as w:
+        w["u"] = eg
+    (key, back), = SequentialTableReader(f"ark:{tmp_path}/d.ark",
+                                         holder="deg")
+    assert key == "u"
+    np.testing.assert_array_equal(back.pdf, eg.pdf)
+    with pytest.raises(KaldiError, match="not ported"):
+        with TableWriter(f"ark:{tmp_path}/x.ark", holder="dteg") as w:
+            w["a"] = eg
+    with pytest.raises(KaldiError, match="not ported"):
+        list(SequentialTableReader(f"ark:{tmp_path}/d.ark", holder="dteg"))
