@@ -4396,6 +4396,12 @@ POD_B = 128                # 16c's global batch (8b's egs and TDNN-F)
 POD_STEPS = 10             # 16c's steps; the first is held to one process
 POD_TIMEOUT = 240          # each rank's rendezvous, collectives and wait
 POD_DIR = os.path.join("build", "chip_smoke_pod")
+# 16d: tensor parallelism on one card (2 ranks on gloo sharing it; NCCL
+# cannot put two ranks on one card): B, steps, and the bar of step 1
+# against one process (16c's)
+TP_B = 32
+TP_STEPS = 4
+TP_TOL = 1e-4
 
 
 def pod_layout(dev_type: str = "cuda"):
@@ -4562,11 +4568,110 @@ def pod_worker(argv) -> int:
         out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
         out["allreduce_mb"] = flat.numel() * 4 / 2 ** 20
         dist.barrier()
+        del tr, flat
+        # 16d: ChainTrainer(mesh=make_mesh(data, model)) on each layout
+        out["tp"] = {f"{a}x{b}": pod_tp_layout(inp, egs, a, b, pid, d, dev)
+                     for a, b in inp["tp_layouts"]}
     finally:
         distributed.shutdown()
     with open(os.path.join(d, f"out.{pid}.pkl"), "wb") as f:
         pickle.dump(out, f)
     return 0
+
+
+def _replicated_digest(model) -> str:
+    """sha256 of the tensors every rank holds whole (the () tensors of a
+    model sharded over a model axis)."""
+    import hashlib
+    shards = getattr(model, "tp_shards", {})
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        if k not in shards:
+            h.update(k.encode())
+            h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pod_tp_layout(inp, egs, data: int, model: int, pid: int, d: str,
+                  dev) -> dict:
+    """16d on one rank: ChainTrainer(mesh=make_mesh(data, model)) at
+    ``tp_B`` for ``tp_steps`` NG-SGD steps from SEED's weights; rank 0
+    writes step 1's whole tensors (gathered) for the parent; then one
+    step more with every collective (torch.distributed's all_reduce and
+    all_gather, each between two synchronizes) timed.  → the digests of
+    the replicated tensors after step 1 and the last, walls, the
+    collectives' count, MiB and ms in that step, the den launches and
+    the parameter and optimizer-state bytes this rank holds against the
+    whole model's."""
+    import torch.distributed as dist
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
+    from kaldi_tpu_torch.parallel import make_mesh
+    from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
+    mesh = make_mesh(data, model)
+    B, steps = inp["tp_B"], inp["tp_steps"]
+    tr = ChainTrainer(tdnn_config(inp["P"], **inp["width"]), inp["den"],
+                      ChainTrainConfig(batch_size=B, optimizer="ngsgd",
+                                       total_steps=0), seed=SEED, mesh=mesh)
+    N = egs.feats.shape[0]
+    batches = [tr.batches(egs, (np.arange(B) + i * B) % N) for i in range(4)]
+    r = {"param_bytes": sum(p.numel() * p.element_size()
+                            for p in tr.model.parameters())}
+    CudaChainDen.total_launches = 0
+    tr._step(*batches[0])
+    full = tr.state_dict()
+    if pid == 0:
+        torch.save({k: v.cpu() for k, v in full.items()},
+                   os.path.join(d, f"tp_{data}x{model}.pt"))
+    r["full_bytes"] = sum(full[k].numel() * full[k].element_size()
+                          for k, _ in tr.model.named_parameters())
+    r["opt_bytes"] = tr.opt.state_bytes()
+    r["full_opt_bytes"] = tr.opt.state_bytes(whole=True)
+    del full
+    r["digest1"] = _replicated_digest(tr.model)
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    objf = []
+    for i in range(1, steps):
+        loss, diag = tr._step(*batches[i % 4])
+        objf.append(float(diag["objf"]))
+    _sync(dev)
+    r["train_wall"] = time.perf_counter() - t0
+    dist.barrier()
+    r["train_all_wall"] = time.perf_counter() - t0
+    coll = {"n": 0, "mb": 0.0, "ms": 0.0}
+    orig = {name: getattr(dist, name) for name in ("all_reduce",
+                                                   "all_gather")}
+
+    def timed(name):
+        def call(*a, **kw):
+            t = a[0] if name == "all_reduce" else a[1]
+            _sync(dev)
+            t1 = time.perf_counter()
+            res = orig[name](*a, **kw)
+            _sync(dev)
+            coll["ms"] += (time.perf_counter() - t1) * 1e3
+            coll["n"] += 1
+            coll["mb"] += t.numel() * t.element_size() / 2 ** 20
+            return res
+        return call
+    for name in orig:
+        setattr(dist, name, timed(name))
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        tr._step(*batches[steps % 4])
+        _sync(dev)
+        r["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
+    r["coll"] = coll
+    r["den_launches"] = CudaChainDen.total_launches
+    r["loss"], r["objf"] = float(loss), objf
+    r["digest"] = _replicated_digest(tr.model)
+    dist.barrier()
+    return r
 
 
 def pod_worker_main_start(dev, n: int, backend: str, d: str):
@@ -4623,7 +4728,8 @@ def pod_worker_main_finish(dev, n: int, backend: str, d: str, started,
 
 def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
               den, egs, P: int, xc_rate, tag: str,
-              B: int = POD_B, steps: int = POD_STEPS, **width):
+              B: int = POD_B, steps: int = POD_STEPS, tp_layouts=None,
+              tp_B: int = TP_B, tp_steps: int = TP_STEPS, **width):
     """16: N = max(2, cards) ranks, each a process.  16a the port's
     distributed worker; 16b phase 4's batch by decode_compact_local, each
     utterance's best path equal to phase 4's (words exactly, cost within
@@ -4631,8 +4737,14 @@ def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
     ChainTrainer(mesh=) at B (B / N a rank) for ``steps`` steps, the
     ranks' weights equal to the bit after the first and the last, the
     first step equal to one process's within 1e-4 of each tensor's
-    largest, Mframes/s over the wall.  → the den kernels' launches over
-    every rank (16a's step and 16c's training)."""
+    largest, Mframes/s over the wall; 16d ChainTrainer(mesh=make_mesh(
+    data, model)) on each of ``tp_layouts`` (default (1, N): tensor
+    parallelism over every rank) at ``tp_B`` for ``tp_steps`` steps,
+    step 1's whole tensors within TP_TOL of one process's, the
+    replicated tensors equal to the bit on every rank, Mframes/s, the
+    collectives' count, MiB and ms in a step, each rank's parameter
+    bytes against the whole model's.  → the den kernels' launches over
+    every rank (16a's step, 16c's and 16d's training)."""
     import dataclasses
     import pickle
     import shutil
@@ -4640,6 +4752,7 @@ def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
     from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
     n, backend = pod_layout(dev.type)
     B -= B % n                          # 16c's batch divides over the ranks
+    tp_layouts = list(tp_layouts or [(1, n)])
     if dev.type == "cuda":
         torch.cuda.empty_cache()        # the ranks share this card
     shutil.rmtree(POD_DIR, ignore_errors=True)
@@ -4654,7 +4767,8 @@ def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
     with open(os.path.join(POD_DIR, "inputs.pkl"), "wb") as f:
         pickle.dump(dict(tid_to_pdf=tid_to_pdf, cfg=dataclasses.asdict(cfg),
                          X=X, lens=lens, P=P, den=den, B=B, steps=steps,
-                         width=width,
+                         width=width, tp_layouts=tp_layouts, tp_B=tp_B,
+                         tp_steps=tp_steps,
                          egs={k: getattr(egs, k) for k in eg_fields}), f)
     # one process's first step on 16c's first batch, from the same seed
     tr = ChainTrainer(tdnn_config(P, **width), den,
@@ -4663,6 +4777,17 @@ def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
     tr._step(*tr.batches(egs, np.arange(B) % egs.feats.shape[0]))
     single = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
     del tr
+    # and 16d's, at its batch
+    tp_single = single
+    if tp_B != B:
+        tr = ChainTrainer(tdnn_config(P, **width), den,
+                          ChainTrainConfig(batch_size=tp_B, optimizer="ngsgd",
+                                           total_steps=0), seed=SEED,
+                          device=dev)
+        tr._step(*tr.batches(egs, np.arange(tp_B) % egs.feats.shape[0]))
+        tp_single = {k: v.detach().cpu()
+                     for k, v in tr.model.state_dict().items()}
+        del tr
     if dev.type == "cuda":
         torch.cuda.empty_cache()        # the ranks share this card
     a_launches = pod_worker_main_finish(dev, n, backend, POD_DIR, started,
@@ -4749,7 +4874,58 @@ def pod_phase(dev, csr, tid_to_pdf, cfg, X, lens, best, p4_rate: float,
                              "checks")
     if dev.type == "cuda" and launches <= 0:
         raise AssertionError("16c: the training launched no den kernel")
-    return a_launches + launches
+    return a_launches + launches + pod_tp_check(r, tp_layouts, tp_single,
+                                                tp_B, tp_steps, egs, backend,
+                                                dev, tag)
+
+
+def pod_tp_check(r, layouts, single, B: int, steps: int, egs, backend,
+                 dev, tag: str) -> int:
+    """16d's checks on what the ranks wrote.  → its den launches."""
+    launches = 0
+    for data, model in layouts:
+        key = f"{data}x{model}"
+        x = [y["tp"][key] for y in r]
+        got = torch.load(os.path.join(POD_DIR, f"tp_{key}.pt"),
+                         weights_only=True)
+        rel, worst_k = max((float((got[k] - single[k]).abs().max()
+                                  / max(float(single[k].abs().max()),
+                                        1e-12)), k) for k in single)
+        same1 = len({y["digest1"] for y in x}) == 1
+        same = len({y["digest"] for y in x}) == 1
+        wall = max(y["train_all_wall"] for y in x)
+        rate = B * egs.feats.shape[1] * (steps - 1) / wall / 1e6
+        coll = x[0]["coll"]
+        n_den = sum(y["den_launches"] for y in x)
+        launches += n_den
+        print(f"pod: 16d: ChainTrainer(mesh=make_mesh({data}, {model})) "
+              f"NG-SGD float32 at B={B} ({backend}) for {steps} steps: step 1"
+              f" against one process's: {rel:.2e} of each tensor's largest "
+              f"({worst_k}; limit {TP_TOL:g}); replicated tensors equal on "
+              f"every rank to the bit after step 1: {same1}, after step "
+              f"{steps}: {same}; steps 2-{steps} "
+              f"{1e3 * wall / (steps - 1):.1f} ms a step = {rate:.4f} "
+              f"Mframes/s aggregate; one step with its collectives timed "
+              f"{x[0]['timed_step_ms']:.1f} ms, of it {coll['n']} "
+              f"collectives of {coll['mb']:.1f} MiB in {coll['ms']:.1f} ms "
+              f"(rank 0); parameters a rank "
+              f"{x[0]['param_bytes'] / 2 ** 20:.2f} MiB of the whole model's "
+              f"{x[0]['full_bytes'] / 2 ** 20:.2f}, optimizer state a rank "
+              f"{x[0]['opt_bytes'] / 2 ** 20:.2f} MiB of the whole model's "
+              f"{x[0]['full_opt_bytes'] / 2 ** 20:.2f}; loss "
+              f"{x[0]['loss']:.4f}; "
+              f"den kernel launches {n_den} {tag}")
+        if not (same1 and same and rel <= TP_TOL
+                and all(math.isfinite(v) for v in x[0]["objf"])
+                and math.isfinite(x[0]["loss"])):
+            raise AssertionError(f"16d: the {key} trainer failed its checks")
+        if model > 1 and not (x[0]["param_bytes"] < x[0]["full_bytes"] and
+                              x[0]["opt_bytes"] < x[0]["full_opt_bytes"]):
+            raise AssertionError(f"16d: {key}: a rank holds the whole model "
+                                 f"or its whole optimizer state")
+        if dev.type == "cuda" and n_den <= 0:
+            raise AssertionError(f"16d: {key} launched no den kernel")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6985,6 +7161,8 @@ def main() -> int:
         atexit.register(_stop, tri[0])
         seq = seq_tools_start(dev, msys)
         atexit.register(_stop, seq[0])
+        loop = chain_loop_start(dev)
+        atexit.register(_stop, loop[0])
         tri3b_training(dev, task300, tag)
         tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
     finally:
@@ -7057,6 +7235,8 @@ def main() -> int:
     seq_chain_ready(seq, keep)
     del keep
     seq_gmm, seq_fb, seq_den = seq_tools_finish(seq, tag)
+    # 19. the chain training loop's tools (in the background since 10b)
+    loop_den = chain_loop_finish(loop, tag)
     t1 = time.perf_counter()
     hard_corpus(dev, tag)
     print(f"hard: 11b took {time.perf_counter() - t1:.1f} s; phases 11 and "
@@ -7167,7 +7347,7 @@ def main() -> int:
         "note": "replaces an XLA program (lax.scan + jax.grad), not a "
                 "Pallas kernel; forward and backward kernels, ms for both",
         "launches": den_launches + f_den + lat_den + xc_den + pod_den
-        + ladder_den + seq_den,
+        + ladder_den + seq_den + loop_den,
         "max_abs_err": max(den_err, f_den_err),
         "ms": den_ms, "plain_ms": den_plain_ms,
         "bound_ms": den_bnd[0], "bound_by": den_bnd[1],
@@ -7176,6 +7356,428 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# 19. Kaldi's chain training loop (steps/nnet3/chain/train.py) as tools, on
+# 8c's files: subsets, two parallel jobs, average, combine, posteriors,
+# priors and progress
+# ---------------------------------------------------------------------------
+
+LOOP_DIR = os.path.join("build", "chip_smoke_chain_loop")
+LOOP_EGS = 16              # egs a job's subset (one step of B = 16)
+LOOP_COMBINE_ITERS = 10    # nnet3-chain-combine's Adam steps (the tool's 30)
+LOOP_POST_UTTS = 4         # utterances through nnet3-chain-compute-post
+# 19's bars, tool against library on the same files on the card.  The
+# den kernel sums with atomics, so two runs' gradients differ in their
+# last bits, and AdamW's first step (lr·g/(|g| + eps) an entry, ±lr
+# where |g| ≫ eps) hides a gradient's size:
+#  * nnet3-chain-train: the step's loss and objf within LOOP_LOSS_TOL
+#    of the library's (of the larger of its size and 1: a loss near 0 is
+#    a difference of the numerator's and the den's log-probabilities,
+#    each ~1 a frame, in float32; it reads the den), the share of entries
+#    off by more than lr/1000 at most LOOP_TRAIN_OFF (a wrong gradient's
+#    signs; the sound runs read 0.0058-0.0061%, a tool that never trains
+#    ~100%), and no entry off by more than 2·lr (one whose gradient sign
+#    rides on the atomics);
+#  * nnet3-chain-combine: Adam's trajectory near the optimum turns the
+#    atomics' last bits into ~1e-3 of weight (0.936675 against the
+#    library's own 0.933047 in one run, NVIDIA H100 80GB HBM3, 700.00 W,
+#    their first iterations 2.5e-05 apart), so the library replays the
+#    tool's logged gradients: at each
+#    of the tool's LOOP_COMBINE_ITERS points its loss within
+#    LOOP_LOSS_TOL and its gradient on the logits within LOOP_GRAD_TOL of
+#    the first iteration's largest (which Adam's normalisation does not
+#    hide), the replayed weight within LOOP_WEIGHT_TOL of the tool's
+#    (recovered from its model by least squares), and the tool's model
+#    within LOOP_MIX_TOL of each tensor's largest from that mix of its
+#    inputs.
+# A faulty control must fail these gates, or the phase fails: the
+# library with the den's leaky-HMM coefficient at LOOP_CONTROL_LEAKY
+# (ChainTrainingOptions' is 0.1), and for nnet3-chain-train also the
+# untrained model.
+LOOP_LOSS_TOL = 1e-5
+LOOP_TRAIN_OFF = 1e-3
+LOOP_TRAIN_TOL = 2 * CLI_LR
+LOOP_GRAD_TOL = 1e-3
+LOOP_WEIGHT_TOL = 1e-4
+LOOP_MIX_TOL = 1e-5
+LOOP_CONTROL_LEAKY = 0.2
+LOOP_POST_TOL = 1e-5       # posteriors = the library's, absolute
+
+
+def chain_loop_start(dev):
+    """19, started: ``python3 chip_smoke.py --chain-loop <8c's dir>
+    <dir> <device>`` (``chain_loop_worker``) in the background.  →
+    (process, dir, start time)."""
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, LOOP_DIR)
+    os.makedirs(d, exist_ok=True)
+    if os.path.exists(f"{d}/report.json"):
+        os.remove(f"{d}/report.json")
+    out = open(f"{d}/worker.out", "w")
+    err = open(f"{d}/worker.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--chain-loop",
+         os.path.join(repo, "build", "chip_smoke_chain"), d, dev.type],
+        cwd=repo, stdout=out, stderr=err,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    out.close()
+    err.close()
+    return proc, d, time.perf_counter()
+
+
+def _rel_sd(got, want) -> float:
+    """The largest |got − want| of each tensor over its largest |want|,
+    over the state dict."""
+    return max(float((got[k].float().cpu() - want[k].float().cpu())
+                     .abs().max()) / max(float(want[k].abs().max()), 1e-12)
+               for k in want)
+
+
+def chain_loop_worker(argv) -> int:
+    """19's background process: train.py's loop as calls of the port's
+    registry in this process on 8c's model, phone sequences and egs
+    (``<src>``), each held against its library call on the same card:
+    nnet3-chain-make-den-fst; nnet3-chain-subset-egs for two jobs'
+    subsets and a validation subset; nnet3-chain-train on each job's
+    subset (one epoch); nnet3-average of the two; nnet3-chain-combine of
+    the two on the validation subset; nnet3-chain-compute-post of the
+    combined model; nnet3-am-adjust-priors on its .mdl (8c's transition
+    model and the combined nnet, as nnet3-am-init joins them) with the
+    egs' pdf counts; nnet3-am-copy --raw; nnet3-show-progress from 8c's
+    model to the combined one.  The den kernel's count is set to 0
+    before each tool call and read after it.  Writes ``report.json``
+    (checks, walls, numbers, each tool's den launches); exits 1 if a
+    check fails."""
+    import ast
+    import contextlib
+    import io
+    import logging
+    import re
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from kaldi_tpu_torch.am.chain import (ChainTrainingOptions,
+                                          make_denominator_graph,
+                                          read_denominator_graph)
+    from kaldi_tpu_torch.am.nnet3_io import (infer_tdnn_config,
+                                             nnet3_to_state_dict,
+                                             read_nnet3_path)
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.am.tdnn import TdnnChain, params_to_flax
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.cli.tools_bank23 import (_split_mdl,
+                                                  _write_mdl_blobs)
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import (SequentialTableReader,
+                                            TableWriter)
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
+    from kaldi_tpu_torch.pipelines.chain import (ChainEgs, ChainTrainConfig,
+                                                 ChainTrainer,
+                                                 combine_models)
+    from kaldi_tpu_torch.pipelines.egs_io import read_egs_ark
+    t_start = time.perf_counter()
+    src, d, dv = argv[0], argv[1], argv[2]
+    dev = torch.device(dv, 0) if dv == "cuda" else torch.device(dv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    calls, checks, walls, den_launches, rep = [], [], {}, {}, {}
+
+    class Logged(logging.Handler):
+        def emit(self, record):
+            logs.append(record.getMessage())
+
+    logs = []
+    logging.getLogger("kaldi_tpu_torch").addHandler(Logged())
+
+    def T(name, *args):
+        """Run tool ``name`` → (its stdout, its log messages)."""
+        args = [str(a) for a in args]
+        buf = io.StringIO()
+        logs.clear()
+        CudaChainDen.total_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = TOOLS[name](args)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        den_launches[name] = (den_launches.get(name, 0)
+                              + CudaChainDen.total_launches)
+        if rc:
+            raise AssertionError(f"{name} {' '.join(args)}: rc {rc}")
+        calls.append(name)
+        return buf.getvalue(), list(logs)
+
+    def held(name, ok, detail):
+        checks.append((name, bool(ok), detail))
+
+    def raw(path):
+        m = read_nnet3_path(path)
+        cfg = infer_tdnn_config(m)
+        return nnet3_to_state_dict(m, cfg), cfg
+
+    dflag = f"--device={dev.type}"
+    mdl, ph, egs_all = f"{src}/final.mdl", f"ark:{src}/ph.ark", \
+        f"ark:{src}/egs.ark"
+    tm, _ = read_mdl(mdl, device="cpu")
+    seqs = [[int(x) for x in v] for _k, v in
+            SequentialTableReader(ph, holder="ivec")]
+    # the den graph
+    T("nnet3-chain-make-den-fst", "--lm-order=3", mdl, ph, f"{d}/den.fst")
+    den = make_denominator_graph(seqs, tm.tree, tm.topo, order=3)
+    with kio.open_rxfilename(f"{d}/den.fst") as f:
+        kio.init_kaldi_input_stream(f)
+        got = read_denominator_graph(f)
+    held("nnet3-chain-make-den-fst",
+         got.num_states == den.num_states and all(
+             np.array_equal(getattr(got, a), getattr(den, a))
+             for a in ("src", "dst", "pdf", "logw", "final", "initial")),
+         f"{den.num_states} states, {len(den.src)} arcs")
+    # the jobs' and the validation subsets
+    full = read_egs_ark(egs_all)
+    keys = [k for k, _ in SequentialTableReader(egs_all, holder="ceg")]
+    subsets = {}
+    for job, srand in (("a", 1), ("b", 2), ("valid", 3)):
+        T("nnet3-chain-subset-egs", f"--n={LOOP_EGS}", f"--srand={srand}",
+          egs_all, f"ark:{d}/{job}.ark")
+        idx = np.sort(np.random.default_rng(srand).permutation(
+            len(keys))[:LOOP_EGS])
+        subsets[job] = read_egs_ark(f"ark:{d}/{job}.ark")
+        held("nnet3-chain-subset-egs",
+             np.array_equal(subsets[job].feats, full.feats[idx])
+             and np.array_equal(subsets[job].pdf_ali, full.pdf_ali[idx]),
+             f"{job}: {LOOP_EGS} of {len(keys)}")
+    # two jobs of nnet3-chain-train
+    init, cfg = raw(f"{src}/0.raw")
+    control = ChainTrainingOptions(leaky_hmm_coefficient=LOOP_CONTROL_LEAKY)
+
+    def library_job(job, opts=None):
+        tr = ChainTrainer(cfg, den, ChainTrainConfig(
+            num_epochs=1, learning_rate=CLI_LR,
+            **({"opts": opts} if opts else {})), device=dev)
+        tr.model.load_state_dict(init)
+        stats = tr.train(subsets[job])
+        return {k: v.cpu() for k, v in tr.model.state_dict().items()}, stats
+
+    def train_gaps(got, got_stats, want, want_stats):
+        diff = [(got[k] - want[k]).abs() for k in want]
+        off = (sum(int((x > CLI_LR / 1000).sum()) for x in diff)
+               / sum(x.numel() for x in diff))
+        loss = max(abs(got_stats[k] - want_stats[k])
+                   / max(abs(want_stats[k]), 1.0) for k in ("loss", "objf"))
+        return max(float(x.max()) for x in diff), off, loss
+
+    def train_ok(e, off, loss):
+        return (e <= LOOP_TRAIN_TOL and off <= LOOP_TRAIN_OFF
+                and loss <= LOOP_LOSS_TOL)
+
+    jobs = {}
+    for job in ("a", "b"):
+        _o, lg = T("nnet3-chain-train", dflag, "--num-epochs=1",
+                   f"--learning-rate={CLI_LR}", mdl, f"{src}/0.raw", ph,
+                   f"ark:{d}/{job}.ark", f"{d}/1{job}.raw")
+        tool_stats = ast.literal_eval(next(
+            m for m in lg if m.startswith("nnet3-chain-train: {"))
+            .split(": ", 1)[1])
+        jobs[job] = raw(f"{d}/1{job}.raw")[0]
+        lib, lib_stats = library_job(job)
+        e, off, loss = train_gaps(jobs[job], tool_stats, lib, lib_stats)
+        held("nnet3-chain-train", train_ok(e, off, loss),
+             f"job {job}: max |diff| {e:.2e}, {100 * off:.4f}% of entries "
+             f"off by > lr/1000, loss {loss:.1e} from the library's")
+        rep[f"train_{job}"] = dict(abs=e, off=off, loss=loss)
+        if job == "a":
+            # the faulty controls: a tool that never trains, a wrong den
+            ctl = {"untrained": train_gaps(init, lib_stats, lib, lib_stats),
+                   "leaky": train_gaps(*library_job(job, control), lib,
+                                       lib_stats)}
+            held("nnet3-chain-train controls",
+                 not any(train_ok(*g) for g in ctl.values()),
+                 "; ".join(f"{n}: max |diff| {g[0]:.2e}, {100 * g[1]:.4f}%,"
+                           f" loss {g[2]:.1e}" for n, g in ctl.items()))
+            rep["train_controls"] = {n: dict(abs=g[0], off=g[1], loss=g[2])
+                                     for n, g in ctl.items()}
+    # nnet3-average
+    T("nnet3-average", f"{d}/avg.raw", f"{d}/1a.raw", f"{d}/1b.raw")
+    avg = raw(f"{d}/avg.raw")[0]
+    e = max(float((avg[k] - ((jobs["a"][k].double() + jobs["b"][k])
+                             / 2).float()).abs().max()) for k in avg)
+    held("nnet3-average", e == 0.0, f"{e:.2e}")
+    # nnet3-chain-combine on the validation subset
+    _o, lg = T("nnet3-chain-combine", dflag,
+               f"--num-iters={LOOP_COMBINE_ITERS}", f"{d}/den.fst",
+               f"ark:{d}/valid.ark", f"{d}/1a.raw", f"{d}/1b.raw",
+               f"{d}/combined.raw")
+    tool_trace = []
+    for m in lg:
+        it = re.match(r"nnet3-chain-combine: iteration (\d+): loss (\S+), "
+                      r"gradient on the logits (.*)$", m)
+        if it:
+            tool_trace.append((float(it.group(2)), np.array(
+                [float(x) for x in it.group(3).split()])))
+    nets = []
+    for job in ("a", "b"):
+        net = TdnnChain(cfg)
+        net.load_state_dict(jobs[job])
+        nets.append(net.eval().to(dev))
+    lib_trace, ctl_trace, own = [], [], []
+    _sd, wgt, objf = combine_models(
+        nets, den, subsets["valid"], LOOP_COMBINE_ITERS, trace=lib_trace,
+        replay=[g for _l, g in tool_trace])
+    # the library's own trajectory (reported) and the faulty control
+    _sd, wgt_own, _objf = combine_models(nets, den, subsets["valid"],
+                                         LOOP_COMBINE_ITERS, trace=own)
+    combine_models(nets, den, subsets["valid"], 1, opts=control,
+                   trace=ctl_trace)
+    g_scale = max(float(np.abs(lib_trace[0][1]).max()), 1e-30)
+
+    def gaps(got, want):
+        return (max(abs(a[0] - b[0]) / max(abs(b[0]), 1.0)
+                    for a, b in zip(got, want)),
+                max(float(np.abs(a[1] - b[1]).max()) / g_scale
+                    for a, b in zip(got, want)))
+
+    combined = raw(f"{d}/combined.raw")[0]
+    names = [k for k, _ in nets[0].named_parameters()]
+    a, b, c = (torch.cat([sd[k].double().cpu().reshape(-1) for k in names])
+               for sd in (jobs["a"], jobs["b"], combined))
+    w_tool = float((c - b) @ (a - b) / ((a - b) @ (a - b)))
+    mix = {k: w_tool * jobs["a"][k].double() + (1 - w_tool)
+           * jobs["b"][k].double() for k in names}
+    e = _rel_sd({k: combined[k] for k in names}, mix)
+    dw = abs(w_tool - float(wgt[0]))
+    l1, g1 = gaps(tool_trace, lib_trace)
+    cl1, cg1 = gaps(ctl_trace, lib_trace[:1])
+    held("nnet3-chain-combine",
+         len(tool_trace) == LOOP_COMBINE_ITERS and l1 <= LOOP_LOSS_TOL
+         and g1 <= LOOP_GRAD_TOL and dw <= LOOP_WEIGHT_TOL
+         and e <= LOOP_MIX_TOL,
+         f"{len(tool_trace)} iterations: loss {l1:.1e}, gradient on the "
+         f"logits {g1:.1e} from the library's at the tool's points; weight "
+         f"{w_tool:.6f} against the replay's {float(wgt[0]):.6f} (the "
+         f"library's own trajectory {float(wgt_own[0]):.6f}); the model "
+         f"{e:.2e} from that mix of its inputs")
+    held("nnet3-chain-combine control",
+         cl1 > LOOP_LOSS_TOL or cg1 > LOOP_GRAD_TOL,
+         f"leaky-HMM {LOOP_CONTROL_LEAKY:g}: loss {cl1:.1e}, gradient "
+         f"{cg1:.1e}")
+    rep.update(combine_loss=l1, combine_grad=g1, combine_dw=dw,
+               combine_own_dw=abs(w_tool - float(wgt_own[0])),
+               combine_mix=e, combine_control=dict(loss=cl1, grad=cg1),
+               combine_weights=[float(w) for w in wgt], combine_objf=objf)
+    # nnet3-chain-compute-post
+    with TableWriter(f"ark:{d}/feats.ark", holder="mat") as w:
+        for i in range(LOOP_POST_UTTS):
+            w[f"utt{i}"] = full.feats[i]
+    T("nnet3-chain-compute-post", dflag, f"{d}/combined.raw",
+      f"ark:{d}/feats.ark", f"ark:{d}/post.ark")
+    net = TdnnChain(cfg)
+    net.load_state_dict(combined)
+    net = net.eval().to(dev)
+    e = 0.0
+    with torch.no_grad():
+        for k, post in SequentialTableReader(f"ark:{d}/post.ark",
+                                             holder="mat"):
+            x = torch.as_tensor(full.feats[int(k[3:])]).to(dev)
+            want = torch.softmax(net(x[None])[0], -1).cpu().numpy()
+            e = max(e, float(np.abs(post - want).max()))
+    held("nnet3-chain-compute-post", e <= LOOP_POST_TOL, f"{e:.2e}")
+    rep["post_abs"] = e
+    # the .mdl (nnet3-am-init's join), its priors, its raw nnet
+    tm_blob, _n, _p = _split_mdl(mdl)
+    with open(f"{d}/combined.raw", "rb") as f:
+        raw_bytes = f.read()
+    _write_mdl_blobs(f"{d}/final_nnet.mdl", tm_blob, raw_bytes[2:])
+    counts = np.bincount(full.pdf_ali[full.mask], minlength=tm.num_pdfs)
+    with kio.open_wxfilename(f"{d}/counts.vec") as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_vector(f, counts.astype(np.float32))
+    T("nnet3-am-adjust-priors", f"{d}/final_nnet.mdl", f"{d}/counts.vec",
+      f"{d}/final_adj.mdl")
+    _t, nnet_blob, priors = _split_mdl(f"{d}/final_adj.mdl")
+    c = counts.astype(np.float64)
+    want = (c + 0.5) / (c.sum() + 0.5 * len(c))
+    held("nnet3-am-adjust-priors",
+         priors is not None and np.allclose(priors, want, rtol=1e-12)
+         and nnet_blob == raw_bytes[2:], f"{len(c)} pdfs")
+    T("nnet3-am-copy", "--raw=true", f"{d}/final_adj.mdl",
+      f"{d}/final.raw")
+    with open(f"{d}/final.raw", "rb") as f:
+        held("nnet3-am-copy", f.read() == raw_bytes, "the combined nnet")
+    # nnet3-show-progress
+    out, _lg = T("nnet3-show-progress", f"{src}/0.raw",
+                 f"{d}/combined.raw")
+    old, new = (params_to_flax(sd)["params"] for sd in (init, combined))
+    lines = out.strip().splitlines()
+    worst, n = 0.0, 0
+    for line in lines:
+        name, val = line.split(": rel-param-change ")
+        a, b = old, new
+        for k in name.split("/"):
+            a, b = a[k], b[k]
+        want = float(np.linalg.norm(b - a)) / (float(np.linalg.norm(a))
+                                              + 1e-20)
+        worst = max(worst, abs(float(val) - want))
+        n += 1
+    held("nnet3-show-progress", n > 0 and worst <= 1e-6,
+         f"{n} tensors, |diff| {worst:.1e}")
+    rep["progress"] = lines
+    with open(f"{d}/report.json", "w") as f:
+        json.dump({"walls": walls, "checks": checks, "calls": len(calls),
+                   "tools": sorted(set(calls)), "den_launches": den_launches,
+                   "total": time.perf_counter() - t_start, **rep}, f,
+                  default=float)
+    bad = [c for c in checks if not c[1]]
+    if bad:
+        print(f"chain loop: {len(bad)} checks failed: {bad[:5]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def chain_loop_finish(started, tag: str) -> int:
+    """19, joined: the background run's exit, its checks, each tool's
+    wall and the den kernel's launches in the tools.  → the den
+    launches."""
+    proc, d, t0 = started
+    t_wait = time.perf_counter()
+    proc.wait(timeout=900)
+    wait = time.perf_counter() - t_wait
+    wall = time.perf_counter() - t0
+    with open(f"{d}/worker.err") as f:
+        err = f.read()
+    if not os.path.exists(f"{d}/report.json"):
+        raise AssertionError(f"chain loop tools failed ({proc.returncode}):"
+                             f"\n{err[-3000:]}")
+    with open(f"{d}/report.json") as f:
+        rep = json.load(f)
+    by = {}
+    for name, ok, detail in rep["checks"]:
+        n, k, det = by.get(name, (0, 0, []))
+        by[name] = (n + 1, k + int(ok), det + ([detail] if detail else []))
+    den = sum(rep["den_launches"].values())
+    print(f"loop: 19: train.py's loop as {rep['calls']} calls of "
+          f"{len(rep['tools'])} tools on 8c's files in one background "
+          f"process started at 10b: {wall:.1f} s to the join "
+          f"({rep['total']:.1f} s of work after its imports); the main "
+          f"process waited {wait:.1f} s here {tag}")
+    for name, (n, k, det) in by.items():
+        print(f"loop:   {name}: {k} of {n} held against the library"
+              + (f" ({'; '.join(det[:3])})" if det else "")
+              + f"; {rep['walls'].get(name, 0.0):.2f} s")
+    print(f"loop: nnet3-chain-combine weights "
+          f"{[round(w, 4) for w in rep['combine_weights']]}, objf "
+          f"{rep['combine_objf']:.4f}; nnet3-show-progress "
+          f"{rep['progress'][:2]}")
+    print(f"loop: den kernel launches {den} "
+          f"({', '.join(f'{t} {n}' for t, n in rep['den_launches'].items() if n)})"
+          f" {tag}")
+    bad = [c for c in rep["checks"] if not c[1]]
+    if bad or proc.returncode != 0:
+        raise AssertionError(f"19: {len(bad)} checks failed: {bad[:3]} "
+                             f"(exit {proc.returncode})")
+    if torch.cuda.is_available() and den <= 0:
+        raise AssertionError("19: the loop's tools launched no den kernel")
+    return den
 
 
 def _stop(proc) -> None:
@@ -7193,4 +7795,6 @@ if __name__ == "__main__":
         sys.exit(tri_tools_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--seq-tools"]:
         sys.exit(seq_tools_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--chain-loop"]:
+        sys.exit(chain_loop_worker(sys.argv[2:]))
     sys.exit(main())

@@ -17,6 +17,14 @@ model whose torch module names are flax's (the xconfig, LSTM and
 x-vector models).  ``init_like_flax`` draws fresh weights from flax's
 initializers' distributions.
 
+A ``TdnnChain`` sharded over a mesh's model axis (parallel/mesh.py
+``shard_params``; ``tp`` set to the mesh) computes the unsharded
+model's function with parallel/tensor.py's collectives: the dense
+layers and each TDNN-F ``linear`` column-parallel, each ``affine``
+row-parallel (its output summed over the axis, then its bias added
+once); batch norm, ReLU, dropout and the bypass run on the replicated
+activations, and the scores come out whole on every rank.
+
 ``TdnnFLayer``'s dropout is ported to its intent: the original builds an
 ``nn.Dropout`` that its trainers give no random key, so a model with
 ``dropout-proportion`` cannot train there.  Here training mode draws the
@@ -157,17 +165,46 @@ class TdnnFLayer(nn.Module):
         self.affine = nn.Linear(bottleneck * ctx, dim)
         self.batchnorm = BatchNorm(dim)
         self.dim = dim
+        self.bottleneck = bottleneck
+        # the mesh whose model axis shards the layer (shard_params)
+        self.tp = None
 
     def forward(self, x, dtype: Optional[torch.dtype] = None):
         s = self.time_stride
-        h = dense(self.linear, splice(x, (-s, 0) if s else (0,)), dtype)
-        h = dense(self.affine, splice(h, (0, s) if s else (0,)), dtype)
+        if self.tp is not None:
+            h = self._sharded_factors(x, dtype)
+        else:
+            h = dense(self.linear, splice(x, (-s, 0) if s else (0,)),
+                      dtype)
+            h = dense(self.affine, splice(h, (0, s) if s else (0,)), dtype)
         h = self.batchnorm(torch.relu(h).float())
         if self.dropout > 0.0 and self.training:
             h = dropout(h, self.dropout, self.generator)
         if x.shape[-1] == self.dim:
             h = h + self.bypass_scale * x
         return h
+
+    def _sharded_factors(self, x, dtype):
+        """``linear`` then ``affine`` with this rank's shards: the
+        replicated input copied into the column-parallel ``linear`` (its
+        bottleneck block), the spliced block through this rank's columns
+        of ``affine``, the partial outputs summed over the model axis in
+        float32, then the whole bias."""
+        from kaldi_tpu_torch.parallel.tensor import (copy_to_model,
+                                                     reduce_from_model)
+        s = self.time_stride
+        xin = splice(copy_to_model(x, self.tp), (-s, 0) if s else (0,))
+        w1, w2 = self.linear.weight, self.affine.weight
+        if dtype is not None:
+            xin, w1, w2 = xin.to(dtype), w1.to(dtype), w2.to(dtype)
+        h = F.linear(xin, w1)
+        h = F.linear(splice(h, (0, s) if s else (0,)), w2)
+        h = reduce_from_model(h.float(), self.tp)
+        bias = self.affine.bias
+        if dtype is not None:
+            # the unsharded layer adds its bias in dtype
+            return (h.to(dtype) + bias.to(dtype)).float()
+        return h + bias
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -263,18 +300,27 @@ class TdnnChain(nn.Module):
         self.prefinal_bn = BatchNorm(H)
         self.output_affine = nn.Linear(H, cfg.num_pdfs)
         self.output_affine.zero_init = True
+        # the mesh whose model axis shards the model (shard_params)
+        self.tp = None
+
+    def _dense(self, layer, x, dtype=None):
+        if self.tp is None:
+            return dense(layer, x, dtype)
+        from kaldi_tpu_torch.parallel.tensor import column_parallel
+        return column_parallel(layer, x, self.tp, dtype)
 
     def forward(self, x):
         dt = self.matmul_dtype
-        h = dense(self.input_affine, splice(x, (-1, 0, 1)), dt)
+        h = self._dense(self.input_affine, splice(x, (-1, 0, 1)), dt)
         h = self.input_bn(torch.relu(h).float())
         for layer in self.tdnnf:
             h = layer(h, dt)
         k = self.config.frame_subsampling_factor
         if k > 1:
             h = h[:, ::k]
-        h = self.prefinal_bn(torch.relu(dense(self.prefinal, h, dt)).float())
-        return self.output_affine(h)
+        h = self.prefinal_bn(torch.relu(self._dense(self.prefinal, h,
+                                                    dt)).float())
+        return self._dense(self.output_affine, h)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -337,12 +383,18 @@ def semi_orthogonal_penalty(model: nn.Module) -> torch.Tensor:
     every TDNN-F layer in ``model``, scale = tr(MMᵀ)/bottleneck
     (nnet-utils.cc ConstrainOrthonormal's floating-scale objective).  A
     torch weight is flax's kernel transposed, so M is the weight
-    itself."""
+    itself; a layer sharded over a model axis gathers its rows of M first
+    (the gather's backward keeps this rank's rows)."""
     total = 0.0
     for layer in model.modules():
         if not isinstance(layer, TdnnFLayer):
             continue
         m = layer.linear.weight
+        if layer.tp is not None:
+            from kaldi_tpu_torch.parallel.tensor import (gather_from_model,
+                                                         shard_sizes)
+            m = gather_from_model(m, layer.tp, shard_sizes(
+                layer.bottleneck, layer.tp.model), dim=0)
         p = m @ m.T
         scale = torch.trace(p) / p.shape[0]
         total = total + torch.sum(

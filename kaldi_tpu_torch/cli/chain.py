@@ -65,6 +65,7 @@ def _common_opts(po) -> None:
 def nnet3_chain_train(argv=None) -> int:
     """LF-MMI training from egs archives."""
     from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.ops.chain_den import CudaChainDen
     from kaldi_tpu_torch.pipelines.chain import ChainTrainConfig, ChainTrainer
     from kaldi_tpu_torch.pipelines.egs_io import read_egs_ark
     po = ParseOptions("nnet3-chain-train [opts] <trans-model> <raw-in> "
@@ -86,9 +87,12 @@ def nnet3_chain_train(argv=None) -> int:
         supervision_tolerance=po["supervision-tolerance"]), device=device)
     tr.model.load_state_dict(sd)
     egs = read_egs_ark(args[3])
+    before = CudaChainDen.total_launches
     stats = tr.train(egs)
     write_raw_model(args[4], tr.model.state_dict(), cfg)
     log.info("nnet3-chain-train: %s", stats)
+    log.info("nnet3-chain-train: den kernel launches %d",
+             CudaChainDen.total_launches - before)
     return 0
 
 

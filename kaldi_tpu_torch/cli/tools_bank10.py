@@ -1,9 +1,10 @@
-"""compute-and-process-kaldi-pitch-feats.
+"""compute-and-process-kaldi-pitch-feats and nnet3-am-copy.
 
-Port of the tool of kaldi_tpu/cli/tools_bank10.py (parity target
-featbin/compute-and-process-kaldi-pitch-feats.cc), registered in
-cli/tools.py's ``TOOLS``: host numpy, on the wave at its int16 scale,
-as in the original (see cli/tools_bank3.py).
+Port of those tools of kaldi_tpu/cli/tools_bank10.py (parity targets
+featbin/compute-and-process-kaldi-pitch-feats.cc,
+nnet3bin/nnet3-am-copy.cc), registered in cli/tools.py's ``TOOLS``: host
+numpy, copied; the pitch on the wave at its int16 scale, as in the
+original (see cli/tools_bank3.py).
 """
 
 from __future__ import annotations
@@ -41,4 +42,34 @@ def compute_and_process_kaldi_pitch_feats(argv):
                 compute_kaldi_pitch(np.asarray(wave), opts)))
             n += 1
     log.info("compute-and-process-kaldi-pitch-feats: %d utterances", n)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank10.py nnet3_am_copy.
+@tool("nnet3-am-copy")
+def nnet3_am_copy(argv):
+    """Copy an nnet3 .mdl; --raw extracts the bare nnet
+    (nnet3bin/nnet3-am-copy.cc)."""
+    from kaldi_tpu_torch.am import nnet3_io as n3
+    po = ParseOptions("nnet3-am-copy [--raw=false] <mdl-in> <out>")
+    po.register("raw", bool, False, "write bare nnet (final.raw)")
+    args = po.read(argv)
+    with open(args[0], "rb") as f:
+        if f.read(2) != b"\0B":
+            raise KaldiError(f"{args[0]}: not binary kaldi")
+        head = f.read()
+    # the .mdl holds <TransitionModel>…</TransitionModel> then the nnet
+    tag = b"</TransitionModel>"
+    pos = head.find(tag)
+    tm_blob = head[:pos + len(tag)] if pos >= 0 else b""
+    nnet_blob = head[pos + len(tag):] if pos >= 0 else head
+    import io as pio
+    model = n3.read_nnet3(pio.BytesIO(nnet_blob))
+    with open(args[1], "wb") as f:
+        f.write(b"\0B")
+        if not po["raw"] and tm_blob:
+            f.write(tm_blob)
+        n3.write_nnet3(f, model)
+    log.info("nnet3-am-copy: %d components%s", len(model.components),
+             " (raw)" if po["raw"] else "")
     return 0

@@ -1,8 +1,11 @@
 """Port of kaldi_tpu/cli/tools_bank16.py's nnet3 discriminative egs
 pipeline and sequence training (nnet3-discriminative-get-egs, -copy-egs,
 -shuffle-egs, -train, -compute-objf; parity targets nnet3bin/
-nnet3-discriminative-*.cc) and decode-faster-mapped
-(bin/decode-faster-mapped.cc), registered in cli/tools.py's ``TOOLS``.
+nnet3-discriminative-*.cc), decode-faster-mapped
+(bin/decode-faster-mapped.cc) and the chain loop's nnet3-chain-subset-egs,
+nnet3-chain-make-den-fst and nnet3-show-progress (host code, copied;
+show-progress walks the flax tree ``params_to_flax`` gives, in the
+original's leaf order), registered in cli/tools.py's ``TOOLS``.
 
 The egs tools are the original's host numpy, copied, and write the
 original's archives (holder ``deg``, pipelines/egs_io.py ``DiscEg``).
@@ -111,15 +114,15 @@ def nnet3_discriminative_shuffle_egs_tool(argv):
 
 
 # Port of kaldi_tpu/cli/tools_bank16.py _read_raw_auto.
-def _read_raw_auto(path: str, device):
+def _read_raw_auto(path: str, device, frame_subsampling_factor: int = 1):
     """Raw nnet3 file → (TdnnChain on ``device`` in eval mode, its
-    TdnnConfig at frame-subsampling 1)."""
+    TdnnConfig at ``frame_subsampling_factor``)."""
     from kaldi_tpu_torch.am.nnet3_io import (infer_tdnn_config,
                                              nnet3_to_state_dict,
                                              read_nnet3_path)
     from kaldi_tpu_torch.am.tdnn import TdnnChain
     model = read_nnet3_path(path)
-    cfg = infer_tdnn_config(model, frame_subsampling_factor=1)
+    cfg = infer_tdnn_config(model, frame_subsampling_factor)
     net = TdnnChain(cfg)
     net.load_state_dict(nnet3_to_state_dict(model, cfg))
     return net.eval().to(device), cfg
@@ -234,4 +237,95 @@ def decode_faster_mapped_tool(argv):
     if awriter:
         awriter.close()
     log.info("decode-faster-mapped: decoded %d utterances", n)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank16.py nnet3_chain_subset_egs_tool.
+@tool("nnet3-chain-subset-egs")
+def nnet3_chain_subset_egs_tool(argv):
+    """Random subset of chain egs (chainbin role; the get_egs.sh
+    valid/train-diagnostic subsets)."""
+    po = ParseOptions("nnet3-chain-subset-egs [--n=10] [--srand=0] "
+                      "<cegs-rspec> <cegs-wspec>")
+    po.register("n", int, 10, "subset size")
+    po.register("srand", int, 0, "seed")
+    args = po.read(argv)
+    entries = list(SequentialTableReader(args[0], holder="ceg"))
+    rng = np.random.default_rng(po["srand"])
+    idx = rng.permutation(len(entries))[:po["n"]]
+    with TableWriter(args[1], holder="ceg") as w:
+        for i in sorted(idx):
+            key, eg = entries[i]
+            w[key] = eg
+    log.info("nnet3-chain-subset-egs: kept %d of %d",
+             min(po["n"], len(entries)), len(entries))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank16.py nnet3_chain_make_den_fst_tool.
+@tool("nnet3-chain-make-den-fst")
+def nnet3_chain_make_den_fst_tool(argv):
+    """Build + serialize the chain denominator graph from training
+    phone sequences (chainbin/nnet3-chain-make-den-fst.cc writes
+    den.fst/normalization.fst; one file here carries the flat arc
+    arrays plus stationary-distribution initial probs)."""
+    from kaldi_tpu_torch.am.chain import (make_denominator_graph,
+                                          write_denominator_graph)
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.core import io as kio
+    po = ParseOptions("nnet3-chain-make-den-fst [opts] <trans-model> "
+                      "<phone-seqs-rspec> <den-out>")
+    po.register("lm-order", int, 3, "den phone-LM order")
+    args = po.read(argv)
+    tm, _ = read_mdl(args[0], device="cpu")
+    seqs = [[int(x) for x in v] for _, v in
+            SequentialTableReader(args[1], holder="ivec")]
+    den = make_denominator_graph(seqs, tm.tree, tm.topo,
+                                 order=po["lm-order"])
+    with kio.open_wxfilename(args[2]) as f:
+        kio.init_kaldi_output_stream(f)
+        write_denominator_graph(f, den)
+    log.info("nnet3-chain-make-den-fst: %d states, %d arcs (order %d)",
+             den.num_states, len(den.src), po["lm-order"])
+    return 0
+
+
+def _flax_leaves(tree, path=()):
+    """(path, leaf) of a nested dict in jax.tree_util's order (keys
+    sorted at every level)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flax_leaves(tree[k], path + (k,))
+        else:
+            yield path + (k,), tree[k]
+
+
+# Port of kaldi_tpu/cli/tools_bank16.py nnet3_show_progress_tool.
+@tool("nnet3-show-progress")
+def nnet3_show_progress_tool(argv):
+    """Per-component parameter change between two models
+    (nnet3bin/nnet3-show-progress.cc: relative l2 of the diff)."""
+    from kaldi_tpu_torch.am.nnet3_io import (infer_tdnn_config,
+                                             nnet3_to_state_dict,
+                                             read_nnet3_path)
+    from kaldi_tpu_torch.am.tdnn import params_to_flax
+    po = ParseOptions("nnet3-show-progress <raw-old> <raw-new>")
+    args = po.read(argv)
+    params, cfgs = [], []
+    for path in args[:2]:
+        model = read_nnet3_path(path)
+        cfg = infer_tdnn_config(model, frame_subsampling_factor=1)
+        params.append(params_to_flax(nnet3_to_state_dict(model,
+                                                         cfg))["params"])
+        cfgs.append(cfg)
+    if cfgs[0] != cfgs[1]:
+        raise KaldiError("nnet3-show-progress: model topologies differ")
+    flat_new = dict(_flax_leaves(params[1]))
+    for path, old in _flax_leaves(params[0]):
+        new = flat_new[path]
+        name = "/".join(path)
+        denom = float(np.linalg.norm(old)) + 1e-20
+        rel = float(np.linalg.norm(np.asarray(new)
+                                   - np.asarray(old))) / denom
+        print(f"{name}: rel-param-change {rel:.6f}")
     return 0

@@ -1,6 +1,7 @@
-"""Port of kaldi_tpu/cli/tools_bank28.py compute-atwv (parity target
-kwsbin/compute-atwv.cc), registered in cli/tools.py's ``TOOLS``: host
-code, copied.
+"""Port of kaldi_tpu/cli/tools_bank28.py compute-atwv and
+chain-make-den-fst (parity targets kwsbin/compute-atwv.cc,
+chainbin/chain-make-den-fst.cc), registered in cli/tools.py's
+``TOOLS``: host code, copied.
 """
 
 from __future__ import annotations
@@ -82,3 +83,13 @@ def compute_atwv_tool(argv):
     log.info("compute-atwv: ATWV %.4f over %d keywords", atwv,
              len(refs))
     return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank28.py chain_make_den_fst_tool.
+@tool("chain-make-den-fst")
+def chain_make_den_fst_tool(argv):
+    """Denominator graph from training phone sequences — the upstream
+    chainbin spelling (chainbin/chain-make-den-fst.cc); same flow as
+    nnet3-chain-make-den-fst."""
+    from kaldi_tpu_torch.cli.tools_bank16 import nnet3_chain_make_den_fst_tool
+    return nnet3_chain_make_den_fst_tool(argv)

@@ -3,6 +3,9 @@ target nnet3bin/nnet3-latgen-grammar.cc), registered in cli/tools.py's
 ``TOOLS``.  It takes ``--device`` (default cuda): the raw TDNN-F's
 forward and the latgen decoder (cli/latgen.py ``_LatgenDecoder``) run
 there; the grammar's splice is host code (fst/grammar.py).
+nnet3-get-egs-dense-targets (nnet3bin/nnet3-get-egs-dense-targets.cc)
+is the original's host code, copied: it writes ``dteg`` archives
+(pipelines/egs_io.py ``DenseEg``).
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import torch
 from kaldi_tpu_torch.cli.tools import _device_po, tool
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
-from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.core.table import (RandomAccessTableReader,
+                                        SequentialTableReader, TableWriter)
 from kaldi_tpu_torch.device import resolve_device
 
 log = get_logger(__name__)
@@ -62,4 +66,37 @@ def nnet3_latgen_grammar_tool(argv):
             n += 1
     log.info("nnet3-latgen-grammar: %d utterances (%d nonterminals)",
              n, len(subs))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank29.py nnet3_get_egs_dense_targets_tool.
+@tool("nnet3-get-egs-dense-targets")
+def nnet3_get_egs_dense_targets_tool(argv):
+    """Chunked egs with DENSE float targets
+    (nnet3bin/nnet3-get-egs-dense-targets.cc): regression/soft-label
+    training examples."""
+    from kaldi_tpu_torch.pipelines.egs_io import DenseEg
+    po = ParseOptions("nnet3-get-egs-dense-targets [--chunk-size=64] "
+                      "<feats-rspec> <targets-rspec> <egs-wspec>")
+    po.register("chunk-size", int, 64, "frames per chunk")
+    args = po.read(argv)
+    T = po["chunk-size"]
+    tgt_r = RandomAccessTableReader(args[1], holder="mat")
+    n = 0
+    with TableWriter(args[2], holder="dteg") as w:
+        for key, feats in SequentialTableReader(args[0], holder="mat"):
+            if key not in tgt_r:
+                log.warning("nnet3-get-egs-dense-targets: no targets "
+                            "for %s", key)
+                continue
+            feats = np.asarray(feats, np.float32)
+            tgts = np.asarray(tgt_r[key], np.float32)
+            if len(tgts) != len(feats):
+                raise KaldiError(f"{key}: targets/feats length "
+                                 "mismatch")
+            for i, lo in enumerate(range(0, len(feats) - T + 1, T)):
+                w[f"{key}-{i}"] = DenseEg(feats[lo:lo + T],
+                                          tgts[lo:lo + T])
+                n += 1
+    log.info("nnet3-get-egs-dense-targets: %d egs", n)
     return 0

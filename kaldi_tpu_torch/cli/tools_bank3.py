@@ -32,6 +32,8 @@ compute-kaldi-pitch-feats divides the int16-scale wave by 32768 and
 compute-and-process-kaldi-pitch-feats (cli/tools_bank10.py) does not.
 The NCCF's ballast is scaled by the signal's own mean square, and 32768
 is a power of two, so the two give the same pitch all the same.
+nnet3-average (nnet3bin/nnet3-average.cc) is the original's host code,
+copied: the mean of each component field over the models, in float64.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from kaldi_tpu_torch.cli.tools import _device_po, tool
-from kaldi_tpu_torch.core.logging import get_logger
+from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
 from kaldi_tpu_torch.core.table import (RandomAccessTableReader,
                                         SequentialTableReader, TableWriter)
@@ -512,4 +514,32 @@ def lattice_lmrescore_pruned(argv):
             w[key] = lmrescore_diff_pruned(
                 clat, old_lm, new_lm, words, lm_scale=po["lm-scale"],
                 beam=po["lattice-compose-beam"], max_arcs=po["max-arcs"])
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank3.py nnet3_average.
+@tool("nnet3-average")
+def nnet3_average(argv):
+    from kaldi_tpu_torch.am.nnet3_io import read_nnet3, write_nnet3
+    po = ParseOptions("nnet3-average <out> <in1> <in2> [...]")
+    args = po.read(argv)
+    models = []
+    for p in args[1:]:
+        with open(p, "rb") as f:
+            if f.read(2) != b"\0B":
+                raise KaldiError(f"{p}: not binary kaldi")
+            models.append(read_nnet3(f))
+    base = models[0]
+    for c_i, comp in enumerate(base.components):
+        for fname, fv in comp.fields.items():
+            if fv.array is None:
+                continue
+            acc = fv.array.astype(np.float64)
+            for m in models[1:]:
+                acc = acc + m.components[c_i].fields[fname].array
+            fv.array = (acc / len(models)).astype(fv.array.dtype)
+    with open(args[0], "wb") as f:
+        f.write(b"\0B")
+        write_nnet3(f, base)
+    log.info("nnet3-average: averaged %d models", len(models))
     return 0

@@ -1,5 +1,6 @@
 """Port of kaldi_tpu/cli/tools_bank5.py: gmm-init-mono, the tree tools,
-gmm-compute-likes, compose-transforms and the global (one-pdf) GMMs.
+gmm-compute-likes, compose-transforms, the global (one-pdf) GMMs and
+chain-est-phone-lm (chainbin/chain-est-phone-lm.cc; host numpy, copied).
 
 Port of the tools of kaldi_tpu/cli/tools_bank5.py (parity targets
 gmmbin/gmm-init-mono.cc, bin/acc-tree-stats.cc, sum-tree-stats.cc,
@@ -391,4 +392,24 @@ def gmm_global_get_post_tool(argv):
                 out.append([(int(i), float(row[i]) / max(tot, 1e-20))
                             for i in idx])
             w[key] = out
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank5.py chain_est_phone_lm_tool.
+@tool("chain-est-phone-lm")
+def chain_est_phone_lm_tool(argv):
+    from kaldi_tpu_torch.am.chain import estimate_phone_lm, write_phone_lm
+    po = ParseOptions("chain-est-phone-lm [--ngram-order=4] "
+                      "<phone-seqs-rspec> <phone-lm-out>  (phone seqs = "
+                      "ali-to-phones output)")
+    po.register("ngram-order", int, 4, "n-gram order")
+    args = po.read(argv)
+    seqs = [[int(x) for x in v] for _, v in
+            SequentialTableReader(args[0], holder="ivec")]
+    phones = sorted({p for s in seqs for p in s})
+    lm = estimate_phone_lm(seqs, phones, order=po["ngram-order"])
+    write_phone_lm(args[1], lm)
+    log.info("chain-est-phone-lm: order %d, %d states over %d phones "
+             "from %d sequences", po["ngram-order"], lm.num_states,
+             len(phones), len(seqs))
     return 0

@@ -1,7 +1,6 @@
 # Copied from kaldi_tpu/core/table.py; imports rewritten to kaldi_tpu_torch.
-# The chain, xent and discriminative egs holders (ceg, xeg, deg) read and
-# write the port's pipelines/egs_io.py; the dense-target holder (dteg) is
-# left out until its trainer is ported: asking for it raises KaldiError.
+# The chain, xent, discriminative and dense-target egs holders (ceg, xeg,
+# deg, dteg) read and write the port's pipelines/egs_io.py.
 """Ark/scp table I/O.
 
 Parity target: src/util/kaldi-table.h — SequentialTableReader,
@@ -33,9 +32,6 @@ import numpy as np
 
 from kaldi_tpu_torch.core import io as kio
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
-
-# holders of the original whose training pipelines are not ported yet
-_TRAINING_HOLDERS = ("dteg",)
 
 log = get_logger(__name__)
 
@@ -163,8 +159,10 @@ class _Holders:
             from kaldi_tpu_torch.pipelines.egs_io import write_disc_eg
             kio.init_kaldi_output_stream(f)
             write_disc_eg(f, value)
-        elif holder in _TRAINING_HOLDERS:
-            raise KaldiError(f"holder '{holder}' is not ported")
+        elif holder == "dteg":
+            from kaldi_tpu_torch.pipelines.egs_io import write_dense_eg
+            kio.init_kaldi_output_stream(f)
+            write_dense_eg(f, value)
         elif holder == "post":
             # per-frame [(id, weight), ...] lists (Posterior role)
             frames = list(value)
@@ -204,8 +202,9 @@ class _Holders:
         if holder == "deg":
             from kaldi_tpu_torch.pipelines.egs_io import read_disc_eg
             return read_disc_eg(f)
-        if holder in _TRAINING_HOLDERS:
-            raise KaldiError(f"holder '{holder}' is not ported")
+        if holder == "dteg":
+            from kaldi_tpu_torch.pipelines.egs_io import read_dense_eg
+            return read_dense_eg(f)
         if holder == "mat":
             return kio.read_matrix(f) if binary else _read_text_matrix(f)
         if holder == "vec":

@@ -20,6 +20,16 @@ directions are preconditioned by a smoothed inverse of F.
 
 Gradients keep the torch layout (out, in); the estimator works on the
 flax layout (in, out) the original sees, so the two agree exactly.
+
+Over a model axis (``ScheduledOptimizer.shard``; parallel/tensor.py),
+a sharded tensor's optimizer state is its slice (NG-SGD's momentum
+trace, AdamW's moments), and the max-change clamp reads the whole
+update's norm through one all-reduce of every sharded tensor's squared
+norm a step.  NG-SGD's preconditioning and γ read the whole gradient:
+it is gathered on every rank of the axis, the unchanged preconditioning
+runs on the whole matrix (each rank holds the same NG estimates, rank 20
+× dim a side), and each rank keeps its slice of the result.  The step
+equals the unsharded one up to the order of the norm's sum.
 """
 
 from __future__ import annotations
@@ -174,23 +184,101 @@ class ScheduledOptimizer(torch.optim.Optimizer):
         self.schedule = lr
         self.max_change = max_change
         self.count = 0
+        self.shards: Dict[torch.Tensor, object] = {}
+        self.mesh = None
+
+    def shard(self, shards: Dict[torch.Tensor, object], mesh) -> None:
+        """Parameters that hold a slice of a tensor sharded over
+        ``mesh``'s model axis, each with its parallel/tensor.py
+        ``Shard``: their state is their slice's, and the clamp reads the
+        whole update's norm."""
+        self.shards, self.mesh = dict(shards), mesh
+
+    def full_shape(self, p: torch.Tensor):
+        sh = self.shards.get(p)
+        return tuple(p.shape) if sh is None else sh.full_shape(p)
+
+    def full(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (p's gradient, as p holds it) whole (a collective of the
+        model axis when p is a shard)."""
+        sh = self.shards.get(p)
+        if sh is None:
+            return t
+        from kaldi_tpu_torch.parallel.tensor import gather_tensor
+        return gather_tensor(t, sh, self.mesh)
+
+    def local(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """p's slice of the whole tensor ``t``."""
+        sh = self.shards.get(p)
+        return t if sh is None else sh.take(t, self.mesh.model_index)
 
     def lr(self) -> float:
         return (self.schedule(self.count) if callable(self.schedule)
                 else float(self.schedule))
 
-    def apply(self, p: torch.Tensor, u: torch.Tensor) -> None:
-        p.add_(clamp_update(u, self.max_change))
+    def apply(self, updates) -> None:
+        """Add each (p, u) update (u shaped as p holds it) clamped to
+        its whole tensor's l2 ≤ max_change: the sharded tensors' squared
+        norms summed over the model axis in one all-reduce."""
+        sharded = [(p, u) for p, u in updates if p in self.shards]
+        for p, u in updates:
+            if p not in self.shards:
+                p.add_(clamp_update(u, self.max_change))
+        if not sharded:
+            return
+        if self.max_change <= 0:
+            for p, u in sharded:
+                p.add_(u)
+            return
+        sq = self.mesh.all_reduce_model(torch.stack(
+            [torch.sum(u * u) for _p, u in sharded]))
+        scale = torch.clamp(self.max_change / torch.sqrt(sq + 1e-20),
+                            max=1.0)
+        for i, (p, u) in enumerate(sharded):
+            p.add_(u * scale[i])
 
     def state_dict(self):
+        """The state in the unsharded layout: a sharded tensor's slices
+        of state gathered whole (a collective of the model axis)."""
         sd = super().state_dict()
         sd["count"] = self.count
+        if self.shards:
+            from kaldi_tpu_torch.parallel.tensor import gather_tensor
+            params = [p for g in self.param_groups for p in g["params"]]
+            for i, p in enumerate(params):
+                sh = self.shards.get(p)
+                if sh is None or i not in sd["state"]:
+                    continue
+                sd["state"][i] = {
+                    k: (gather_tensor(v, sh, self.mesh)
+                        if torch.is_tensor(v) and v.shape == p.shape else v)
+                    for k, v in sd["state"][i].items()}
         return sd
 
     def load_state_dict(self, state_dict):
+        """Load a state in the unsharded layout (this rank's slices of
+        it on a model axis)."""
         state_dict = dict(state_dict)
         self.count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
+        for p, sh in self.shards.items():
+            st = self.state.get(p, {})
+            full = sh.full_shape(p)
+            for k, v in st.items():
+                if torch.is_tensor(v) and tuple(v.shape) == full:
+                    st[k] = self.local(p, v)
+
+    def state_bytes(self, whole: bool = False) -> int:
+        """Bytes of the optimizer state this rank holds, or with
+        ``whole`` of the unsharded model's (``state_dict``'s: a
+        collective of the model axis)."""
+        def size(v):
+            if torch.is_tensor(v):
+                return v.numel() * v.element_size()
+            if isinstance(v, dict):
+                return sum(size(x) for x in v.values())
+            return 0
+        return size(self.state_dict()["state"] if whole else self.state)
 
 
 class NgSgd(ScheduledOptimizer):
@@ -217,7 +305,7 @@ class NgSgd(ScheduledOptimizer):
         if "trace" not in st:
             st["trace"] = torch.zeros_like(p)
             if p.dim() == 2:
-                out_dim, in_dim = p.shape
+                out_dim, in_dim = self.full_shape(p)
                 # the flax layout (in, out): rows of G are samples of
                 # dim out for the "in" side, columns of dim in for "out"
                 st["ng_in"] = vars(ng_init(out_dim, self.rank_in,
@@ -236,14 +324,14 @@ class NgSgd(ScheduledOptimizer):
         # 10 steps, then every update_period-th
         advance = self.count < 10 or self.count % self.update_period == 0
         lr = self.lr()
-        adv_states, adv_x, adv_keys = [], [], []
+        adv_states, adv_x, adv_keys, updates = [], [], [], []
         for group in self.param_groups:
             mu = group["momentum"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 st = self._states(p)
-                g = p.grad.float()
+                g = self.full(p, p.grad).float()
                 if p.dim() == 2:
                     gf = g.T
                     s_in = NGState(**st["ng_in"])
@@ -263,11 +351,13 @@ class NgSgd(ScheduledOptimizer):
                         adv_keys += [(st, "ng_in"), (st, "ng_out")]
                 else:
                     u = g
+                u = self.local(p, u)
                 tr = st["trace"]
                 if mu:
                     tr.mul_(mu).add_(u)
                     u = tr
-                self.apply(p, -lr * u)
+                updates.append((p, -lr * u))
+        self.apply(updates)
         if adv_states:
             new = _advance_many(adv_states, adv_x, self.num_samples_history)
             for (st, key), s in zip(adv_keys, new):

@@ -13,8 +13,10 @@ Axes:
           ``P("data")`` lays them out, and sums over the axis are
           ``all_reduce`` calls on the axis's group;
   model — tensor parallelism.  ``model_sharding_rules`` names how each
-          parameter would split; ``shard_params`` refuses ``model > 1``
-          (ROADMAP Queue 1 item 6: NG-SGD over sharded matrices).
+          parameter splits, and ``shard_params`` keeps each rank's
+          slice of a ``TdnnChain`` (parallel/tensor.py); the ranks of one
+          data index form its ``model_group``.  Other model classes
+          raise for ``model > 1`` (ROADMAP Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ from kaldi_tpu_torch.device import resolve_device
 # () replicates
 PartitionSpec = Tuple[Optional[str], ...]
 
-TENSOR_PARALLEL_ITEM = ("tensor parallelism (model > 1) is not ported: "
-                        "ROADMAP Queue 1 item 6, shard_params over the "
-                        "model axis with NG-SGD over sharded matrices")
+TENSOR_PARALLEL_ITEM = ("tensor parallelism (model > 1) is ported for "
+                        "TdnnChain only; {} waits for ROADMAP Queue 1 "
+                        "item 6b (xconfig, LSTM and CNN models)")
 
 
 def _world() -> Tuple[int, int]:
@@ -51,14 +53,17 @@ class Mesh:
     (``data_index``, ``model_index``) and computes on ``device``.
     ``data_group`` holds the ranks of this process's model index (the
     ranks a sum over the data axis spans), ``None`` when the data axis
-    has one rank and no collective is needed."""
+    has one rank and no collective is needed; ``model_group`` the ranks
+    i·model + j, j = 0..model−1, of this process's data index i, ``None``
+    when the model axis has one rank."""
 
     def __init__(self, data: int, model: int, rank: int,
-                 device: torch.device, data_group=None):
+                 device: torch.device, data_group=None, model_group=None):
         self.data, self.model = data, model
         self.rank = rank
         self.device = device
         self.data_group = data_group
+        self.model_group = model_group
 
     @property
     def shape(self):
@@ -91,6 +96,21 @@ class Mesh:
         dist.all_gather_object(out, obj, group=self.data_group)
         return out
 
+    def all_reduce_model(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` in place over the model axis (every rank of this
+        data index must call); a no-op when the axis has one rank."""
+        if self.model > 1:
+            dist.all_reduce(t, group=self.model_group)
+        return t
+
+    def all_gather_model(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every model rank's ``t`` (all of one shape), in model order."""
+        if self.model == 1:
+            return [t]
+        out = [torch.empty_like(t) for _ in range(self.model)]
+        dist.all_gather(out, t, group=self.model_group)
+        return out
+
 
 def make_mesh(data: int = 0, model: int = 1,
               device: Optional[torch.device | str] = None) -> Mesh:
@@ -99,8 +119,10 @@ def make_mesh(data: int = 0, model: int = 1,
     that does not cover the ranks raises: the original keeps the first
     data·model devices of one controller, but a rank left out of the
     mesh would leave its collectives waiting.  ``device`` defaults to the
-    rank's device (``distributed.initialize``), else the card.  Every
-    rank must call it, in the same order as its other group calls."""
+    rank's device (``distributed.initialize``), else the card.  On both
+    axes above 1 it creates a process group for each model index (the
+    data axis) and each data index (the model axis).  Every rank must
+    call it, in the same order as its other group calls."""
     from kaldi_tpu_torch.parallel.distributed import rank_device
     n, rank = _world()
     if model < 1 or n % model:
@@ -113,16 +135,22 @@ def make_mesh(data: int = 0, model: int = 1,
     if device is None:
         device = rank_device() or "cuda"
     device = resolve_device(device)
-    data_group = None
+    data_group = model_group = None
     if model == 1:
         data_group = dist.group.WORLD if n > 1 else None
-    elif data > 1:
+    elif data == 1:
+        model_group = dist.group.WORLD
+    else:
         # every rank creates every group, in one order
         for j in range(model):
             g = dist.new_group([i * model + j for i in range(data)])
             if rank % model == j:
                 data_group = g
-    return Mesh(data, model, rank, device, data_group)
+        for i in range(data):
+            g = dist.new_group([i * model + j for j in range(model)])
+            if rank // model == i:
+                model_group = g
+    return Mesh(data, model, rank, device, data_group, model_group)
 
 
 def batch_sharding(mesh: Mesh, batch_size: int) -> slice:
@@ -162,12 +190,55 @@ def model_sharding_rules(path_names: Sequence[str]) -> PartitionSpec:
 
 def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Place ``model``'s parameters and buffers on the rank's device,
-    laid out by ``model_sharding_rules``: replicated, as every spec is
-    on a model axis of 1.  ``model > 1`` raises (tensor parallelism is
-    not ported)."""
-    if mesh.model > 1:
-        raise KaldiError(TENSOR_PARALLEL_ITEM)
-    return model.to(mesh.device)
+    laid out by ``model_sharding_rules``: on a model axis above 1, each
+    tensor whose spec names "model" keeps this rank's slice of that
+    dimension and every ``()`` tensor stays whole.  Every rank must
+    start from the same whole model (the sharded model then computes
+    what it computes).
+
+    Only a ``TdnnChain`` shards (any other class raises): its column-
+    parallel weights (``linear`` and the dense layers) keep contiguous
+    row blocks, and each TDNN-F ``affine`` (row-parallel) the columns
+    that multiply this rank's ``linear`` outputs in its spliced input
+    [h(t), h(t+s)]: block j of each splice copy, a strided set, not the
+    contiguous block ``P("model", None)`` would give the flax kernel.
+    The model records the ``Shard`` of each sharded tensor in
+    ``tp_shards``, the replicated biases added as this rank's slice in
+    ``tp_partial`` (their gradients are summed over the model axis), and
+    its forward runs the collectives (am/tdnn.py)."""
+    from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnFLayer
+    from kaldi_tpu_torch.parallel.tensor import Shard
+    model = model.to(mesh.device)
+    if mesh.model == 1:
+        return model
+    if type(model) is not TdnnChain:
+        raise KaldiError(TENSOR_PARALLEL_ITEM.format(type(model).__name__))
+    m, j = mesh.model, mesh.model_index
+    shards, partial = {}, []
+    for name, p in list(model.named_parameters()):
+        spec = model_sharding_rules(name.split("."))
+        if "model" not in spec:
+            continue
+        dim = spec.index("model")
+        owner = model.get_submodule(name.rsplit(".", 2)[0]) \
+            if name.startswith("tdnnf.") else None
+        if isinstance(owner, TdnnFLayer) and ".affine." in name:
+            ctx = p.shape[1] // owner.bottleneck
+            sh = Shard.strided(dim, owner.bottleneck, ctx, m)
+        else:
+            sh = Shard.contiguous(dim, p.shape[dim], m)
+        mod_name, pname = name.rsplit(".", 1)
+        mod = model.get_submodule(mod_name)
+        setattr(mod, pname, nn.Parameter(sh.take(p.detach(), j),
+                                         requires_grad=p.requires_grad))
+        shards[name] = sh
+        if dim == 0 and getattr(mod, "bias", None) is not None:
+            partial.append(f"{mod_name}.bias")
+    model.tp_shards, model.tp_partial = shards, partial
+    for mod in model.modules():
+        if isinstance(mod, (TdnnChain, TdnnFLayer)):
+            mod.tp = mesh
+    return model
 
 
 def replicate(tree, mesh: Mesh):

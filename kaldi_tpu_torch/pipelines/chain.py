@@ -11,7 +11,7 @@ original's optax semantics: a continuous exponential learning-rate
 decay read at step counts 0, 1, …, AdamW's weight decay 1e-4 inside the
 update, and each tensor's final update clamped to l2 ≤ max_change before
 it is applied.  Checkpoints are ``torch.save`` files (the original
-writes orbax ones).
+writes orbax ones, which ``restore`` reads).
 
 ``build_chain_tree`` (the left-biphone tree from GMM alignments) is the
 original's host numpy, on the port's tree statistics and questions
@@ -33,8 +33,20 @@ rank 0 only; batch norm takes its statistics over the whole batch
 all-reduce sums the ranks' gradients (with the loss and diagnostics), so
 NG-SGD / AdamW and max-change see the same gradients on every rank and
 the parameters stay equal to the bit.  Dropout cannot draw the unsharded
-masks: each rank's generator is seeded ``seed + data rank``.  A model
-axis above 1 (tensor parallelism) raises.
+masks: each rank's generator is seeded ``seed + data rank``.
+
+A model axis above 1 shards a ``TdnnChain`` (tensor parallelism;
+parallel/mesh.py ``shard_params``, parallel/tensor.py): the ranks of
+one data index take the same rows, each holds its slice of every
+sharded matrix and computes the whole scores with the model's
+collectives, so every model rank runs the den on the whole pdf set.
+The gradients are summed over the data axis as above, then the
+replicated biases that were added as a slice are summed over the model
+axis; NG-SGD and AdamW take each sharded gradient whole and step as the
+unsharded optimizer does (ops/natural_gradient.py).  Checkpoints hold
+the whole tensors in the unsharded layout, so one written on any mesh
+restores on any other.  ``restore`` also reads the JAX package's orbax
+checkpoints (pipelines/checkpoint.py), with a fresh optimizer.
 """
 
 from __future__ import annotations
@@ -289,7 +301,10 @@ class AdamW(ScheduledOptimizer):
     """optax.adamw (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on
     every tensor, decoupled) followed by the max-change clamp of the
     final update: u = −lr·(m̂/(√v̂ + eps) + wd·p), clamped, then added.
-    ``lr`` is a float or a schedule of the step count (0 first)."""
+    ``lr`` is a float or a schedule of the step count (0 first).  It
+    works entry by entry, so a shard on a model axis keeps its slice of
+    the moments and steps its slice; only the clamp's norm is summed
+    over the axis (ScheduledOptimizer.apply)."""
 
     def __init__(self, params, lr: Schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -306,6 +321,7 @@ class AdamW(ScheduledOptimizer):
                 loss = closure()
         lr = self.lr()
         k = self.count + 1
+        updates = []
         for group in self.param_groups:
             b1, b2 = group["b1"], group["b2"]
             for p in group["params"]:
@@ -322,7 +338,8 @@ class AdamW(ScheduledOptimizer):
                 nu_hat = st["nu"] / (1 - b2 ** k)
                 u = mu_hat / (torch.sqrt(nu_hat) + group["eps"])
                 u = u + group["weight_decay"] * p
-                self.apply(p, -lr * u)
+                updates.append((p, -lr * u))
+        self.apply(updates)
         self.count += 1
         return loss
 
@@ -350,7 +367,8 @@ class ChainTrainer:
         (parallel/mesh.py ``make_mesh``; every rank constructs the
         trainer) it trains data-parallel on the mesh's device, whatever
         ``device`` says, rank 0's weights broadcast to every rank (module
-        docstring)."""
+        docstring); on a model axis above 1 each rank keeps its slice of
+        the whole model."""
         from kaldi_tpu_torch.parallel.mesh import replicate, shard_params
         self.mesh = mesh
         self.device = (mesh.device if mesh is not None
@@ -361,7 +379,8 @@ class ChainTrainer:
         self.model = init_like_flax(model, seed)
         rank = 0
         if mesh is not None:
-            self.model = replicate(shard_params(self.model, mesh), mesh)
+            self.model = shard_params(
+                replicate(self.model.to(mesh.device), mesh), mesh)
             rank = mesh.data_index
             if mesh.data > 1:
                 set_batch_norm_group(self.model, mesh.data_group, mesh.data)
@@ -391,6 +410,14 @@ class ChainTrainer:
             self.opt = AdamW(params, lr, max_change=cfg.max_change)
         else:
             raise KaldiError(f"unknown optimizer {cfg.optimizer!r}")
+        if self._model_axis:
+            named = dict(self.model.named_parameters())
+            self.opt.shard({named[k]: sh for k, sh in
+                            self.model.tp_shards.items()}, self.mesh)
+
+    @property
+    def _model_axis(self) -> bool:
+        return self.mesh is not None and self.mesh.model > 1
 
     def _as_tensor(self, a, dtype=None):
         if a is None:
@@ -419,6 +446,16 @@ class ChainTrainer:
                 semi_orthogonal_penalty(self.model)
         return loss, diag
 
+    @staticmethod
+    def _sum_in_place(tensors, all_reduce) -> None:
+        """``all_reduce`` (a mesh axis' sum) of ``tensors`` as one flat
+        buffer, the sums written back."""
+        flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
+        off = 0
+        for t in tensors:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
     def _all_reduce_grads(self, loss, diag):
         """One flat all-reduce over the data axis of every gradient, the
         loss and the diagnostics (each rank's share of the batch's) →
@@ -427,15 +464,21 @@ class ChainTrainer:
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         keys = sorted(diag)
-        flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack(
-            [loss.detach()] + [diag[k].detach() for k in keys]).to(
-                grads[0].dtype)])
-        self.mesh.all_reduce_data(flat)
-        off = 0
-        for g in grads:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
-        return flat[off], {k: flat[off + 1 + i] for i, k in enumerate(keys)}
+        stats = torch.stack([loss.detach()] + [diag[k].detach()
+                                               for k in keys]).to(
+            grads[0].dtype)
+        self._sum_in_place(grads + [stats], self.mesh.all_reduce_data)
+        return stats[0], {k: stats[1 + i] for i, k in enumerate(keys)}
+
+    def _sum_partial_grads(self) -> None:
+        """One flat all-reduce over the model axis of the gradients of the
+        replicated biases each rank added as its slice (zero outside it),
+        so that every rank steps them by the whole gradient."""
+        named = dict(self.model.named_parameters())
+        grads = [named[k].grad for k in self.model.tp_partial
+                 if named[k].grad is not None]
+        if grads:
+            self._sum_in_place(grads, self.mesh.all_reduce_model)
 
     def _step(self, feats, pdf_ali, mask, num_graph=None, sup=None):
         """One step on a batch (arrays or tensors; ``sup`` a batch's rows
@@ -456,29 +499,74 @@ class ChainTrainer:
         loss.backward()
         if self._sharded:
             loss, diag = self._all_reduce_grads(loss, diag)
+        if self._model_axis:
+            self._sum_partial_grads()
         self.opt.step()
         return loss.detach(), {k: v.detach() for k, v in diag.items()}
 
     # -- checkpoint / resume (steps/nnet3 N.mdl + --stage contract) --------
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict in the unsharded layout (whole tensors;
+        on a model axis every rank of it must call)."""
+        if not self._model_axis:
+            return self.model.state_dict()
+        from kaldi_tpu_torch.parallel.tensor import full_state_dict
+        return full_state_dict(self.model, self.mesh)
+
+    def load_state_dict(self, state_dict) -> None:
+        """Load an unsharded state dict (this rank's slices of it on a
+        model axis)."""
+        if not self._model_axis:
+            self.model.load_state_dict(state_dict)
+            return
+        from kaldi_tpu_torch.parallel.tensor import load_full_state_dict
+        load_full_state_dict(self.model, state_dict, self.mesh)
+
     def save(self, ckpt_dir: str, step: int) -> None:
-        os.makedirs(ckpt_dir, exist_ok=True)
-        torch.save({"step": step, "model": self.model.state_dict(),
-                    "opt": self.opt.state_dict()},
-                   os.path.join(ckpt_dir, f"ckpt_{step}.pt"))
+        """``ckpt_{step}.pt``: the step, the whole tensors and the
+        optimizer state (a shard's gathered whole), written by rank 0
+        (every rank must call)."""
+        state = {"step": step, "model": self.state_dict(),
+                 "opt": self.opt.state_dict()}
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            torch.save(state, os.path.join(ckpt_dir, f"ckpt_{step}.pt"))
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+            dist.barrier()
 
     def restore(self, ckpt_dir: str, step: Optional[int] = None) -> int:
-        """Load the checkpoint of ``step`` (None: the latest) → its
-        step."""
+        """Load the checkpoint of ``step`` (None: the latest) → its step.
+        A directory of the JAX package's orbax checkpoints (``step_N``)
+        loads its params and batch statistics (pipelines/checkpoint.py)
+        and restarts the optimizer."""
+        from kaldi_tpu_torch.pipelines import checkpoint
+        steps = [int(os.path.basename(p)[5:-3]) for p in
+                 glob.glob(os.path.join(ckpt_dir, "ckpt_*.pt"))]
+        if not steps and checkpoint.latest_step(ckpt_dir) is not None:
+            return self._restore_orbax(ckpt_dir, step)
         if step is None:
-            steps = [int(os.path.basename(p)[5:-3]) for p in
-                     glob.glob(os.path.join(ckpt_dir, "ckpt_*.pt"))]
             if not steps:
                 raise KaldiError(f"no checkpoint in {ckpt_dir}")
             step = max(steps)
         state = torch.load(os.path.join(ckpt_dir, f"ckpt_{step}.pt"),
                            map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["model"])
+        self.load_state_dict(state["model"])
         self.opt.load_state_dict(state["opt"])
+        self._trained_steps = int(state["step"])
+        return self._trained_steps
+
+    def _restore_orbax(self, ckpt_dir: str, step: Optional[int]) -> int:
+        from kaldi_tpu_torch.am.tdnn import (params_from_flax,
+                                             state_dict_from_flax)
+        from kaldi_tpu_torch.pipelines.checkpoint import read_train_state
+        state = read_train_state(ckpt_dir, step)
+        tree = {"params": state["params"],
+                "batch_stats": state["batch_stats"]}
+        sd = (params_from_flax(tree) if isinstance(self.model, TdnnChain)
+              else state_dict_from_flax(tree))
+        self.load_state_dict({k: v.to(self.device) for k, v in sd.items()})
+        self._build_tx(self.cfg.total_steps or 0)
         self._trained_steps = int(state["step"])
         return self._trained_steps
 
@@ -537,6 +625,74 @@ class ChainTrainer:
             with torch.no_grad():
                 return self.model(self._as_tensor(feats, torch.float32))
         return f
+
+
+def _adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """optax.adam as a closure over its state: g → the update to add."""
+    state = {"count": 0, "mu": 0.0, "nu": 0.0}
+
+    def update(g):
+        state["count"] += 1
+        k = state["count"]
+        state["mu"] = (1 - b1) * g + b1 * state["mu"]
+        state["nu"] = (1 - b2) * g * g + b2 * state["nu"]
+        mu_hat = state["mu"] / (1 - b1 ** k)
+        nu_hat = state["nu"] / (1 - b2 ** k)
+        return -lr * mu_hat / (torch.sqrt(nu_hat) + eps)
+    return update
+
+
+def combine_models(nets: Sequence[torch.nn.Module], den: DenominatorGraph,
+                   egs: ChainEgs, num_iters: int = 30, lr: float = 0.2,
+                   opts: Optional[ChainTrainingOptions] = None,
+                   trace: Optional[list] = None,
+                   replay: Optional[Sequence[np.ndarray]] = None):
+    """nnet3-chain-combine's optimization (the original tool's, as a
+    function; chainbin/nnet3-chain-combine.cc): every parameter of the
+    combined model is Σ_i softmax(w)_i · model_i's, the batch-norm
+    statistics are the first model's, and ``num_iters`` steps of Adam
+    (optax's, at ``lr``) from w = 0 minimise the LF-MMI loss of the
+    models in eval mode on all of ``egs`` as one batch (fixed-alignment
+    numerator; the den on the models' device).  ``nets``: TdnnChains of
+    one shape on one device.  ``trace``, a list, gets each step's
+    (loss, gradient on the logits) as a float and a numpy array;
+    ``replay``, another run's gradients, one a step, steps Adam by them
+    instead of its own, so that ``trace`` holds this run's loss and
+    gradient at that run's points.  → (the combined state dict, the
+    weights, the last objective)."""
+    net = nets[0]
+    device = next(net.parameters()).device
+    names = [k for k, _ in net.named_parameters()]
+    stack = {k: torch.stack([m.state_dict()[k] for m in nets])
+             for k in names}
+    buffers = {k: v for k, v in net.named_buffers()}
+    feats = torch.as_tensor(egs.feats, dtype=torch.float32).to(device)
+    pdf_ali = torch.as_tensor(egs.pdf_ali, dtype=torch.int64).to(device)
+    mask = torch.as_tensor(egs.mask).to(device)
+    opts = opts or ChainTrainingOptions()
+
+    def mix(logits):
+        wgt = torch.softmax(logits, dim=0)
+        return {k: torch.tensordot(wgt, s, dims=1) for k, s in stack.items()}
+
+    logits = torch.zeros(len(nets), device=device)
+    adam = _adam(lr)
+    loss = None
+    for it in range(num_iters):
+        lg = logits.clone().requires_grad_(True)
+        scores = torch.func.functional_call(net, {**mix(lg), **buffers},
+                                            (feats,))
+        loss = chain_objf(den, scores, pdf_ali, mask, opts)[0]
+        (g,) = torch.autograd.grad(loss, lg)
+        if trace is not None:
+            trace.append((float(loss.detach()), g.detach().cpu().numpy()))
+        if replay is not None:
+            g = torch.as_tensor(replay[it], dtype=g.dtype, device=device)
+        logits = logits + adam(g)
+    with torch.no_grad():
+        mixed = mix(logits)
+    return ({**mixed, **buffers}, torch.softmax(logits, 0).cpu().numpy(),
+            -float(loss.detach()))
 
 
 # Copied from kaldi_tpu/pipelines/chain.py build_chain_tree.

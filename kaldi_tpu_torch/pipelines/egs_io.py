@@ -12,8 +12,9 @@ carries no phone array, so an FSA read back has ``phone=None``, as in
 the original).  ``XentEg`` (holder ``xeg``) is the cross-entropy egs'
 entry, the x-vector egs' too.  ``DiscEg`` (holder ``deg``) is the
 discriminative (sequence-training) egs' entry, written through the
-original's ``write_pytree`` format; the dense-target egs wait for their
-trainer.
+original's ``write_pytree`` format.  ``DenseEg`` (holder ``dteg``) is a
+chunk with dense float targets (nnet3-get-egs-dense-targets); the
+original has no trainer that reads them.
 """
 
 from __future__ import annotations
@@ -275,6 +276,37 @@ def read_xent_eg(f) -> XentEg:
     pdfs = np.asarray(kio.read_int_vector(f), np.int32)
     kio.expect_token(f, "</XentEg>")
     return XentEg(feats.reshape(B, T, -1), pdfs.reshape(B, T))
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py DenseEg.
+@dataclasses.dataclass
+class DenseEg:
+    """Training chunk with DENSE (float-matrix) targets — regression
+    or soft-label training (nnet3bin/nnet3-get-egs-dense-targets
+    NnetExample shape): feats (T, D), targets (T', Dt)."""
+    feats: np.ndarray
+    targets: np.ndarray
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py write_dense_eg.
+def write_dense_eg(f, eg: DenseEg) -> None:
+    kio.write_token(f, "<DenseEg>")
+    kio.write_token(f, "<Feats>")
+    kio.write_matrix(f, np.asarray(eg.feats, np.float32))
+    kio.write_token(f, "<Targets>")
+    kio.write_matrix(f, np.asarray(eg.targets, np.float32))
+    kio.write_token(f, "</DenseEg>")
+
+
+# Copied from kaldi_tpu/pipelines/egs_io.py read_dense_eg.
+def read_dense_eg(f) -> DenseEg:
+    kio.expect_token(f, "<DenseEg>")
+    kio.expect_token(f, "<Feats>")
+    feats = np.asarray(kio.read_matrix(f), np.float32)
+    kio.expect_token(f, "<Targets>")
+    targets = np.asarray(kio.read_matrix(f), np.float32)
+    kio.expect_token(f, "</DenseEg>")
+    return DenseEg(feats, targets)
 
 
 # Copied from kaldi_tpu/pipelines/egs_io.py DiscEg.

@@ -9,9 +9,13 @@ best paths and audio-s/s the ranks are held to) and phase 8b's egs (48
 seeded waveforms through the fbank kernel on the bench's den graph).
 Then ``pod_phase``: max(2, cards) ranks, NCCL with a card each where
 there are enough cards, else gloo on cuda:0 (16a the distributed worker,
-16b the sharded decode, 16c ``ChainTrainer(mesh=)``).  On a host of
-four cards joined by NVLink it runs the NCCL path the one-card
-chip_smoke does not.  Card only.
+16b the sharded decode, 16c ``ChainTrainer(mesh=)``, 16d its tensor-
+parallel layouts).  On a host of four cards joined by NVLink it runs the
+NCCL path the one-card chip_smoke does not, and 16d at 16c's batch
+(B = 128, 10 steps) on the layouts (4, 1), (2, 2) and (1, 4): each
+one's aggregate Mframes/s, the collectives of one step (count, MiB, ms),
+the parameter and optimizer-state bytes a rank holds, and its step 1
+against one process's.  Card only.
 """
 
 import os
@@ -75,9 +79,12 @@ def main() -> int:
     topo, tree, _, den = cs.bench_den_graph()
     egs = cs.chain_egs(dev, topo, tree, den, 48)[0]
     t0 = time.perf_counter()
+    n = cs.pod_layout()[0]
+    tp = (dict(tp_layouts=[(n, 1), (2, n // 2), (1, n)], tp_B=cs.POD_B,
+               tp_steps=cs.POD_STEPS) if n == 4 else {})
     launches = cs.pod_phase(dev, task.graph.csr, task.tm.tid_to_pdf_array,
                             cfg, X, lens, best, rate, den, egs,
-                            tree.num_pdfs, None, tag)
+                            tree.num_pdfs, None, tag, **tp)
     print(f"pod_check: phase 16 took {time.perf_counter() - t0:.1f} s; den "
           f"kernel launches {launches} {tag}")
     return 0

@@ -11,7 +11,6 @@ from kaldi_tpu.am.topology import HmmTopology as JTopo
 from kaldi_tpu.am.tree import MonophoneContextDependency as JMono
 from kaldi_tpu.pipelines import chain as jpc
 from kaldi_tpu.pipelines import egs_io as jeio
-from kaldi_tpu_torch.core.logging import KaldiError
 from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
 from kaldi_tpu_torch.pipelines import chain as tpc
 from kaldi_tpu_torch.pipelines import egs_io as teio
@@ -77,7 +76,7 @@ def test_supervision_fsas_are_not_ported(tmp_path):
     FSA-carrying egs (lattice-derived, chunked, with normalization
     weights) written by either package reads back equal in the other,
     through ``egs_to_list`` / ``list_to_egs`` and ``ChainEgs.sup``; the
-    other training holders stay unported."""
+    dense-target holder crosses too, byte for byte."""
     from kaldi_tpu.am import chain_supervision as js
     from kaldi_tpu.am.transitions import TransitionModel as JTm
     from kaldi_tpu.lattice.lattice import CompactArc, CompactLattice
@@ -132,10 +131,16 @@ def test_supervision_fsas_are_not_ported(tmp_path):
     with open(f"{tmp_path}/jax.ark", "rb") as a, \
             open(f"{tmp_path}/port.ark", "rb") as b:
         assert a.read() == b.read()
+    from kaldi_tpu.core.table import TableWriter as JWriter
     eg = teio.egs_to_list(teio.read_egs_ark(f"ark:{tmp_path}/jax.ark"))[0]
-    with pytest.raises(KaldiError, match="not ported"):
-        with TableWriter(f"ark:{tmp_path}/x.ark", holder="dteg") as w:
-            w["a"] = eg
+    dense = dict(feats=eg.feats, targets=np.tanh(eg.feats[:, :2]))
+    with TableWriter(f"ark:{tmp_path}/x.ark", holder="dteg") as w:
+        w["a"] = teio.DenseEg(**dense)
+    with JWriter(f"ark:{tmp_path}/jx.ark", holder="dteg") as w:
+        w["a"] = jeio.DenseEg(**dense)
+    with open(f"{tmp_path}/x.ark", "rb") as a, \
+            open(f"{tmp_path}/jx.ark", "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_ceg_holder_reads_one_entry_at_a_time(tmp_path):

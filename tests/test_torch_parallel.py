@@ -334,8 +334,10 @@ def test_model_sharding_rules():
 
 
 def test_shard_params_and_uneven_batches_raise():
-    """Tensor parallelism raises naming its ROADMAP item; a batch that
-    does not divide over the data axis raises before any collective."""
+    """Tensor parallelism of a model class other than TdnnChain raises
+    naming its ROADMAP item (a TdnnChain keeps each rank's slices); a
+    batch that does not divide over the data axis raises before any
+    collective."""
     from kaldi_tpu_torch.am.chain import make_denominator_graph
     from kaldi_tpu_torch.am.tdnn import TdnnChain, TdnnConfig
     from kaldi_tpu_torch.am.topology import HmmTopology
@@ -345,8 +347,15 @@ def test_shard_params_and_uneven_batches_raise():
     from kaldi_tpu_torch.pipelines.chain import ChainEgs, ChainTrainer
     cfg = TdnnConfig(feat_dim=6, num_pdfs=4, hidden_dim=8,
                      bottleneck_dim=4, num_layers=2)
+    from kaldi_tpu_torch.am.lstm import LstmChain, LstmConfig
     with pytest.raises(KaldiError, match="ROADMAP Queue 1 item 6"):
-        shard_params(TdnnChain(cfg), Mesh(1, 2, 0, torch.device("cpu")))
+        shard_params(LstmChain(LstmConfig(feat_dim=6, num_pdfs=4,
+                                          hidden_dim=8, proj_dim=4,
+                                          num_layers=1)),
+                     Mesh(1, 2, 0, torch.device("cpu")))
+    sharded = shard_params(TdnnChain(cfg), Mesh(1, 2, 1, torch.device("cpu")))
+    assert sharded.tdnnf[0].linear.weight.shape == (2, 16)
+    assert sharded.tdnnf[0].affine.weight.shape == (8, 4)
     mesh = Mesh(2, 1, 1, torch.device("cpu"))
     assert batch_sharding(mesh, 6) == slice(3, 6)
     with pytest.raises(KaldiError, match="does not divide"):
