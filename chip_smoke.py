@@ -381,11 +381,68 @@ Phases (each prints lines; any failure raises and exits non-zero):
      fbank kernel's of online2-wav-nnet3-latgen-grammar join the
      kernels line (not those of 18b's reference run on the expanded
      graph).
+ 19. Kaldi's chain training loop as tools (``python3 chip_smoke.py
+     --chain-loop``, in the background since 10b; see LOOP_* below).
+ 20. Kaldi's serving binaries, in one background process (``python3
+     chip_smoke.py --serve-tools <dir> <device>``, started after 10b
+     beside 17a's, 18's and 19's workers, two host threads; joined
+     before the kernels line, its wall and the main process's wait at
+     the join printed), every tool a call of the port's registry on
+     the card held against the library on the same files on the same
+     card:
+     a. on 7d's files (the 300-word task, the 13-layer 1024 / 128 raw
+        TDNN-F on 13 MFCCs) and 8 of 7d's seeded waveforms:
+        nnet3-compute, nnet3-compute-batch, apply-cmvn-online,
+        online2-wav-dump-features, nnet3-latgen-faster-looped (its
+        window scores equal to the offline forward),
+        online2-wav-nnet3-latgen-incremental and the wake-word decoder
+        (the wake word the first word of the library's streamed path);
+     b. online2-tcp-nnet3-decode-faster (a process of its own, port 0,
+        8 connections): 4 clients at once, then 4 more, each streaming
+        a waveform in 0.18 s sends at the pace of speech; each final
+        equal to the library's SingleUtteranceDecoder words, each with
+        a partial first; reply latency p50 / p99, aggregate audio-s/s,
+        the server's fbank launches (its log);
+     c. on phase 4/5's 20k task (its HCLG written once, the write and
+        read timed) with phase 5's TDNN-F as raw nnet3:
+        nnet3-latgen-faster-batch --batch-size=32 on 32 seeded
+        waveforms' fbank features (equal to decode_lattice_batch +
+        determinization: best words, costs within SERVE_COST_TOL, state
+        and arc counts; decode-only and whole-call audio-s/s beside
+        phase 4's), nnet3-latgen-incremental on the same features and
+        latgen-incremental-mapped on phase 4's log-likelihoods (final
+        best paths equal to the offline decode at their settings);
+     d. the online GMM family on 10b's tri1 tree and test HCLG with a
+        GMM over the tools' 13 MFCCs + Δ+ΔΔ (estimated on the card from
+        10b's training waveforms and tri1's alignments, mixed up to
+        tri1's Gaussian count), 4 test waveforms at 8 kHz:
+        online-wav-gmm-decode-faster, online-gmm-decode-faster,
+        online2-wav-gmm-latgen-faster, the UDP server with 4
+        online-net-client calls, the TCP audio server with 4
+        online-audio-client calls at once; each tool's words equal to
+        ``_gmm_stream`` in process; the fbank kernel at this MFCC
+        (8 kHz, 23 bins) against its plain version on the 4 waveforms,
+        the GMM kernel at this model against float64 on their
+        features;
+     e. on 10b's tri1 and 30 test utterances: the unadapted decode
+        (gmm-latgen-faster) as first pass, gmm-make-regtree,
+        gmm-est-regtree-fmllr / -fmllr-ali per speaker,
+        gmm-est-regtree-mllr per speaker and over all, the three regtree
+        decodes, gmm-latgen-map and gmm-rescore-lattice of the
+        unadapted lattices with the MLLR-adapted model; each equal to
+        am/regtree.py and the library; WERs beside the unadapted one;
+        the GMM kernel at the MLLR-adapted model against float64 on the
+        30 utterances' features.
+     The kernels' counts are set to 0 before each tool call and read
+     after it; the fbank launches of SERVE_FBANK_TOOLS (a–d) and the GMM
+     launches of SERVE_GMM_TOOLS (d–e) join the kernels line, and d's
+     and e's kernel checks its max_abs_err.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths (the den's include 14b's,
-15a's, the ranks' of phase 16, 17d's and 18's, none expected; the GMM's
-17a's, 17c's and 18a's; the fbank's 18b's streaming grammar tool's),
+15a's, the ranks' of phase 16, 17d's, 18's and 19's; the GMM's
+17a's, 17c's, 18a's and 20d–e's; the fbank's 18b's streaming grammar
+tool's and 20a–d's),
 the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
@@ -7163,6 +7220,10 @@ def main() -> int:
         atexit.register(_stop, seq[0])
         loop = chain_loop_start(dev)
         atexit.register(_stop, loop[0])
+        # 20's worker, beside them: Kaldi's serving binaries
+        serve = serve_tools_start(serve_tools_write(
+            task, task300, fbank, model, tcfg, utts, lls, msys), dev)
+        atexit.register(_stop, serve[0])
         tri3b_training(dev, task300, tag)
         tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
     finally:
@@ -7306,6 +7367,10 @@ def main() -> int:
                         xc_rates.get("xc_tdnnf_f32_B128_Mframes_s"), tag)
     print(f"pod: phase 16 took {time.perf_counter() - t0:.1f} s")
 
+    # 20. Kaldi's serving binaries (in the background since 10b)
+    sv_fb, sv_gm, sv_fb_err, sv_gm_err = serve_tools_finish(serve, tag,
+                                                            p4_rate)
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fbank_logmel", "route": "cuda",
@@ -7313,9 +7378,9 @@ def main() -> int:
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
         + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb + iv_fb
-        + seq_fb,
+        + seq_fb + sv_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err,
-                           f_fb_err),
+                           f_fb_err, sv_fb_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
                 "the spectrogram are held to their own bar (phase 9a)",
         "ms": fb_ms, "plain_ms": fb_plain_ms,
@@ -7335,9 +7400,9 @@ def main() -> int:
         "source": "kaldi_tpu_torch/csrc/gmm.cu",
         "replaces": "kaldi_tpu/ops/pallas_gmm.py:40",
         "launches": b_gmm + d_gmm + p_gmm + y_gmm + m_gmm + tool_gmm
-        + f_gm + iv_gmm + tri_gmm + ebw_gmm + seq_gmm,
+        + f_gm + iv_gmm + tri_gmm + ebw_gmm + seq_gmm + sv_gm,
         "max_abs_err": max(gmm_err, b_err, d_err, p_err, f_gm_err,
-                           iv_gmm_err),
+                           iv_gmm_err, sv_gm_err),
         "ms": gmm_ms, "plain_ms": gmm_plain_ms,
         "bound_ms": gmm_bnd[0], "bound_by": gmm_bnd[1],
         "library_ms": None}, {
@@ -7780,6 +7845,1080 @@ def chain_loop_finish(started, tag: str) -> int:
     return den
 
 
+# ---------------------------------------------------------------------------
+# 20. Kaldi's serving binaries: the batched, looped and incremental nnet3
+# decodes, the online2 TCP server, wake-word, the legacy online GMM
+# servers and the regression-tree adapted decodes, as the port's tools
+# ---------------------------------------------------------------------------
+
+SERVE_DIR = os.path.join("build", "chip_smoke_serve")
+SERVE_WAVES = 8            # 20a, 20b: 7d's seeded waveforms
+SERVE_TCP_GROUP = 4        # 20b: clients at once (twice)
+SERVE_CHUNK_S = 0.18       # 20b: seconds of audio a client send
+SERVE_BATCH = 32           # 20c: waveforms through the batched decode
+SERVE_GMM_WAVES = 4        # 20d: test waveforms through the online GMM tools
+SERVE_REGTREE_UTTS = 30    # 20e: 10b's test utterances
+SERVE_TRI1_ITERS = 6       # 20d: EM iterations of its model (5 mix-ups)
+# 20e's regtree occupancy gate: a test speaker's 10 utterances hold fewer
+# frames than the tools' defaults (100 for MLLR, 200 for fMLLR) ask of a
+# node below the root
+SERVE_MIN_COUNT = 50.0
+# 20c's decode: phase 4's headline point (beam 13, lattice beam 7,
+# max-active 7000, acoustic scale 1)
+SERVE_BIG = ("--beam=13", "--lattice-beam=7", "--max-active=7000",
+             "--acoustic-scale=1.0")
+SERVE_COST_TOL = 1e-3      # best-path costs, tool against library
+SERVE_SCORE_TOL = 1e-4     # scores and features, of the largest entry
+SERVE_JOIN = 900           # the main process's longest wait, seconds
+# the tools whose kernel launches join the kernels line
+SERVE_FBANK_TOOLS = ("online2-wav-dump-features",
+                     "online2-wav-nnet3-latgen-incremental",
+                     "online2-wav-nnet3-wake-word-decoder-faster",
+                     "online2-tcp-nnet3-decode-faster",
+                     "online-wav-gmm-decode-faster",
+                     "online-gmm-decode-faster",
+                     "online-server-gmm-decode-faster",
+                     "online-audio-server-decode-faster",
+                     "online2-wav-gmm-latgen-faster")
+SERVE_GMM_TOOLS = SERVE_FBANK_TOOLS[4:] + (
+    "gmm-latgen-faster", "gmm-est-regtree-mllr", "gmm-est-regtree-fmllr",
+    "gmm-est-regtree-fmllr-ali", "gmm-decode-faster-regtree-fmllr",
+    "gmm-decode-faster-regtree-mllr", "gmm-latgen-faster-regtree-fmllr",
+    "gmm-latgen-map", "gmm-rescore-lattice")
+
+
+def _int16(wave) -> np.ndarray:
+    return np.clip(np.asarray(wave, np.float64), -32768,
+                   32767).astype(np.int16)
+
+
+def serve_tools_write(task, task300, fbank, model, tcfg, utts, lls,
+                      msys) -> str:
+    """20's inputs, written by the main process: 7d's 8 waveforms and
+    the 300-word task's words (7d's .mdl, HCLG and raw TDNN-F stay in
+    build/chip_smoke_online2); phase 4/5's 20k HCLG (its write timed),
+    transition model, phase 5's TDNN-F as raw nnet3, the 40-bin fbank
+    features of SERVE_BATCH seeded waveforms (launches not counted) and
+    phase 4's log-likelihoods; 10b's tri1 (.mdl, HCLG, training
+    alignments), its Δ+ΔΔ test features, transcripts, speakers and the
+    8 kHz waveforms.  → the directory."""
+    import pickle
+    from kaldi_tpu_torch.am.gmm import AmDiagGmm
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    from kaldi_tpu_torch.am.serialize import write_mdl
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.fst.csr import csr_to_vector_fst
+    from kaldi_tpu_torch.fst.openfst_io import write_fst_path
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, SERVE_DIR)
+    os.makedirs(d, exist_ok=True)
+    for stale in ("report.json", "worker.out", "worker.err"):
+        if os.path.exists(f"{d}/{stale}"):
+            os.remove(f"{d}/{stale}")
+    # a, b
+    waves = speech_set(task300, SERVE_WAVES, SEED + 8)[0]
+    with TableWriter(f"ark:{d}/wav8.ark", holder="wav") as w:
+        for i, x in enumerate(waves):
+            w[f"utt{i}"] = (_int16(x), SAMP_FREQ)
+    task300.words.write(f"{d}/words300.txt")
+    # c
+    t0 = time.perf_counter()
+    write_fst_path(f"{d}/HCLG20k.fst", csr_to_vector_fst(task.graph.csr))
+    write_s = time.perf_counter() - t0
+    write_mdl(f"{d}/big.mdl", task.tm, AmDiagGmm.flat_start(
+        task.num_pdfs, np.zeros(tcfg.feat_dim), np.ones(tcfg.feat_dim),
+        device="cpu"))
+    write_raw_model(f"{d}/p5.raw", {k: v.cpu() for k, v in
+                                    model.state_dict().items()}, tcfg)
+    bwaves = synth_waveforms(np.random.default_rng(SEED + 20), SERVE_BATCH)
+    with TableWriter(f"ark:{d}/fbank32.ark", holder="mat") as w:
+        for i, x in enumerate(bwaves):
+            w[f"b{i:02d}"] = fbank.compute(x).cpu().numpy()
+    with TableWriter(f"ark:{d}/ll4.ark", holder="mat") as w:
+        for u, ll in zip(utts, lls):
+            w[u] = np.asarray(ll, np.float32)
+    # d, e
+    tri1, test, train = msys["tri1"], msys["test"], msys["train"]
+    write_mdl(f"{d}/tri1.mdl", tri1.tm, tri1.am)
+    write_fst_path(f"{d}/HCLG1.fst", msys["HCLG1"])
+    msys["lang"].words.write(f"{d}/words.txt")
+    te = sorted(msys["delta_te"])[:SERVE_REGTREE_UTTS]
+    with TableWriter(f"ark:{d}/delta_te.ark", holder="mat") as w:
+        for u in te:
+            w[u] = np.asarray(msys["delta_te"][u], np.float32)
+    with TableWriter(f"ark:{d}/ali_tr.ark", holder="ivec") as w:
+        for u in sorted(msys["tri1_ali"]):
+            w[u] = np.asarray(msys["tri1_ali"][u], np.int32)
+    with TableWriter(f"ark:{d}/wav_tr8k.ark", holder="wav") as w:
+        for u in train.utts:
+            w[u] = (_int16(train.wavs[u][0] * 32768.0), train.wavs[u][1])
+    with TableWriter(f"ark:{d}/wav_te8k.ark", holder="wav") as w:
+        for u in te[:SERVE_GMM_WAVES]:
+            w[u] = (_int16(test.wavs[u][0] * 32768.0), test.wavs[u][1])
+    with open(f"{d}/inputs.pkl", "wb") as f:
+        pickle.dump({"text_te": {u: list(test.text[u]) for u in te},
+                     "utt2spk": {u: test.utt2spk[u] for u in te},
+                     "audio_batch_s": sum(len(x) for x in bwaves)
+                     / SAMP_FREQ,
+                     "hclg20k_write_s": write_s}, f)
+    return d
+
+
+def serve_tools_start(d: str, dev):
+    """20, started: ``python3 chip_smoke.py --serve-tools <dir> <device>``
+    (``serve_tools_worker``) in the background, two host threads.  →
+    (process, dir, start time)."""
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = open(f"{d}/worker.out", "w")
+    err = open(f"{d}/worker.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-tools", d,
+         dev.type], cwd=repo, stdout=out, stderr=err,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    out.close()
+    err.close()
+    return proc, d, time.perf_counter()
+
+
+class _LogTap:
+    """The port's log lines while a tool runs in this process (its
+    handler holds the stderr of start-up, so redirecting stderr misses
+    them)."""
+
+    def __init__(self):
+        import logging
+        tap = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                tap.lines.append(record.getMessage())
+
+        self.lines = []
+        self.handler = Handler()
+        self.logger = logging.getLogger("kaldi_tpu_torch")
+
+    def __enter__(self):
+        self.lines = []
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def _serve_read(spec, holder):
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    return dict(SequentialTableReader(spec, holder=holder))
+
+
+def _rel(got, want) -> float:
+    """The largest difference over the larger of 1 and the largest
+    |want| (inf when the shapes differ)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def _best_diff(got, want):
+    """Two CompactLattice tables → (keys and best words equal, the
+    largest best-path cost difference)."""
+    if sorted(got) != sorted(want):
+        return False, float("inf")
+    ok, worst = True, 0.0
+    for k in want:
+        gw, _, gc = got[k].best_path()
+        ww, _, wc = want[k].best_path()
+        ok &= list(gw) == list(ww)
+        worst = max(worst, abs(gc - wc))
+    return ok, worst
+
+
+def _stream(mfcc, net, dev, wave, decoders, wake=None):
+    """The library's online2 loop over one waveform (WAV_CHUNK pieces →
+    NnetStream → each decoder's advance), ended at the first piece whose
+    partial best path holds ``wake`` when given.  → the frame of that
+    piece (-1: never)."""
+    from kaldi_tpu_torch.cli.online2 import NnetStream
+    st = NnetStream(mfcc, net, 3, dev)
+    wave = np.asarray(wave, np.float32)
+    for i in range(0, len(wave), WAV_CHUNK):
+        st.accept_waveform(wave[i:i + WAV_CHUNK])
+        s = st.pump(False)
+        if s.numel():
+            for dec in decoders:
+                dec.advance_decoding(s)
+        if wake is not None and decoders[0].num_frames_decoded and wake in \
+                decoders[0].get_best_path(use_final_probs=False)[1]:
+            return decoders[0].num_frames_decoded
+    s = st.pump(True)
+    if s.numel():
+        for dec in decoders:
+            dec.advance_decoding(s)
+    if wake is not None and wake in \
+            decoders[0].get_best_path(use_final_probs=True)[1]:
+        return decoders[0].num_frames_decoded
+    return -1
+
+
+def serve_nnet3(T, held, d, dev, rep):
+    """20a: nnet3-compute, nnet3-compute-batch, apply-cmvn-online,
+    online2-wav-dump-features, nnet3-latgen-faster-looped,
+    online2-wav-nnet3-latgen-incremental and the wake-word decoder on
+    7d's files and 8 waveforms; each against the library on the card.
+    → the library's streamed words per utterance (20b's reference)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder, _load_hclg
+    from kaldi_tpu_torch.cli.online2 import _load_tdnn
+    from kaldi_tpu_torch.cli.tools_bank29 import looped_scores
+    from kaldi_tpu_torch.cli.tools_bank31 import incremental_decoder
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.decoder.dense import DenseDecoder, DenseDecoderConfig
+    from kaldi_tpu_torch.decoder.online import SingleUtteranceDecoder
+    from kaldi_tpu_torch.features.compute import Mfcc, MfccOptions
+    from kaldi_tpu_torch.features.online import (OnlineCmvnOptions,
+                                                 online_cmvn)
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    o2 = os.path.join(os.path.dirname(d), "chip_smoke_online2")
+    mdl, raw, fst = f"{o2}/final.mdl", f"{o2}/final.raw", f"{o2}/HCLG.fst"
+    dv = f"--device={dev.type}"
+    tm, _ = read_mdl(mdl, device="cpu")
+    _, net = _load_tdnn(raw, 3, dev)
+    mfcc = Mfcc(MfccOptions(frame_opts=FrameExtractionOptions(dither=0.0),
+                            num_ceps=13), device=dev)
+    waves = _serve_read(f"ark:{d}/wav8.ark", "wav")
+    feats = {k: mfcc.compute(np.asarray(w, np.float32))
+             for k, (w, _r) in waves.items()}
+    with TableWriter(f"ark:{d}/feats8.ark", holder="mat") as w:
+        for k, x in feats.items():
+            w[k] = x.cpu().numpy()
+    with torch.no_grad():
+        scores = {k: net(x[None])[0] for k, x in feats.items()}
+    # 1. nnet3-compute
+    T("nnet3-compute", dv, raw, f"ark:{d}/feats8.ark", f"ark:{d}/nc.ark")
+    got = _serve_read(f"ark:{d}/nc.ark", "mat")
+    err = max(_rel(got[k], scores[k].cpu()) for k in scores)
+    held("nnet3-compute = TdnnChain", err <= SERVE_SCORE_TOL, f"{err:.2e}")
+    # 2. nnet3-compute-batch: the tool's batch (8, 64-frame buckets, zero
+    # padding) through the library's TdnnChain
+    T("nnet3-compute-batch", dv, "--frame-subsampling-factor=3", raw,
+      f"ark:{d}/feats8.ark", f"ark:{d}/ncb.ark")
+    got = _serve_read(f"ark:{d}/ncb.ark", "mat")
+    keys = sorted(feats, key=lambda k: (feats[k].shape[0], k))
+    T_pad = -(-max(feats[k].shape[0] for k in keys) // 64) * 64
+    Xb = torch.zeros((8, T_pad, 13), device=dev)
+    for b, k in enumerate(keys):
+        Xb[b, :feats[k].shape[0]] = feats[k]
+    with torch.no_grad():
+        out = net(Xb)
+    err = max(_rel(got[k], out[b, :feats[k].shape[0] // 3].cpu())
+              for b, k in enumerate(keys))
+    held("nnet3-compute-batch = TdnnChain on its batch",
+         err <= SERVE_SCORE_TOL, f"{err:.2e}")
+    # 3. apply-cmvn-online with the utterances' global statistics
+    allx = torch.cat(list(feats.values())).double().cpu().numpy()
+    g = np.zeros((2, 14))
+    g[0, :13], g[1, :13], g[0, 13] = allx.sum(0), (allx ** 2).sum(0), \
+        len(allx)
+    with kio.open_wxfilename(f"{d}/gstats") as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_matrix(f, g)
+    T("apply-cmvn-online", dv, "--cmn-window=600", f"{d}/gstats",
+      f"ark:{d}/feats8.ark", f"ark:{d}/cmvn.ark")
+    got = _serve_read(f"ark:{d}/cmvn.ark", "mat")
+    o = OnlineCmvnOptions(cmn_window=600, global_stats=g)
+    err = max(_rel(got[k], online_cmvn(x, o).cpu()) for k, x in feats.items())
+    held("apply-cmvn-online = online_cmvn", err <= SERVE_SCORE_TOL,
+         f"{err:.2e}")
+    # 4. online2-wav-dump-features
+    T("online2-wav-dump-features", dv, f"ark:{d}/wav8.ark",
+      f"ark:{d}/dump.ark")
+    got = _serve_read(f"ark:{d}/dump.ark", "mat")
+    err = max(_rel(got[k], x.cpu()) for k, x in feats.items())
+    held("online2-wav-dump-features = Mfcc", err <= SERVE_SCORE_TOL,
+         f"{err:.2e}")
+    # 6. nnet3-latgen-faster-looped (context 36 ≥ the receptive field 34)
+    HCLG = _load_hclg(fst)
+    T("nnet3-latgen-faster-looped", dv, "--chunk-frames=51",
+      "--extra-context=36", "--acoustic-scale=1.0", mdl, raw, fst,
+      f"ark:{d}/feats8.ark", f"ark:{d}/looped.ark")
+    lat = _LatgenDecoder(HCLG, tm.tid_to_pdf_array, 15.0, 8.0, 1.0,
+                         device=dev)
+    looped_err, want = 0.0, {}
+    with torch.no_grad():
+        for k, x in feats.items():
+            ls = looped_scores(net, x, 51, 36, 3)
+            looped_err = max(looped_err, _rel(ls.cpu(),
+                                              scores[k][:len(ls)].cpu()))
+            want[k] = lat.decode_to_clat(ls)
+    ok, worst = _best_diff(_serve_read(f"ark:{d}/looped.ark", "clat"), want)
+    held("looped scores = the offline forward",
+         looped_err <= SERVE_SCORE_TOL, f"{looped_err:.2e}")
+    held("nnet3-latgen-faster-looped = library",
+         ok and worst <= SERVE_COST_TOL, f"{worst:.2e}")
+    rep["looped_err"] = looped_err
+    # 9. online2-wav-nnet3-latgen-incremental; the library's streamed
+    # words on the dense decoder beside it (10's and 20b's reference)
+    T("online2-wav-nnet3-latgen-incremental", dv, "--acoustic-scale=1.0",
+      mdl, raw, fst, f"ark:{d}/wav8.ark", f"ark:{d}/incr_wav.ark")
+    po = {"beam": 15.0, "lattice-beam": 8.0, "max-active": 7000,
+          "acoustic-scale": 1.0}
+    _tm, ob = incremental_decoder(mdl, fst, po, dev, record_capacity=65536)
+    dense = DenseDecoder(HCLG, tm.tid_to_pdf_array,
+                         DenseDecoderConfig(beam=15.0, acoustic_scale=1.0),
+                         device=dev)
+    want, words = {}, {}
+    with torch.no_grad():
+        for k, (w, _r) in waves.items():
+            online = SingleUtteranceDecoder(dense)
+            ob.reset()
+            _stream(mfcc, net, dev, w, [online, ob])
+            want[k] = ob.finalize()
+            words[k] = online.get_best_path(use_final_probs=True)[1]
+    ok, worst = _best_diff(_serve_read(f"ark:{d}/incr_wav.ark", "clat"),
+                           want)
+    held("online2-wav-nnet3-latgen-incremental = library",
+         ok and worst <= SERVE_COST_TOL, f"{worst:.2e}")
+    # 10. the wake word: the first word of the first streamed path that
+    # holds one (utterance 0's on the card)
+    first = next((k for k in sorted(words) if words[k]), None)
+    if first is None:
+        raise AssertionError("20a: no utterance decodes to a word")
+    wake = int(words[first][0])
+    with torch.no_grad():
+        lib = {}
+        for k, (w, _r) in waves.items():
+            hit = _stream(mfcc, net, dev, w, [SingleUtteranceDecoder(dense)],
+                          wake=wake)
+            lib[k] = [str(int(hit >= 0)), str(hit)]
+    T("online2-wav-nnet3-wake-word-decoder-faster", dv,
+      "--acoustic-scale=1.0", mdl, raw, fst, str(wake), f"ark:{d}/wav8.ark",
+      f"ark,t:{d}/wake.txt")
+    got = {k: list(v) for k, v in
+           _serve_read(f"ark,t:{d}/wake.txt", "text").items()}
+    held("wake-word = library", got == lib and got[first][0] == "1",
+         f"{first} {got.get(first)} library {lib[first]}")
+    rep["wake"] = {"word": wake, "utt": first,
+                   "frame": int(got[first][1]),
+                   "detected": sum(int(v[0]) for v in got.values())}
+    return {k: [int(o) for o in v] for k, v in words.items()}
+
+
+def serve_tcp(held, d, dev, words, rep, launches):
+    """20b: online2-tcp-nnet3-decode-faster (a process of its own, one
+    thread a connection) on 7d's files: SERVE_TCP_GROUP clients at once,
+    twice, each streaming a waveform in SERVE_CHUNK_S sends at the pace
+    of speech; each final hypothesis equal to the library's streamed
+    words, each connection with a partial first; the reply latency of
+    each partial from the send before it, the aggregate audio-s/s, the
+    tool's fbank launches (its log)."""
+    import re
+    import socket
+    import subprocess
+    import threading
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    o2 = os.path.join(os.path.dirname(d), "chip_smoke_online2")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    n_conn = 2 * SERVE_TCP_GROUP
+    err = open(f"{d}/tcp.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli",
+         "online2-tcp-nnet3-decode-faster", f"--device={dev.type}",
+         "--port-num=0", f"--max-connections={n_conn}", "--read-timeout=30",
+         f"{o2}/final.mdl", f"{o2}/final.raw", f"{o2}/HCLG.fst",
+         f"{d}/words300.txt"], cwd=repo, stdout=subprocess.PIPE,
+        stderr=err, text=True)
+    err.close()
+    waves = _serve_read(f"ark:{d}/wav8.ark", "wav")
+    keys = sorted(waves)
+    step = 2 * int(SERVE_CHUNK_S * SAMP_FREQ)
+    replies, lat_ms = {}, {0: [], 1: []}
+    lock = threading.Lock()
+    try:
+        port = int(proc.stdout.readline())
+
+        def client(k, group):
+            pcm = _int16(waves[k][0]).tobytes()
+            sends, got = [], []
+            sock = socket.create_connection(("127.0.0.1", port),
+                                            timeout=120)
+            sock.settimeout(120)
+
+            def reader():
+                buf = b""
+                while True:
+                    data = sock.recv(4096)
+                    if not data:
+                        break
+                    t = time.perf_counter()
+                    got.extend([t] * data.count(b"\r"))
+                    buf += data
+                replies[k] = buf
+
+            rt = threading.Thread(target=reader, daemon=True)
+            rt.start()
+            t0 = time.perf_counter()
+            for i in range(0, len(pcm), step):
+                sends.append(time.perf_counter())
+                sock.sendall(pcm[i:i + step])
+                time.sleep(max(0.0, t0 + len(sends) * SERVE_CHUNK_S
+                               - time.perf_counter()))
+            sock.shutdown(socket.SHUT_WR)
+            rt.join(timeout=120)
+            sock.close()
+            with lock:
+                lat_ms[group].extend(
+                    1e3 * (t - max(s for s in sends if s <= t)) for t in got)
+
+        t0 = time.perf_counter()
+        for g in range(0, n_conn, SERVE_TCP_GROUP):
+            ths = [threading.Thread(target=client,
+                                    args=(k, g // SERVE_TCP_GROUP),
+                                    daemon=True)
+                   for k in keys[g:g + SERVE_TCP_GROUP]]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(f"{d}/tcp.err") as f:
+        log_text = f.read()
+    held("online2-tcp-nnet3-decode-faster exit 0", proc.returncode == 0,
+         log_text[-300:] if proc.returncode else "")
+    table = SymbolTable.read(f"{d}/words300.txt")
+    for k in keys:
+        r = replies.get(k, b"")
+        parts = r[:-1].split(b"\r") if r.endswith(b"\n") else []
+        want = " ".join(table.find(o) for o in words[k])
+        held("tcp final = library", bool(parts)
+             and parts[-1].decode() == want, "" if parts else k)
+        held("tcp partial before the final", len(parts) > 1, "")
+    m = re.findall(r"fbank kernel launches (\d+)", log_text)
+    launches["fbank"]["online2-tcp-nnet3-decode-faster"] = \
+        int(m[-1]) if m else 0
+    audio = sum(len(waves[k][0]) for k in keys) / SAMP_FREQ
+    rep["tcp"] = {"connections": n_conn, "audio_s": audio, "wall_s": wall,
+                  "audio_s_per_s": audio / wall}
+    # the first group meets a cold server (its first forwards and
+    # kernel loads), the second a warm one
+    for name, xs in (("all", lat_ms[0] + lat_ms[1]), ("warm", lat_ms[1])):
+        rep["tcp"][name] = [len(xs)] + ([pctl(xs, 50), pctl(xs, 99)]
+                                        if xs else [float("nan")] * 2)
+
+
+def serve_big(T, held, d, dev, rep, walls, log_lines):
+    """20c: nnet3-latgen-faster-batch (its beam branch, one batch of
+    SERVE_BATCH) on phase 4/5's 20k HCLG with phase 5's TDNN-F on the
+    40-bin fbank of SERVE_BATCH waveforms, nnet3-latgen-incremental on
+    the same features and latgen-incremental-mapped on phase 4's
+    log-likelihoods; each against the library on the card."""
+    import re
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _load_hclg
+    from kaldi_tpu_torch.cli.online2 import _load_tdnn
+    from kaldi_tpu_torch.decoder.beam import BeamDecoder, BeamDecoderConfig
+    from kaldi_tpu_torch.fst.csr import pack_fst
+    from kaldi_tpu_torch.lattice.determinize import \
+        determinize_lattice_pruned
+    dv = f"--device={dev.type}"
+    mdl, raw, fst = f"{d}/big.mdl", f"{d}/p5.raw", f"{d}/HCLG20k.fst"
+    t0 = time.perf_counter()
+    HCLG = _load_hclg(fst)
+    rep["hclg20k_load_s"] = time.perf_counter() - t0
+    rep["hclg20k_states"] = HCLG.num_states
+    csr = pack_fst(HCLG)
+    del HCLG
+    tm, _ = read_mdl(mdl, device="cpu")
+    _, net = _load_tdnn(raw, 3, dev)
+    feats = _serve_read(f"ark:{d}/fbank32.ark", "mat")
+    keys = sorted(feats)
+    with torch.no_grad():
+        scores = {k: net(torch.as_tensor(feats[k]).to(dev)[None])[0]
+                  for k in keys}
+
+    def cfg(**kw):
+        return BeamDecoderConfig(beam=13.0, lattice_beam=7.0,
+                                 acoustic_scale=1.0, max_active=7000,
+                                 lattice_arcs_per_frame=14000, **kw)
+
+    T("nnet3-latgen-faster-batch", dv, *SERVE_BIG,
+      f"--batch-size={SERVE_BATCH}", mdl, raw, fst,
+      f"ark:{d}/fbank32.ark", f"ark:{d}/batch.ark")
+    m = re.search(r"decode ([0-9.]+) s", " ".join(
+        ln for ln in log_lines() if "nnet3-latgen-faster-batch:" in ln))
+    rep["batch_decode_s"] = float(m.group(1)) if m else float("nan")
+    dec = BeamDecoder(csr, tm.tid_to_pdf_array, cfg(), device=dev)
+    lens = np.array([scores[k].shape[0] for k in keys], np.int64)
+    X = torch.zeros((len(keys), int(lens.max()), scores[keys[0]].shape[1]),
+                    device=dev)
+    for b, k in enumerate(keys):
+        X[b, :lens[b]] = scores[k]
+    want = {k: determinize_lattice_pruned(r, 7.0) for k, r in
+            zip(keys, dec.decode_lattice_batch(X, lens))}
+    got = _serve_read(f"ark:{d}/batch.ark", "clat")
+    ok, worst = _best_diff(got, want)
+    shapes = all(got[k].num_states == want[k].num_states
+                 and got[k].num_arcs == want[k].num_arcs for k in want)
+    held("nnet3-latgen-faster-batch = decode_lattice_batch",
+         ok and shapes and worst <= SERVE_COST_TOL,
+         f"{worst:.2e}{'' if shapes else ', shapes differ'}")
+    rep["batch_frames"] = int(lens.sum())
+    del dec, X
+    # the incremental tools against the library's offline decode at
+    # their decoder's settings
+    inc = BeamDecoder(csr, tm.tid_to_pdf_array, cfg(record_capacity=16384),
+                      device=dev)
+    off = {k: determinize_lattice_pruned(inc.decode_lattice(scores[k]), 7.0)
+           for k in keys}
+    T("nnet3-latgen-incremental", dv, *SERVE_BIG, mdl, raw, fst,
+      f"ark:{d}/fbank32.ark", f"ark:{d}/incr.ark")
+    ok, worst = _best_diff(_serve_read(f"ark:{d}/incr.ark", "clat"), off)
+    held("nnet3-latgen-incremental = offline",
+         ok and worst <= SERVE_COST_TOL, f"{worst:.2e}")
+    lls = _serve_read(f"ark:{d}/ll4.ark", "mat")
+    off4 = {k: determinize_lattice_pruned(inc.decode_lattice(v), 7.0)
+            for k, v in lls.items()}
+    T("latgen-incremental-mapped", dv, *SERVE_BIG, mdl, fst,
+      f"ark:{d}/ll4.ark", f"ark:{d}/incr4.ark")
+    ok, worst = _best_diff(_serve_read(f"ark:{d}/incr4.ark", "clat"), off4)
+    held("latgen-incremental-mapped = offline",
+         ok and worst <= SERVE_COST_TOL, f"{worst:.2e}")
+
+
+def _tri1_39(dev, d) -> tuple:
+    """20d's model: tri1's tree and transition model with a GMM over the
+    legacy tools' features (13 MFCCs of the 8 kHz waveforms, Δ+ΔΔ, no
+    CMVN), estimated on the card from 10b's training waveforms and
+    tri1's alignments (the gmm-init-model + gmm-acc-stats-ali + gmm-est
+    steps of a feature change): one Gaussian a pdf, then
+    SERVE_TRI1_ITERS EM iterations on those alignments, mixing up after
+    each but the last, as train_deltas does, to tri1's Gaussian count
+    (the last update may drop a Gaussian that no frame reaches).  → (the
+    sample rate, its Gaussians, tri1's)."""
+    from kaldi_tpu_torch.am.gmm import (AmDiagGmm, GmmAccs,
+                                        accumulate_stats, mixup, mle_update)
+    from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+    from kaldi_tpu_torch.features import DeltaFeaturesOptions, add_deltas
+    from kaldi_tpu_torch.features.compute import Mfcc, MfccOptions
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    tm, tri1 = read_mdl(f"{d}/tri1.mdl", device="cpu")
+    waves = _serve_read(f"ark:{d}/wav_tr8k.ark", "wav")
+    alis = _serve_read(f"ark:{d}/ali_tr.ark", "ivec")
+    rate = float(next(iter(waves.values()))[1])
+    mfcc = Mfcc(MfccOptions(frame_opts=FrameExtractionOptions(
+        samp_freq=rate, dither=0.0)), device=dev)
+    feats, pdfs = [], []
+    for u, (w, _r) in waves.items():
+        if u in alis:
+            f = add_deltas(mfcc.compute(np.asarray(w, np.float32)),
+                           DeltaFeaturesOptions()).cpu().numpy()
+            n = min(len(f), len(alis[u]))
+            feats.append(f[:n])
+            pdfs.append(tm.tid_to_pdf_array[np.asarray(alis[u][:n],
+                                                       np.int64)])
+    allf, allp = np.concatenate(feats), np.concatenate(pdfs)
+    am = AmDiagGmm.flat_start(tm.num_pdfs, allf.mean(0), allf.var(0),
+                              device=dev)
+    target = tri1.num_gauss()
+    for it in range(SERVE_TRI1_ITERS):
+        accs = GmmAccs.zeros(am.num_pdfs, am.max_mix, am.dim)
+        accumulate_stats(am, allf, allp, accs)
+        mle_update(am, accs)
+        n, left = am.num_gauss(), SERVE_TRI1_ITERS - 1 - it
+        if left and n < target:
+            am = mixup(am, n + math.ceil((target - n) / left), seed=it)
+    write_mdl(f"{d}/tri1_39.mdl", tm, am)
+    return rate, am.num_gauss(), target
+
+
+def _stream_feats(mfcc, wave):
+    """The features ``_gmm_stream`` scores for ``wave``: online MFCC +
+    Δ+ΔΔ over the whole input."""
+    from kaldi_tpu_torch.features.functions import DeltaFeaturesOptions
+    from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
+    pipe = OnlineFeaturePipeline(mfcc, deltas=DeltaFeaturesOptions())
+    pipe.accept_waveform(wave)
+    pipe.input_finished()
+    return pipe.get_frames(0, pipe.num_frames_ready())
+
+
+def serve_gmm(T, held, d, dev, rep, walls, wers, text):
+    """20d: online-wav-gmm-decode-faster, online-gmm-decode-faster,
+    online2-wav-gmm-latgen-faster, the UDP server and client (one
+    utterance after another) and the TCP audio server and clients (all
+    at once) on 10b's tri1 graph and SERVE_GMM_WAVES test waveforms; each
+    tool's words equal to the library's chunked stream
+    (cli/tools_bank30.py ``_gmm_stream``) in this process."""
+    import contextlib
+    import io
+    import socket
+    import threading
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.cli.online2 import online_mfcc
+    from kaldi_tpu_torch.cli.tools_bank30 import (_gmm_online_setup,
+                                                  _gmm_stream)
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    from kaldi_tpu_torch.pipelines.score import compute_wer
+    t0 = time.perf_counter()
+    rate, *rep["gauss_20d"] = _tri1_39(dev, d)
+    walls["20d model"] = time.perf_counter() - t0
+    dv = f"--device={dev.type}"
+    mdl, fst, wtab = f"{d}/tri1_39.mdl", f"{d}/HCLG1.fst", f"{d}/words.txt"
+    table = SymbolTable.read(wtab)
+    _tm, am, dec = _gmm_online_setup(mdl, fst, 16.0, 0.1, dev)
+    mfcc = online_mfcc(rate, dev)
+    waves = _serve_read(f"ark:{d}/wav_te8k.ark", "wav")
+    keys = sorted(waves)
+    with torch.no_grad():
+        lib = {k: [table.find(o) for o in _gmm_stream(
+            am, dec, mfcc, waves[k][0], int(0.18 * rate))[0]] for k in keys}
+        # both kernels at this path's shapes against their references:
+        # the fbank kernel at 8 kHz and 23 bins, the GMM kernel at this
+        # model on the features the streams score
+        xs = [np.asarray(waves[k][0], np.float32) for k in keys]
+        rep["fbank_err_20d"] = check_path_fbank(mfcc, xs, "serve: 20d")
+        rep["gmm_err_20d"] = check_path_loglikes_f64(
+            am, [_stream_feats(mfcc, x) for x in xs], "serve: 20d")
+    wers["20d _gmm_stream"] = str(compute_wer({k: text[k] for k in keys},
+                                              lib))
+
+    def words_of(spec):
+        return {k: list(v) for k, v in _serve_read(spec, "text").items()}
+
+    T("online-wav-gmm-decode-faster", dv, f"--word-symbol-table={wtab}",
+      mdl, fst, f"ark:{d}/wav_te8k.ark", f"ark,t:{d}/owg.txt",
+      f"ark:{d}/owg.ali")
+    held("online-wav-gmm-decode-faster = _gmm_stream",
+         words_of(f"ark,t:{d}/owg.txt") == lib, "")
+    with open(f"{d}/mic.raw", "wb") as f:
+        f.write(_int16(waves[keys[0]][0]).tobytes())
+    lines = T("online-gmm-decode-faster", dv, f"--samp-freq={rate}",
+              f"--audio={d}/mic.raw", mdl, fst, wtab).strip().splitlines()
+    held("online-gmm-decode-faster = _gmm_stream",
+         bool(lines) and lines[-1].split() == lib[keys[0]], "")
+    T("online2-wav-gmm-latgen-faster", dv, f"--sample-frequency={rate}",
+      f"--word-symbol-table={wtab}", mdl, fst, f"ark:{d}/wav_te8k.ark",
+      f"ark,t:{d}/o2g.txt")
+    held("online2-wav-gmm-latgen-faster = _gmm_stream",
+         words_of(f"ark,t:{d}/o2g.txt") == lib, "")
+    for k in keys:
+        with TableWriter(f"ark:{d}/one_{k}.ark", holder="wav") as w:
+            w[k] = (_int16(waves[k][0]), waves[k][1])
+
+    def free_port(kind):
+        s = socket.socket(socket.AF_INET, kind)
+        s.bind(("127.0.0.1", 0))
+        p = s.getsockname()[1]
+        s.close()
+        return p
+
+    def serve(name, argv, clients, concurrent) -> str:
+        """The server ``name`` on a thread of this process and its
+        clients (at once or in turn); the kernels' counts cover both
+        (the clients launch none).  → what they printed."""
+        holder = {}
+
+        def target():
+            try:
+                holder["rc"] = TOOLS[name](argv)
+            except BaseException as e:      # read below
+                holder["error"] = e
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            th = threading.Thread(target=target, daemon=True)
+            th.start()
+            time.sleep(1.0)
+            if concurrent:
+                cs = [threading.Thread(target=c, daemon=True)
+                      for c in clients]
+                for c in cs:
+                    c.start()
+                for c in cs:
+                    c.join(timeout=120)
+            else:
+                for c in clients:
+                    c()
+            th.join(timeout=120)
+        held(f"{name} exit 0", holder.get("rc") == 0 and not th.is_alive(),
+             repr(holder.get("error", ""))[:200])
+        return buf.getvalue()
+
+    port = free_port(socket.SOCK_DGRAM)
+    out = T("online-server-gmm-decode-faster", serve, [
+        dv, f"--udp-port={port}", f"--samp-freq={rate}",
+        f"--max-utterances={len(keys)}", mdl, fst, wtab],
+        [lambda k=k: TOOLS["online-net-client"](
+            ["127.0.0.1", str(port), f"ark:{d}/one_{k}.ark"])
+         for k in keys], False)
+    got = {ln.split()[0]: ln.split()[1:] for ln in out.splitlines()
+           if ln.split() and ln.split()[0] in waves}
+    held("UDP server = _gmm_stream", got == lib,
+         "" if got == lib else f"{got} vs {lib}"[:300])
+    port = free_port(socket.SOCK_STREAM)
+    out = T("online-audio-server-decode-faster", serve, [
+        dv, f"--port-num={port}", f"--samp-freq={rate}",
+        f"--max-connections={len(keys)}", mdl, fst, wtab],
+        [lambda k=k: TOOLS["online-audio-client"](
+            ["127.0.0.1", str(port), f"ark:{d}/one_{k}.ark"])
+         for k in keys], True)
+    res = {ln.split()[0]: ln.split("RESULT:")[1].split()
+           for ln in out.splitlines() if " RESULT:" in ln}
+    n_words = {k: sum(1 for ln in out.splitlines()
+                      if ln.startswith(f"{k} WORD:")) for k in keys}
+    held("TCP audio server = _gmm_stream", res == lib and all(
+        n_words[k] == len(lib[k]) for k in keys),
+         "" if res == lib else f"{out} vs {lib}"[:300])
+
+
+def serve_regtree(T, held, d, dev, rep, wers, text, utt2spk):
+    """20e: on 10b's tri1 and SERVE_REGTREE_UTTS test utterances: the
+    unadapted decode (gmm-latgen-faster) and its best paths as first-pass
+    alignments, gmm-make-regtree, gmm-est-regtree-fmllr / -fmllr-ali per
+    speaker, gmm-est-regtree-mllr per speaker and over all, the three
+    regtree decodes with the fMLLR transforms, gmm-latgen-map, and
+    gmm-rescore-lattice of the unadapted lattices with the MLLR-adapted
+    model; each against the library on the card; WERs beside the
+    unadapted decode's."""
+    from kaldi_tpu_torch.am.gmm import (AmDiagGmm, GmmAccs,
+                                        accumulate_stats, map_update)
+    from kaldi_tpu_torch.am.regtree import (RegressionTree,
+                                            RegtreeFmllrAccs,
+                                            RegtreeMllrAccs, write_regtree)
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.am.transforms import apply_transform
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder, _load_hclg
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.decoder.dense import DenseDecoder, DenseDecoderConfig
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    from kaldi_tpu_torch.lattice.functions import state_times
+    from kaldi_tpu_torch.pipelines.score import compute_wer
+    dv = f"--device={dev.type}"
+    mdl, fst, feats_spec = (f"{d}/tri1.mdl", f"{d}/HCLG1.fst",
+                            f"ark:{d}/delta_te.ark")
+    table = SymbolTable.read(f"{d}/words.txt")
+    tm, am = read_mdl(mdl, device=dev)
+    HCLG = _load_hclg(fst)
+    feats = _serve_read(feats_spec, "mat")
+    keys = sorted(feats)
+    spk2utt = {}
+    for u in keys:
+        spk2utt.setdefault(utt2spk[u], []).append(u)
+    with open(f"{d}/utt2spk", "w") as f:
+        f.writelines(f"{u} {utt2spk[u]}\n" for u in keys)
+    with open(f"{d}/spk2utt", "w") as f:
+        f.writelines(f"{s} {' '.join(us)}\n" for s, us in spk2utt.items())
+    refs = {u: text[u] for u in keys}
+
+    def wer_of(hyps, name):
+        wers[name] = str(compute_wer(refs, hyps))
+
+    def clat_words(spec):
+        return {k: [table.find(o) for o in c.best_path()[0]]
+                for k, c in _serve_read(spec, "clat").items()}
+
+    # the unadapted decode → first-pass alignments
+    T("gmm-latgen-faster", dv, "--acoustic-scale=0.1", "--beam=16", mdl,
+      fst, feats_spec, f"ark:{d}/lat0.ark")
+    lats0 = _serve_read(f"ark:{d}/lat0.ark", "clat")
+    wer_of(clat_words(f"ark:{d}/lat0.ark"), "20e unadapted gmm-latgen-faster")
+    alis = {k: np.asarray(c.best_path()[1], np.int32)
+            for k, c in lats0.items()}
+    pdfs = {k: tm.tid_to_pdf_array[alis[k].astype(np.int64)] for k in keys}
+    for s, us in list(spk2utt.items()) + [("all", keys)]:
+        with TableWriter(f"ark:{d}/ali_{s}.ark", holder="ivec") as w:
+            for u in us:
+                w[u] = alis[u]
+    # the tree (the estimators build their own, as in the original)
+    T("gmm-make-regtree", "--max-leaves=4", mdl, f"{d}/regtree")
+    write_regtree(f"{d}/regtree.lib", RegressionTree.build(
+        read_mdl(mdl, device="cpu")[1], num_base_classes=4))
+    with open(f"{d}/regtree", "rb") as f, open(f"{d}/regtree.lib",
+                                               "rb") as g:
+        held("gmm-make-regtree = RegressionTree.build",
+             f.read() == g.read(), "")
+    tree = RegressionTree.build(am, 4)
+    # fMLLR per speaker
+    lib_tr = {}
+    for s, us in spk2utt.items():
+        accs = RegtreeFmllrAccs(tree, am.dim)
+        for u in us:
+            accs.accumulate(am, feats[u], pdfs[u])
+        lib_tr[s] = accs.estimate(min_count=SERVE_MIN_COUNT) \
+            .root_transform().astype(np.float32)
+    for name in ("gmm-est-regtree-fmllr", "gmm-est-regtree-fmllr-ali"):
+        T(name, dv, f"--min-count={SERVE_MIN_COUNT}",
+          f"--spk2utt=ark,t:{d}/spk2utt", mdl, feats_spec,
+          f"ark:{d}/ali_all.ark", f"ark:{d}/{name}.ark")
+        got = _serve_read(f"ark:{d}/{name}.ark", "mat")
+        err = max(_rel(got[s], lib_tr[s]) for s in lib_tr) \
+            if sorted(got) == sorted(lib_tr) else float("inf")
+        held(f"{name} = RegtreeFmllrAccs", err <= 1e-6, f"{err:.2e}")
+    # MLLR per speaker and over all
+    for s, us in list(spk2utt.items()) + [("all", keys)]:
+        T("gmm-est-regtree-mllr", dv, f"--min-count={SERVE_MIN_COUNT}", mdl,
+          feats_spec, f"ark:{d}/ali_{s}.ark", f"{d}/mllr_{s}.mdl")
+        accs = RegtreeMllrAccs(tree, am.dim)
+        for u in us:
+            accs.accumulate(am, feats[u], pdfs[u])
+        want = accs.estimate(min_count=SERVE_MIN_COUNT).transform_model(am)
+        err = _rel(read_mdl(f"{d}/mllr_{s}.mdl", device="cpu")[1].means,
+                   want.means)
+        held("gmm-est-regtree-mllr = RegtreeMllrAccs", err <= 1e-6,
+             f"{s} {err:.2e}")
+    # the regtree decodes with the fMLLR transforms
+    trans = f"ark:{d}/gmm-est-regtree-fmllr.ark"
+    dense = DenseDecoder(HCLG, tm.tid_to_pdf_array,
+                         DenseDecoderConfig(beam=16.0, acoustic_scale=0.1),
+                         device=dev)
+    xs = {u: apply_transform(torch.as_tensor(feats[u]).to(dev),
+                             lib_tr[utt2spk[u]]).contiguous() for u in keys}
+    lib_words = {u: [table.find(o) for o in
+                     dense.decode(am.loglikes(xs[u]))[1]] for u in keys}
+    for name in ("gmm-decode-faster-regtree-fmllr",
+                 "gmm-decode-faster-regtree-mllr"):
+        T(name, dv, f"--utt2spk=ark,t:{d}/utt2spk",
+          f"--word-symbol-table={d}/words.txt", mdl, fst, trans, feats_spec,
+          f"ark,t:{d}/{name}.txt")
+        got = {k: list(v) for k, v in
+               _serve_read(f"ark,t:{d}/{name}.txt", "text").items()}
+        held(f"{name} = library", got == lib_words, "")
+        wer_of(got, f"20e {name}")
+    T("gmm-latgen-faster-regtree-fmllr", dv, "--beam=16",
+      f"--utt2spk=ark,t:{d}/utt2spk", mdl, fst, trans, feats_spec,
+      f"ark:{d}/lat_fmllr.ark")
+    lat = _LatgenDecoder(HCLG, tm.tid_to_pdf_array, 16.0, 6.0, 0.1,
+                         device=dev)
+    ok, worst = _best_diff(_serve_read(f"ark:{d}/lat_fmllr.ark", "clat"),
+                           {u: lat.decode_to_clat(am.loglikes(xs[u]))
+                            for u in keys})
+    held("gmm-latgen-faster-regtree-fmllr = library",
+         ok and worst <= SERVE_COST_TOL, f"{worst:.2e}")
+    wer_of(clat_words(f"ark:{d}/lat_fmllr.ark"),
+           "20e gmm-latgen-faster-regtree-fmllr")
+    # MAP, a model a speaker
+    T("gmm-latgen-map", dv, "--mean-tau=10", f"--utt2spk=ark,t:{d}/utt2spk",
+      mdl, fst, feats_spec, f"ark:{d}/ali_all.ark", f"ark:{d}/lat_map.ark")
+    lat13 = _LatgenDecoder(HCLG, tm.tid_to_pdf_array, 13.0, 6.0, 0.1,
+                           device=dev)
+    want = {}
+    for s, us in spk2utt.items():
+        accs = GmmAccs.zeros(am.num_pdfs, am.max_mix, am.dim)
+        for u in us:
+            accumulate_stats(am, feats[u], pdfs[u], accs)
+        adapted = AmDiagGmm(am.weights, am.means, am.vars, device=dev)
+        map_update(adapted, accs, mean_tau=10.0)
+        for u in us:
+            want[u] = lat13.decode_to_clat(adapted.loglikes(feats[u]))
+    ok, worst = _best_diff(_serve_read(f"ark:{d}/lat_map.ark", "clat"),
+                           want)
+    held("gmm-latgen-map = library", ok and worst <= SERVE_COST_TOL,
+         f"{worst:.2e}")
+    wer_of(clat_words(f"ark:{d}/lat_map.ark"), "20e gmm-latgen-map")
+    # the unadapted lattices rescored with the MLLR-adapted model
+    T("gmm-rescore-lattice", dv, f"{d}/mllr_all.mdl", f"ark:{d}/lat0.ark",
+      feats_spec, f"ark:{d}/lat_rescored.ark")
+    _, mam = read_mdl(f"{d}/mllr_all.mdl", device=dev)
+    rep["gmm_err_20e"] = check_path_loglikes_f64(
+        mam, [feats[k] for k in keys], "serve: 20e MLLR-adapted tri1")
+    worst = 0.0
+    for k, c in _serve_read(f"ark:{d}/lat_rescored.ark", "clat").items():
+        ll = mam.loglikes(feats[k]).cpu().numpy().astype(np.float64)
+        times = state_times(c)
+        for st in range(c.num_states):
+            for a in c.arcs[st]:
+                t = times[st] + np.arange(len(a.tids))
+                ac = -ll[t, tm.tid_to_pdf_array[np.asarray(
+                    a.tids, np.int64)]].sum() if len(a.tids) else 0.0
+                worst = max(worst, abs(a.acoustic_cost - ac)
+                            / max(1.0, abs(ac)))
+    held("gmm-rescore-lattice = the adapted model's log-likelihoods",
+         worst <= 1e-6, f"{worst:.2e}")
+    wer_of(clat_words(f"ark:{d}/lat_rescored.ark"),
+           "20e gmm-rescore-lattice (MLLR over all)")
+    rep["regtree"] = {"utts": len(keys), "speakers": len(spk2utt)}
+
+
+def serve_tools_worker(argv) -> int:
+    """20's background process: 20a–20e in turn, every tool a call of the
+    port's registry in this process (20b's server a process of its own),
+    each held against the library on the same card, the fbank and GMM
+    kernels' counts set to 0 before each call and read after it.  Writes
+    ``report.json`` into the directory; exits 1 if a check fails."""
+    import contextlib
+    import io
+    import pickle
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import kaldi_tpu_torch.features  # noqa: F401  (before ops.fbank)
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    from kaldi_tpu_torch.ops.gmm import CudaGmm
+    t_start = time.perf_counter()
+    d, dv = argv[0], argv[1]
+    dev = torch.device(dv, 0) if dv == "cuda" else torch.device(dv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(f"{d}/inputs.pkl", "rb") as f:
+        inp = pickle.load(f)
+    calls, checks, walls, wers, rep = [], [], {}, {}, {}
+    launches = {"gmm": {}, "fbank": {}}
+    tap = _LogTap()
+
+    def T(name, *args):
+        """Tool ``name`` (or, with a callable first, ``serve(name, ...)``
+        for a server and its clients), its kernel launches counted and
+        its wall added up; → what it printed."""
+        out = io.StringIO()
+        CudaGmm.total_launches = CudaFbank.total_launches = 0
+        t0 = time.perf_counter()
+        with tap:
+            if args and callable(args[0]):
+                out.write(args[0](name, *args[1:]))
+                rc = 0
+            else:
+                with contextlib.redirect_stdout(out):
+                    rc = TOOLS[name]([str(a) for a in args])
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        for k, n in (("gmm", CudaGmm.total_launches),
+                     ("fbank", CudaFbank.total_launches)):
+            launches[k][name] = launches[k].get(name, 0) + n
+        if rc:
+            raise AssertionError(f"{name}: rc {rc}")
+        calls.append(name)
+        return out.getvalue()
+
+    def held(name, ok, detail):
+        checks.append((name, bool(ok), detail))
+
+    t0 = time.perf_counter()
+    words = serve_nnet3(T, held, d, dev, rep)
+    walls["20a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_tcp(held, d, dev, words, rep, launches)
+    calls.append("online2-tcp-nnet3-decode-faster")
+    walls["20b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_big(T, held, d, dev, rep, walls, lambda: tap.lines)
+    walls["20c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_gmm(T, held, d, dev, rep, walls, wers, inp["text_te"])
+    walls["20d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_regtree(T, held, d, dev, rep, wers, inp["text_te"],
+                  inp["utt2spk"])
+    walls["20e"] = time.perf_counter() - t0
+    with open(f"{d}/report.json", "w") as f:
+        json.dump({"walls": walls, "wers": wers, "checks": checks,
+                   "calls": len(calls), "tools": sorted(set(calls)),
+                   "launches": launches, "inputs": {
+                       k: v for k, v in inp.items()
+                       if k not in ("text_te", "utt2spk")},
+                   "total": time.perf_counter() - t_start, **rep}, f,
+                  default=float)
+    bad = [c for c in checks if not c[1]]
+    if bad:
+        print(f"serve tools: {len(bad)} checks failed: {bad[:5]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def serve_tools_finish(started, tag: str, p4_rate: float):
+    """20, joined before the kernels line: the worker's exit, its checks,
+    the kernels' launches in the tools (fbank: SERVE_FBANK_TOOLS, GMM:
+    SERVE_GMM_TOOLS), the TCP server's reply latency and audio-s/s, the
+    batched decode's audio-s/s beside phase 4's, each WER; the worker's
+    wall and the main process's wait here.  → (fbank launches, GMM
+    launches, the fbank kernel's max |diff| from its plain version at
+    20d's MFCC, the GMM kernel's from float64 at 20d's and 20e's
+    models)."""
+    proc, d, t0 = started
+    t_wait = time.perf_counter()
+    proc.wait(timeout=SERVE_JOIN)
+    wait = time.perf_counter() - t_wait
+    wall = time.perf_counter() - t0
+    with open(f"{d}/worker.err") as f:
+        err = f.read()
+    if proc.returncode != 0 or not os.path.exists(f"{d}/report.json"):
+        raise AssertionError(f"serve tools failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    with open(f"{d}/report.json") as f:
+        rep = json.load(f)
+    fb = sum(rep["launches"]["fbank"].get(n, 0) for n in SERVE_FBANK_TOOLS)
+    gm = sum(rep["launches"]["gmm"].get(n, 0) for n in SERVE_GMM_TOOLS)
+    by = {}
+    for name, ok, detail in rep["checks"]:
+        n, k, det = by.get(name, (0, 0, []))
+        by[name] = (n + 1, k + int(ok), det + ([detail] if detail else []))
+    print(f"serve: {rep['calls']} tool calls of {len(rep['tools'])} tools "
+          f"in one background process started after 10b: {wall:.1f} s to "
+          f"the join ({rep['total']:.1f} s of work after its imports); the "
+          f"main process waited {wait:.1f} s here {tag}")
+    for name, (n, k, det) in by.items():
+        print(f"serve:   {name}: {k} of {n} held"
+              + (f" ({'; '.join(det[:2])})" if det else ""))
+    w = rep["wake"]
+    print(f"serve: 20a: looped scores within {rep['looped_err']:.2e} of the "
+          f"offline forward; wake word {w['word']} detected in "
+          f"{w['detected']} of {SERVE_WAVES} utterances ({w['utt']}'s "
+          f"first word; there at frame {w['frame']})")
+    tcp = rep["tcp"]
+    print(f"serve: 20b: online2-tcp-nnet3-decode-faster, "
+          f"{tcp['connections']} connections {SERVE_TCP_GROUP} at a time, "
+          f"{SERVE_CHUNK_S} s sends at the pace of speech: reply latency "
+          f"p50 {tcp['all'][1]:.3f} ms, p99 {tcp['all'][2]:.3f} ms over "
+          f"{tcp['all'][0]} partials (the second group, on a warm server: "
+          f"p50 {tcp['warm'][1]:.3f} ms, p99 {tcp['warm'][2]:.3f} ms over "
+          f"{tcp['warm'][0]}); {tcp['audio_s']:.2f} s of audio in "
+          f"{tcp['wall_s']:.2f} s = {tcp['audio_s_per_s']:.2f} audio-s/s "
+          f"aggregate; fbank launches "
+          f"{rep['launches']['fbank'].get('online2-tcp-nnet3-decode-faster')}"
+          f" (the server's log) {tag}")
+    inp = rep["inputs"]
+    audio = inp["audio_batch_s"]
+    call = rep["walls"]["nnet3-latgen-faster-batch"]
+    print(f"serve: 20c: the 20k HCLG ({rep['hclg20k_states']} states) "
+          f"written in {inp['hclg20k_write_s']:.2f} s, read in "
+          f"{rep['hclg20k_load_s']:.2f} s; nnet3-latgen-faster-batch "
+          f"--batch-size={SERVE_BATCH} on {audio:.2f} s of audio "
+          f"({rep['batch_frames']} frames): decode "
+          f"{rep['batch_decode_s']:.3f} s = "
+          f"{audio / rep['batch_decode_s']:.1f} audio-s/s (its log), whole "
+          f"call {call:.2f} s = {audio / call:.1f} audio-s/s; phase 4's "
+          f"{p4_rate:.1f} audio-s/s {tag}")
+    for name, v in rep["wers"].items():
+        print(f"serve:   {name}: {v}")
+    print("serve: walls " + ", ".join(f"{n} {v:.1f} s" for n, v in
+                                      rep["walls"].items()))
+    print(f"serve: fbank kernel launches {fb} ({len(SERVE_FBANK_TOOLS)} "
+          f"streaming tools), GMM kernel launches {gm} (20d's and 20e's "
+          f"tools) {tag}")
+    with open(f"{d}/worker.out") as f:      # the kernels' checks' lines
+        print("".join(ln for ln in f if ln.startswith("serve: 20")),
+              end="")
+    gm_err = max(rep["gmm_err_20d"], rep["gmm_err_20e"])
+    print(f"serve: 20d's GMM {rep['gauss_20d'][0]} Gaussians (tri1 "
+          f"{rep['gauss_20d'][1]}); fbank kernel vs plain max |diff| "
+          f"{rep['fbank_err_20d']:.3e}; GMM kernel vs float64 max |diff| "
+          f"20d {rep['gmm_err_20d']:.3e}, 20e {rep['gmm_err_20e']:.3e}")
+    bad = [c for c in rep["checks"] if not c[1]]
+    if bad:
+        raise AssertionError(f"20: {len(bad)} checks failed: {bad[:3]}")
+    if min(fb, gm) <= 0:
+        raise AssertionError(f"20: launches fbank {fb}, GMM {gm}")
+    return fb, gm, rep["fbank_err_20d"], gm_err
+
+
 def _stop(proc) -> None:
     """Kill ``proc`` if it still runs (phase 17's and 18's workers, at
     exit)."""
@@ -7795,6 +8934,8 @@ if __name__ == "__main__":
         sys.exit(tri_tools_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--seq-tools"]:
         sys.exit(seq_tools_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-tools"]:
+        sys.exit(serve_tools_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--chain-loop"]:
         sys.exit(chain_loop_worker(sys.argv[2:]))
     sys.exit(main())

@@ -16,6 +16,11 @@ cuda).
 
     python -m kaldi_tpu_torch.cli.online2 [opts] <trans-model> \\
         <raw-nnet3> <fst> <wav-rspec> <words-wspec>
+
+The module also holds what the other online2 tools share: ``NnetStream``
+(one utterance's MFCC → TDNN-F scoring pump) and ``serve_connections``
+(the TCP servers' threaded serving, whose handlers' failures end the
+tool).
 """
 
 from __future__ import annotations
@@ -50,15 +55,108 @@ def _load_tdnn(path: str, subsample: int,
     return cfg, net.eval().to(device)
 
 
+def online_mfcc(rate: float, device, num_ceps: int = 13):
+    """The online tools' MFCC (online2's and the legacy GMM tools'):
+    ``num_ceps`` cepstra at ``rate``, no dither, on ``device``; one
+    computer serves every utterance and thread."""
+    from kaldi_tpu_torch.features.compute import Mfcc, MfccOptions
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    return Mfcc(MfccOptions(
+        frame_opts=FrameExtractionOptions(samp_freq=float(rate), dither=0.0),
+        num_ceps=num_ceps), device=device)
+
+
+class NnetStream:
+    """One utterance's online2 front end: waveform chunks → online MFCC
+    (``mfcc``; the fbank kernel on a card), with the online i-vector of
+    ``ivector_estimator`` appended when given (re-estimated every
+    ``ivector_period`` frames) → context-buffered TDNN-F scores
+    (``OnlineNnetScorer``).  The pump of the original's online2 tools
+    (online2-wav-nnet3-latgen-faster, -incremental, the wake-word
+    decoder, the TCP server), shared; each stream owns its pipeline,
+    estimator and scorer, so streams on threads share only ``mfcc`` and
+    ``net``."""
+
+    def __init__(self, mfcc, net, subsample: int,
+                 device: torch.device | str = "cuda",
+                 ivector_estimator=None, ivector_period: int = 10):
+        from kaldi_tpu_torch.decoder.online_nnet import OnlineNnetScorer
+        from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
+        self.pipe = OnlineFeaturePipeline(
+            mfcc, ivector_estimator=ivector_estimator,
+            ivector_period=ivector_period)
+        self.scorer = OnlineNnetScorer(net, subsample=subsample,
+                                       device=device)
+        self.fed = 0
+
+    def accept_waveform(self, samples) -> None:
+        self.pipe.accept_waveform(np.asarray(samples, np.float32))
+
+    def pump(self, final: bool) -> torch.Tensor:
+        """Features ready so far into the scorer (with ``final``, the
+        input's end) → the new score rows, (0, 0) when none."""
+        if final:
+            self.pipe.input_finished()
+        ready = self.pipe.num_frames_ready()
+        if ready > self.fed:
+            self.scorer.accept_features(self.pipe.get_frames(self.fed,
+                                                             ready))
+            self.fed = ready
+        if final:
+            self.scorer.input_finished()
+        return self.scorer.read_new()
+
+
+def serve_connections(handle, host: str, port: int,
+                      max_connections: int, on_listen=None) -> None:
+    """Serve TCP connections, one thread each
+    (``socketserver.ThreadingTCPServer``, as the original's servers):
+    ``handle(sock, address)`` per connection, until ``max_connections``
+    have been handled (0: forever).  ``on_listen(port)`` gets the bound
+    port.  A handler's exception ends its connection and the serving: it
+    is raised here once the server has stopped, so the tool exits
+    non-zero (the original's handlers lost it in the server's thread)."""
+    import socketserver
+    import threading
+    state = {"served": 0, "error": None}
+    cond = threading.Condition()
+
+    class Handler(socketserver.BaseRequestHandler):
+        def handle(self):
+            err = None
+            try:
+                handle(self.request, self.client_address)
+            except BaseException as e:      # raised again by the server
+                err = e
+            with cond:
+                state["served"] += 1
+                if err is not None and state["error"] is None:
+                    state["error"] = err
+                cond.notify_all()
+
+    class Server(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    with Server((host, port), Handler) as srv:
+        if on_listen is not None:
+            on_listen(srv.server_address[1])
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        with cond:
+            cond.wait_for(lambda: state["error"] is not None or (
+                0 < max_connections <= state["served"]))
+        srv.shutdown()
+        t.join()
+    if state["error"] is not None:
+        raise state["error"]
+
+
 def online2_wav_nnet3_latgen_faster(argv=None) -> int:
     from kaldi_tpu_torch.am.serialize import read_mdl
     from kaldi_tpu_torch.cli.latgen import (_load_hclg, latgen_kwargs,
                                             register_latgen_opts)
     from kaldi_tpu_torch.decoder.online import SingleUtteranceDecoder
-    from kaldi_tpu_torch.decoder.online_nnet import OnlineNnetScorer
-    from kaldi_tpu_torch.features.compute import Mfcc, MfccOptions
-    from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
-    from kaldi_tpu_torch.features.window import FrameExtractionOptions
     po = ParseOptions(
         "online2-wav-nnet3-latgen-faster [opts] <trans-model> "
         "<raw-nnet3> <fst> <wav-rspec> <words-wspec>")
@@ -125,10 +223,7 @@ def online2_wav_nnet3_latgen_faster(argv=None) -> int:
         from kaldi_tpu_torch.fst.fst import SymbolTable
         words_tab = SymbolTable.read(po["word-symbol-table"])
     chunk = int(po["chunk-length"] * po["sample-frequency"])
-    mfcc = Mfcc(MfccOptions(
-        frame_opts=FrameExtractionOptions(
-            samp_freq=po["sample-frequency"], dither=0.0),
-        num_ceps=po["num-ceps"]), device=device)
+    mfcc = online_mfcc(po["sample-frequency"], device, po["num-ceps"])
     n = 0
     with TableWriter(args[4], holder="text") as w:
         for key, (wave, rate) in SequentialTableReader(args[3],
@@ -140,39 +235,23 @@ def online2_wav_nnet3_latgen_faster(argv=None) -> int:
             if extractor is not None:
                 from kaldi_tpu_torch.am.ivector import OnlineIvectorEstimator
                 est = OnlineIvectorEstimator(extractor)
-            pipe = OnlineFeaturePipeline(
-                mfcc, ivector_estimator=est,
-                ivector_period=po["ivector-period"])
-            scorer = OnlineNnetScorer(
-                net, subsample=po["frame-subsampling-factor"],
-                device=device)
+            stream = NnetStream(mfcc, net, po["frame-subsampling-factor"],
+                                device, ivector_estimator=est,
+                                ivector_period=po["ivector-period"])
             if online_beam is None:
                 online = SingleUtteranceDecoder(dec)
             else:
                 online = online_beam
                 online.reset()
-            fed = 0
-            endpointed = False
             for i in range(0, len(wave), chunk):
-                pipe.accept_waveform(np.asarray(wave[i:i + chunk],
-                                                np.float32))
-                ready = pipe.num_frames_ready()
-                if ready > fed:
-                    scorer.accept_features(pipe.get_frames(fed, ready))
-                    fed = ready
-                scores = scorer.read_new()
+                stream.accept_waveform(wave[i:i + chunk])
+                scores = stream.pump(False)
                 if scores.numel():
                     online.advance_decoding(scores)
                 if po["do-endpointing"] and online.endpoint_detected():
-                    endpointed = True
                     break
-            if not endpointed:
-                pipe.input_finished()
-                ready = pipe.num_frames_ready()
-                if ready > fed:
-                    scorer.accept_features(pipe.get_frames(fed, ready))
-                scorer.input_finished()
-                scores = scorer.read_new()
+            else:
+                scores = stream.pump(True)
                 if scores.numel():
                     online.advance_decoding(scores)
             _, ols, cost = online.get_best_path(use_final_probs=True)

@@ -4,7 +4,10 @@ Port of those tools of kaldi_tpu/cli/tools_bank10.py (parity targets
 featbin/compute-and-process-kaldi-pitch-feats.cc,
 nnet3bin/nnet3-am-copy.cc), registered in cli/tools.py's ``TOOLS``: host
 numpy, copied; the pitch on the wave at its int16 scale, as in the
-original (see cli/tools_bank3.py).
+original (see cli/tools_bank3.py).  gmm-est-regtree-mllr
+(gmmbin/gmm-est-regtree-mllr.cc) computes its statistics' mixture
+posteriors on ``--device`` (default cuda) and estimates on the host
+(am/regtree.py).
 """
 
 from __future__ import annotations
@@ -72,4 +75,42 @@ def nnet3_am_copy(argv):
         n3.write_nnet3(f, model)
     log.info("nnet3-am-copy: %d components%s", len(model.components),
              " (raw)" if po["raw"] else "")
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank10.py gmm_est_regtree_mllr.
+@tool("gmm-est-regtree-mllr")
+def gmm_est_regtree_mllr(argv):
+    """Estimate per-base-class MLLR mean transforms from alignments and
+    write the adapted model (gmmbin/gmm-est-regtree-mllr.cc folded with
+    the transform application — the decode-ready artifact).  The mixture
+    posteriors run on ``--device``."""
+    from kaldi_tpu_torch.am.regtree import RegressionTree, RegtreeMllrAccs
+    from kaldi_tpu_torch.am.serialize import read_mdl, write_mdl
+    from kaldi_tpu_torch.cli.tools import _device_po
+    from kaldi_tpu_torch.core.table import RandomAccessTableReader
+    from kaldi_tpu_torch.device import resolve_device
+    po = ParseOptions("gmm-est-regtree-mllr [opts] <model-in> "
+                      "<feats-rspec> <ali-rspec> <model-out>")
+    po.register("num-base-classes", int, 4, "regression-tree leaves")
+    po.register("min-count", float, 100.0, "occupancy to estimate a node")
+    _device_po(po)
+    args = po.read(argv)
+    tm, am = read_mdl(args[0], device=resolve_device(po["device"]))
+    tree = RegressionTree.build(am, po["num-base-classes"])
+    accs = RegtreeMllrAccs(tree, am.dim)
+    alis = RandomAccessTableReader(args[2], holder="ivec")
+    n = 0
+    for key, feats in SequentialTableReader(args[1], holder="mat"):
+        if key not in alis:
+            continue
+        pdfs = np.array([tm.transition_id_to_pdf(int(t))
+                         for t in alis[key]], np.int32)
+        accs.accumulate(am, np.asarray(feats), pdfs)
+        n += 1
+    if not n:
+        raise KaldiError("gmm-est-regtree-mllr: no utterances")
+    mllr = accs.estimate(min_count=po["min-count"])
+    write_mdl(args[3], tm, mllr.transform_model(am))
+    log.info("gmm-est-regtree-mllr: adapted on %d utterances", n)
     return 0

@@ -11,7 +11,8 @@ model on the CPU.  gmm-acc-stats takes ``--device`` (default cuda): the
 original runs one jitted mixture posterior per (frame, transition-id)
 entry, the port one ``AmDiagGmm.component_posteriors`` call over every
 entry of an utterance on the device, with the weighted sums in float64
-(am/ebw.py ``accumulate_post_stats``).
+(am/ebw.py ``accumulate_post_stats``).  gmm-make-regtree
+(gmmbin/gmm-make-regtree.cc) is host numpy (am/regtree.py).
 """
 
 from __future__ import annotations
@@ -204,4 +205,20 @@ def gmm_transform_means_tool(argv):
     am.means = am.means @ A.T + b
     am.refresh()
     write_mdl(args[2], tm, am)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank12.py gmm_make_regtree_tool.
+@tool("gmm-make-regtree")
+def gmm_make_regtree_tool(argv):
+    """Build a regression tree over the model's Gaussians
+    (gmmbin/gmm-make-regtree.cc)."""
+    from kaldi_tpu_torch.am.regtree import RegressionTree, write_regtree
+    po = ParseOptions("gmm-make-regtree [--max-leaves=4] <model-in> "
+                      "<regtree-out>")
+    po.register("max-leaves", int, 4, "number of base classes")
+    args = po.read(argv)
+    _tm, am = _host_mdl(args[0])
+    tree = RegressionTree.build(am, num_base_classes=po["max-leaves"])
+    write_regtree(args[1], tree)
     return 0

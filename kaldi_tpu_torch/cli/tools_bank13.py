@@ -11,7 +11,9 @@ written again byte for byte.  The conversions, copies, sums and the
 update are host numpy and take no ``--device``.  The three tools that
 score frames (fgmm-global-acc-stats, fgmm-global-get-frame-likes,
 fgmm-gselect) take ``--device`` (default cuda), where am/full_gmm.py
-runs its float64 frame work.
+runs its float64 frame work.  apply-cmvn-online
+(online2bin/apply-cmvn-online.cc) takes ``--device`` too: its trailing
+windows are prefix sums there.
 """
 
 from __future__ import annotations
@@ -262,4 +264,55 @@ def fgmm_gselect_tool(argv):
             idx = np.argsort(-post, axis=1)[:, :n_keep]
             w[key] = [[(int(i), float(post[t, i])) for i in idx[t]]
                       for t in range(len(post))]
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank13.py apply_cmvn_online_tool.
+@tool("apply-cmvn-online")
+def apply_cmvn_online_tool(argv):
+    """Causal CMVN: per frame t, mean (and optionally variance) stats
+    from the trailing window [t-W+1, t]; when fewer than W frames are
+    available, the deficit is padded with the supplied global stats —
+    the online2 decoding contract (online2bin/apply-cmvn-online.cc).
+    The original's frame loop runs as prefix sums over the utterance on
+    ``--device``, in float64 as there."""
+    import torch
+    from kaldi_tpu_torch.core import io as kio
+    po = ParseOptions("apply-cmvn-online [--cmn-window=600] "
+                      "[--norm-vars=false] <global-stats-in> "
+                      "<feats-rspec> <feats-wspec>")
+    po.register("cmn-window", int, 600, "trailing window, frames")
+    po.register("norm-vars", bool, False, "also normalize variance")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    with kio.open_rxfilename(args[0]) as f:
+        kio.init_kaldi_input_stream(f)
+        gstats = np.asarray(kio.read_matrix(f), np.float64)
+    W = po["cmn-window"]
+    gcount = float(gstats[0, -1])
+    g = torch.from_numpy(gstats[:, :-1]).to(device)
+    with TableWriter(args[2], holder="mat") as w:
+        for key, feats in SequentialTableReader(args[1], holder="mat"):
+            x = torch.as_tensor(np.asarray(feats, np.float64)).to(device)
+            T, D = x.shape
+            zero = x.new_zeros((1, D))
+            csum = torch.cat([zero, x.cumsum(0)])
+            csumsq = torch.cat([zero, (x * x).cumsum(0)])
+            t = torch.arange(T, device=device)
+            lo = (t - W + 1).clamp_min(0)
+            cnt = (t - lo + 1).to(torch.float64)[:, None]
+            s = csum[t + 1] - csum[lo]
+            ss = csumsq[t + 1] - csumsq[lo]
+            if gcount > 0:
+                deficit = (W - cnt).clamp_min(0)
+                s = s + deficit / gcount * g[0]
+                ss = ss + deficit / gcount * g[1]
+                cnt = cnt + deficit
+            mean = s / cnt
+            out = x - mean
+            if po["norm-vars"]:
+                var = torch.clamp(ss / cnt - mean * mean, min=1e-10)
+                out = out / torch.sqrt(var)
+            w[key] = out.to(torch.float32).cpu().numpy()
     return 0

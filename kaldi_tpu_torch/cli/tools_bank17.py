@@ -5,6 +5,11 @@ index tools (lattice-to-kws-index, kws-index-union; kwsbin/), registered
 in cli/tools.py's ``TOOLS``.  All four are the original's host code,
 copied (kws.py's ``LatticeIndex`` and its file format; the posteriors'
 forward-backward over CompactLattices); none takes ``--device``.
+online2-wav-dump-features (online2bin/online2-wav-dump-features.cc)
+takes ``--device`` (default cuda): the online MFCC's fbank kernel runs
+there, one launch a chunk.  gmm-est-regtree-fmllr
+(gmmbin/gmm-est-regtree-fmllr.cc) computes its statistics' mixture
+posteriors on ``--device`` and estimates on the host (am/regtree.py).
 """
 
 from __future__ import annotations
@@ -181,4 +186,106 @@ def kws_index_union_tool(argv):
         write_lattice_index(f, idx)
     log.info("kws-index-union: %d shards → %d utterances", len(parts),
              len(idx.utts))
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank17.py online2_wav_dump_features_tool.
+@tool("online2-wav-dump-features")
+def online2_wav_dump_features_tool(argv):
+    """Run the ONLINE feature pipeline over wav chunks and dump the
+    features (online2bin/online2-wav-dump-features.cc) — proves the
+    streaming frontend, chunk by chunk: one fbank launch a chunk on
+    ``--device``."""
+    import torch
+    from kaldi_tpu_torch.cli.online2 import online_mfcc
+    from kaldi_tpu_torch.cli.tools import _device_po
+    from kaldi_tpu_torch.device import resolve_device
+    from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
+    po = ParseOptions("online2-wav-dump-features [opts] <wav-rspec> "
+                      "<feats-wspec>")
+    po.register("chunk-length", float, 0.18, "seconds per chunk")
+    po.register("num-ceps", int, 13, "cepstra")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    computers = {}
+    n = 0
+    with TableWriter(args[1], holder="mat") as w:
+        for key, (wave, rate) in SequentialTableReader(args[0],
+                                                       holder="wav"):
+            if rate not in computers:
+                computers[rate] = online_mfcc(rate, device, po["num-ceps"])
+            pipe = OnlineFeaturePipeline(computers[rate])
+            step = max(1, int(po["chunk-length"] * rate))
+            rows = []
+            fed = 0
+            for i in range(0, len(wave), step):
+                pipe.accept_waveform(np.asarray(wave[i:i + step],
+                                                np.float32))
+                ready = pipe.num_frames_ready()
+                if ready > fed:
+                    rows.append(pipe.get_frames(fed, ready))
+                    fed = ready
+            pipe.input_finished()
+            ready = pipe.num_frames_ready()
+            if ready > fed:
+                rows.append(pipe.get_frames(fed, ready))
+            w[key] = torch.cat(rows).cpu().numpy()
+            n += 1
+    log.info("online2-wav-dump-features: %d utterances; fbank kernel "
+             "launches %d", n, sum(c.kernel.launches
+                                   for c in computers.values()))
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank17.py gmm_est_regtree_fmllr_tool.
+@tool("gmm-est-regtree-fmllr")
+def gmm_est_regtree_fmllr_tool(argv):
+    """Per-speaker regression-tree fMLLR transforms
+    (gmmbin/gmm-est-regtree-fmllr.cc); writes the root node's
+    transform per speaker (usable by transform-feats).  The mixture
+    posteriors run on ``--device``."""
+    from kaldi_tpu_torch.am.regtree import RegressionTree, RegtreeFmllrAccs
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.tools import _device_po
+    from kaldi_tpu_torch.device import resolve_device
+    po = ParseOptions("gmm-est-regtree-fmllr [opts] "
+                      "[--spk2utt=rspec] <model-in> <feats-rspec> "
+                      "<ali-rspec> <transform-wspec>")
+    po.register("num-base-classes", int, 4, "regression-tree leaves")
+    po.register("min-count", float, 200.0, "occupancy gate")
+    po.register("spk2utt", str, "", "speaker→utterances map")
+    _device_po(po)
+    args = po.read(argv)
+    tm, am = read_mdl(args[0], device=resolve_device(po["device"]))
+    tree = RegressionTree.build(am, po["num-base-classes"])
+    feats_r = RandomAccessTableReader(args[1], holder="mat")
+    ali_r = RandomAccessTableReader(args[2], holder="ivec")
+    groups = {}
+    if po["spk2utt"]:
+        for spk, utts in SequentialTableReader(po["spk2utt"],
+                                               holder="text"):
+            groups[spk] = list(utts)
+    else:
+        for key, _ in SequentialTableReader(args[1], holder="mat"):
+            groups[key] = [key]
+    n = 0
+    with TableWriter(args[3], holder="mat") as w:
+        for spk, utts in groups.items():
+            accs = RegtreeFmllrAccs(tree, am.dim)
+            got = False
+            for u in utts:
+                if u in feats_r and u in ali_r:
+                    ali = np.asarray(ali_r[u], np.int32)
+                    pdf = np.asarray(
+                        [tm.transition_id_to_pdf(int(t)) for t in ali],
+                        np.int32)
+                    accs.accumulate(am, np.asarray(feats_r[u]), pdf)
+                    got = True
+            if not got:
+                continue
+            est = accs.estimate(min_count=po["min-count"])
+            w[spk] = est.root_transform().astype(np.float32)
+            n += 1
+    log.info("gmm-est-regtree-fmllr: %d speakers", n)
     return 0

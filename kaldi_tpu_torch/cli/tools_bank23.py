@@ -9,6 +9,8 @@ the original's host code, copied.  nnet3-chain-combine,
 (default cuda) and run the raw TDNN-F's forward there; -combine's
 objective runs the den kernel (am/chain.py) and optax's Adam over the
 combination logits (pipelines/chain.py ``combine_models``).
+nnet3-compute-batch (nnet3bin/nnet3-compute-batch.cc) runs the TDNN-F
+of a raw model or a .mdl on ``--device``, a batch at a time.
 """
 
 from __future__ import annotations
@@ -344,4 +346,63 @@ def nnet3_discriminative_compute_from_egs_tool(argv):
             w[key] = net(x[None])[0].cpu().numpy().astype(np.float32)
             n += 1
     log.info("nnet3-discriminative-compute-from-egs: %d egs", n)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank23.py nnet3_compute_batch_tool.
+@tool("nnet3-compute-batch")
+def nnet3_compute_batch_tool(argv):
+    """Batched nnet3 forward (nnet3bin/nnet3-compute-batch.cc): pads
+    utterances, sorted by length, to one (B, T) shape per batch, a
+    multiple of ``--bucket`` frames, with zero frames, as the original
+    does; subtracts log-priors when the model carries them.  The TDNN-F
+    clamps its splices at the padded end, so the last frames of an
+    utterance shorter than its batch see the zeros, as in the
+    original."""
+    from kaldi_tpu_torch.am.nnet3_io import (infer_tdnn_config,
+                                             nnet3_to_state_dict, read_nnet3)
+    from kaldi_tpu_torch.am.tdnn import TdnnChain
+    po = ParseOptions("nnet3-compute-batch [opts] <model> "
+                      "<feats-rspec> <mat-wspec>\n<model> may be raw "
+                      "or .mdl (with optional priors)")
+    po.register("batch-size", int, 8, "utterances per device batch")
+    po.register("bucket", int, 64, "frame-count padding multiple")
+    po.register("frame-subsampling-factor", int, 1, "subsampling")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    # _split_mdl handles both forms: a raw model has no
+    # <TransitionModel> section, so the whole file is the nnet blob
+    _tm_blob, nnet_blob, priors = _split_mdl(args[0])
+    model = read_nnet3(pio.BytesIO(nnet_blob))
+    cfg = infer_tdnn_config(
+        model, frame_subsampling_factor=po["frame-subsampling-factor"])
+    net = TdnnChain(cfg)
+    net.load_state_dict(nnet3_to_state_dict(model, cfg))
+    net = net.eval().to(device)
+    log_priors = (torch.as_tensor(np.log(np.maximum(priors, 1e-20)),
+                                  dtype=torch.float32).to(device)
+                  if priors is not None else None)
+    B = max(1, po["batch-size"])
+    bucket = max(1, po["bucket"])
+    entries = list(SequentialTableReader(args[1], holder="mat"))
+    entries.sort(key=lambda kv: (len(kv[1]), kv[0]))
+    sub = cfg.frame_subsampling_factor
+    n = 0
+    with TableWriter(args[2], holder="mat") as w, torch.no_grad():
+        for i in range(0, len(entries), B):
+            chunk = entries[i:i + B]
+            T_pad = -(-max(len(m) for _k, m in chunk) // bucket) * bucket
+            D = chunk[0][1].shape[1]
+            Xb = np.zeros((B, T_pad, D), np.float32)
+            for b, (_k, m) in enumerate(chunk):
+                Xb[b, :len(m)] = m
+            out = net(torch.from_numpy(Xb).to(device))
+            for b, (k, m) in enumerate(chunk):
+                rows = out[b, :max(1, len(m) // sub)]
+                if log_priors is not None:
+                    rows = rows - log_priors[None, :]
+                w[k] = rows.cpu().numpy()
+                n += 1
+    log.info("nnet3-compute-batch: %d utterances", n)
     return 0

@@ -5,7 +5,10 @@ Both take ``--device`` (default cuda): the GMM log-likelihoods (the GMM
 kernel on a card) run there.  gmm-latgen-simple decodes there too (the
 dense decoder at an effectively infinite beam) and determinizes on the
 host; gmm-decode-biglm-faster searches on the host (decoder/biglm.py,
-the original's numpy).
+the original's numpy).  gmm-latgen-faster-regtree-fmllr
+(gmmbin/gmm-latgen-faster-regtree-fmllr.cc) applies each speaker's
+transform, scores and decodes (cli/latgen.py ``_LatgenDecoder``) on
+``--device``.
 """
 
 from __future__ import annotations
@@ -108,5 +111,53 @@ def gmm_decode_biglm_faster_tool(argv):
     if awriter:
         awriter.close()
     log.info("gmm-decode-biglm-faster: %d utterances; GMM kernel "
+             "launches %d", n, am.device_params().launches)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank27.py gmm_latgen_faster_regtree_fmllr_tool.
+@tool("gmm-latgen-faster-regtree-fmllr")
+def gmm_latgen_faster_regtree_fmllr_tool(argv):
+    """Lattice generation with per-speaker regression-tree fMLLR
+    transforms (gmmbin/gmm-latgen-faster-regtree-fmllr.cc): the
+    regtree root transform is applied in feature space, then the
+    standard latgen path runs, all on ``--device``."""
+    import torch
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.am.transforms import apply_transform
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder
+    from kaldi_tpu_torch.core.table import RandomAccessTableReader
+    po = ParseOptions("gmm-latgen-faster-regtree-fmllr [opts] <model> "
+                      "<fst> <transforms-rspec> <feats-rspec> "
+                      "<lattice-wspec>")
+    po.register("beam", float, 13.0, "decoding beam")
+    po.register("lattice-beam", float, 6.0, "lattice beam")
+    po.register("max-active", int, 7000, "max active states")
+    po.register("acoustic-scale", float, 0.1, "acoustic scale")
+    po.register("utt2spk", str, "", "utterance→speaker map rspec")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    tm, am = read_mdl(args[0], device=device)
+    dec = _LatgenDecoder(_load_hclg(args[1]), tm.tid_to_pdf_array,
+                         po["beam"], po["lattice-beam"],
+                         po["acoustic-scale"],
+                         max_active=po["max-active"], device=device)
+    trans = RandomAccessTableReader(args[2], holder="mat")
+    utt2spk = {}
+    if po["utt2spk"]:
+        for u, s in SequentialTableReader(po["utt2spk"],
+                                          holder="text"):
+            utt2spk[u] = s[0]
+    n = 0
+    with TableWriter(args[4], holder="clat") as w:
+        for key, feats in SequentialTableReader(args[3], holder="mat"):
+            spk = utt2spk.get(key, key)
+            x = torch.as_tensor(np.asarray(feats, np.float32)).to(device)
+            if spk in trans:
+                x = apply_transform(x, np.asarray(trans[spk])).contiguous()
+            w[key] = dec.decode_to_clat(am.loglikes(x))
+            n += 1
+    log.info("gmm-latgen-faster-regtree-fmllr: %d utterances; GMM kernel "
              "launches %d", n, am.device_params().launches)
     return 0

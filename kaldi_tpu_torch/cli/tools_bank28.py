@@ -1,7 +1,9 @@
 """Port of kaldi_tpu/cli/tools_bank28.py compute-atwv and
 chain-make-den-fst (parity targets kwsbin/compute-atwv.cc,
 chainbin/chain-make-den-fst.cc), registered in cli/tools.py's
-``TOOLS``: host code, copied.
+``TOOLS``: host code, copied.  latgen-incremental-mapped
+(bin/latgen-incremental-mapped.cc) takes ``--device`` (default cuda):
+``OnlineBeamDecoder`` advances over the log-likelihood matrices there.
 """
 
 from __future__ import annotations
@@ -93,3 +95,44 @@ def chain_make_den_fst_tool(argv):
     nnet3-chain-make-den-fst."""
     from kaldi_tpu_torch.cli.tools_bank16 import nnet3_chain_make_den_fst_tool
     return nnet3_chain_make_den_fst_tool(argv)
+
+
+# Port of kaldi_tpu/cli/tools_bank28.py latgen_incremental_mapped_tool.
+@tool("latgen-incremental-mapped")
+def latgen_incremental_mapped_tool(argv):
+    """Lattice decoding from loglike matrices with CHUNKED advance and
+    bounded in-flight state (bin/latgen-incremental-mapped.cc role):
+    the online beam decoder consumes --chunk-frames at a time and the
+    lattice is finalized incrementally, so peak memory is bounded by
+    the chunk, not the utterance."""
+    import numpy as np
+    import torch
+    from kaldi_tpu_torch.cli.tools import _device_po
+    from kaldi_tpu_torch.cli.tools_bank31 import incremental_decoder
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.device import resolve_device
+    po = ParseOptions("latgen-incremental-mapped [opts] <trans-model> "
+                      "<fst> <loglikes-rspec> <lattice-wspec>")
+    po.register("beam", float, 13.0, "decoding beam")
+    po.register("lattice-beam", float, 6.0, "lattice beam")
+    po.register("max-active", int, 7000, "max active states")
+    po.register("acoustic-scale", float, 0.1, "acoustic scale")
+    po.register("chunk-frames", int, 32, "frames per advance")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    _tm, ob = incremental_decoder(args[0], args[1], po, device,
+                                  chunk_frames=po["chunk-frames"])
+    C = po["chunk-frames"]
+    n = 0
+    with TableWriter(args[3], holder="clat") as w:
+        for key, ll in SequentialTableReader(args[2], holder="mat"):
+            ll = torch.as_tensor(np.asarray(ll, np.float32)).to(device)
+            ob.reset()
+            for c in range(0, len(ll), C):
+                ob.advance(ll[c:c + C])
+            w[key] = ob.finalize()
+            n += 1
+    log.info("latgen-incremental-mapped: %d utterances "
+             "(chunk %d)", n, C)
+    return 0

@@ -6,6 +6,9 @@ there; the grammar's splice is host code (fst/grammar.py).
 nnet3-get-egs-dense-targets (nnet3bin/nnet3-get-egs-dense-targets.cc)
 is the original's host code, copied: it writes ``dteg`` archives
 (pipelines/egs_io.py ``DenseEg``).
+nnet3-latgen-faster-looped (nnet3bin/nnet3-latgen-faster-looped.cc)
+takes ``--device``: the TDNN-F scores overlapping windows there and the
+latgen decoder decodes their rows.
 """
 
 from __future__ import annotations
@@ -100,3 +103,67 @@ def nnet3_get_egs_dense_targets_tool(argv):
                 n += 1
     log.info("nnet3-get-egs-dense-targets: %d egs", n)
     return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank29.py nnet3_latgen_faster_looped_tool.
+@tool("nnet3-latgen-faster-looped")
+def nnet3_latgen_faster_looped_tool(argv):
+    """Lattice decoding with LOOPED (chunked, state-carrying) acoustic
+    scoring (nnet3bin/nnet3-latgen-faster-looped.cc): the TDNN scores
+    --chunk-frames at a time with --extra-context frames of overlap —
+    bounded activation memory for arbitrarily long utterances; with
+    overlap ≥ the receptive field the scores equal the whole-utterance
+    forward.  The windows' forwards and the decode run on
+    ``--device``."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder, _load_hclg
+    from kaldi_tpu_torch.cli.online2 import _load_tdnn
+    po = ParseOptions("nnet3-latgen-faster-looped [opts] <trans-model> "
+                      "<raw-nnet3> <fst> <feats-rspec> <lat-wspec>")
+    po.register("beam", float, 15.0, "decoding beam")
+    po.register("lattice-beam", float, 8.0, "lattice beam")
+    po.register("max-active", int, 7000, "max active states")
+    po.register("acoustic-scale", float, 1.0, "acoustic scale")
+    po.register("frame-subsampling-factor", int, 3, "subsampling")
+    po.register("chunk-frames", int, 51,
+                "frames scored per step (multiple of subsampling)")
+    po.register("extra-context", int, 30,
+                "overlap frames each side (≥ receptive field)")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    tm, _am = read_mdl(args[0], device="cpu")
+    sub = po["frame-subsampling-factor"]
+    _cfg, net = _load_tdnn(args[1], sub, device)
+    dec = _LatgenDecoder(_load_hclg(args[2]), tm.tid_to_pdf_array,
+                         po["beam"], po["lattice-beam"],
+                         po["acoustic-scale"],
+                         max_active=po["max-active"], device=device)
+    C = po["chunk-frames"] - po["chunk-frames"] % sub or sub
+    ctx = po["extra-context"] - po["extra-context"] % sub
+    n = 0
+    with TableWriter(args[4], holder="clat") as lw, torch.no_grad():
+        for key, feats in SequentialTableReader(args[3], holder="mat"):
+            x = torch.as_tensor(np.asarray(feats, np.float32)).to(device)
+            lw[key] = dec.decode_to_clat(looped_scores(net, x, C, ctx, sub))
+            n += 1
+    log.info("nnet3-latgen-faster-looped: %d utterances (chunk %d, "
+             "context %d)", n, C, ctx)
+    return 0
+
+
+def looped_scores(net, feats: torch.Tensor, C: int, ctx: int,
+                  sub: int) -> torch.Tensor:
+    """The original's ``looped_scores``: the forward of each window of
+    ``C`` frames with ``ctx`` frames of context either side (cut at the
+    utterance's ends), each window's own rows kept."""
+    T = feats.shape[0]
+    outs = []
+    for lo in range(0, T, C):
+        hi = min(lo + C, T)
+        a = max(lo - ctx, 0)
+        b = min(hi + ctx, T)
+        win = net(feats[a:b][None])[0]
+        s0 = (lo - a) // sub
+        outs.append(win[s0:s0 + (hi - lo) // sub])
+    return torch.cat(outs)

@@ -34,6 +34,8 @@ The NCCF's ballast is scaled by the signal's own mean square, and 32768
 is a power of two, so the two give the same pitch all the same.
 nnet3-average (nnet3bin/nnet3-average.cc) is the original's host code,
 copied: the mean of each component field over the models, in float64.
+nnet3-compute (nnet3bin/nnet3-compute.cc) runs the raw TDNN-F's forward
+on ``--device`` (default cuda).
 """
 
 from __future__ import annotations
@@ -542,4 +544,25 @@ def nnet3_average(argv):
         f.write(b"\0B")
         write_nnet3(f, base)
     log.info("nnet3-average: averaged %d models", len(models))
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank3.py nnet3_compute.
+@tool("nnet3-compute")
+def nnet3_compute(argv):
+    """The raw TDNN-F's forward over a feature table
+    (nnet3bin/nnet3-compute.cc), on ``--device``."""
+    import torch
+    from kaldi_tpu_torch.cli.online2 import _load_tdnn
+    po = ParseOptions("nnet3-compute [--frame-subsampling-factor=3] "
+                      "<raw-model> <feats-rspec> <out-wspec>")
+    po.register("frame-subsampling-factor", int, 3, "output frame rate")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    _, net = _load_tdnn(args[0], po["frame-subsampling-factor"], device)
+    with TableWriter(args[2], holder="mat") as w, torch.no_grad():
+        for key, m in SequentialTableReader(args[1], holder="mat"):
+            x = torch.as_tensor(np.asarray(m, np.float32)).to(device)
+            w[key] = net(x[None])[0].cpu().numpy()
     return 0

@@ -13,7 +13,10 @@ gmm-acc-stats-ali accumulates on it; sliding-window CMN and the
 updates are host numpy, as in the original.  The original's gmm-mixup
 and ``gmm-est --mix-up`` drop ``mixup``'s result and write the model
 unchanged; these write the mixed-up model.  The lattice tools are the
-original's host code, copied.
+original's host code, copied.  online2-wav-gmm-latgen-faster
+(online2bin/online2-wav-gmm-latgen-faster.cc) streams on ``--device``:
+online MFCC + Δ+ΔΔ (the fbank kernel), the GMM kernel and a
+``SingleUtteranceDecoder``.
 """
 
 from __future__ import annotations
@@ -222,4 +225,52 @@ def lattice_lmrescore(argv):
         for key, clat in SequentialTableReader(args[3], holder="clat"):
             w[key] = lmrescore(clat, old_lm, new_lm, words,
                                lm_scale=po["lm-scale"])
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_extra.py online2_wav_gmm_latgen_faster.
+@tool("online2-wav-gmm-latgen-faster")
+def online2_wav_gmm_latgen_faster(argv):
+    """Streaming decode driver (online2bin/online2-wav-gmm-latgen-faster
+    role): waveform chunks → online MFCC(+deltas) → GMM loglikes →
+    SingleUtteranceDecoder, partials available throughout
+    (cli/tools_bank30.py ``_gmm_stream``).  MFCC (the fbank kernel), the
+    GMM (the GMM kernel) and the decoder run on ``--device``."""
+    from kaldi_tpu_torch.cli.online2 import online_mfcc
+    from kaldi_tpu_torch.cli.tools_bank30 import (_gmm_online_setup,
+                                                  _gmm_stream)
+    po = ParseOptions("online2-wav-gmm-latgen-faster [opts] <model> "
+                      "<fst> <wav-rspec> <words-wspec>")
+    po.register("chunk-length", float, 0.18, "seconds per audio chunk")
+    po.register("beam", float, 16.0, "decoding beam")
+    po.register("acoustic-scale", float, 0.1, "acoustic scale")
+    po.register("sample-frequency", float, 16000.0, "expected rate")
+    po.register("do-endpointing", bool, False, "stop at an endpoint")
+    po.register("word-symbol-table", str, "", "words.txt")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    _tm, am, dec = _gmm_online_setup(args[0], args[1], po["beam"],
+                                     po["acoustic-scale"], device)
+    words_tab = None
+    if po["word-symbol-table"]:
+        from kaldi_tpu_torch.fst.fst import SymbolTable
+        words_tab = SymbolTable.read(po["word-symbol-table"])
+    chunk = int(po["chunk-length"] * po["sample-frequency"])
+    mfcc = online_mfcc(po["sample-frequency"], device)
+    with TableWriter(args[3], holder="text") as w:
+        for key, (wave, rate) in SequentialTableReader(args[2],
+                                                       holder="wav"):
+            if rate != po["sample-frequency"]:
+                raise KaldiError(f"{key}: rate {rate} != "
+                                 f"{po['sample-frequency']}")
+            ols, tids = _gmm_stream(am, dec, mfcc, wave, chunk,
+                                    endpointing=po["do-endpointing"])
+            text = [words_tab.find(o) if words_tab else str(o)
+                    for o in ols]
+            w[key] = text
+            log.info("%s: %s (%d frames)", key, " ".join(text), len(tids))
+    log.info("online2-wav-gmm-latgen-faster: fbank kernel launches %d, "
+             "GMM kernel launches %d", mfcc.kernel.launches,
+             am.device_params().launches)
     return 0

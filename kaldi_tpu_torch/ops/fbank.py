@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -195,18 +196,25 @@ def group_tables(cosm: np.ndarray, sinm: np.ndarray, groups: np.ndarray,
     return torch.cat(parts), np.array(offsets, np.int32)
 
 
+# guards the ctypes declarations and the launch counts: the servers'
+# handler threads launch the kernel concurrently
+_LOCK = threading.Lock()
+
+
 def _load():
     lib = build.load_library("kt_fbank", build.KERNELS["kt_fbank"])
     fn, fsum = lib.kt_fbank_logmel, lib.kt_fbank_sum_pieces
-    if fn.argtypes is None:
-        # pointers and the stream as c_void_p: undeclared, ctypes would
-        # pass each Python int as a 32-bit int and cut the address
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-        fsum.restype = ctypes.c_int
-        fsum.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+    with _LOCK:
+        if fsum.argtypes is None:
+            # pointers and the stream as c_void_p: undeclared, ctypes
+            # would pass each Python int as a 32-bit int and cut the
+            # address
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+                + [ctypes.c_void_p]
+            fsum.restype = ctypes.c_int
+            fsum.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+                + [ctypes.c_void_p]
     return fn, fsum
 
 
@@ -322,8 +330,9 @@ class CudaFbank:
                 int(self.use_log), int(wide), stream)
         if rc != 0:
             raise RuntimeError(f"kt_fbank_logmel failed: cudaError {rc}")
-        self.launches += 1
-        CudaFbank.total_launches += 1
+        with _LOCK:
+            self.launches += 1
+            CudaFbank.total_launches += 1
         if wide:
             rc = fsum(parts.data_ptr(), self.piece_off.data_ptr(),
                       self.piece_cols.data_ptr(), out.data_ptr(), n,
@@ -331,6 +340,7 @@ class CudaFbank:
             if rc != 0:
                 raise RuntimeError(f"kt_fbank_sum_pieces failed: "
                                    f"cudaError {rc}")
-            self.sum_launches += 1
-            CudaFbank.total_sum_launches += 1
+            with _LOCK:
+                self.sum_launches += 1
+                CudaFbank.total_sum_launches += 1
         return out

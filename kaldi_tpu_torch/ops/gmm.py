@@ -14,6 +14,7 @@ between the two.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -71,14 +72,20 @@ def kernel_layout(gconst: torch.Tensor, mean_invvar: torch.Tensor,
     return w, g.reshape(M, NPT, TILE_P).permute(1, 0, 2).contiguous()
 
 
+# guards the ctypes declaration and the launch counts: the servers'
+# handler threads launch the kernel concurrently
+_LOCK = threading.Lock()
+
+
 def _load():
     lib = build.load_library("kt_gmm", build.KERNELS["kt_gmm"])
     fn = lib.kt_gmm_loglikes
-    if fn.argtypes is None:
-        # pointers and the stream as c_void_p (see ops/fbank.py)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
+    with _LOCK:
+        if fn.argtypes is None:
+            # pointers and the stream as c_void_p (see ops/fbank.py)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+                + [ctypes.c_void_p]
     return fn
 
 
@@ -148,6 +155,7 @@ class CudaGmm:
                 self.num_pdfs, self.max_mix, stream)
         if rc != 0:
             raise RuntimeError(f"kt_gmm_loglikes failed: cudaError {rc}")
-        self.launches += 1
-        CudaGmm.total_launches += 1
+        with _LOCK:
+            self.launches += 1
+            CudaGmm.total_launches += 1
         return out

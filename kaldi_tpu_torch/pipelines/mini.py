@@ -297,6 +297,7 @@ def run(num_utts: int = 60, num_test: int = 15, seed: int = 1,
             "lang": lang, "train": train, "test": test, "G": G,
             "delta_tr": delta_tr, "delta_te": delta_te,
             "mono": mono, "mono_ali": mono_ali,
+            "tri1": tri1, "tri1_ali": tri1_ali, "HCLG1": HCLG1,
             "tri3b": tri3b, "tri3b_ali": tri3b_ali,
             # SAT-adapted features both sides: the chain stage trains on
             # these (the reference trains chain on the best adapted

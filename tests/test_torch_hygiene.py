@@ -46,11 +46,16 @@ FORBIDDEN = ("kaldi_tpu", "jax", "flax", "optax", "msgpack", "tensorstore")
                                   "kaldi_tpu_torch/lattice/phone_align.py",
                                   "kaldi_tpu_torch/lattice/ctm.py",
                                   "kaldi_tpu_torch/parallel/tensor.py",
-                                  "kaldi_tpu_torch/pipelines/checkpoint.py"])
+                                  "kaldi_tpu_torch/pipelines/checkpoint.py",
+                                  "kaldi_tpu_torch/am/regtree.py",
+                                  "kaldi_tpu_torch/cli/tools_bank7.py",
+                                  "kaldi_tpu_torch/cli/tools_bank20.py",
+                                  "kaldi_tpu_torch/cli/tools_bank31.py"])
 def test_the_import_check_covers(path):
     """The RNNLM, its msgpack codec, the copied lattice modules, the
-    tensor-parallel collectives and the orbax checkpoint reader are
-    among the files the import check walks."""
+    tensor-parallel collectives, the orbax checkpoint reader, the
+    regression tree and the serving tools' new banks are among the files
+    the import check walks."""
     assert path in PORT_FILES
 
 
