@@ -437,12 +437,37 @@ Phases (each prints lines; any failure raises and exits non-zero):
      after it; the fbank launches of SERVE_FBANK_TOOLS (a–d) and the GMM
      launches of SERVE_GMM_TOOLS (d–e) join the kernels line, and d's
      and e's kernel checks its max_abs_err.
+ 21. Kaldi's nnet2 models as the port's tools, in a background process
+     (``--nnet2-tools``) started beside 20's, on 7d's 300-word task and
+     20's 8 waveforms, at the LibriSpeech online nnet2 recipe's width
+     (6 p-norm layers 3500 → 350, mixed up to 12,000 softmax rows;
+     13 MFCCs, splice ±2, seeded weights):
+     a. nnet-am-init → nnet-am-compute (its summed posteriors as counts)
+        → nnet-adjust-priors → nnet-am-mixup → nnet-am-info /
+        nnet-to-raw-nnet / raw-nnet-info;
+     b. nnet2-compute, nnet-am-compute --divide-by-priors and the raw
+        net's forward against the library on the card;
+     c. nnet-latgen-faster and -parallel against the library's decode +
+        determinization of the same pseudo-log-likelihoods (best words,
+        costs within NNET2_COST_TOL relative); nnet-align-compiled
+        against DenseAligner;
+     d. online2-wav-nnet2-am-compute's rows against the offline forward
+        of the same MFCCs; online2-wav-nnet2-latgen-faster and
+        -threaded: words equal to each other and to the offline decode
+        of the streamed scores; audio-s/s of both and of the offline
+        decode;
+     e. every model tool once on the full-width model: its file reads
+        back and equals the library operation (forwards on the card);
+     f. the fbank kernel at the online2 tools' MFCC against its plain
+        version on the 8 waveforms.
+     The fbank launches of NNET2_FBANK_TOOLS (the three online2 tools)
+     join the kernels line, f's error its max_abs_err.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths (the den's include 14b's,
 15a's, the ranks' of phase 16, 17d's, 18's and 19's; the GMM's
 17a's, 17c's, 18a's and 20d–e's; the fbank's 18b's streaming grammar
-tool's and 20a–d's),
+tool's, 20a–d's and 21d's),
 the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
@@ -7224,6 +7249,9 @@ def main() -> int:
         serve = serve_tools_start(serve_tools_write(
             task, task300, fbank, model, tcfg, utts, lls, msys), dev)
         atexit.register(_stop, serve[0])
+        # 21's worker, beside it: Kaldi's nnet2 models as tools
+        nnet2 = nnet2_tools_start(nnet2_tools_write(task300), dev)
+        atexit.register(_stop, nnet2[0])
         tri3b_training(dev, task300, tag)
         tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
     finally:
@@ -7370,6 +7398,8 @@ def main() -> int:
     # 20. Kaldi's serving binaries (in the background since 10b)
     sv_fb, sv_gm, sv_fb_err, sv_gm_err = serve_tools_finish(serve, tag,
                                                             p4_rate)
+    # 21. Kaldi's nnet2 models as tools (in the background since 10b)
+    n2_fb, n2_fb_err = nnet2_tools_finish(nnet2, tag)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -7378,9 +7408,9 @@ def main() -> int:
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
         + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb + iv_fb
-        + seq_fb + sv_fb,
+        + seq_fb + sv_fb + n2_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err,
-                           f_fb_err, sv_fb_err),
+                           f_fb_err, sv_fb_err, n2_fb_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
                 "the spectrogram are held to their own bar (phase 9a)",
         "ms": fb_ms, "plain_ms": fb_plain_ms,
@@ -8919,6 +8949,669 @@ def serve_tools_finish(started, tag: str, p4_rate: float):
     return fb, gm, rep["fbank_err_20d"], gm_err
 
 
+# ---------------------------------------------------------------------------
+# 21. Kaldi's nnet2 models as the port's tools: p-norm networks, priors,
+# mix-up, raw nets, the nnet2 decodes and alignment, the online2 nnet2
+# streaming tools and the model tools, on 7d's task and 20's waveforms
+# ---------------------------------------------------------------------------
+
+NNET2_DIR = os.path.join("build", "chip_smoke_nnet2")
+# egs/librispeech/s5/local/online/run_nnet2.sh (train_multisplice_accel2.sh):
+# 6 hidden layers of p-norm 3500 → 350, the softmax mixed up to 12,000 rows;
+# cut to the tools' 13 MFCCs and one input splice of ±2
+NNET2_LAYERS = 6
+NNET2_PNORM_IN = 3500
+NNET2_PNORM_OUT = 350
+NNET2_MIX = 12000
+NNET2_WIDEN = 3850         # 21e's nnet-am-widen: one more group of 350
+NNET2_RANK = 100           # 21e's nnet-am-limit-rank --dim
+NNET2_SRAND = 21
+NNET2_THREADS = 4          # -parallel's and -threaded's threads
+NNET2_EG_FRAMES = 8        # 21e's egs: chunks of this many frames
+# 21c's decode: a seeded model's outputs barely move from frame to
+# frame, so its lattices at the tools' acoustic scale 0.1 and lattice
+# beam 6 determinize out of the host's memory; at scale 10 and lattice
+# beam 2 they stay small
+NNET2_LAT = ("--beam=13", "--lattice-beam=2", "--acoustic-scale=10.0")
+NNET2_COST_TOL = 1e-4      # best-path costs, relative
+NNET2_JOIN = 600           # the main process's longest wait, seconds
+NNET2_FBANK_TOOLS = ("online2-wav-nnet2-am-compute",
+                     "online2-wav-nnet2-latgen-faster",
+                     "online2-wav-nnet2-latgen-threaded")
+
+
+def nnet2_tools_write(task300) -> str:
+    """21's inputs beside 20's (the waveforms in build/chip_smoke_serve,
+    7d's .mdl and HCLG in build/chip_smoke_online2): the training graphs
+    of 20's 8 waveforms' reference sentences.  → the directory."""
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.decoder.training_graph import TrainingGraphCompiler
+    from kaldi_tpu_torch.fst.lang import Lang, Lexicon
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, NNET2_DIR)
+    os.makedirs(d, exist_ok=True)
+    for stale in ("report.json", "worker.out", "worker.err"):
+        if os.path.exists(f"{d}/{stale}"):
+            os.remove(f"{d}/{stale}")
+    refs = speech_set(task300, SERVE_WAVES, SEED + 8)[2]
+    lang = Lang(Lexicon(entries=list(task300.entries)))
+    if any(lang.phones.find(i) != task300.phones.find(i)
+           for i in range(len(lang.phone_list()) + 1)):
+        raise AssertionError("21: the lexicon's phone ids differ")
+    comp = TrainingGraphCompiler(lang, task300.tm)
+    with TableWriter(f"ark:{d}/graphs8.ark", holder="fst") as w:
+        for i, r in enumerate(refs):
+            w[f"utt{i}"] = comp.compile_text(r)
+    return d
+
+
+def nnet2_tools_start(d: str, dev):
+    """21, started: ``python3 chip_smoke.py --nnet2-tools <dir> <device>``
+    (``nnet2_tools_worker``) in the background, two host threads.  →
+    (process, dir, start time)."""
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = open(f"{d}/worker.out", "w")
+    err = open(f"{d}/worker.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--nnet2-tools", d,
+         dev.type], cwd=repo, stdout=out, stderr=err,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    out.close()
+    err.close()
+    return proc, d, time.perf_counter()
+
+
+def _leaf_diff(a, b) -> float:
+    """The largest |a - b| over two parameter trees' leaves, relative to
+    the larger of 1 and the leaf's largest |b| (inf when they differ in
+    keys or shapes)."""
+    from kaldi_tpu_torch.am.nnet2 import tree_leaves
+    la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
+    if sorted(la) != sorted(lb):
+        return float("inf")
+    return max(_rel(la[k], lb[k]) for k in lb)
+
+
+def nnet2_make(T, held, d, dev, feats, P, rep):
+    """21a: init → posteriors → priors → mix-up → info / raw conversion.
+    → (the priors' model tree, its priors)."""
+    from kaldi_tpu_torch.am.nnet2 import (load_nnet2_full, nnet2_model,
+                                          tree_leaves)
+    from kaldi_tpu_torch.am.raw_nnet import load_raw_nnet
+    from kaldi_tpu_torch.core import io as kio
+    dv = f"--device={dev.type}"
+    T("nnet-am-init", "--feat-dim=13", f"--num-pdfs={P}",
+      f"--num-hidden-layers={NNET2_LAYERS}",
+      f"--pnorm-input-dim={NNET2_PNORM_IN}",
+      f"--pnorm-output-dim={NNET2_PNORM_OUT}", f"--srand={NNET2_SRAND}",
+      f"{d}/init.mdl")
+    p0, cfg0, pri0 = load_nnet2_full(f"{d}/init.mdl")
+    n_params = sum(np.asarray(v).size for _k, v in tree_leaves(p0))
+    scale_ok = all(
+        (not v.any()) if k[-1] == "bias" else
+        0.7 < float(np.std(v)) * math.sqrt(v.shape[0]) < 1.3
+        for k, v in tree_leaves(p0))
+    held("nnet-am-init: the recipe's width, zero biases, lecun scale",
+         cfg0.num_hidden_layers == NNET2_LAYERS and pri0 is None
+         and scale_ok, f"{n_params} parameters")
+    rep["init_params"] = n_params
+    T("nnet-am-compute", dv, f"{d}/init.mdl", f"ark:{d}/feats8.ark",
+      f"ark:{d}/post.ark")
+    post = _serve_read(f"ark:{d}/post.ark", "mat")
+    model = nnet2_model(p0, cfg0, dev)
+    with torch.no_grad():
+        err = max(_rel(post[k], model(x[None])[0].cpu())
+                  for k, x in feats.items())
+    held("nnet-am-compute = Nnet2Model", err <= SERVE_SCORE_TOL,
+         f"{err:.2e}")
+    counts = sum(np.exp(np.asarray(v, np.float64)).sum(0)
+                 for v in post.values())
+    with kio.open_wxfilename(f"{d}/counts.vec") as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_vector(f, counts)
+    T("nnet-adjust-priors", f"{d}/init.mdl", f"{d}/counts.vec",
+      f"{d}/pri.mdl")
+    p1, cfg1, pri1 = load_nnet2_full(f"{d}/pri.mdl")
+    c32 = np.asarray(counts, np.float32).astype(np.float64)
+    want = (c32 + 0.5) / (c32.sum() + 0.5 * P)
+    held("nnet-adjust-priors: (counts + 0.5) / (N + P / 2)",
+         _rel(pri1, want) <= 1e-6 and _leaf_diff(p1, p0) == 0.0,
+         f"{_rel(pri1, want):.2e}")
+    T("nnet-am-mixup", f"--num-mixtures={NNET2_MIX}",
+      f"--srand={NNET2_SRAND}", f"{d}/pri.mdl", f"{d}/final.mdl")
+    p2, cfg2, pri2 = load_nnet2_full(f"{d}/final.mdl")
+    rows = np.bincount(np.asarray(cfg2.mix2pdf), minlength=P)
+    held("nnet-am-mixup: 12,000 rows, every pdf one or more, priors kept",
+         len(cfg2.mix2pdf) == NNET2_MIX and rows.min() >= 1
+         and np.array_equal(pri2, pri1)
+         and np.asarray(p2["output_affine"]["kernel"]).shape
+         == (NNET2_PNORM_OUT, NNET2_MIX),
+         f"rows a pdf {rows.min()}–{rows.max()}")
+    out = T("nnet-am-info", f"{d}/final.mdl")
+    held("nnet-am-info", f"num-hidden-layers {NNET2_LAYERS}" in out
+         and f"pnorm-input-dim {NNET2_PNORM_IN}" in out, "")
+    T("nnet-to-raw-nnet", f"{d}/pri.mdl", f"{d}/pri.raw")
+    out = T("raw-nnet-info", f"{d}/pri.raw")
+    comps = load_raw_nnet(f"{d}/pri.raw")
+    held("nnet-to-raw-nnet / raw-nnet-info",
+         len(comps) == 3 * NNET2_LAYERS + 3
+         and f"num-components {len(comps)}" in out
+         and f"num-parameters {n_params}" in out, out.splitlines()[-1])
+    rep["mix_rows"] = [int(rows.min()), int(rows.max())]
+    return p1, pri1
+
+
+def nnet2_forward(T, held, d, dev, feats, rep):
+    """21b: nnet2-compute, nnet-am-compute --divide-by-priors and the raw
+    net's forward against the library.  → (the mixed-up model's
+    log-priors on the card, its log-posteriors per utterance there)."""
+    from kaldi_tpu_torch.am.nnet2 import (load_nnet2_full, log_priors,
+                                          nnet2_model)
+    from kaldi_tpu_torch.am.raw_nnet import forward, load_raw_nnet
+    dv = f"--device={dev.type}"
+    params, cfg, pri = load_nnet2_full(f"{d}/final.mdl")
+    model = nnet2_model(params, cfg, dev)
+    logpri = torch.from_numpy(log_priors(pri)).to(dev)
+    with torch.no_grad():
+        lib = {k: model(x[None])[0] for k, x in feats.items()}
+    T("nnet2-compute", dv, f"{d}/final.mdl", f"ark:{d}/feats8.ark",
+      f"ark:{d}/nc.ark")
+    got = _serve_read(f"ark:{d}/nc.ark", "mat")
+    err = max(_rel(got[k], lib[k].cpu()) for k in lib)
+    held("nnet2-compute = Nnet2Model (mixed up)", err <= SERVE_SCORE_TOL,
+         f"{err:.2e}")
+    T("nnet-am-compute", dv, "--divide-by-priors=true", f"{d}/final.mdl",
+      f"ark:{d}/feats8.ark", f"ark:{d}/amc.ark")
+    got = _serve_read(f"ark:{d}/amc.ark", "mat")
+    err = max(_rel(got[k], (lib[k] - logpri).cpu()) for k in lib)
+    held("nnet-am-compute --divide-by-priors = Nnet2Model - log priors",
+         err <= SERVE_SCORE_TOL, f"{err:.2e}")
+    T("nnet2-compute", dv, f"{d}/pri.mdl", f"ark:{d}/feats8.ark",
+      f"ark:{d}/ncp.ark")
+    got = _serve_read(f"ark:{d}/ncp.ark", "mat")
+    comps = load_raw_nnet(f"{d}/pri.raw")
+    err = max(_rel(got[k], forward(comps, x, dev).cpu())
+              for k, x in feats.items())
+    held("raw_nnet.forward of nnet-to-raw-nnet = nnet2-compute",
+         err <= SERVE_SCORE_TOL, f"{err:.2e}")
+    rep["forward_err"] = err
+    return logpri, lib
+
+
+def _best_rel(got, want):
+    """Two CompactLattice tables → (keys and best words equal, the
+    largest best-path cost difference relative to the larger of 1 and
+    the cost)."""
+    if sorted(got) != sorted(want):
+        return False, float("inf")
+    ok, worst = True, 0.0
+    for k in want:
+        gw, _, gc = got[k].best_path()
+        ww, _, wc = want[k].best_path()
+        ok &= list(gw) == list(ww)
+        worst = max(worst, abs(gc - wc) / max(1.0, abs(wc)))
+    return ok, worst
+
+
+def nnet2_decode(T, held, d, dev, logpri, lib, rep):
+    """21c: nnet-latgen-faster and -parallel against the library's
+    decode + determinization of the same pseudo-log-likelihoods;
+    nnet-align-compiled against DenseAligner.  → the alignments."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.latgen import _LatgenDecoder, _load_hclg
+    from kaldi_tpu_torch.decoder.align import (DenseAligner, in_degrees,
+                                               pack_dense_reverse)
+    o2 = os.path.join(os.path.dirname(d), "chip_smoke_online2")
+    dv = f"--device={dev.type}"
+    tm, _ = read_mdl(f"{o2}/final.mdl", device="cpu")
+    HCLG = _load_hclg(f"{o2}/HCLG.fst")
+    lat = _LatgenDecoder(HCLG, tm.tid_to_pdf_array, 13.0, 2.0, 10.0,
+                         device=dev)
+    want = {k: lat.decode_to_clat(v - logpri) for k, v in lib.items()}
+    got = {}
+    for name, extra in (("nnet-latgen-faster", ()),
+                        ("nnet-latgen-faster-parallel",
+                         (f"--num-threads={NNET2_THREADS}",))):
+        T(name, dv, *NNET2_LAT, *extra, f"{o2}/final.mdl", f"{d}/final.mdl",
+          f"{o2}/HCLG.fst", f"ark:{d}/feats8.ark", f"ark:{d}/{name}.ark")
+        got[name] = _serve_read(f"ark:{d}/{name}.ark", "clat")
+        ok, worst = _best_rel(got[name], want)
+        held(f"{name} = library decode of Nnet2Model - log priors",
+             ok and worst <= NNET2_COST_TOL, f"{worst:.2e}")
+    ok, worst = _best_rel(got["nnet-latgen-faster-parallel"],
+                          got["nnet-latgen-faster"])
+    held("nnet-latgen-faster-parallel = nnet-latgen-faster",
+         ok and worst <= NNET2_COST_TOL, f"{worst:.2e}")
+    rep["lattice_states"] = sum(c.num_states for c in
+                                got["nnet-latgen-faster"].values())
+    # alignment of the reference sentences
+    T("nnet-align-compiled", dv, f"{o2}/final.mdl", f"{d}/final.mdl",
+      f"ark:{d}/graphs8.ark", f"ark:{d}/feats8.ark", f"ark:{d}/ali.ark")
+    ali = _serve_read(f"ark:{d}/ali.ark", "ivec")
+    graphs = _serve_read(f"ark:{d}/graphs8.ark", "fst")
+    ae = an = smax = 1
+    for g in graphs.values():
+        e, n = in_degrees(g)
+        ae, an, smax = max(ae, e), max(an, n), max(smax, g.num_states)
+    aligner = DenseAligner(tm.tid_to_pdf_array, acoustic_scale=0.1,
+                           device=dev)
+    same = sorted(ali) == sorted(lib)
+    for k in lib:
+        (tids, _c), = aligner.align_batch(
+            [pack_dense_reverse(graphs[k], smax, ae, an)], [lib[k] - logpri])
+        same &= k in ali and list(ali[k]) == list(tids)
+    held("nnet-align-compiled = DenseAligner", same, f"{len(ali)} utts")
+    return tm, ali
+
+
+def nnet2_online(T, held, d, dev, logpri, rep, audio_s, tm):
+    """21d: online2-wav-nnet2-am-compute's rows against the offline
+    forward of the same MFCCs (nnet2-compute's), the two online2 decodes'
+    words against each other and the offline decode of the streamed
+    scores; audio-s/s of each."""
+    from kaldi_tpu_torch.cli.latgen import _load_hclg
+    from kaldi_tpu_torch.decoder.dense import DenseDecoder, DenseDecoderConfig
+    o2 = os.path.join(os.path.dirname(d), "chip_smoke_online2")
+    sv = os.path.join(os.path.dirname(d), "chip_smoke_serve")
+    dv = f"--device={dev.type}"
+    T("online2-wav-nnet2-am-compute", dv, f"{d}/final.mdl",
+      f"ark:{sv}/wav8.ark", f"ark:{d}/oam.ark")
+    got = _serve_read(f"ark:{d}/oam.ark", "mat")
+    want = _serve_read(f"ark:{d}/nc.ark", "mat")
+    err = max(_rel(got[k], want[k]) for k in want)
+    held("online2-wav-nnet2-am-compute = the offline forward",
+         err <= SERVE_SCORE_TOL, f"{err:.2e}")
+    rep["stream_err"] = err
+    words = {}
+    for name, extra in (("online2-wav-nnet2-latgen-faster", ()),
+                        ("online2-wav-nnet2-latgen-threaded",
+                         (f"--num-threads={NNET2_THREADS}",))):
+        T(name, dv, *extra, f"{o2}/final.mdl", f"{d}/final.mdl",
+          f"{o2}/HCLG.fst", f"ark:{sv}/wav8.ark", f"ark,t:{d}/{name}.txt")
+        words[name] = {k: list(v) for k, v in _serve_read(
+            f"ark,t:{d}/{name}.txt", "text").items()}
+    dec = DenseDecoder(_load_hclg(f"{o2}/HCLG.fst"), tm.tid_to_pdf_array,
+                       DenseDecoderConfig(beam=15.0, acoustic_scale=0.1),
+                       device=dev)
+    offline = {}
+    for k, v in got.items():
+        _t, ols, _c = dec.decode(torch.from_numpy(v).to(dev) - logpri)
+        offline[k] = [str(o) for o in ols]
+    a, b = (words[n] for n in ("online2-wav-nnet2-latgen-faster",
+                               "online2-wav-nnet2-latgen-threaded"))
+    held("online2-wav-nnet2-latgen-threaded = -faster", a == b,
+         f"{sum(map(len, a.values()))} words")
+    held("online2-wav-nnet2-latgen-faster = the offline decode of the "
+         "streamed scores", a == offline, "")
+    rep["audio_s"] = audio_s
+
+
+def nnet2_model_tools(T, held, d, dev, feats, p1, pri1, tm, ali):
+    """21e: every model tool once on the full-width model, its file read
+    back and held against the library operation (forwards on the
+    card)."""
+    import dataclasses
+    from kaldi_tpu_torch.am.nnet2 import (layer_names, load_nnet2_full,
+                                          nnet2_model, save_nnet2, tree_leaves,
+                                          tree_map)
+    from kaldi_tpu_torch.am.raw_nnet import load_raw_nnet
+    from kaldi_tpu_torch.am.serialize import (read_transition_model,
+                                              write_transition_model)
+    from kaldi_tpu_torch.am.tdnn import splice
+    from kaldi_tpu_torch.cli.tools_bank26 import compute_prob
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    from kaldi_tpu_torch.pipelines.egs_io import XentEg
+    dv = f"--device={dev.type}"
+    pf, cfgf, prif = load_nnet2_full(f"{d}/final.mdl")
+    x0 = feats[sorted(feats)[0]]
+
+    def raw(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def runs(path, params, cfg):
+        """The tool's file on the card against ``params``: equal trees,
+        and its forward on one utterance against the library model of
+        ``params`` (relative error)."""
+        got, gcfg, _ = load_nnet2_full(path)
+        with torch.no_grad():
+            a = nnet2_model(got, gcfg, dev)(x0[None])[0]
+            b = nnet2_model(params, cfg, dev)(x0[None])[0]
+        f32 = tree_map(lambda v: np.asarray(v, np.float32), params)
+        return (gcfg == cfg and _leaf_diff(got, f32) == 0.0
+                and bool(torch.isfinite(a).all())), _rel(a.cpu(), b.cpu())
+
+    def file_equal(name, path, params, cfg, priors):
+        """``path`` byte-equal to the library's writer of the expected
+        model, and its forward equal to the library model's."""
+        save_nnet2(f"{d}/want.mdl", params, cfg, priors=priors)
+        same, err = runs(path, params, cfg)
+        held(f"{name} = library", same and raw(path) == raw(f"{d}/want.mdl")
+             and err <= SERVE_SCORE_TOL, f"{err:.2e}")
+
+    # copies carry the priors; the average of a model with itself is it
+    T("nnet2-am-copy", f"{d}/final.mdl", f"{d}/copy2.mdl")
+    T("nnet-am-copy", f"{d}/final.mdl", f"{d}/copy.mdl")
+    T("nnet-am-average", f"{d}/avg.mdl", f"{d}/final.mdl", f"{d}/final.mdl")
+    for name, out in (("nnet2-am-copy", "copy2"), ("nnet-am-copy", "copy"),
+                      ("nnet-am-average", "avg")):
+        held(f"{name}: the input's bytes, priors and all",
+             raw(f"{d}/{out}.mdl") == raw(f"{d}/final.mdl"), "")
+    cap = 0.05
+    T("nnet-am-fix", f"--max-param-value={cap}", f"{d}/final.mdl",
+      f"{d}/fix.mdl")
+    file_equal("nnet-am-fix", f"{d}/fix.mdl",
+               tree_map(lambda a: np.clip(np.where(np.isfinite(a), a, 0.0),
+                                          -cap, cap), pf), cfgf, prif)
+    T("nnet-am-switch-preconditioning", f"{d}/final.mdl", f"{d}/pc.mdl")
+    file_equal("nnet-am-switch-preconditioning", f"{d}/pc.mdl", pf,
+               dataclasses.replace(cfgf, preconditioned=True), prif)
+    # SVD rank limit: the reduced products
+    T("nnet-am-limit-rank", f"--dim={NNET2_RANK}", f"{d}/pri.mdl",
+      f"{d}/lr.mdl")
+    want = {k: v for k, v in p1.items()}
+    for name in layer_names(cfgf)[:-1]:
+        W = np.asarray(p1[name]["affine"]["kernel"], np.float64)
+        U, S, Vt = np.linalg.svd(W, full_matrices=False)
+        want[name] = {"affine": {
+            "kernel": ((U[:, :NNET2_RANK] * S[:NNET2_RANK])
+                       @ Vt[:NNET2_RANK]).astype(np.float32),
+            "bias": p1[name]["affine"]["bias"]}}
+    got, gcfg, gpri = load_nnet2_full(f"{d}/lr.mdl")
+    err = _leaf_diff(got, want)
+    with torch.no_grad():
+        ferr = _rel(nnet2_model(got, gcfg, dev)(x0[None])[0].cpu(),
+                    nnet2_model(want, gcfg, dev)(x0[None])[0].cpu())
+    held("nnet-am-limit-rank = the library's SVD products",
+         err <= 1e-5 and ferr <= SERVE_SCORE_TOL
+         and np.array_equal(gpri, pri1), f"{err:.2e}, forward {ferr:.2e}")
+    # the draws from np.random.default_rng(srand), in the original's order
+    T("nnet-insert", f"--srand={NNET2_SRAND}", f"{d}/final.mdl",
+      f"{d}/ins.mdl")
+    rng = np.random.default_rng(NNET2_SRAND)
+    k = (rng.standard_normal((NNET2_PNORM_OUT, NNET2_PNORM_IN)) * 0.1
+         / np.sqrt(NNET2_PNORM_OUT)).astype(np.float32)
+    want = dict(pf)
+    want[f"pnorm{NNET2_LAYERS + 1}"] = {"affine": {
+        "kernel": k, "bias": np.zeros(NNET2_PNORM_IN, np.float32)}}
+    file_equal("nnet-insert", f"{d}/ins.mdl", want, dataclasses.replace(
+        cfgf, num_hidden_layers=NNET2_LAYERS + 1), prif)
+    T("nnet-am-widen", f"--hidden-layer-dim={NNET2_WIDEN}",
+      f"--srand={NNET2_SRAND}", f"{d}/final.mdl", f"{d}/wide.mdl")
+    rng = np.random.default_rng(NNET2_SRAND)
+    want = dict(pf)
+    for i in range(NNET2_LAYERS):
+        kk = np.asarray(pf[f"pnorm{i + 1}"]["affine"]["kernel"])
+        extra = NNET2_WIDEN - kk.shape[1]
+        want[f"pnorm{i + 1}"] = {"affine": {
+            "kernel": np.concatenate([kk, rng.standard_normal(
+                (kk.shape[0], extra)).astype(np.float32) * 0.02
+                / np.sqrt(kk.shape[0])], axis=1),
+            "bias": np.concatenate([pf[f"pnorm{i + 1}"]["affine"]["bias"],
+                                    np.zeros(extra, np.float32)])}}
+    file_equal("nnet-am-widen", f"{d}/wide.mdl", want, dataclasses.replace(
+        cfgf, pnorm_input_dim=NNET2_WIDEN), prif)
+    o2 = os.path.join(os.path.dirname(d), "chip_smoke_online2")
+    T("nnet-am-reinitialize", f"--srand={NNET2_SRAND}", f"{d}/final.mdl",
+      f"{o2}/final.mdl", f"{d}/reinit.mdl")
+    P = tm.num_pdfs
+    rng = np.random.default_rng(NNET2_SRAND)
+    want = dict(pf)
+    want["output_affine"] = {
+        "kernel": (rng.standard_normal((NNET2_PNORM_OUT, P))
+                   / np.sqrt(NNET2_PNORM_OUT)).astype(np.float32),
+        "bias": np.zeros(P, np.float32)}
+    file_equal("nnet-am-reinitialize", f"{d}/reinit.mdl", want,
+               dataclasses.replace(cfgf, mix2pdf=None), None)
+    T("nnet-modify-learning-rates", f"{d}/pri.mdl", f"{d}/lr.mdl",
+      f"{d}/mlr.mdl")
+    got, gcfg, _ = load_nnet2_full(f"{d}/mlr.mdl")
+    lrs = np.asarray(gcfg.learn_rates or (), np.float64)
+    held("nnet-modify-learning-rates: a rate a layer, geometric mean "
+         "2e-3", len(lrs) == NNET2_LAYERS + 1
+         and abs(np.exp(np.log(lrs).mean()) - 2e-3) <= 1e-8
+         and _leaf_diff(got, load_nnet2_full(f"{d}/lr.mdl")[0]) == 0.0,
+         " ".join(f"{v:.2e}" for v in lrs))
+    # fresh draws of flax's init: shapes, zero biases, kernels' scale
+    T("nnet-replace-last-layers", "--num-layers-to-remove=2",
+      f"--srand={NNET2_SRAND}", f"{d}/final.mdl", f"{d}/rep.mdl")
+    got, gcfg, gpri = load_nnet2_full(f"{d}/rep.mdl")
+    kept = all(_leaf_diff(got[f"pnorm{i + 1}"], pf[f"pnorm{i + 1}"]) == 0.0
+               for i in range(NNET2_LAYERS - 2))
+    fresh = [(k, v) for k, v in tree_leaves(
+        {n: got[n] for n in (f"pnorm{NNET2_LAYERS - 1}",
+                             f"pnorm{NNET2_LAYERS}", "output_affine")})]
+    scale_ok = all((not v.any()) if k[-1] == "bias" else
+                   0.7 < float(np.std(v)) * math.sqrt(v.shape[0]) < 1.3
+                   for k, v in fresh)
+    same, _err = runs(f"{d}/rep.mdl", got, gcfg)
+    held("nnet-replace-last-layers: kept layers, fresh lecun draws",
+         kept and scale_ok and same and gcfg.mix2pdf is None
+         and gpri is None, "")
+    with open(f"{d}/nnet.config", "w") as f:
+        f.write(f"feat-dim = 13\nnum-pdfs = {P}\n"
+                f"num-hidden-layers = {NNET2_LAYERS}\n"
+                f"pnorm-input-dim = {NNET2_PNORM_IN}\n"
+                f"pnorm-output-dim = {NNET2_PNORM_OUT}\n"
+                "splice = -2 -1 0 1 2\n")
+    T("nnet-init", f"--srand={NNET2_SRAND}", f"{d}/nnet.config",
+      f"{d}/init.raw")
+    comps = load_raw_nnet(f"{d}/init.raw")
+    kinds = [c for c, _ in comps]
+    held("nnet-init: the raw p-norm stack", kinds == [c for c, _ in
+                                                      load_raw_nnet(
+                                                          f"{d}/pri.raw")]
+         and all((not np.asarray(p["bias"]).any()) for c, p in comps
+                 if c == "affine"), f"{len(comps)} components")
+    T("raw-nnet-copy", "--truncate=4", f"{d}/pri.raw", f"{d}/trunc.raw")
+    T("raw-nnet-copy", "--truncate=1", f"{d}/pri.raw", f"{d}/splice.raw")
+    T("raw-nnet-concat", f"{d}/pri.raw", f"{d}/splice.raw", f"{d}/cat.raw")
+    a, b, sp, c = (load_raw_nnet(f"{d}/{n}.raw")
+                   for n in ("pri", "trunc", "splice", "cat"))
+    held("raw-nnet-copy --truncate / raw-nnet-concat",
+         [t for t, _ in b] == [t for t, _ in a[:4]]
+         and [t for t, _ in c] == [t for t, _ in a + sp]
+         and _leaf_diff(dict(enumerate(p for _, p in c)),
+                        dict(enumerate(p for _, p in a + sp))) == 0.0, "")
+    # egs from the alignments: pre-spliced windows, pdf targets
+    pdf_of = tm.tid_to_pdf_array
+    with TableWriter(f"ark:{d}/egs.ark", holder="xeg") as w:
+        for k in sorted(feats):
+            x = splice(feats[k][None], (-2, -1, 0, 1, 2))[0].cpu().numpy()
+            y = pdf_of[np.asarray(ali[k])]
+            n = len(y) // NNET2_EG_FRAMES * NNET2_EG_FRAMES
+            w[k] = XentEg(feats=x[:n].reshape(-1, NNET2_EG_FRAMES,
+                                              x.shape[1]),
+                          pdfs=y[:n].reshape(-1, NNET2_EG_FRAMES)
+                          .astype(np.int32))
+    out = T("nnet-compute-prob", dv, f"{d}/final.mdl", f"ark:{d}/egs.ark")
+    want = compute_prob(nnet2_model(pf, cfgf, dev), f"ark:{d}/egs.ark", dev)
+    held("nnet-compute-prob = the library's", abs(float(out) - want)
+         <= 1e-5 * max(1.0, abs(want)), f"{float(out)} / {want:.6f}")
+    T("nnet-compute-from-egs", dv, f"{d}/final.mdl", f"ark:{d}/egs.ark",
+      f"ark:{d}/cfe.ark")
+    got = _serve_read(f"ark:{d}/cfe.ark", "mat")
+    eg_model = nnet2_model(pf, cfgf, dev)
+    err = 0.0
+    with torch.no_grad():
+        for k, eg in SequentialTableReader(f"ark:{d}/egs.ark", holder="xeg"):
+            o = eg_model(torch.from_numpy(eg.feats).to(dev))
+            err = max(err, _rel(got[k], o.reshape(-1, o.shape[-1]).cpu()))
+    held("nnet-compute-from-egs = Nnet2Model on the egs",
+         err <= SERVE_SCORE_TOL, f"{err:.2e}")
+    out = T("nnet-show-progress", dv, f"{d}/pri.mdl", f"{d}/lr.mdl",
+            f"ark:{d}/egs.ark").splitlines()
+    old = compute_prob(nnet2_model(p1, dataclasses.replace(
+        cfgf, mix2pdf=None), dev), f"ark:{d}/egs.ark", dev)
+    held("nnet-show-progress: a line a leaf, objf-old the library's",
+         len(out) == 2 * (NNET2_LAYERS + 1) + 2
+         and abs(float(out[-2].split()[1]) - old)
+         <= 1e-5 * max(1.0, abs(old)), f"{out[-2]} / {old:.6f}")
+    # transitions and priors from the alignments
+    with kio.open_wxfilename(f"{d}/final.tm") as f:
+        kio.init_kaldi_output_stream(f)
+        write_transition_model(f, tm)
+    T("nnet-train-transitions", f"{d}/final.tm", f"ark:{d}/ali.ark",
+      f"{d}/final.mdl", f"{d}/tt.tm", f"{d}/tt.mdl")
+    cnt = np.zeros(P)
+    for v in ali.values():
+        np.add.at(cnt, pdf_of[np.asarray(v, np.int64)], 1.0)
+    got, gcfg, gpri = load_nnet2_full(f"{d}/tt.mdl")
+    with kio.open_rxfilename(f"{d}/tt.tm") as f:
+        kio.init_kaldi_input_stream(f)
+        tt = read_transition_model(f)
+    held("nnet-train-transitions: priors of the alignments' pdf counts",
+         _rel(gpri, (cnt + 0.5) / (cnt.sum() + 0.5 * P)) <= 1e-6
+         and tt.num_transition_ids == tm.num_transition_ids
+         and _leaf_diff(got, pf) == 0.0, f"{int(cnt.sum())} frames")
+    for stale in os.listdir(d):
+        if stale.endswith((".mdl", ".raw")):
+            os.remove(f"{d}/{stale}")
+
+
+def nnet2_tools_worker(argv) -> int:
+    """21's background process: 21a–21f in turn, every tool a call of
+    the port's registry in this process, each held against the library
+    on the same card, the fbank kernel's count set to 0 before each call
+    and read after it.  Writes ``report.json`` into the directory; exits
+    1 if a check fails."""
+    import contextlib
+    import io
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import kaldi_tpu_torch.features  # noqa: F401  (before ops.fbank)
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.cli.online2 import online_mfcc
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    t_start = time.perf_counter()
+    d, dv = argv[0], argv[1]
+    dev = torch.device(dv, 0) if dv == "cuda" else torch.device(dv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the host's cores go to the main process first: this worker has
+    # until the join, ~800 s after its start, for ~80 s of work
+    os.nice(10)
+    calls, checks, walls, rep = [], [], {}, {}
+    launches = {}
+
+    def T(name, *args):
+        """Tool ``name``, its fbank launches counted and its wall added
+        up; → what it printed."""
+        out = io.StringIO()
+        CudaFbank.total_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = TOOLS[name]([str(a) for a in args])
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        launches[name] = launches.get(name, 0) + CudaFbank.total_launches
+        if rc:
+            raise AssertionError(f"{name}: rc {rc}")
+        calls.append(name)
+        return out.getvalue()
+
+    def held(name, ok, detail):
+        checks.append((name, bool(ok), detail))
+
+    o2 = os.path.join(os.path.dirname(d), "chip_smoke_online2")
+    sv = os.path.join(os.path.dirname(d), "chip_smoke_serve")
+    tm, _ = read_mdl(f"{o2}/final.mdl", device="cpu")
+    mfcc = online_mfcc(SAMP_FREQ, dev)
+    waves = {k: np.asarray(w, np.float32)
+             for k, (w, _r) in _serve_read(f"ark:{sv}/wav8.ark",
+                                           "wav").items()}
+    audio_s = sum(len(w) for w in waves.values()) / SAMP_FREQ
+    feats = {k: mfcc.compute(w) for k, w in waves.items()}
+    with TableWriter(f"ark:{d}/feats8.ark", holder="mat") as w:
+        for k, x in feats.items():
+            w[k] = x.cpu().numpy()
+    t0 = time.perf_counter()
+    p1, pri1 = nnet2_make(T, held, d, dev, feats, tm.num_pdfs, rep)
+    walls["21a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logpri, lib = nnet2_forward(T, held, d, dev, feats, rep)
+    walls["21b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tm, ali = nnet2_decode(T, held, d, dev, logpri, lib, rep)
+    walls["21c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nnet2_online(T, held, d, dev, logpri, rep, audio_s, tm)
+    walls["21d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nnet2_model_tools(T, held, d, dev, feats, p1, pri1, tm, ali)
+    walls["21e"] = time.perf_counter() - t0
+    rep["fbank_err"] = check_path_fbank(mfcc, list(waves.values()),
+                                        "nnet2: 21f")
+    with open(f"{d}/report.json", "w") as f:
+        json.dump({"walls": walls, "checks": checks, "calls": len(calls),
+                   "tools": sorted(set(calls)), "launches": launches,
+                   "total": time.perf_counter() - t_start, **rep}, f,
+                  default=float)
+    bad = [c for c in checks if not c[1]]
+    if bad:
+        print(f"nnet2 tools: {len(bad)} checks failed: {bad[:5]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def nnet2_tools_finish(started, tag: str):
+    """21, joined before the kernels line: the worker's exit, its checks,
+    the fbank launches of NNET2_FBANK_TOOLS, the audio-s/s of the online2
+    decodes and of the offline decode, the worker's wall and the main
+    process's wait here.  → (fbank launches, the fbank kernel's max |diff|
+    from its plain version at the tools' MFCC)."""
+    proc, d, t0 = started
+    t_wait = time.perf_counter()
+    proc.wait(timeout=NNET2_JOIN)
+    wait = time.perf_counter() - t_wait
+    wall = time.perf_counter() - t0
+    with open(f"{d}/worker.err") as f:
+        err = f.read()
+    if proc.returncode != 0 or not os.path.exists(f"{d}/report.json"):
+        raise AssertionError(f"nnet2 tools failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    with open(f"{d}/report.json") as f:
+        rep = json.load(f)
+    fb = sum(rep["launches"].get(n, 0) for n in NNET2_FBANK_TOOLS)
+    print(f"nnet2: {rep['calls']} tool calls of {len(rep['tools'])} tools "
+          f"in one background process: {wall:.1f} s to "
+          f"the join ({rep['total']:.1f} s of work after its imports); the "
+          f"main process waited {wait:.1f} s here {tag}")
+    for name, ok, detail in rep["checks"]:
+        print(f"nnet2:   {name}: {'held' if ok else 'FAILED'}"
+              + (f" ({detail})" if detail else ""))
+    audio, walls = rep["audio_s"], rep["walls"]
+    print(f"nnet2: the model {rep['init_params']} parameters before the "
+          f"mix-up ({NNET2_LAYERS} × p-norm {NNET2_PNORM_IN} → "
+          f"{NNET2_PNORM_OUT}), {NNET2_MIX} softmax rows ({rep['mix_rows'][0]}"
+          f"–{rep['mix_rows'][1]} a pdf); {audio:.2f} s of audio: "
+          + ", ".join(f"{n} {audio / walls[n]:.1f} audio-s/s"
+                      for n in ("online2-wav-nnet2-latgen-faster",
+                                "online2-wav-nnet2-latgen-threaded",
+                                "nnet-latgen-faster",
+                                "nnet-latgen-faster-parallel"))
+          + f" (whole calls); streamed rows within {rep['stream_err']:.2e} "
+          f"of the offline forward {tag}")
+    print("nnet2: walls " + ", ".join(f"{n} {v:.1f} s" for n, v in
+                                      walls.items()))
+    with open(f"{d}/worker.out") as f:      # 21f's kernel check
+        print("".join(ln for ln in f if ln.startswith("nnet2: 21")),
+              end="")
+    print(f"nnet2: fbank kernel launches {fb} (" + ", ".join(
+        f"{n} {rep['launches'].get(n, 0)}" for n in NNET2_FBANK_TOOLS)
+        + f"); 21f fbank kernel vs plain max |diff| {rep['fbank_err']:.3e} "
+        f"{tag}")
+    bad = [c for c in rep["checks"] if not c[1]]
+    if bad:
+        raise AssertionError(f"21: {len(bad)} checks failed: {bad[:3]}")
+    if any(rep["launches"].get(n, 0) <= 0 for n in NNET2_FBANK_TOOLS):
+        raise AssertionError(f"21: fbank launches {rep['launches']}")
+    return fb, rep["fbank_err"]
+
+
 def _stop(proc) -> None:
     """Kill ``proc`` if it still runs (phase 17's and 18's workers, at
     exit)."""
@@ -8936,6 +9629,8 @@ if __name__ == "__main__":
         sys.exit(seq_tools_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-tools"]:
         sys.exit(serve_tools_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nnet2-tools"]:
+        sys.exit(nnet2_tools_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--chain-loop"]:
         sys.exit(chain_loop_worker(sys.argv[2:]))
     sys.exit(main())

@@ -70,23 +70,27 @@ class NnetStream:
     """One utterance's online2 front end: waveform chunks → online MFCC
     (``mfcc``; the fbank kernel on a card), with the online i-vector of
     ``ivector_estimator`` appended when given (re-estimated every
-    ``ivector_period`` frames) → context-buffered TDNN-F scores
-    (``OnlineNnetScorer``).  The pump of the original's online2 tools
+    ``ivector_period`` frames) → context-buffered network scores
+    (``OnlineNnetScorer`` with ``left_context`` / ``right_context``
+    frames around each chunk: a TDNN-F's, or an nnet2 model's splice at
+    ``subsample`` 1).  The pump of the original's online2 tools
     (online2-wav-nnet3-latgen-faster, -incremental, the wake-word
-    decoder, the TCP server), shared; each stream owns its pipeline,
-    estimator and scorer, so streams on threads share only ``mfcc`` and
-    ``net``."""
+    decoder, the TCP server, the online2-wav-nnet2 tools), shared; each
+    stream owns its pipeline, estimator and scorer, so streams on
+    threads share only ``mfcc`` and ``net``."""
 
     def __init__(self, mfcc, net, subsample: int,
                  device: torch.device | str = "cuda",
-                 ivector_estimator=None, ivector_period: int = 10):
+                 ivector_estimator=None, ivector_period: int = 10,
+                 left_context: int = 24, right_context: int = 24):
         from kaldi_tpu_torch.decoder.online_nnet import OnlineNnetScorer
         from kaldi_tpu_torch.features.online import OnlineFeaturePipeline
         self.pipe = OnlineFeaturePipeline(
             mfcc, ivector_estimator=ivector_estimator,
             ivector_period=ivector_period)
-        self.scorer = OnlineNnetScorer(net, subsample=subsample,
-                                       device=device)
+        self.scorer = OnlineNnetScorer(net, left_context=left_context,
+                                       right_context=right_context,
+                                       subsample=subsample, device=device)
         self.fed = 0
 
     def accept_waveform(self, samples) -> None:

@@ -19,8 +19,8 @@ tools_bank6.py, tools_bank9.py, tools_bank10.py, tools_bank12.py,
 tools_bank13.py, tools_bank22.py, tools_bank4.py, tools_bank16.py,
 tools_bank17.py, tools_bank21.py, tools_bank23.py, tools_bank24.py,
 tools_bank27.py, tools_bank28.py, tools_bank29.py, tools_bank30.py,
-tools_bank7.py, tools_bank20.py, tools_bank31.py,
-tools_ivector.py, tools_rnnlm.py,
+tools_bank7.py, tools_bank20.py, tools_bank31.py, tools_bank19.py,
+tools_bank25.py, tools_bank26.py, tools_ivector.py, tools_rnnlm.py,
 tools_const_arpa.py, tools_lattice.py, tools_chain.py, tools_nnet.py and
 tools_parallel.py.
 

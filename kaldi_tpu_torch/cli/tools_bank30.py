@@ -20,6 +20,19 @@ a partial's traceback are ported to intent: only the decoder's
 ``KaldiError`` (no path yet) is passed over.  The portaudio microphone
 input of the original is replaced by raw-S16LE streams (stdin, sockets,
 wav tables), as in the JAX package.
+
+The online2-wav-nnet2 tools (latgen-faster, latgen-threaded,
+am-compute) stream through the same ``NnetStream`` with the nnet2
+model's splice as its left and right context and no subsampling: each
+chunk forwards only its new frames with that context, so the rows equal
+the offline forward, as the original's docstring promises (the
+original's pump forwarded every frame received so far at each chunk,
+O(T²/chunk) rows).  The decodes advance a ``SingleUtteranceDecoder``
+after each chunk and subtract the model's log-priors when it has them,
+as the original does; the threaded variant's threads share the card,
+the model, the MFCC computer (its launch count under the fbank
+wrapper's lock) and the dense decoder's tables (each stream's decoder
+reads them only).
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ import socket
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from kaldi_tpu_torch.cli.online2 import online_mfcc
 from kaldi_tpu_torch.cli.tools import _device_po, tool
@@ -585,4 +599,150 @@ def online2_wav_nnet3_wake_word_decoder_faster_tool(argv):
     log.info("online2-wav-nnet3-wake-word-decoder-faster: %d/%d "
              "detections; fbank kernel launches %d", n_det, n,
              mfcc.kernel.launches)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# online2bin: nnet2 streaming
+# ---------------------------------------------------------------------------
+
+def nnet2_stream(mfcc, model, wave, chunk: int, device, on_scores) -> None:
+    """One waveform in ``chunk``-sample pieces → online MFCC → the nnet2
+    ``model``'s rows as they become final (``NnetStream`` with the
+    model's splice as context, no subsampling), each batch of new rows
+    handed to ``on_scores``."""
+    from kaldi_tpu_torch.cli.online2 import NnetStream
+    splice = model.config.splice
+    ctx = max(-min(splice), max(splice), 0)
+    st = NnetStream(mfcc, model, 1, device, left_context=ctx,
+                    right_context=ctx)
+    wave = np.asarray(wave, np.float32)
+    with torch.no_grad():
+        for i in range(0, len(wave), chunk):
+            st.accept_waveform(wave[i:i + chunk])
+            s = st.pump(False)
+            if s.numel():
+                on_scores(s)
+        s = st.pump(True)
+        if s.numel():
+            on_scores(s)
+
+
+def _online2_nnet2_po(name: str, usage: str) -> ParseOptions:
+    po = ParseOptions(f"{name} [opts] {usage}")
+    po.register("chunk-length", float, 0.18, "seconds per chunk")
+    po.register("sample-frequency", float, 16000.0, "expected rate")
+    po.register("num-ceps", int, 13, "MFCC cepstra (model input dim)")
+    _device_po(po)
+    return po
+
+
+def _online2_nnet2_decode(argv, name: str, threaded: bool):
+    from kaldi_tpu_torch.cli.tools_bank19 import (latgen_inputs,
+                                                  load_nnet2_scorer)
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    from kaldi_tpu_torch.decoder.dense import DenseDecoder, DenseDecoderConfig
+    from kaldi_tpu_torch.decoder.online import SingleUtteranceDecoder
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    po = _online2_nnet2_po(name, "<trans-model> <nnet2-in> <fst> "
+                           "<wav-rspec> <words-wspec>")
+    po.register("beam", float, 15.0, "decoding beam")
+    po.register("acoustic-scale", float, 0.1, "acoustic scale")
+    po.register("word-symbol-table", str, "", "words.txt")
+    po.register("num-threads", int, 4,
+                "worker threads (threaded variant)")
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    tm, HCLG = latgen_inputs(args[0], args[2])
+    model, _cfg, logpri = load_nnet2_scorer(args[1], device)
+    dec = DenseDecoder(HCLG, tm.tid_to_pdf_array,
+                       DenseDecoderConfig(
+                           beam=po["beam"],
+                           acoustic_scale=po["acoustic-scale"]),
+                       device=device)
+    words_tab = (SymbolTable.read(po["word-symbol-table"])
+                 if po["word-symbol-table"] else None)
+    rate = po["sample-frequency"]
+    chunk = max(1, int(po["chunk-length"] * rate))
+    mfcc = online_mfcc(rate, device, po["num-ceps"])
+
+    def one(item):
+        key, (wave, wrate) = item
+        if wrate != rate:
+            raise KaldiError(f"{key}: rate {wrate} != {rate}")
+        online = SingleUtteranceDecoder(dec)
+        nnet2_stream(mfcc, model, wave, chunk, device,
+                     lambda s: online.advance_decoding(
+                         s if logpri is None else s - logpri))
+        _t, ols, _c = online.get_best_path(use_final_probs=True)
+        return key, [words_tab.find(o) if words_tab else str(o)
+                     for o in ols]
+
+    entries = list(SequentialTableReader(args[3], holder="wav"))
+    if threaded:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=po["num-threads"]) as pool:
+            results = list(pool.map(one, entries))
+    else:
+        results = [one(e) for e in entries]
+    with TableWriter(args[4], holder="text") as w:
+        for key, text in results:
+            w[key] = text
+    log.info("%s: %d utterances; fbank kernel launches %d", name,
+             len(results), mfcc.kernel.launches)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank30.py online2_wav_nnet2_latgen_faster_tool.
+@tool("online2-wav-nnet2-latgen-faster")
+def online2_wav_nnet2_latgen_faster_tool(argv):
+    """Streaming nnet2 decode
+    (online2bin/online2-wav-nnet2-latgen-faster.cc) on ``--device``."""
+    return _online2_nnet2_decode(argv,
+                                 "online2-wav-nnet2-latgen-faster",
+                                 threaded=False)
+
+
+# Port of kaldi_tpu/cli/tools_bank30.py
+# online2_wav_nnet2_latgen_threaded_tool.
+@tool("online2-wav-nnet2-latgen-threaded")
+def online2_wav_nnet2_latgen_threaded_tool(argv):
+    """Threaded streaming nnet2 decode
+    (online2bin/online2-wav-nnet2-latgen-threaded.cc): ``--num-threads``
+    utterances at once on ``--device``."""
+    return _online2_nnet2_decode(argv,
+                                 "online2-wav-nnet2-latgen-threaded",
+                                 threaded=True)
+
+
+# Port of kaldi_tpu/cli/tools_bank30.py online2_wav_nnet2_am_compute_tool.
+@tool("online2-wav-nnet2-am-compute")
+def online2_wav_nnet2_am_compute_tool(argv):
+    """Streaming nnet2 forward: wav chunks → online MFCC → the model's
+    new rows a chunk; outputs equal the offline forward
+    (online2bin/online2-wav-nnet2-am-compute.cc), on ``--device``."""
+    from kaldi_tpu_torch.cli.tools_bank19 import load_nnet2_scorer
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    po = _online2_nnet2_po("online2-wav-nnet2-am-compute",
+                           "<nnet2-in> <wav-rspec> <mat-wspec>")
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    model, cfg, _ = load_nnet2_scorer(args[0], device,
+                                      divide_by_priors=False)
+    rate = po["sample-frequency"]
+    chunk = max(1, int(po["chunk-length"] * rate))
+    mfcc = online_mfcc(rate, device, po["num-ceps"])
+    n = 0
+    with TableWriter(args[2], holder="mat") as w:
+        for key, (wave, wrate) in SequentialTableReader(args[1],
+                                                        holder="wav"):
+            if wrate != rate:
+                raise KaldiError(f"{key}: rate {wrate} != {rate}")
+            rows = []
+            nnet2_stream(mfcc, model, wave, chunk, device, rows.append)
+            w[key] = (torch.cat(rows).cpu().numpy() if rows
+                      else np.zeros((0, cfg.num_pdfs), np.float32))
+            n += 1
+    log.info("online2-wav-nnet2-am-compute: %d utterances; fbank kernel "
+             "launches %d", n, mfcc.kernel.launches)
     return 0

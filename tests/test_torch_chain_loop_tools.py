@@ -348,7 +348,8 @@ def test_tensor_tools_default_to_the_card(name, nargs, monkeypatch):
 def test_registry_holds_the_chain_loop():
     """The 13 tools are registered, each also a tool of the original
     (161 → 174 of the original's; 201 with the serving and regression-
-    tree tools, tests/test_torch_serve_tools.py)."""
+    tree tools, tests/test_torch_serve_tools.py; 234 with the nnet2
+    tools, tests/test_torch_nnet2_tools.py)."""
     loop = {"nnet3-get-egs-dense-targets", "nnet3-chain-merge-egs",
             "nnet3-chain-normalize-egs", "nnet3-chain-combine",
             "nnet3-chain-compute-post", "nnet3-am-adjust-priors",
@@ -357,7 +358,7 @@ def test_registry_holds_the_chain_loop():
             "chain-make-den-fst", "nnet3-am-copy"}
     assert len(loop) == 13
     assert loop <= set(ttools.TOOLS) and loop <= set(jtools.TOOLS)
-    assert len(ttools.TOOLS) == 201
+    assert len(ttools.TOOLS) == 234
 
 
 def test_checkpoint_module_names_its_original():

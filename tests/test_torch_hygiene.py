@@ -50,12 +50,19 @@ FORBIDDEN = ("kaldi_tpu", "jax", "flax", "optax", "msgpack", "tensorstore")
                                   "kaldi_tpu_torch/am/regtree.py",
                                   "kaldi_tpu_torch/cli/tools_bank7.py",
                                   "kaldi_tpu_torch/cli/tools_bank20.py",
-                                  "kaldi_tpu_torch/cli/tools_bank31.py"])
+                                  "kaldi_tpu_torch/cli/tools_bank31.py",
+                                  "kaldi_tpu_torch/am/nnet2.py",
+                                  "kaldi_tpu_torch/am/raw_nnet.py",
+                                  "kaldi_tpu_torch/cli/tools_bank19.py",
+                                  "kaldi_tpu_torch/cli/tools_bank25.py",
+                                  "kaldi_tpu_torch/cli/tools_bank26.py",
+                                  "kaldi_tpu_torch/tools/nnet2_check.py"])
 def test_the_import_check_covers(path):
     """The RNNLM, its msgpack codec, the copied lattice modules, the
     tensor-parallel collectives, the orbax checkpoint reader, the
-    regression tree and the serving tools' new banks are among the files
-    the import check walks."""
+    regression tree, the serving tools' new banks and the nnet2 modules,
+    tools and check script are among the files the import check
+    walks."""
     assert path in PORT_FILES
 
 
@@ -482,9 +489,10 @@ def test_native_builds_under_a_per_process_name(tmp_path, monkeypatch):
     ["-m", "kaldi_tpu_torch.tools.profile_slice"],
     ["-m", "kaldi_tpu_torch.tools.profile_slice", "--den"],
     ["-m", "kaldi_tpu_torch.tools.profile_slice", "--features"],
-    ["-m", "kaldi_tpu_torch.tools.flagship_spread"]],
+    ["-m", "kaldi_tpu_torch.tools.flagship_spread"],
+    ["kaldi_tpu_torch/tools/nnet2_check.py"]],
     ids=["chip_smoke", "profile_slice", "profile_slice-den",
-         "profile_slice-features", "flagship_spread"])
+         "profile_slice-features", "flagship_spread", "nnet2_check"])
 def test_card_scripts_refuse_without_a_card(argv):
     """The scripts that measure on the card run their main, and without
     a card exit non-zero before printing any result."""
