@@ -462,12 +462,42 @@ Phases (each prints lines; any failure raises and exits non-zero):
         version on the 8 waveforms.
      The fbank launches of NNET2_FBANK_TOOLS (the three online2 tools)
      join the kernels line, f's error its max_abs_err.
+ 22. Kaldi's frame-level cross-entropy DNN recipes as the port's tools,
+     in a background process (``--nnet-loop``) started beside 20's and
+     21's on 10b's systems (its waveforms, transcripts, tri3b model and
+     alignments, G):
+     a. compute-fbank-feats (40 bins, 8 kHz; against Fbank), lengths
+        against 10b's alignments, ali-to-pdf, analyze-counts, global
+        CMVN (compute-cmvn-stats, cmvn-to-nnet, transform-feats), the
+        ±5 splice and its normalization as a transf-to-nnet transform;
+     b. Karel's pretrain_dbn.sh at its width (6 RBMs of 2048 on 440
+        inputs): rbm-train-cd1-frmshuff a layer at a time,
+        rbm-convert-to-nnet, nnet-concat, nnet-initialize's output
+        layer; the first RBM against train_rbm, one CD-1 step card = CPU;
+     c. nnet-set-learnrate (DBN frozen, held bit for bit and against
+        finetune_xent) and nnet-train-frmshuff a pass at a time with
+        the cv cross-entropy and frame accuracy; one step card = CPU;
+     d. nnet-forward --feature-transform --divide-by-priors |
+        latgen-faster-mapped on compile-graph's HCLG: WER ≤ 30 beside
+        10b's; lattice-to-nbest;
+     e. align-compiled-mapped (against DenseAligner), its agreement with
+        10b's alignments, train-transitions;
+     f. nnet-train-mmi-sequential and -mpe-sequential on a few
+        utterances' lattices, against the library; nnet1-to-raw-nnet;
+     g. nnet3's train_dnn.py loop at phases 5 and 8b's TDNN-F width
+        (13 × 1024 / 128): nnet3-init, the egs tools, two nnet3-train
+        jobs, nnet3-average, nnet3-combine, nnet3-compute-prob (card =
+        CPU too), the .mdl tools, LDA stats, compute-from-egs and
+        nnet3-align-compiled, each against the library;
+     h. the fbank kernel at 40 bins, 8 kHz against its plain version.
+     compute-fbank-feats' fbank launches join the kernels line, h's
+     error its max_abs_err.
 Before the last two lines, a line of its own is the card's name and
 power limit as nvidia-smi reports them.  The line before the last is the
 kernels' JSON record: launches on the paths (the den's include 14b's,
 15a's, the ranks' of phase 16, 17d's, 18's and 19's; the GMM's
 17a's, 17c's, 18a's and 20d–e's; the fbank's 18b's streaming grammar
-tool's, 20a–d's and 21d's),
+tool's, 20a–d's, 21d's and 22a's),
 the largest difference from
 the plain versions, the times on the card (fbank and GMM at 4096
 frames, the wide-bank fbank pair at 4096 frames of 17 bins, the den's
@@ -7252,6 +7282,9 @@ def main() -> int:
         # 21's worker, beside it: Kaldi's nnet2 models as tools
         nnet2 = nnet2_tools_start(nnet2_tools_write(task300), dev)
         atexit.register(_stop, nnet2[0])
+        # 22's worker, beside them: the cross-entropy DNN recipes as tools
+        nloop = nnet_loop_start(nnet_loop_write(msys, m_wers), dev)
+        atexit.register(_stop, nloop[0])
         tri3b_training(dev, task300, tag)
         tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
     finally:
@@ -7400,6 +7433,9 @@ def main() -> int:
                                                             p4_rate)
     # 21. Kaldi's nnet2 models as tools (in the background since 10b)
     n2_fb, n2_fb_err = nnet2_tools_finish(nnet2, tag)
+    # 22. the cross-entropy DNN recipes as tools (in the background since
+    # 10b)
+    nl_fb, nl_fb_err = nnet_loop_finish(nloop, tag)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -7408,9 +7444,9 @@ def main() -> int:
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
         + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb + iv_fb
-        + seq_fb + sv_fb + n2_fb,
+        + seq_fb + sv_fb + n2_fb + nl_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err,
-                           f_fb_err, sv_fb_err, n2_fb_err),
+                           f_fb_err, sv_fb_err, n2_fb_err, nl_fb_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
                 "the spectrogram are held to their own bar (phase 9a)",
         "ms": fb_ms, "plain_ms": fb_plain_ms,
@@ -9612,6 +9648,939 @@ def nnet2_tools_finish(started, tag: str):
     return fb, rep["fbank_err"]
 
 
+# ---------------------------------------------------------------------------
+# 22. Kaldi's frame-level cross-entropy DNN recipes as the port's tools, on
+# 10b's mini-ladder systems: Karel's nnet1 (steps/nnet/{pretrain_dbn,
+# train,align,make_denlats,train_mpe}.sh) and nnet3's train_dnn.py loop
+# (get-egs, shuffle / merge, train, compute-prob, combine, realign)
+# ---------------------------------------------------------------------------
+
+NLOOP_DIR = os.path.join("build", "chip_smoke_nnet_loop")
+NLOOP_BINS = 40            # 40 log-mel bins at 8 kHz
+NLOOP_SPLICE = 5           # ±5 frames: 440 inputs
+# steps/nnet/pretrain_dbn.sh: nn_depth=6, hid_dim=2048; rbm_iter=1, one
+# pass over ~100 hours (~10^5 CD-1 updates a layer), the Gaussian-Bernoulli
+# first layer twice as many.  10b's ~15,300 frames give 60 updates a pass:
+# 10 passes a layer (20 the first) keep the stack's hidden units varying
+# from frame to frame; at 1 pass they are constant by the fourth layer
+NNET1_DEPTH = 6
+NNET1_HID = 2048
+NNET1_RBM_EPOCHS = (20, 10)  # the first layer's passes, every other layer's
+# CD-1 rates: an update sums over the 2048 units, so the recipe's rates
+# (0.01 Gaussian, 0.4 Bernoulli, with momentum and L2) and the tool's 0.05
+# diverge or saturate here (as in the original); at 2048 units the
+# Gaussian layer holds at 0.002, the Bernoulli layers at 0.0125
+NNET1_RBM_LR_GAUSS = 0.002
+NNET1_RBM_LR = 0.0125
+# fine-tuning passes after 1 of the output layer: newbob's shape at fixed
+# points (steps/nnet/train_scheduler.sh: the rate halves each pass once the
+# cv gain falls off; 20 passes at most), 14 passes at one rate, then
+# halved each of 6.  The rate is the recipe's 0.008 a frame summed over
+# 256 frames (2.0 on the mean) over 8: the output layer's step grows
+# with the 2048 sigmoid inputs' squared norm, and the recipe's own rate
+# (or the tool's 0.5) overshoots it
+NNET1_LR = 0.25
+NNET1_FT_EPOCHS = 20
+NNET1_HALVINGS = 6
+NNET1_CV_UTTS = 10         # 10b's training utterances held out (cv)
+NNET1_SEED = 22
+NNET1_WER_MAX = 30.0
+NNET1_SEQ_UTTS = 4         # utterances through the sequence trainers
+# lattice beams small enough that the lattices determinize: a weak hybrid's
+# lattices at the tools' beam 6 run the host out of memory (on the CPU at
+# width 96)
+NNET1_SEQ_LAT = ("--beam=13", "--lattice-beam=3", "--acoustic-scale=0.1")
+NNET1_DECODE = ("--beam=13", "--lattice-beam=2", "--acoustic-scale=0.1")
+# phases 5 and 8b's TDNN-F: 13 layers of 1024 / 128
+NNET3_HID = 1024
+NNET3_BN = 128
+NNET3_LAYERS = 13
+# nnet3-train's passes over a job's half of the training set (7 steps of
+# 16 × 64 frames a pass): its batch norm's running statistics move 1% a
+# step, and at the tool's 4 passes they are still mostly their init, so
+# the model in eval mode scores garbage (nnet3-compute-prob -1076 a frame
+# on the card); 60 passes, 420 steps, bring them within 2%
+NNET3_EPOCHS = 60
+NNET3_CHUNK = 64
+NNET3_SUBSET = 40          # egs in each diagnostic subset
+NNET3_MERGE = 8
+NNET3_COMBINE_ITERS = 10   # nnet3-combine's Adam steps (the tool's 40)
+NLOOP_TOL = SERVE_SCORE_TOL
+NLOOP_JOIN = 900           # the main process's longest wait, seconds
+
+
+def nnet_loop_write(sysd, wers) -> str:
+    """22's inputs from 10b's systems: the waveforms, transcripts and
+    speakers of both sets, the lexicon, words, G, the tri3b model and its
+    training alignments, and 10b's WERs.  → the directory."""
+    from kaldi_tpu_torch.am.serialize import write_mdl
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.fst.openfst_io import write_fst_path
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, NLOOP_DIR)
+    os.makedirs(d, exist_ok=True)
+    for stale in ("report.json", "worker.out", "worker.err"):
+        if os.path.exists(f"{d}/{stale}"):
+            os.remove(f"{d}/{stale}")
+    lang, tri3b = sysd["lang"], sysd["tri3b"]
+    for s, data in (("tr", sysd["train"]), ("te", sysd["test"])):
+        with TableWriter(f"ark:{d}/wav_{s}.ark", holder="wav") as w:
+            for u in data.utts:
+                w[u] = data.wavs[u]
+        with TableWriter(f"ark:{d}/text_{s}.ark", holder="text") as w:
+            for u in data.utts:
+                w[u] = data.text[u]
+        with open(f"{d}/spk2utt_{s}", "w") as f:
+            for spk, utts in data.spk2utt().items():
+                f.write(f"{spk} {' '.join(utts)}\n")
+        with open(f"{d}/utt2spk_{s}", "w") as f:
+            for u in data.utts:
+                f.write(f"{u} {data.utt2spk[u]}\n")
+    with TableWriter(f"ark:{d}/ali_tr.ark", holder="ivec") as w:
+        for u, a in sysd["tri3b_ali"].items():
+            w[u] = np.asarray(a, np.int32)
+    with open(f"{d}/lexicon.txt", "w") as f:
+        for word, pron in lang.lexicon.entries:
+            f.write(f"{word} {' '.join(pron)}\n")
+    lang.words.write(f"{d}/words.txt")
+    write_fst_path(f"{d}/G.fst", sysd["G"])
+    write_mdl(f"{d}/tri3b.mdl", tri3b.tm, tri3b.am)
+    with open(f"{d}/meta.json", "w") as f:
+        json.dump({"wers": {k: v.wer for k, v in wers.items()}}, f)
+    return d
+
+
+def nnet_loop_start(d: str, dev):
+    """22, started: ``python3 chip_smoke.py --nnet-loop <dir> <device>``
+    (``nnet_loop_worker``) in the background, two host threads.  →
+    (process, dir, start time)."""
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = open(f"{d}/worker.out", "w")
+    err = open(f"{d}/worker.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--nnet-loop", d,
+         dev.type], cwd=repo, stdout=out, stderr=err,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    out.close()
+    err.close()
+    return proc, d, time.perf_counter()
+
+
+def _subset_ark(src: str, keys, dst: str, holder: str = "mat") -> str:
+    """The entries of ``src`` whose keys are in ``keys``, in its order,
+    written to the archive ``dst``.  → its rspecifier."""
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    keys = set(keys)
+    with TableWriter(f"ark:{dst}", holder=holder) as w:
+        for k, v in SequentialTableReader(src, holder=holder):
+            if k in keys:
+                w[k] = v
+    return f"ark:{dst}"
+
+
+def _global_cmvn(T, d, dv, feats: str, name: str, utts) -> str:
+    """compute_cmvn_stats.sh over the whole set (one 'speaker' of every
+    utterance) → cmvn-to-nnet's affine normalization.  → its path."""
+    with open(f"{d}/global_spk2utt", "w") as f:
+        f.write("global " + " ".join(utts) + "\n")
+    T("compute-cmvn-stats", dv, f"--spk2utt={d}/global_spk2utt", feats,
+      f"ark,scp:{d}/{name}.stats.ark,{d}/{name}.stats.scp")
+    with open(f"{d}/{name}.stats.scp") as f:
+        rx = f.read().split()[1]
+    T("cmvn-to-nnet", rx, f"{d}/{name}.mat")
+    return f"{d}/{name}.mat"
+
+
+def nloop_features(T, held, d, dv, dev, rep):
+    """22a: compute-fbank-feats (40 bins, 8 kHz) on 10b's waveforms, the
+    lengths against 10b's alignments, pdf targets (ali-to-pdf), CMVN per
+    speaker (compute-cmvn-stats, apply-cmvn), then global CMVN
+    (compute-cmvn-stats over the set, cmvn-to-nnet, transform-feats),
+    the ±5 splice and its normalization as a feature transform
+    (transf-to-nnet).  → (the fbank computer, the test waveforms, train /
+    cv utterances)."""
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.features import Fbank, FbankOptions, MelBanksOptions
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    fbank_opts = ("--sample-frequency=8000", "--dither=0",
+                  f"--num-mel-bins={NLOOP_BINS}")
+    for s in ("tr", "te"):
+        T("compute-fbank-feats", dv, *fbank_opts, f"ark:{d}/wav_{s}.ark",
+          f"ark:{d}/fbank_{s}.ark")
+    fb = Fbank(FbankOptions(
+        frame_opts=FrameExtractionOptions(samp_freq=8000.0, dither=0.0),
+        mel_opts=MelBanksOptions(num_bins=NLOOP_BINS)), device=dev)
+    waves = {k: np.asarray(w, np.float32) for k, (w, _r) in
+             _serve_read(f"ark:{d}/wav_te.ark", "wav").items()}
+    got = _serve_read(f"ark:{d}/fbank_te.ark", "mat")
+    err = max(_rel(got[k], fb.compute(w).cpu()) for k, w in waves.items())
+    held("compute-fbank-feats = Fbank (40 bins, 8 kHz)", err <= NLOOP_TOL,
+         f"{err:.2e}")
+    dim = T("feat-to-dim", f"ark:{d}/fbank_tr.ark").strip()
+    T("feat-to-len", f"ark:{d}/fbank_tr.ark", f"ark,t:{d}/len_tr.txt")
+    lens = {k: int(v[0]) for k, v in
+            _serve_read(f"ark,t:{d}/len_tr.txt", "text").items()}
+    ali = _serve_read(f"ark:{d}/ali_tr.ark", "ivec")
+    held("the fbank features' lengths = 10b's alignments'",
+         dim == str(NLOOP_BINS) and sorted(lens) == sorted(ali)
+         and all(lens[k] == len(ali[k]) for k in ali),
+         f"{len(ali)} utterances, {sum(lens.values())} frames")
+    T("ali-to-pdf", f"{d}/tri3b.mdl", f"ark:{d}/ali_tr.ark",
+      f"ark:{d}/pdf_tr.ark")
+    T("analyze-counts", f"ark:{d}/pdf_tr.ark", f"{d}/pdf_counts.txt")
+    with open(f"{d}/pdf_counts.txt") as f:
+        counts = [int(c) for c in f.read().split()[1:-1]]
+    held("analyze-counts: every aligned frame once",
+         sum(counts) == sum(lens.values()), f"{len(counts)} pdfs seen")
+    utts = sorted(ali)
+    cv, trn = utts[-NNET1_CV_UTTS:], utts[:-NNET1_CV_UTTS]
+    # CMVN per speaker (the test set's speakers are held out of training,
+    # their voices warped), then a 40-d global CMVN (the nnet3 loop's
+    # input) and the ±5 splice normalized after splicing (nnet1's input,
+    # its transform for nnet-forward)
+    for s in ("tr", "te"):
+        T("compute-cmvn-stats", dv, f"--spk2utt={d}/spk2utt_{s}",
+          f"ark:{d}/fbank_{s}.ark", f"ark:{d}/spk_cmvn_{s}.ark")
+        T("apply-cmvn", dv, "--norm-vars=true", f"--utt2spk={d}/utt2spk_{s}",
+          f"ark:{d}/spk_cmvn_{s}.ark", f"ark:{d}/fbank_{s}.ark",
+          f"ark:{d}/cmn_{s}.ark")
+    c40 = _global_cmvn(T, d, dv, f"ark:{d}/cmn_tr.ark", "cmvn40", trn)
+    ctx = (f"--left-context={NLOOP_SPLICE}",
+           f"--right-context={NLOOP_SPLICE}")
+    for s in ("tr", "te"):
+        T("transform-feats", dv, c40, f"ark:{d}/cmn_{s}.ark",
+          f"ark:{d}/norm40_{s}.ark")
+        T("splice-feats", dv, *ctx, f"ark:{d}/cmn_{s}.ark",
+          f"ark:{d}/raw440_{s}.ark")
+    c440 = _global_cmvn(T, d, dv, f"ark:{d}/raw440_tr.ark", "cmvn440", trn)
+    T("transf-to-nnet", c440, f"{d}/ft.nnet")
+    T("transform-feats", dv, c440, f"ark:{d}/raw440_tr.ark",
+      f"ark:{d}/norm440_tr.ark")
+    fbk = _serve_read(f"ark:{d}/cmn_tr.ark", "mat")
+    x = np.concatenate([fbk[k] for k in trn]).astype(np.float64)
+    with kio.open_rxfilename(c40) as f:
+        kio.init_kaldi_input_stream(f)
+        mat = np.asarray(kio.read_matrix(f), np.float64)
+    sd = np.sqrt(np.maximum((x ** 2).mean(0) - x.mean(0) ** 2, 1e-10))
+    want = np.concatenate([np.diag(1 / sd), (-x.mean(0) / sd)[:, None]], 1)
+    n440 = _serve_read(f"ark:{d}/norm440_tr.ark", "mat")
+    z = np.concatenate([n440[k] for k in trn]).astype(np.float64)
+    held("apply-cmvn | compute-cmvn-stats | cmvn-to-nnet = the training "
+         "set's mean and deviation; the spliced features normalized",
+         _rel(mat, want) <= 1e-4 and z.shape[1] == NLOOP_BINS * 11
+         and np.abs(z.mean(0)).max() < 1e-3
+         and np.abs(z.std(0) - 1).max() < 1e-3,
+         f"{z.shape[0]} frames × {z.shape[1]}")
+    for name in ("norm440", "norm40"):
+        _subset_ark(f"ark:{d}/{name}_tr.ark", trn, f"{d}/{name}_trn.ark")
+        _subset_ark(f"ark:{d}/{name}_tr.ark", cv, f"{d}/{name}_cv.ark")
+    rep["frames"] = sum(lens.values())
+    rep["utts"] = [len(trn), len(cv), len(waves)]
+    return fb, list(waves.values()), trn, cv
+
+
+def _cv_diag(model, feats, pdfs, dev):
+    """Frame cross-entropy and accuracy of an nnet1 ``model`` on the cv
+    utterances."""
+    x = torch.cat([torch.from_numpy(feats[k]) for k in sorted(feats)]).to(dev)
+    y = torch.cat([torch.from_numpy(np.asarray(pdfs[k], np.int64))
+                   for k in sorted(feats)]).to(dev)
+    with torch.no_grad():
+        lp = model(x)
+    return (float(-lp.gather(1, y[:, None]).mean()),
+            float((lp.argmax(1) == y).double().mean()))
+
+
+def nloop_pretrain(T, held, d, dv, dev, rep, P):
+    """22b: rbm-train-cd1-frmshuff a layer at a time (the next layer's
+    input the stack's hidden probabilities), rbm-convert-to-nnet and
+    nnet-concat into the DBN, nnet-initialize's output layer on top; the
+    first RBM against train_rbm on the card, one CD-1 step on the card
+    against the CPU with the same draws.  → the DBN + output layer's
+    path."""
+    from kaldi_tpu_torch.am import nnet1 as n1
+    from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+    feats = f"ark:{d}/norm440_trn.ark"
+    dbn = None
+    for li in range(NNET1_DEPTH):
+        ep = NNET1_RBM_EPOCHS[0 if li == 0 else 1]
+        lr = NNET1_RBM_LR_GAUSS if li == 0 else NNET1_RBM_LR
+        T("rbm-train-cd1-frmshuff", dv, f"--hid-dim={NNET1_HID}",
+          f"--num-epochs={ep}", f"--learn-rate={lr}",
+          f"--gaussian-visible={'true' if li == 0 else 'false'}", feats,
+          f"{d}/rbm{li + 1}.nnet")
+        T("rbm-convert-to-nnet", f"{d}/rbm{li + 1}.nnet",
+          f"{d}/rbm{li + 1}.conv.nnet")
+        if dbn is None:
+            dbn = f"{d}/rbm1.conv.nnet"
+        else:
+            T("nnet-concat", "--drop-output=true", dbn,
+              f"{d}/rbm{li + 1}.conv.nnet", f"{d}/dbn{li + 1}.nnet")
+            dbn = f"{d}/dbn{li + 1}.nnet"
+        p, _h, _n, _ = n1.load_nnet1(f"{d}/rbm{li + 1}.nnet")
+        if li == 0:
+            frames = np.concatenate([np.asarray(m, np.float32) for _k, m in
+                                     SequentialTableReader(feats,
+                                                           holder="mat")])
+            train = getattr(n1.train_rbm, "inner", n1.train_rbm)
+            lib, _errs = train(frames, NNET1_HID, num_epochs=ep,
+                               lr=NNET1_RBM_LR_GAUSS, gaussian_visible=True,
+                               device=dev)
+            err = max(_rel(p["hidden1"]["kernel"], lib.W),
+                      _rel(p["hidden1"]["bias"], lib.hid_bias))
+            held("rbm-train-cd1-frmshuff = train_rbm (layer 1)",
+                 err <= 1e-5, f"{err:.2e}")
+            rep["cd1_step"] = _cd1_card_vs_cpu(held, lib, frames, dev)
+        # the next RBM's input: this layer's hidden probabilities, and
+        # how much they vary from frame to frame (their std, averaged over
+        # the units)
+        W = torch.from_numpy(np.asarray(p["hidden1"]["kernel"])).to(dev)
+        b = torch.from_numpy(np.asarray(p["hidden1"]["bias"])).to(dev)
+        nxt = f"{d}/h{li + 1}.ark"
+        s1 = s2 = 0.0
+        n = 0
+        with TableWriter(f"ark:{nxt}", holder="mat") as w, torch.no_grad():
+            for k, m in SequentialTableReader(feats, holder="mat"):
+                h = torch.sigmoid(torch.from_numpy(m).to(dev) @ W + b)
+                s1, s2, n = s1 + h.sum(0), s2 + (h * h).sum(0), n + len(h)
+                if li < NNET1_DEPTH - 1:
+                    w[k] = h.cpu().numpy()
+        rep.setdefault("rbm_hstd", []).append(float(torch.sqrt(torch.clamp_min(
+            s2 / n - (s1 / n) ** 2, 0.0)).mean()))
+        if li > 0:
+            os.remove(feats[4:])
+        feats = f"ark:{nxt}"
+    os.remove(feats[4:])
+    held("the stack's hidden units vary from frame to frame at every "
+         "layer", min(rep["rbm_hstd"]) > 0.01,
+         " ".join(f"{v:.3f}" for v in rep["rbm_hstd"]))
+    with open(f"{d}/out.proto", "w") as f:
+        f.write(f"<AffineTransform> <InputDim> {NNET1_HID} <OutputDim> {P}\n"
+                "<Softmax>\n")
+    T("nnet-initialize", f"--seed={NNET1_SEED}", f"{d}/out.proto",
+      f"{d}/out.nnet")
+    T("nnet-concat", "--drop-output=true", dbn, f"{d}/out.nnet",
+      f"{d}/dbn_out.nnet")
+    info = T("nnet-info", f"{d}/dbn_out.nnet")
+    _p, hid, npdf, _ = n1.load_nnet1(f"{d}/dbn_out.nnet")
+    held("the DBN: 6 × 2048 sigmoid layers and the output layer",
+         hid == (NNET1_HID,) * NNET1_DEPTH and npdf == P
+         and f"input-dim {NLOOP_BINS * 11}" in info, f"{P} pdfs")
+    return f"{d}/dbn_out.nnet"
+
+
+def _cd1_card_vs_cpu(held, rbm, frames, dev) -> dict:
+    """One CD-1 step from the trained first RBM on 256 frames, on the
+    card and on the CPU, with the same uniform draws (drawn on the host).
+    A hidden sample flips where a draw lies within float32 rounding of
+    its probability on one side: the flips are counted, and each may
+    move W by about lr · |v| · |h| / B."""
+    from kaldi_tpu_torch.am.nnet1 import cd1_update
+    g = torch.Generator().manual_seed(NNET1_SEED)
+    v = torch.from_numpy(frames[:256])
+    u = torch.rand((256, NNET1_HID), generator=g)
+    st = {"W": torch.from_numpy(rbm.W), "vis_bias":
+          torch.from_numpy(rbm.vis_bias), "hid_bias":
+          torch.from_numpy(rbm.hid_bias)}
+    out = {}
+    for side, dv_ in (("card", dev), ("cpu", torch.device("cpu"))):
+        s = {k: t.to(dv_) for k, t in st.items()}
+        p = torch.sigmoid(v.to(dv_) @ s["W"] + s["hid_bias"])
+        new, err = cd1_update(s, v.to(dv_), u.to(dv_), NNET1_RBM_LR_GAUSS,
+                              True)
+        out[side] = ({k: t.cpu().numpy() for k, t in new.items()},
+                     float(err), (u < p.cpu()).numpy())
+    flips = int((out["card"][2] != out["cpu"][2]).sum())
+    err = max(_rel(out["card"][0][k], out["cpu"][0][k]) for k in st)
+    bar = 1e-5 + flips * NNET1_RBM_LR_GAUSS * float(
+        np.abs(frames[:256]).max()) / 256
+    held("CD-1 step: card = CPU with the same draws", err <= bar,
+         f"{err:.2e} ({flips} flips of {u.numel()} samples)")
+    return {"err": err, "flips": flips}
+
+
+def _leaves_rel(got, want) -> float:
+    """The largest ``_rel`` over two nnet1 parameter trees' leaves (inf
+    when their keys differ)."""
+    from kaldi_tpu_torch.am.nnet2 import tree_leaves
+    lg, lw = dict(tree_leaves(got)), dict(tree_leaves(want))
+    if sorted(lg) != sorted(lw):
+        return float("inf")
+    return max(_rel(lg[k], lw[k]) for k in lw)
+
+
+def _delta_rel(got, want, start) -> float:
+    """How far a trained tree is from another training's, relative to
+    the larger update: max |got - want| / max |want - start| over the
+    leaves."""
+    from kaldi_tpu_torch.am.nnet2 import tree_leaves
+    lg, lw, ls = (dict(tree_leaves(t)) for t in (got, want, start))
+    num = max(float(np.abs(np.asarray(lg[k], np.float64)
+                           - np.asarray(lw[k], np.float64)).max()) for k in lw)
+    den = max(float(np.abs(np.asarray(lw[k], np.float64)
+                           - np.asarray(ls[k], np.float64)).max()) for k in lw)
+    return num / max(den, 1e-30)
+
+
+def nloop_finetune(T, held, d, dv, dev, rep, dbn, P):
+    """22c: nnet-set-learnrate freezes the DBN for one pass of the
+    output layer (held bit for bit, and against finetune_xent on the
+    card), then nnet-train-frmshuff a pass at a time with the cv set's
+    cross-entropy and frame accuracy after each; one step on the card
+    against the CPU.  → the final model's path."""
+    from kaldi_tpu_torch.am import nnet1 as n1
+    from kaldi_tpu_torch.cli.tools_bank19 import nnet1_frames
+    trn, pdf = f"ark:{d}/norm440_trn.ark", f"ark:{d}/pdf_tr.ark"
+    pdfs = _serve_read(pdf, "ivec")
+    cvf = _serve_read(f"ark:{d}/norm440_cv.ark", "mat")
+    coefs = ":".join(["0"] * NNET1_DEPTH + ["1"])
+    T("nnet-set-learnrate", f"--coefs={coefs}", dbn, f"{d}/lr.nnet")
+    T("nnet-train-frmshuff", dv, "--num-epochs=1",
+      f"--learning-rate={NNET1_LR}", f"{d}/lr.nnet", trn, pdf,
+      f"{d}/ft0.nnet")
+    p0, hid, _n, _ = n1.load_nnet1(dbn)
+    p1, _h, _n, pri = n1.load_nnet1(f"{d}/ft0.nnet")
+    frozen = all(np.array_equal(p1[f"hidden{i + 1}"][k],
+                                p0[f"hidden{i + 1}"][k])
+                 for i in range(NNET1_DEPTH) for k in ("kernel", "bias"))
+    frames, targets = nnet1_frames(trn, pdf)
+    factors = {n: float(c) for n, c in zip(n1.layer_names(hid),
+                                          coefs.split(":"))}
+    lib, _loss = n1.finetune_xent(p0, hid, P, frames, targets, num_epochs=1,
+                                  lr=NNET1_LR, lr_factors=factors, device=dev)
+    err = _leaves_rel(p1, lib)
+    counts = np.bincount(targets, minlength=P) + 0.5
+    held("nnet-set-learnrate | nnet-train-frmshuff: the DBN frozen bit for "
+         "bit, = finetune_xent, priors the targets' counts + 0.5",
+         frozen and err <= 1e-4 and np.array_equal(pri, counts.astype(
+             np.float32)) and not np.array_equal(
+                 p1["output_affine"]["kernel"],
+                 p0["output_affine"]["kernel"]), f"{err:.2e}")
+    diag = [_cv_diag(n1.nnet1_model(p1, hid, P, dev), cvf, pdfs, dev)]
+    prev, lr = f"{d}/ft0.nnet", NNET1_LR
+    for e in range(1, NNET1_FT_EPOCHS + 1):
+        if e > NNET1_FT_EPOCHS - NNET1_HALVINGS:
+            lr /= 2
+        T("nnet-train-frmshuff", dv, "--num-epochs=1",
+          f"--learning-rate={lr}", prev, trn, pdf, f"{d}/ft{e}.nnet")
+        prev = f"{d}/ft{e}.nnet"
+        diag.append(_cv_diag(n1.nnet1_model(n1.load_nnet1(prev)[0], hid, P,
+                                            dev), cvf, pdfs, dev))
+    T("nnet-copy", prev, f"{d}/final.nnet")
+    with open(prev, "rb") as f, open(f"{d}/final.nnet", "rb") as g:
+        same = f.read() == g.read()
+    held("nnet-train-frmshuff passes: the cv cross-entropy falls; nnet-copy",
+         same and diag[-1][0] < diag[0][0],
+         " → ".join(f"{x:.3f}" for x, _a in diag))
+    rep["ft_diag"] = diag
+    # card = CPU: one step (one utterance's frames, one minibatch)
+    one = _subset_ark(trn, [next(iter(_serve_read(trn, "mat")))],
+                      f"{d}/one.ark")
+    for side in (dv, "--device=cpu"):
+        T("nnet-train-frmshuff", side, "--num-epochs=1", f"{d}/final.nnet",
+          one, pdf, f"{d}/step.{side[9:]}.nnet")
+    a = n1.load_nnet1(f"{d}/step.{dv[9:]}.nnet")[0]
+    b = n1.load_nnet1(f"{d}/step.cpu.nnet")[0]
+    start = n1.load_nnet1(f"{d}/final.nnet")[0]
+    err, derr = _leaves_rel(a, b), _delta_rel(a, b, start)
+    held("nnet-train-frmshuff step: card = CPU", err <= 1e-4,
+         f"{err:.2e} ({derr:.2e} of the step)")
+    rep["ft_step"] = [err, derr]
+    return f"{d}/final.nnet"
+
+
+def nloop_decode(T, held, d, dv, dev, rep, final, P):
+    """22d: nnet-forward --feature-transform --divide-by-priors on the
+    test set (held against the library's forward) | latgen-faster-mapped
+    on 10b's HCLG (compile-graph), the WER, lattice-to-nbest."""
+    from kaldi_tpu_torch.am import nnet1 as n1
+    from kaldi_tpu_torch.am.transforms import apply_transform
+    from kaldi_tpu_torch.cli.tools_bank19 import nnet1_log_priors
+    from kaldi_tpu_torch.cli.tools_bank25 import read_nnet1_transform
+    T("compile-graph", f"{d}/lexicon.txt", f"{d}/tri3b.mdl", f"{d}/G.fst",
+      f"{d}/HCLG.fst")
+    T("nnet-forward", dv, "--divide-by-priors=true",
+      f"--feature-transform={d}/ft.nnet", final, f"ark:{d}/raw440_te.ark",
+      f"ark:{d}/pll_te.ark")
+    params, hid, _n, pri = n1.load_nnet1(final)
+    model = n1.nnet1_model(params, hid, P, dev)
+    ft = read_nnet1_transform(f"{d}/ft.nnet")
+    lp = torch.from_numpy(nnet1_log_priors(pri)).to(dev)
+    got = _serve_read(f"ark:{d}/pll_te.ark", "mat")
+    raw = _serve_read(f"ark:{d}/raw440_te.ark", "mat")
+    with torch.no_grad():
+        err = max(_rel(got[k], (model(apply_transform(
+            torch.from_numpy(x).to(dev), ft)) - lp).cpu())
+            for k, x in raw.items())
+    held("nnet-forward --feature-transform --divide-by-priors = SigmoidDnn "
+         "- log priors", err <= NLOOP_TOL and sorted(got) == sorted(raw),
+         f"{err:.2e}")
+    T("latgen-faster-mapped", dv, *NNET1_DECODE,
+      f"--word-symbol-table={d}/words.txt", f"{d}/tri3b.mdl",
+      f"{d}/HCLG.fst", f"ark:{d}/pll_te.ark", f"ark:{d}/lat_te.ark",
+      f"ark,t:{d}/hyp_te.txt")
+    out = T("compute-wer", f"ark:{d}/text_te.ark",
+            f"ark,t:{d}/hyp_te.txt").strip()
+    wer = _wer_of(out)
+    held(f"the nnet1 hybrid's WER ≤ {NNET1_WER_MAX:g}", wer <= NNET1_WER_MAX,
+         out)
+    T("lattice-to-nbest", "--n=3", f"ark:{d}/lat_te.ark",
+      f"ark:{d}/nbest.ark")
+    nb = _serve_read(f"ark:{d}/nbest.ark", "clat")
+    held("lattice-to-nbest: 1 to 3 paths an utterance",
+         all(any(f"{k}-{i}" in nb for i in (1, 2, 3)) for k in raw)
+         and all(len(c.arcs[c.start]) <= 1 for c in nb.values()),
+         f"{len(nb)} paths")
+    rep["wer"] = out
+
+
+def _agreement(ali, ref, tid_to_pdf) -> float:
+    """The share of frames whose pdf agrees between two alignments."""
+    same = tot = 0
+    for k, a in ali.items():
+        b = np.asarray(ref[k])
+        n = min(len(a), len(b))
+        same += int((tid_to_pdf[np.asarray(a[:n])]
+                     == tid_to_pdf[b[:n]]).sum())
+        tot += n
+    return same / max(tot, 1)
+
+
+def _aligned_by_library(graphs, scores, tid_to_pdf, dev, scale) -> dict:
+    """DenseAligner on ``dev`` over ``scores`` (key → (T, P) tensor), one
+    utterance a call over the table's padded graphs, as the tools."""
+    from kaldi_tpu_torch.decoder.align import (DenseAligner, in_degrees,
+                                               pack_dense_reverse)
+    ae = an = smax = 1
+    for g in graphs.values():
+        e, n = in_degrees(g)
+        ae, an, smax = max(ae, e), max(an, n), max(smax, g.num_states)
+    aligner = DenseAligner(tid_to_pdf, acoustic_scale=scale, device=dev)
+    out = {}
+    for k, ll in scores.items():
+        (tids, _c), = aligner.align_batch(
+            [pack_dense_reverse(graphs[k], smax, ae, an)], [ll])
+        out[k] = list(tids)
+    return out
+
+
+def nloop_realign(T, held, d, dv, dev, rep, final, tm):
+    """22e: steps/nnet/align.sh — nnet-forward --divide-by-priors on the
+    training set | align-compiled-mapped over compile-train-graphs'
+    graphs, held against DenseAligner; its agreement with 10b's tri3b
+    alignments; train-transitions on it."""
+    from kaldi_tpu_torch.am.serialize import write_transition_model
+    from kaldi_tpu_torch.core import io as kio
+    T("nnet-forward", dv, "--divide-by-priors=true", final,
+      f"ark:{d}/norm440_tr.ark", f"ark:{d}/pll_tr.ark")
+    T("compile-train-graphs", f"{d}/lexicon.txt", f"{d}/tri3b.mdl",
+      f"ark:{d}/text_tr.ark", f"ark:{d}/graphs_tr.ark")
+    T("align-compiled-mapped", dv, "--acoustic-scale=0.1", f"{d}/tri3b.mdl",
+      f"ark:{d}/graphs_tr.ark", f"ark:{d}/pll_tr.ark", f"ark:{d}/ali1.ark")
+    ali = _serve_read(f"ark:{d}/ali1.ark", "ivec")
+    graphs = _serve_read(f"ark:{d}/graphs_tr.ark", "fst")
+    pll = _serve_read(f"ark:{d}/pll_tr.ark", "mat")
+    keys = sorted(pll)[:8]
+    lib = _aligned_by_library(graphs, {k: torch.from_numpy(pll[k]).to(dev)
+                                       for k in keys},
+                              tm.tid_to_pdf_array, dev, 0.1)
+    held("align-compiled-mapped = DenseAligner", sorted(ali) == sorted(pll)
+         and all(list(ali[k]) == lib[k] for k in keys),
+         f"{len(ali)} utterances")
+    ref = _serve_read(f"ark:{d}/ali_tr.ark", "ivec")
+    rep["agree_nnet1"] = _agreement(ali, ref, tm.tid_to_pdf_array)
+    with kio.open_wxfilename(f"{d}/tri3b.tm") as f:
+        kio.init_kaldi_output_stream(f)
+        write_transition_model(f, tm)
+    T("train-transitions", f"{d}/tri3b.tm", f"ark:{d}/ali1.ark",
+      f"{d}/nnet1.tm")
+
+
+def nloop_sequence(T, held, d, dv, dev, rep, final, tm, trn, P):
+    """22f: steps/nnet/make_denlats.sh + train_mpe.sh on a few
+    utterances: latgen-faster-mapped's lattices (lattice beam 3), then one
+    nnet-train-mmi-sequential and one -mpe-sequential pass, each held
+    against the library (am/discriminative.py, ε arcs removed, plain SGD)
+    on the card."""
+    from kaldi_tpu_torch.am import nnet1 as n1
+    from kaldi_tpu_torch.am.discriminative import (lattice_to,
+                                                   lattice_to_dense,
+                                                   mmi_objf,
+                                                   remove_eps_arcs,
+                                                   smbr_objf)
+    from kaldi_tpu_torch.lattice.lattice import compact_to_lattice
+    seq = trn[:NNET1_SEQ_UTTS]
+    pll = _subset_ark(f"ark:{d}/pll_tr.ark", seq, f"{d}/pll_seq.ark")
+    feats = _subset_ark(f"ark:{d}/norm440_tr.ark", seq, f"{d}/norm_seq.ark")
+    T("latgen-faster-mapped", dv, *NNET1_SEQ_LAT, f"{d}/tri3b.mdl",
+      f"{d}/HCLG.fst", pll, f"ark:{d}/lat_seq.ark")
+    lats = _serve_read(f"ark:{d}/lat_seq.ark", "clat")
+    ali = _serve_read(f"ark:{d}/ali_tr.ark", "ivec")
+    x = _serve_read(feats, "mat")
+    lr = 1e-3
+    start, hid, _n, _ = n1.load_nnet1(final)
+    rep["seq_states"] = sum(c.num_states for c in lats.values())
+    for name, crit in (("nnet-train-mmi-sequential", "mmi"),
+                       ("nnet-train-mpe-sequential", "mpe")):
+        T(name, dv, f"--learn-rate={lr}", f"{d}/tri3b.mdl", final, feats,
+          f"ark:{d}/ali_tr.ark", f"ark:{d}/lat_seq.ark", f"{d}/{crit}.nnet")
+        model = n1.nnet1_model(start, hid, P, dev).train()
+        for k in seq:
+            raw = compact_to_lattice(lats[k])
+            if any(a.ilabel == 0 for arcs in raw.arcs for a in arcs):
+                raw = remove_eps_arcs(raw)
+            dense = lattice_to_dense(raw, tm.tid_to_pdf_array)
+            num = tm.tid_to_pdf_array[np.asarray(ali[k], np.int64)]
+            sc = model(torch.from_numpy(x[k][:dense.T]).to(dev))
+            lat = lattice_to(dense, dev)
+            objf = (mmi_objf(lat, sc, num[:dense.T], 0.1) if crit == "mmi"
+                    else smbr_objf(lat, sc, (np.asarray(dense.pdf)
+                                             == num[:dense.T, None])
+                                   .astype(np.float32), 0.1))
+            n1.sgd_step(model, -objf, lr)
+        got = n1.load_nnet1(f"{d}/{crit}.nnet")[0]
+        derr = _delta_rel(got, n1.nnet1_params(model), start)
+        held(f"{name} = the library's {crit} SGD (ε arcs removed)",
+             derr <= 1e-3, f"{derr:.2e} of the update")
+        rep[f"seq_{crit}"] = derr
+    T("nnet1-to-raw-nnet", final, f"{d}/final.raw1")
+    from kaldi_tpu_torch.am.raw_nnet import forward, load_raw_nnet
+    k = seq[0]
+    with torch.no_grad():
+        want = n1.nnet1_model(start, hid, P, dev)(
+            torch.from_numpy(x[k]).to(dev)).cpu()
+        err = _rel(forward(load_raw_nnet(f"{d}/final.raw1"), x[k],
+                           dev).cpu(), want)
+    held("nnet1-to-raw-nnet: raw_nnet.forward = SigmoidDnn",
+         err <= NLOOP_TOL, f"{err:.2e}")
+
+
+def _prob_numbers(line: str):
+    w = line.split()
+    return float(w[3]), float(w[5]), int(w[7])
+
+
+def nloop_nnet3(T, held, d, dv, dev, rep, trn, cv, tm, P):
+    """22g: nnet3's train_dnn.py loop at phases 5 and 8b's width —
+    nnet3-init, egs (get-egs, shuffle, copy, subsets, merge,
+    get-egs-simple), two nnet3-train jobs on halves of the training set,
+    nnet3-average, nnet3-combine, nnet3-compute-prob on both subsets for
+    each model, the .mdl tools, LDA stats, compute-from-egs, and
+    nnet3-align-compiled; each computing tool held against the library on
+    the card, nnet3-compute-prob also against the CPU."""
+    from kaldi_tpu_torch.am.serialize import (read_transition_model,
+                                              write_transition_model)
+    from kaldi_tpu_torch.am.transforms import LdaEstimate
+    from kaldi_tpu_torch.cli.tools_bank14 import compute_prob
+    from kaldi_tpu_torch.cli.tools_bank16 import _read_raw_auto, combine_xent
+    from kaldi_tpu_torch.cli.tools_bank23 import _split_mdl, _write_mdl_blobs
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.core.table import SequentialTableReader
+    import io as pio
+    width = (f"--hidden-dim={NNET3_HID}", f"--bottleneck-dim={NNET3_BN}",
+             f"--num-layers={NNET3_LAYERS}")
+    pdf = f"ark:{d}/pdf_tr.ark"
+
+    def raw(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    T("nnet3-init", f"--feat-dim={NLOOP_BINS}", f"--num-pdfs={P}", *width,
+      f"--srand={NNET1_SEED}", f"{d}/0.raw")
+    info = T("nnet3-info", f"{d}/0.raw")
+    T("nnet3-copy", f"{d}/0.raw", f"{d}/0c.raw")
+    held("nnet3-init | nnet3-info | nnet3-copy",
+         info.startswith("num-components") and raw(f"{d}/0.raw")
+         == raw(f"{d}/0c.raw"), info.splitlines()[0])
+    chunk = f"--chunk-size={NNET3_CHUNK}"
+    T("nnet3-get-egs", chunk, f"ark:{d}/norm40_trn.ark", pdf,
+      f"ark:{d}/egs_trn.ark")
+    T("nnet3-get-egs", chunk, f"ark:{d}/norm40_cv.ark", pdf,
+      f"ark:{d}/egs_cv.ark")
+    T("nnet3-shuffle-egs", "--srand=1", f"ark:{d}/egs_trn.ark",
+      f"ark:{d}/egs_shuf.ark")
+    T("nnet3-copy-egs", f"ark:{d}/egs_shuf.ark", f"ark:{d}/egs_copy.ark")
+    T("nnet3-subset-egs", f"--n={NNET3_SUBSET}", "--srand=2",
+      f"ark:{d}/egs_shuf.ark", f"ark:{d}/egs_diag.ark")
+    T("nnet3-subset-egs", f"--n={NNET3_SUBSET}", "--srand=3",
+      f"ark:{d}/egs_cv.ark", f"ark:{d}/egs_valid.ark")
+    for s in ("diag", "valid"):
+        T("nnet3-merge-egs", f"--minibatch-size={NNET3_MERGE}",
+          f"ark:{d}/egs_{s}.ark", f"ark:{d}/egs_{s}_m.ark")
+    T("nnet3-get-egs-simple", f"ark:{d}/norm40_cv.ark", pdf,
+      f"ark:{d}/egs_simple.ark")
+    n_egs = len(_serve_read(f"ark:{d}/egs_shuf.ark", "xeg"))
+    merged = _serve_read(f"ark:{d}/egs_valid_m.ark", "xeg")
+    held("the egs: shuffled, copied, subsets, merged, whole utterances",
+         raw(f"{d}/egs_shuf.ark") == raw(f"{d}/egs_copy.ark")
+         and len(_serve_read(f"ark:{d}/egs_diag.ark", "xeg"))
+         == min(NNET3_SUBSET, n_egs)
+         and max(e.pdfs.shape[0] for e in merged.values()) == NNET3_MERGE
+         and len(_serve_read(f"ark:{d}/egs_simple.ark", "xeg")) == len(cv),
+         f"{n_egs} training egs of {NNET3_CHUNK} frames")
+    # two jobs on halves of the training set, from one seed, averaged
+    for j, part in ((1, trn[0::2]), (2, trn[1::2])):
+        feats = _subset_ark(f"ark:{d}/norm40_trn.ark", part,
+                            f"{d}/norm40_job{j}.ark")
+        T("nnet3-train", dv, f"--num-pdfs={P}", *width,
+          f"--num-epochs={NNET3_EPOCHS}", feats, pdf, f"{d}/job{j}.raw")
+    T("nnet3-average", f"{d}/avg.raw", f"{d}/job1.raw", f"{d}/job2.raw")
+    T("nnet3-combine", dv, f"--num-iters={NNET3_COMBINE_ITERS}",
+      f"ark:{d}/norm40_cv.ark", pdf, f"{d}/job1.raw", f"{d}/job2.raw",
+      f"{d}/comb.raw")
+    nets = [_read_raw_auto(f"{d}/job{j}.raw", dev)[0] for j in (1, 2)]
+    cvx = _serve_read(f"ark:{d}/norm40_cv.ark", "mat")
+    alis = _serve_read(pdf, "ivec")
+    sd, wts = combine_xent(
+        nets, [torch.from_numpy(cvx[k]).to(dev) for k in cvx],
+        [torch.from_numpy(np.asarray(alis[k], np.int64)[:len(cvx[k])])
+         .to(dev) for k in cvx], NNET3_COMBINE_ITERS)
+    got = _read_raw_auto(f"{d}/comb.raw", dev)[0].state_dict()
+    err = max(_rel(got[k].cpu(), sd[k].cpu()) for k in sd)
+    held("nnet3-combine = combine_xent (Adam over the weight logits)",
+         err <= NLOOP_TOL, f"weights {np.round(wts, 4).tolist()}, {err:.2e}")
+    rep["combine_weights"] = [float(w) for w in wts]
+    probs = {}
+    for m in ("0", "job1", "job2", "avg", "comb"):
+        for s in ("diag", "valid"):
+            probs[f"{m} {s}"] = T("nnet3-compute-prob", dv, f"{d}/{m}.raw",
+                                  f"ark:{d}/egs_{s}_m.ark").strip()
+    rep["compute_prob"] = probs
+    net = _read_raw_auto(f"{d}/comb.raw", dev)[0]
+    lp, correct, n = compute_prob(net, f"ark:{d}/egs_valid_m.ark", dev)
+    g = _prob_numbers(probs["comb valid"])
+    held("nnet3-compute-prob = the library's", abs(g[0] - lp / n) <= 1e-4
+         and abs(g[1] - correct / n) <= 1e-4 and g[2] == n, probs["comb valid"])
+    cpu = T("nnet3-compute-prob", "--device=cpu", f"{d}/comb.raw",
+            f"ark:{d}/egs_valid_m.ark").strip()
+    c = _prob_numbers(cpu)
+    held("nnet3-compute-prob: card = CPU", abs(g[0] - c[0]) <= 1.5e-4
+         and abs(g[1] - c[1]) <= 1.5e-4 and g[2] == c[2], cpu)
+    # the .mdl tools, LDA stats, outputs from egs
+    T("nnet3-am-init", f"{d}/tri3b.mdl", f"{d}/comb.raw", f"{d}/comb.mdl")
+    info = T("nnet3-am-info", f"{d}/comb.mdl")
+    T("nnet3-am-train-transitions", f"{d}/comb.mdl", f"ark:{d}/ali_tr.ark",
+      f"{d}/comb2.mdl")
+    tm_blob, nnet_blob, _p = _split_mdl(f"{d}/comb.mdl")
+    tm2 = read_transition_model(pio.BytesIO(tm_blob))
+    cnt = np.zeros(tm2.num_transition_ids + 1)
+    for a in _serve_read(f"ark:{d}/ali_tr.ark", "ivec").values():
+        np.add.at(cnt, np.asarray(a, np.int64), 1.0)
+    tm2.mle_update(cnt)
+    buf = pio.BytesIO()
+    write_transition_model(buf, tm2)
+    _write_mdl_blobs(f"{d}/want.mdl", buf.getvalue(), nnet_blob)
+    held("nnet3-am-init | nnet3-am-info | nnet3-am-train-transitions",
+         nnet_blob == raw(f"{d}/comb.raw")[2:] and info.startswith(
+             "num-components") and raw(f"{d}/comb2.mdl")
+         == raw(f"{d}/want.mdl"), "")
+    T("nnet3-acc-lda-stats", f"--num-pdfs={P}", f"ark:{d}/egs_shuf.ark",
+      f"{d}/lda.acc")
+    lda = LdaEstimate(P, NLOOP_BINS)
+    egs = list(SequentialTableReader(f"ark:{d}/egs_shuf.ark", holder="xeg"))
+    lda.accumulate_batch(
+        np.concatenate([e.feats.reshape(-1, NLOOP_BINS) for _k, e in egs]
+                       ).astype(np.float64),
+        np.concatenate([e.pdfs.reshape(-1) for _k, e in egs]))
+    with kio.open_rxfilename(f"{d}/lda.acc") as f:
+        kio.init_kaldi_input_stream(f)
+        kio.expect_token(f, "<LDAACCS>")
+        accs = [np.asarray(kio.read_matrix(f), np.float64) for _ in range(3)]
+    err = max(_rel(a, np.asarray(b, np.float32)) for a, b in zip(
+        accs, (lda.counts[None, :], lda.first, lda.total_second)))
+    held("nnet3-acc-lda-stats = LdaEstimate", err <= 1e-6, f"{err:.2e}")
+    T("nnet3-compute-from-egs", dv, f"{d}/comb.raw",
+      f"ark:{d}/egs_valid_m.ark", f"ark:{d}/cfe.ark")
+    cfe = _serve_read(f"ark:{d}/cfe.ark", "mat")
+    with torch.no_grad():
+        err = max(_rel(cfe[k], torch.log_softmax(net(torch.from_numpy(
+            e.feats).to(dev)), -1).reshape(-1, P).cpu())
+            for k, e in merged.items())
+    held("nnet3-compute-from-egs = TdnnChain's log-softmax, every sequence",
+         err <= NLOOP_TOL and sorted(cfe) == sorted(merged), f"{err:.2e}")
+    # realignment
+    T("nnet3-align-compiled", dv, "--acoustic-scale=0.1", f"{d}/tri3b.mdl",
+      f"{d}/comb.raw", f"ark:{d}/graphs_tr.ark", f"ark:{d}/norm40_tr.ark",
+      f"ark:{d}/ali3.ark")
+    ali = _serve_read(f"ark:{d}/ali3.ark", "ivec")
+    x40 = _serve_read(f"ark:{d}/norm40_tr.ark", "mat")
+    keys = sorted(x40)[:8]
+    with torch.no_grad():
+        scores = {k: net(torch.from_numpy(x40[k]).to(dev)[None])[0]
+                  for k in keys}
+    lib = _aligned_by_library(_serve_read(f"ark:{d}/graphs_tr.ark", "fst"),
+                              scores, tm.tid_to_pdf_array, dev, 0.1)
+    held("nnet3-align-compiled = DenseAligner on TdnnChain's outputs",
+         sorted(ali) == sorted(x40) and all(list(ali[k]) == lib[k]
+                                            for k in keys),
+         f"{len(ali)} utterances")
+    rep["agree_nnet3"] = _agreement(
+        ali, _serve_read(f"ark:{d}/ali_tr.ark", "ivec"), tm.tid_to_pdf_array)
+
+
+def nnet_loop_worker(argv) -> int:
+    """22's background process: 22a–22h in turn, every tool a call of the
+    port's registry in this process, each held against the library on the
+    same card, the fbank kernel's count set to 0 before each call and read
+    after it.  Writes ``report.json`` into the directory; exits 1 if a
+    check fails."""
+    import contextlib
+    import io
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import kaldi_tpu_torch.features  # noqa: F401  (before ops.fbank)
+    from kaldi_tpu_torch.am import nnet1 as n1
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    t_start = time.perf_counter()
+    d, dv_ = argv[0], argv[1]
+    dev = torch.device(dv_, 0) if dv_ == "cuda" else torch.device(dv_)
+    dv = f"--device={dev.type}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the host's cores go to the main process first: this worker has
+    # until the join, after phase 21's, for its work
+    os.nice(10)
+    calls, checks, walls, rep, launches = [], [], {}, {}, {}
+
+    def T(name, *args):
+        """Tool ``name``, its fbank launches counted and its wall added
+        up; → what it printed."""
+        out = io.StringIO()
+        CudaFbank.total_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = TOOLS[name]([str(a) for a in args])
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        launches[name] = launches.get(name, 0) + CudaFbank.total_launches
+        if rc:
+            raise AssertionError(f"{name}: rc {rc}")
+        calls.append(name)
+        return out.getvalue()
+
+    def held(name, ok, detail):
+        checks.append((name, bool(ok), detail))
+
+    # each RBM's reconstruction MSE per pass, as the tool trains it
+    rbm_errs = []
+    train_rbm = n1.train_rbm
+
+    def recorded(*a, **k):
+        rbm, errs = train_rbm(*a, **k)
+        rbm_errs.append(errs)
+        return rbm, errs
+
+    n1.train_rbm = recorded
+    recorded.inner = train_rbm
+    tm, _ = read_mdl(f"{d}/tri3b.mdl", device="cpu")
+    P = tm.num_pdfs
+    stages = {}
+
+    def stage(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(T, held, d, dv, dev, rep, *a)
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    fb, waves, trn, cv = stage("22a features", nloop_features)
+    dbn = stage("22b pretraining", nloop_pretrain, P)
+    rep["rbm_errs"] = [e for e in rbm_errs]
+    final = stage("22c fine-tuning", nloop_finetune, dbn, P)
+    stage("22d decode", nloop_decode, final, P)
+    stage("22e realignment", nloop_realign, final, tm)
+    stage("22f sequence training", nloop_sequence, final, tm, trn, P)
+    stage("22g nnet3 loop", nloop_nnet3, trn, cv, tm, P)
+    rep["fbank_err"] = check_path_fbank(fb, waves[:4], "nnet loop: 22h")
+    with open(f"{d}/meta.json") as f:
+        rep["ladder_wers"] = json.load(f)["wers"]
+    with open(f"{d}/report.json", "w") as f:
+        json.dump({"walls": walls, "stages": stages, "checks": checks,
+                   "calls": len(calls), "tools": sorted(set(calls)),
+                   "launches": launches,
+                   "total": time.perf_counter() - t_start, **rep}, f,
+                  default=float)
+    bad = [c for c in checks if not c[1]]
+    if bad:
+        print(f"nnet loop: {len(bad)} checks failed: {bad[:5]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def nnet_loop_finish(started, tag: str):
+    """22, joined before the kernels line: the worker's exit, its checks,
+    each tool's wall and fbank launches, the RBMs' reconstruction errors,
+    the fine-tuning's cross-entropy and frame accuracy a pass, the nnet3
+    diagnostics and combination weights, the WER beside 10b's, the
+    realignments' agreement with 10b's, the worker's wall and the main
+    process's wait here.  → (fbank launches, the fbank kernel's max |diff|
+    from its plain version at 40 bins, 8 kHz)."""
+    proc, d, t0 = started
+    t_wait = time.perf_counter()
+    proc.wait(timeout=NLOOP_JOIN)
+    wait = time.perf_counter() - t_wait
+    wall = time.perf_counter() - t0
+    with open(f"{d}/worker.err") as f:
+        err = f.read()
+    # a worker whose checks failed still writes its report: print it
+    if not os.path.exists(f"{d}/report.json"):
+        raise AssertionError(f"nnet loop failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    with open(f"{d}/report.json") as f:
+        rep = json.load(f)
+    fb = rep["launches"].get("compute-fbank-feats", 0)
+    a, c, t = rep["utts"]
+    print(f"nnet loop: {rep['calls']} tool calls of {len(rep['tools'])} tools "
+          f"in one background process on 10b's {a} + {c} training (cv) and "
+          f"{t} test utterances, {rep['frames']} frames: {wall:.1f} s to the "
+          f"join ({rep['total']:.1f} s of work after its imports); the main "
+          f"process waited {wait:.1f} s here {tag}")
+    for name, ok, detail in rep["checks"]:
+        print(f"nnet loop:   {name}: {'held' if ok else 'FAILED'}"
+              + (f" ({detail})" if detail else ""))
+    print("nnet loop: stages " + ", ".join(f"{n} {v:.1f} s" for n, v in
+                                           rep["stages"].items()))
+    print("nnet loop: tool walls " + ", ".join(
+        f"{n} {v:.2f} s" for n, v in sorted(rep["walls"].items(),
+                                            key=lambda x: -x[1])))
+    for i, errs in enumerate(rep["rbm_errs"]):
+        print(f"nnet loop: RBM {i + 1} ({'Gaussian' if i == 0 else 'Bernoulli'}"
+              f"-Bernoulli, {NNET1_HID} hidden): reconstruction MSE a pass "
+              + " ".join(f"{e:.4f}" for e in errs)
+              + f"; its hidden units' std over frames {rep['rbm_hstd'][i]:.4f}")
+    for e, (x, acc) in enumerate(rep["ft_diag"]):
+        print(f"nnet loop: fine-tuning pass {e} "
+              f"({'output layer only' if e == 0 else 'all layers'}): cv "
+              f"cross-entropy {x:.4f}, frame accuracy {acc:.4f}")
+    for k, line in rep["compute_prob"].items():
+        print(f"nnet loop: nnet3-compute-prob {k}: {line}")
+    print(f"nnet loop: nnet3-combine weights {rep['combine_weights']}")
+    wers = rep["ladder_wers"]
+    print(f"nnet loop: the nnet1 hybrid {rep['wer']} (10b: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in wers.items())
+          + f") {tag}")
+    print(f"nnet loop: realignments agree with 10b's tri3b alignments on "
+          f"{100 * rep['agree_nnet1']:.2f}% (nnet1, align-compiled-mapped) "
+          f"and {100 * rep['agree_nnet3']:.2f}% (nnet3-align-compiled) of "
+          "the frames' pdfs")
+    with open(f"{d}/worker.out") as f:      # 22h's kernel check
+        print("".join(ln for ln in f if ln.startswith("nnet loop: 22")),
+              end="")
+    print(f"nnet loop: fbank kernel launches {fb} (compute-fbank-feats); "
+          f"launches per tool " + ", ".join(
+              f"{n} {v}" for n, v in rep["launches"].items() if v)
+          + f"; 22h fbank kernel vs plain max |diff| {rep['fbank_err']:.3e} "
+          f"{tag}")
+    bad = [c for c in rep["checks"] if not c[1]]
+    if bad or proc.returncode != 0:
+        raise AssertionError(f"22: {len(bad)} checks failed: {bad[:3]} "
+                             f"(worker exit {proc.returncode})")
+    if fb <= 0:
+        raise AssertionError(f"22: fbank launches {rep['launches']}")
+    return fb, rep["fbank_err"]
+
+
 def _stop(proc) -> None:
     """Kill ``proc`` if it still runs (phase 17's and 18's workers, at
     exit)."""
@@ -9633,4 +10602,6 @@ if __name__ == "__main__":
         sys.exit(nnet2_tools_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--chain-loop"]:
         sys.exit(chain_loop_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nnet-loop"]:
+        sys.exit(nnet_loop_worker(sys.argv[2:]))
     sys.exit(main())

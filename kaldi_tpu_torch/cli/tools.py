@@ -7,7 +7,9 @@ kaldi_tpu/cli/tools.py (``compute-mfcc-feats``, ``compute-fbank-feats``,
 ``apply-cmvn``, ``add-deltas``, ``splice-feats``, ``transform-feats``
 and ``resample-wav``; parity targets src/featbin/) and its lattice tools
 (``lattice-best-path``, ``lattice-mbr-decode``, ``lattice-scale``,
-``lattice-prune``; host code, as there).  Each tool keeps the
+``lattice-prune``, ``lattice-to-nbest``; host code, as there) and its
+model tools ``ali-to-pdf`` and ``gmm-info`` (host code: the model is
+read on the CPU).  Each tool keeps the
 original's options and arguments; those that compute with tensors add
 ``--device`` (default cuda): the computers launch the fbank kernel
 there, and CMVN, deltas, splicing and transforms run on it.  The
@@ -20,7 +22,8 @@ tools_bank13.py, tools_bank22.py, tools_bank4.py, tools_bank16.py,
 tools_bank17.py, tools_bank21.py, tools_bank23.py, tools_bank24.py,
 tools_bank27.py, tools_bank28.py, tools_bank29.py, tools_bank30.py,
 tools_bank7.py, tools_bank20.py, tools_bank31.py, tools_bank19.py,
-tools_bank25.py, tools_bank26.py, tools_ivector.py, tools_rnnlm.py,
+tools_bank25.py, tools_bank26.py, tools_bank14.py, tools_bank18.py,
+tools_ivector.py, tools_rnnlm.py,
 tools_const_arpa.py, tools_lattice.py, tools_chain.py, tools_nnet.py and
 tools_parallel.py.
 
@@ -349,6 +352,56 @@ def lattice_prune_tool(argv):
     with TableWriter(args[1], holder="clat") as w:
         for key, clat in SequentialTableReader(args[0], holder="clat"):
             w[key] = prune_lattice(clat, po["beam"])
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools.py lattice_to_nbest.
+@tool("lattice-to-nbest")
+def lattice_to_nbest(argv):
+    """N best paths as single-path CompactLattices keyed utt-1..utt-N
+    (latbin/lattice-to-nbest.cc; feed to nbest-to-linear)."""
+    from kaldi_tpu_torch.lattice.functions import (nbest_paths,
+                                                   path_to_lattice)
+    po = ParseOptions("lattice-to-nbest [--n=10] <lattice-rspec> <wspec>")
+    po.register("n", int, 10, "number of paths")
+    args = po.read(argv)
+    with TableWriter(args[1], holder="clat") as w:
+        for key, clat in SequentialTableReader(args[0], holder="clat"):
+            for i, (arcs, fin, _cost) in enumerate(
+                    nbest_paths(clat, po["n"])):
+                w[f"{key}-{i + 1}"] = path_to_lattice(arcs, fin)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# model tools (host code, copied from kaldi_tpu/cli/tools.py; the model is
+# read on the CPU)
+# ---------------------------------------------------------------------------
+
+@tool("ali-to-pdf")
+def ali_to_pdf(argv):
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    po = ParseOptions("ali-to-pdf <model> <ali-rspec> <pdf-wspec>")
+    args = po.read(argv)
+    tm, _ = read_mdl(args[0], device="cpu")
+    with TableWriter(args[2], holder="ivec") as w:
+        for key, ali in SequentialTableReader(args[1], holder="ivec"):
+            w[key] = tm.tid_to_pdf_array[np.asarray(ali)]
+    return 0
+
+
+@tool("gmm-info")
+def gmm_info(argv):
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    po = ParseOptions("gmm-info <model-file>")
+    args = po.read(argv)
+    tm, am = read_mdl(args[0], device="cpu")
+    print(f"number of phones {len(tm.topo.phones)}")
+    print(f"number of pdfs {am.num_pdfs}")
+    print(f"number of transition-ids {tm.num_transition_ids}")
+    print(f"number of transition-states {len(tm.tuples)}")
+    print(f"feature dimension {am.dim}")
+    print(f"number of gaussians {am.num_gauss()}")
     return 0
 
 

@@ -1,13 +1,14 @@
-"""compute-and-process-kaldi-pitch-feats and nnet3-am-copy.
+"""compute-and-process-kaldi-pitch-feats, nnet3-am-copy and
+nnet3-am-info.
 
 Port of those tools of kaldi_tpu/cli/tools_bank10.py (parity targets
 featbin/compute-and-process-kaldi-pitch-feats.cc,
-nnet3bin/nnet3-am-copy.cc), registered in cli/tools.py's ``TOOLS``: host
-numpy, copied; the pitch on the wave at its int16 scale, as in the
-original (see cli/tools_bank3.py).  gmm-est-regtree-mllr
-(gmmbin/gmm-est-regtree-mllr.cc) computes its statistics' mixture
-posteriors on ``--device`` (default cuda) and estimates on the host
-(am/regtree.py).
+nnet3bin/nnet3-am-copy.cc, nnet3-am-info.cc), registered in
+cli/tools.py's ``TOOLS``: host numpy, copied; the pitch on the wave at
+its int16 scale, as in the original (see cli/tools_bank3.py).
+gmm-est-regtree-mllr (gmmbin/gmm-est-regtree-mllr.cc) computes its
+statistics' mixture posteriors on ``--device`` (default cuda) and
+estimates on the host (am/regtree.py).
 """
 
 from __future__ import annotations
@@ -75,6 +76,28 @@ def nnet3_am_copy(argv):
         n3.write_nnet3(f, model)
     log.info("nnet3-am-copy: %d components%s", len(model.components),
              " (raw)" if po["raw"] else "")
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank10.py nnet3_am_info.
+@tool("nnet3-am-info")
+def nnet3_am_info(argv):
+    import io as pio
+    from kaldi_tpu_torch.am import nnet3_io as n3
+    po = ParseOptions("nnet3-am-info <mdl>")
+    args = po.read(argv)
+    with open(args[0], "rb") as f:
+        if f.read(2) != b"\0B":
+            raise KaldiError(f"{args[0]}: not binary kaldi")
+        head = f.read()
+    tag = b"</TransitionModel>"
+    pos = head.find(tag)
+    model = n3.read_nnet3(
+        pio.BytesIO(head[pos + len(tag):] if pos >= 0 else head))
+    print(f"num-components {len(model.components)}")
+    for c in model.components:
+        print(f"component name={c.name} type={c.ctype} "
+              f"fields={','.join(sorted(c.fields))}")
     return 0
 
 

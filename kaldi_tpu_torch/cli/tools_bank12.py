@@ -13,9 +13,12 @@ entry, the port one ``AmDiagGmm.component_posteriors`` call over every
 entry of an utterance on the device, with the weighted sums in float64
 (am/ebw.py ``accumulate_post_stats``).  gmm-make-regtree
 (gmmbin/gmm-make-regtree.cc) is host numpy (am/regtree.py).
+analyze-counts (bin/analyze-counts.cc) is host code, copied.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 
@@ -221,4 +224,30 @@ def gmm_make_regtree_tool(argv):
     _tm, am = _host_mdl(args[0])
     tree = RegressionTree.build(am, num_base_classes=po["max-leaves"])
     write_regtree(args[1], tree)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank12.py analyze_counts_tool.
+@tool("analyze-counts")
+def analyze_counts_tool(argv):
+    """Symbol occurrence counts over int-vector tables
+    (bin/analyze-counts.cc): prints 'symbol count' sorted by count."""
+    po = ParseOptions("analyze-counts [opts] <ints-rspec> <counts-out>")
+    po.register("binary", bool, False, "(ignored; output is text)")
+    args = po.read(argv)
+    counts = {}
+    n = 0
+    for _key, vec in SequentialTableReader(args[0], holder="ivec"):
+        for v in np.asarray(vec).ravel():
+            counts[int(v)] = counts.get(int(v), 0) + 1
+        n += 1
+    out = (sys.stdout if args[1] == "-" else open(args[1], "w"))
+    # Kaldi writes a bracketed count vector indexed by symbol
+    top = max(counts) + 1 if counts else 0
+    vec = [counts.get(i, 0) for i in range(top)]
+    out.write("[ " + " ".join(str(c) for c in vec) + " ]\n")
+    if args[1] != "-":
+        out.close()
+    log.info("analyze-counts: %d utterances, %d distinct symbols",
+             n, len(counts))
     return 0

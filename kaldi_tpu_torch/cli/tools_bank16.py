@@ -14,6 +14,18 @@ cuda): the raw TDNN-F, its forward and backward, the sequence objective's
 frame loop (am/discriminative.py) and Adam run there, one eg a step, as
 the library's ``sequence_step`` (pipelines/discriminative.py).
 decode-faster-mapped runs the dense decoder there.
+
+The cross-entropy loop's tools of the same bank (parity targets
+nnet3bin/{nnet3-combine, nnet3-subset-egs, nnet3-acc-lda-stats}.cc,
+bin/align-mapped.cc): nnet3-subset-egs is host code, copied;
+nnet3-acc-lda-stats sums the egs' frames in one
+``LdaEstimate.accumulate_batch`` (the original adds them one frame at a
+time: the same sums up to float64 order).  nnet3-combine and
+align-mapped take ``--device``: the combination's Adam (optax's, as
+pipelines/chain.py ``_adam``) over the softmax weight logits and the
+models' forward run there, and ``DenseAligner`` aligns one utterance a
+call there.  nnet3-combine is the original's: Adam(0.1) where Kaldi
+runs L-BFGS (ROADMAP, "Reference faults to port to intent").
 """
 
 from __future__ import annotations
@@ -328,4 +340,168 @@ def nnet3_show_progress_tool(argv):
         rel = float(np.linalg.norm(np.asarray(new)
                                    - np.asarray(old))) / denom
         print(f"{name}: rel-param-change {rel:.6f}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Model combination, egs subsets, LDA stats and the mapped aligner of the
+# cross-entropy loop.
+
+def combine_xent(nets, feats, alis, num_iters: int, lr: float = 0.1):
+    """nnet3-combine's optimization: every parameter of the combined
+    model is Σ_i softmax(w)_i · model_i's, the batch-norm statistics the
+    first model's, and step ``it`` of optax's Adam at ``lr`` from w = 0
+    minimises the frame cross-entropy of utterance ``it % N`` (its
+    features (T, D) and pdf targets as tensors on the models' device).
+    With one model no step is taken.  → (the combined state dict, the
+    weights)."""
+    from kaldi_tpu_torch.pipelines.chain import _adam
+    net = nets[0]
+    device = next(net.parameters()).device
+    stack = {k: torch.stack([dict(m.named_parameters())[k].detach()
+                             for m in nets])
+             for k, _ in net.named_parameters()}
+    buffers = dict(net.named_buffers())
+
+    def mix(logits):
+        wts = torch.softmax(logits, dim=0)
+        return {k: torch.tensordot(wts, s, dims=1) for k, s in stack.items()}
+
+    logits = torch.zeros(len(nets), device=device)
+    if len(nets) > 1:
+        adam = _adam(lr)
+        for it in range(num_iters):
+            x, y = feats[it % len(feats)], alis[it % len(feats)]
+            lg = logits.clone().requires_grad_(True)
+            out = torch.func.functional_call(net, {**mix(lg), **buffers},
+                                             (x[None],))[0]
+            lp = torch.log_softmax(out, dim=-1)
+            loss = -lp[torch.arange(y.shape[0], device=device), y].mean()
+            (g,) = torch.autograd.grad(loss, lg)
+            logits = logits + adam(g)
+    with torch.no_grad():
+        mixed = mix(logits)
+    return {**mixed, **buffers}, torch.softmax(logits, 0).cpu().numpy()
+
+
+# Port of kaldi_tpu/cli/tools_bank16.py nnet3_combine_tool.
+@tool("nnet3-combine")
+def nnet3_combine_tool(argv):
+    """Combine models by objective-optimized softmax weights on
+    validation examples, on ``--device`` (nnet3bin/nnet3-combine.cc:
+    the reference optimizes combination weights with LBFGS on valid egs;
+    here adam over the weight logits, xent objective)."""
+    from kaldi_tpu_torch.am.nnet3_io import write_raw_model
+    po = ParseOptions("nnet3-combine [opts] <valid-feats-rspec> "
+                      "<valid-pdf-ali-rspec> <raw-in1> [<raw-in2> ...] "
+                      "<raw-out>")
+    po.register("num-iters", int, 40, "weight-optimization steps")
+    _device_po(po)
+    args = po.read(argv)
+    if len(args) < 4:
+        raise KaldiError("nnet3-combine: need >=1 input model")
+    device = resolve_device(po["device"])
+    model_paths, out_path = args[2:-1], args[-1]
+    loaded = [_read_raw_auto(p, device) for p in model_paths]
+    cfg = loaded[0][1]
+    ali_r = RandomAccessTableReader(args[1], holder="ivec")
+    feats, alis = [], []
+    for key, f in SequentialTableReader(args[0], holder="mat"):
+        if key in ali_r:
+            f = np.asarray(f, np.float32)
+            feats.append(torch.tensor(f, device=device))
+            alis.append(torch.tensor(np.asarray(ali_r[key], np.int64)
+                                     [:len(f)], device=device))
+    if not feats:
+        raise KaldiError("nnet3-combine: no validation utterances")
+    sd, wts = combine_xent([n for n, _c in loaded], feats, alis,
+                           po["num-iters"])
+    if len(loaded) > 1:
+        log.info("nnet3-combine: weights %s", np.round(wts, 3))
+    write_raw_model(out_path, sd, cfg)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank16.py nnet3_subset_egs_tool.
+@tool("nnet3-subset-egs")
+def nnet3_subset_egs_tool(argv):
+    """Random subset of xent egs (nnet3bin/nnet3-subset-egs.cc)."""
+    po = ParseOptions("nnet3-subset-egs [--n=10] [--srand=0] "
+                      "<egs-rspec> <egs-wspec>")
+    po.register("n", int, 10, "subset size")
+    po.register("srand", int, 0, "seed")
+    args = po.read(argv)
+    entries = list(SequentialTableReader(args[0], holder="xeg"))
+    rng = np.random.default_rng(po["srand"])
+    idx = rng.permutation(len(entries))[:po["n"]]
+    with TableWriter(args[1], holder="xeg") as w:
+        for i in sorted(idx):
+            key, eg = entries[i]
+            w[key] = eg
+    log.info("nnet3-subset-egs: kept %d of %d", min(po["n"],
+             len(entries)), len(entries))
+    return 0
+
+
+def write_lda_accs(path: str, lda) -> None:
+    """An ``LdaEstimate``'s sums as acc-lda writes them (``<LDAACCS>``;
+    sum-lda-accs and est-lda read them)."""
+    from kaldi_tpu_torch.core import io as kio
+    with kio.open_wxfilename(path) as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_token(f, "<LDAACCS>")
+        kio.write_matrix(f, lda.counts[None, :])
+        kio.write_matrix(f, lda.first)
+        kio.write_matrix(f, lda.total_second)
+        kio.write_token(f, "</LDAACCS>")
+
+
+# Port of kaldi_tpu/cli/tools_bank16.py nnet3_acc_lda_stats_tool.
+@tool("nnet3-acc-lda-stats")
+def nnet3_acc_lda_stats_tool(argv):
+    """Accumulate LDA stats from xent egs — the preconditioning
+    LDA-like transform of the nnet3 recipes
+    (nnet3bin/nnet3-acc-lda-stats.cc).  Acc file format matches
+    acc-lda / est-lda (sum-lda-accs composes)."""
+    from kaldi_tpu_torch.am.transforms import LdaEstimate
+    po = ParseOptions("nnet3-acc-lda-stats [--num-pdfs=N] <egs-rspec> "
+                      "<acc-out>")
+    po.register("num-pdfs", int, 0, "target count (0 = max seen + 1)")
+    args = po.read(argv)
+    chunks = list(SequentialTableReader(args[0], holder="xeg"))
+    if not chunks:
+        raise KaldiError("nnet3-acc-lda-stats: no egs")
+    num_pdfs = po["num-pdfs"] or (
+        max(int(eg.pdfs.max()) for _k, eg in chunks) + 1)
+    dim = chunks[0][1].feats.shape[-1]
+    lda = LdaEstimate(num_pdfs, dim)
+    lda.accumulate_batch(
+        np.concatenate([np.asarray(eg.feats, np.float64).reshape(-1, dim)
+                        for _k, eg in chunks]),
+        np.concatenate([np.asarray(eg.pdfs).reshape(-1)
+                        for _k, eg in chunks]))
+    write_lda_accs(args[1], lda)
+    log.info("nnet3-acc-lda-stats: %d chunks, %d classes, dim %d",
+             len(chunks), num_pdfs, dim)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank16.py align_mapped_tool.
+@tool("align-mapped")
+def align_mapped_tool(argv):
+    """Forced alignment from loglike matrices + compiled training
+    graphs on ``--device`` (bin/align-mapped.cc)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli.tools_bank28 import (align_compiled,
+                                                  mapped_loglikes)
+    po = ParseOptions("align-mapped [opts] <trans-model> <graphs-rspec> "
+                      "<loglikes-rspec> <ali-wspec>")
+    po.register("acoustic-scale", float, 1.0, "acoustic scale")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    tm, _ = read_mdl(args[0], device="cpu")
+    align_compiled("align-mapped", tm.tid_to_pdf_array, args[1],
+                   mapped_loglikes(args[2]), args[3], po["acoustic-scale"],
+                   device)
     return 0

@@ -1,12 +1,18 @@
-"""Port of the nnet2 tools of kaldi_tpu/cli/tools_bank19.py (parity
-targets nnet2bin/{nnet-am-info, nnet-am-init, nnet-am-copy,
-nnet-am-average, nnet-compute, nnet-latgen-faster}.cc), registered in
-cli/tools.py's ``TOOLS``: nnet-am-info, nnet-am-init, nnet2-am-copy,
-nnet-am-average, nnet2-compute and nnet-latgen-faster.  Where an
-upstream name collides with an nnet3 tool the nnet2 variant keeps the
-original's 'nnet2-' prefix.  The model tools are host numpy on flax's
-parameter tree (am/nnet2.py); nnet2-compute and nnet-latgen-faster run
-the network and the decoder on ``--device`` (default cuda).
+"""Port of kaldi_tpu/cli/tools_bank19.py: the nnet1 ("Karel") tools
+(parity targets nnetbin/{nnet-info, nnet-copy, nnet-concat, nnet-forward,
+rbm-train-cd1-frmshuff, rbm-convert-to-nnet, nnet-train-frmshuff,
+cmvn-to-nnet}.cc) and the nnet2 tools (nnet2bin/{nnet-am-info,
+nnet-am-init, nnet-am-copy, nnet-am-average, nnet-compute,
+nnet-latgen-faster}.cc), registered in cli/tools.py's ``TOOLS``:
+nnet-am-info, nnet-am-init, nnet2-am-copy, nnet-am-average, nnet2-compute
+and nnet-latgen-faster.  Where an upstream name collides with an nnet3
+tool the nnet2 variant keeps the original's 'nnet2-' prefix.  The model
+tools are host numpy on flax's parameter tree (am/nnet1.py,
+am/nnet2.py); nnet-forward, rbm-train-cd1-frmshuff, nnet-train-frmshuff,
+nnet2-compute and nnet-latgen-faster run the network (and the decoder)
+on ``--device`` (default cuda).  The nnet1 tools are the original's, as
+they are (its draws: ``np.random.default_rng``, and CD-1's uniforms from
+``am/nnet1.py`` ``draw_uniform``).
 
 Ported to intent, not as they are:
 * nnet-latgen-faster decodes pseudo-log-likelihoods: the model's
@@ -19,6 +25,10 @@ Ported to intent, not as they are:
 * nnet-am-init draws flax's initializers' distributions from a
   ``torch.Generator`` seeded by ``--srand`` (the original's bits come
   from ``PRNGKey(srand)``).
+* rbm-train-cd1-frmshuff takes the upstream ``--learn-rate`` (default
+  the original's fixed 0.05): at 0.05 a Gaussian-Bernoulli RBM of 256
+  or more hidden units on normalized inputs diverges, in the original
+  as here (its reconstruction grows with the number of hidden units).
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import torch
 from kaldi_tpu_torch.cli.tools import _device_po, tool
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
-from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.core.table import (RandomAccessTableReader,
+                                        SequentialTableReader, TableWriter)
 from kaldi_tpu_torch.device import resolve_device
 
 log = get_logger(__name__)
@@ -205,4 +216,282 @@ def nnet_latgen_faster_tool(argv):
                                                       logpri))
             n += 1
     log.info("nnet-latgen-faster: decoded %d utterances", n)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# nnet1 (nnetbin/) — sigmoid DNN + RBM pretraining.
+
+def nnet1_log_priors(priors) -> np.ndarray:
+    """An nnet1 file's class counts → the float32 log-priors
+    nnet-forward --divide-by-priors subtracts, in the original's float32
+    arithmetic (normalized, floored at 1e-20)."""
+    priors = np.asarray(priors, np.float32)
+    return np.log(np.maximum(priors / priors.sum(), 1e-20)).astype(
+        np.float32)
+
+
+def nnet1_frames(feats_rspec: str, ali_rspec: str):
+    """The frames and pdf targets of every utterance of ``feats_rspec``
+    that ``ali_rspec`` aligns, each cut to the shorter of the two,
+    concatenated in table order (nnet-train-frmshuff's input)."""
+    ali_r = RandomAccessTableReader(ali_rspec, holder="ivec")
+    frames, targets = [], []
+    for key, m in SequentialTableReader(feats_rspec, holder="mat"):
+        if key not in ali_r:
+            continue
+        m = np.asarray(m, np.float32)
+        a = np.asarray(ali_r[key], np.int32)
+        frames.append(m[:len(a)])
+        targets.append(a[:len(m)])
+    if not frames:
+        return None, None
+    return np.concatenate(frames), np.concatenate(targets)
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py nnet_info_tool.
+@tool("nnet-info")
+def nnet_info_tool(argv):
+    """Print nnet1 layer structure (nnetbin/nnet-info.cc)."""
+    from kaldi_tpu_torch.am.nnet1 import load_nnet1
+    po = ParseOptions("nnet-info <nnet1-in>")
+    args = po.read(argv)
+    params, hid_dims, num_pdfs, priors = load_nnet1(args[0])
+    in_dim = params["hidden1"]["kernel"].shape[0] if hid_dims else 0
+    print(f"input-dim {in_dim}")
+    for i, hd in enumerate(hid_dims):
+        print(f"component {i + 1} : <AffineTransform> + <Sigmoid> "
+              f"dim {hd}")
+    print(f"output-dim {num_pdfs}")
+    print(f"has-priors {priors is not None}")
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py nnet_copy_tool.
+@tool("nnet-copy")
+def nnet_copy_tool(argv):
+    """Copy an nnet1 model (nnetbin/nnet-copy.cc)."""
+    from kaldi_tpu_torch.am.nnet1 import load_nnet1, save_nnet1
+    po = ParseOptions("nnet-copy <nnet1-in> <nnet1-out>")
+    args = po.read(argv)
+    params, hid_dims, num_pdfs, priors = load_nnet1(args[0])
+    save_nnet1(args[1], params, hid_dims, num_pdfs, priors)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py nnet_concat_tool.
+@tool("nnet-concat")
+def nnet_concat_tool(argv):
+    """Concatenate nnet1 stacks: the second net consumes the first's
+    output (nnetbin/nnet-concat.cc).  The first net's output layer is
+    dropped (it becomes a hidden layer boundary) only when
+    --drop-output=true; default stacks hidden layers of net1 with ALL
+    layers of net2."""
+    from kaldi_tpu_torch.am.nnet1 import load_nnet1, save_nnet1
+    po = ParseOptions("nnet-concat [--drop-output=false] <nnet1-a> "
+                      "<nnet1-b> <nnet1-out>")
+    po.register("drop-output", bool, False,
+                "drop net-a's output affine before stacking")
+    args = po.read(argv)
+    pa, ha, na, _pr = load_nnet1(args[0])
+    pb, hb, nb, prb = load_nnet1(args[1])
+    params = {}
+    hid = []
+    for i, hd in enumerate(ha):
+        params[f"hidden{len(hid) + 1}"] = dict(pa[f"hidden{i + 1}"])
+        hid.append(hd)
+    if not po["drop-output"]:
+        params[f"hidden{len(hid) + 1}"] = dict(pa["output_affine"])
+        hid.append(na)
+    for i, hd in enumerate(hb):
+        params[f"hidden{len(hid) + 1}"] = dict(pb[f"hidden{i + 1}"])
+        hid.append(hd)
+    params["output_affine"] = dict(pb["output_affine"])
+    save_nnet1(args[2], params, hid, nb, prb)
+    log.info("nnet-concat: %d + %d layers → %d", len(ha), len(hb),
+             len(hid))
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py nnet_forward_tool.
+@tool("nnet-forward")
+def nnet_forward_tool(argv):
+    """Forward features through an nnet1 model on ``--device``
+    (nnetbin/nnet-forward.cc): log-posteriors, optionally minus
+    log-priors (--no-softmax/--apply-log analogue: output is always
+    log-domain here; priors stored in the model file are divided out
+    with --divide-by-priors)."""
+    from kaldi_tpu_torch.am.nnet1 import load_nnet1, nnet1_model
+    from kaldi_tpu_torch.am.transforms import apply_transform
+    po = ParseOptions("nnet-forward [opts] <nnet1-in> <feats-rspec> "
+                      "<mat-wspec>")
+    po.register("divide-by-priors", bool, False,
+                "subtract log-priors (pseudo-loglikelihoods)")
+    po.register("feature-transform", str, "",
+                "transf-to-nnet feature-transform applied before the "
+                "DNN (the upstream --feature-transform)")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    params, hid_dims, num_pdfs, priors = load_nnet1(args[0])
+    model = nnet1_model(params, hid_dims, num_pdfs, device)
+    ft = None
+    if po["feature-transform"]:
+        from kaldi_tpu_torch.cli.tools_bank25 import read_nnet1_transform
+        ft = torch.tensor(np.asarray(read_nnet1_transform(
+            po["feature-transform"]), np.float32), device=device)
+    logp_prior = None
+    if po["divide-by-priors"]:
+        if priors is None:
+            raise KaldiError("nnet-forward: model has no priors")
+        logp_prior = torch.from_numpy(nnet1_log_priors(priors)).to(device)
+    n = 0
+    with TableWriter(args[2], holder="mat") as w:
+        for key, feats in SequentialTableReader(args[1], holder="mat"):
+            x = torch.tensor(np.asarray(feats, np.float32), device=device)
+            with torch.no_grad():
+                if ft is not None:
+                    x = apply_transform(x, ft)
+                logp = model(x)
+                if logp_prior is not None:
+                    logp = logp - logp_prior
+            w[key] = logp.cpu().numpy()
+            n += 1
+    log.info("nnet-forward: %d utterances", n)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py rbm_train_cd1_tool.
+@tool("rbm-train-cd1-frmshuff")
+def rbm_train_cd1_tool(argv):
+    """Train one RBM layer with CD-1 on shuffled frames on ``--device``
+    (nnetbin/rbm-train-cd1-frmshuff.cc); writes the RBM as a 1-layer
+    nnet1 whose hidden layer is the RBM's up-pass."""
+    from kaldi_tpu_torch.am.nnet1 import save_nnet1, train_rbm
+    po = ParseOptions("rbm-train-cd1-frmshuff [opts] <feats-rspec> "
+                      "<rbm-out>")
+    po.register("hid-dim", int, 128, "hidden units")
+    po.register("num-epochs", int, 4, "CD-1 epochs")
+    po.register("gaussian-visible", bool, True,
+                "Gaussian-Bernoulli first layer")
+    po.register("learn-rate", float, 0.05,
+                "CD-1 learning rate (the upstream option; the original "
+                "fixes train_rbm's 0.05)")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    frames = np.concatenate(
+        [np.asarray(m, np.float32) for _k, m in
+         SequentialTableReader(args[0], holder="mat")])
+    rbm, recon_errs = train_rbm(frames, po["hid-dim"],
+                                num_epochs=po["num-epochs"],
+                                lr=po["learn-rate"],
+                                gaussian_visible=po["gaussian-visible"],
+                                device=device)
+    params = {"hidden1": {"kernel": np.asarray(rbm.W),
+                          "bias": np.asarray(rbm.hid_bias)},
+              "output_affine": {
+                  "kernel": np.zeros((po["hid-dim"], 1), np.float32),
+                  "bias": np.zeros(1, np.float32)}}
+    save_nnet1(args[1], params, [po["hid-dim"]], 1)
+    log.info("rbm-train-cd1-frmshuff: recon err %.4f over %d frames",
+             recon_errs[-1], len(frames))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank19.py rbm_convert_to_nnet_tool.
+@tool("rbm-convert-to-nnet")
+def rbm_convert_to_nnet_tool(argv):
+    """RBM file → nnet1 layer (nnetbin/rbm-convert-to-nnet.cc; the RBM
+    files already carry the up-pass as hidden1, so this validates +
+    re-frames)."""
+    from kaldi_tpu_torch.am.nnet1 import load_nnet1, save_nnet1
+    po = ParseOptions("rbm-convert-to-nnet <rbm-in> <nnet1-out>")
+    args = po.read(argv)
+    params, hid_dims, _np_, _pr = load_nnet1(args[0])
+    save_nnet1(args[1], {"hidden1": params["hidden1"],
+                         "output_affine": params["output_affine"]},
+               hid_dims[:1], 1)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py nnet_train_frmshuff_tool.
+@tool("nnet-train-frmshuff")
+def nnet_train_frmshuff_tool(argv):
+    """Frame-shuffled cross-entropy SGD fine-tuning on ``--device``
+    (nnetbin/nnet-train-frmshuff.cc); honors per-layer learning-rate
+    factors set by nnet-set-learnrate."""
+    from kaldi_tpu_torch.am.nnet1 import (finetune_xent, layer_names,
+                                          load_nnet1_full, save_nnet1)
+    po = ParseOptions("nnet-train-frmshuff [opts] <nnet1-in> "
+                      "<feats-rspec> <pdf-ali-rspec> <nnet1-out>")
+    po.register("num-epochs", int, 4, "epochs")
+    po.register("learning-rate", float, 0.5, "SGD lr")
+    po.register("minibatch-size", int, 256, "frames per minibatch")
+    po.register("num-pdfs", int, 0,
+                "resize (re-init) the output layer to this many "
+                "targets (the nnet-initialize role when fine-tuning a "
+                "pretrained stack whose output layer is a dummy)")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    params, hid_dims, num_pdfs, priors, lr_vec = \
+        load_nnet1_full(args[0])
+    lr_factors = None
+    if lr_vec is not None:
+        lr_factors = {nm: float(v) for nm, v in
+                      zip(layer_names(hid_dims), lr_vec)}
+    if po["num-pdfs"] and po["num-pdfs"] != num_pdfs:
+        rng0 = np.random.default_rng(0)
+        out_in = int(hid_dims[-1])
+        params = dict(params)
+        params["output_affine"] = {
+            "kernel": (0.01 * rng0.standard_normal(
+                (out_in, po["num-pdfs"]))).astype(np.float32),
+            "bias": np.zeros(po["num-pdfs"], np.float32)}
+        num_pdfs = po["num-pdfs"]
+    frames, targets = nnet1_frames(args[1], args[2])
+    if frames is None:
+        raise KaldiError("nnet-train-frmshuff: no matched utterances")
+    params, loss = finetune_xent(
+        params, list(hid_dims), num_pdfs, frames, targets,
+        num_epochs=po["num-epochs"], batch_size=po["minibatch-size"],
+        lr=po["learning-rate"], lr_factors=lr_factors, device=device)
+    # class priors from the training targets (the ali-to-post →
+    # nnet-forward --class-frame-counts flow, folded in)
+    counts = np.bincount(targets, minlength=num_pdfs).astype(
+        np.float64) + 0.5
+    save_nnet1(args[3], params, hid_dims, num_pdfs,
+               priors=counts.astype(np.float32))
+    log.info("nnet-train-frmshuff: final xent %.4f over %d frames",
+             loss, len(frames))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank19.py cmvn_to_nnet_tool.
+@tool("cmvn-to-nnet")
+def cmvn_to_nnet_tool(argv):
+    """Global CMVN stats → a normalization transform (D, D+1) affine
+    [diag(1/σ) | −μ/σ] (nnetbin/cmvn-to-nnet.cc writes
+    AddShift+Rescale; here one affine consumable by
+    transform-feats)."""
+    from kaldi_tpu_torch.core import io as kio
+    po = ParseOptions("cmvn-to-nnet <cmvn-stats-in> "
+                      "<transform-out>\nstats: the compute-cmvn-stats "
+                      "2×(D+1) matrix")
+    args = po.read(argv)
+    with kio.open_rxfilename(args[0]) as f:
+        kio.init_kaldi_input_stream(f)
+        stats = np.asarray(kio.read_matrix(f), np.float64)
+    cnt = stats[0, -1]
+    mean = stats[0, :-1] / cnt
+    var = np.maximum(stats[1, :-1] / cnt - mean ** 2, 1e-10)
+    inv_std = 1.0 / np.sqrt(var)
+    D = len(mean)
+    mat = np.concatenate([np.diag(inv_std),
+                          (-mean * inv_std)[:, None]], axis=1)
+    with kio.open_wxfilename(args[1]) as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_matrix(f, mat.astype(np.float32))
+    log.info("cmvn-to-nnet: dim %d normalization transform", D)
     return 0

@@ -11,6 +11,10 @@ objective runs the den kernel (am/chain.py) and optax's Adam over the
 combination logits (pipelines/chain.py ``combine_models``).
 nnet3-compute-batch (nnet3bin/nnet3-compute-batch.cc) runs the TDNN-F
 of a raw model or a .mdl on ``--device``, a batch at a time.
+nnet3-chain-acc-lda-stats, nnet3-am-init and nnet3-am-train-transitions
+(chainbin/nnet3-chain-acc-lda-stats.cc, nnet3bin/nnet3-am-init.cc,
+nnet3-am-train-transitions.cc) are the original's host code, copied:
+their files are the original's bytes.
 """
 
 from __future__ import annotations
@@ -273,6 +277,86 @@ def nnet3_am_adjust_priors_tool(argv):
     _write_mdl_blobs(args[2], tm_blob, nnet_blob, priors=priors)
     log.info("nnet3-am-adjust-priors: %d pdfs, entropy %.3f",
              len(priors), -float((priors * np.log(priors)).sum()))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank23.py nnet3_am_init_tool.
+@tool("nnet3-am-init")
+def nnet3_am_init_tool(argv):
+    """Transition model + raw nnet → .mdl
+    (nnet3bin/nnet3-am-init.cc)."""
+    po = ParseOptions("nnet3-am-init <trans-model-mdl> <raw-in> "
+                      "<mdl-out>\n<trans-model-mdl> may be any .mdl "
+                      "whose TransitionModel should be reused")
+    args = po.read(argv)
+    tm_blob, _n, _p = _split_mdl(args[0])
+    if not tm_blob:
+        raise KaldiError(f"{args[0]}: no <TransitionModel> section")
+    with open(args[1], "rb") as f:
+        if f.read(2) != b"\0B":
+            raise KaldiError(f"{args[1]}: not binary kaldi")
+        nnet_blob = f.read()
+    _write_mdl_blobs(args[2], tm_blob, nnet_blob)
+    log.info("nnet3-am-init: wrote %s", args[2])
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank23.py nnet3_am_train_transitions_tool.
+@tool("nnet3-am-train-transitions")
+def nnet3_am_train_transitions_tool(argv):
+    """Re-estimate transition probabilities from alignments
+    (nnet3bin/nnet3-am-train-transitions.cc)."""
+    from kaldi_tpu_torch.am.serialize import (read_transition_model,
+                                              write_transition_model)
+    po = ParseOptions("nnet3-am-train-transitions <mdl-in> <ali-rspec> "
+                      "<mdl-out>")
+    args = po.read(argv)
+    tm_blob, nnet_blob, priors = _split_mdl(args[0])
+    tm = read_transition_model(pio.BytesIO(tm_blob))
+    counts = np.zeros(tm.num_transition_ids + 1)
+    n = 0
+    for _key, ali in SequentialTableReader(args[1], holder="ivec"):
+        np.add.at(counts, np.asarray(ali, np.int64), 1.0)
+        n += 1
+    tm.mle_update(counts)
+    buf = pio.BytesIO()
+    write_transition_model(buf, tm)
+    _write_mdl_blobs(args[2], buf.getvalue(), nnet_blob,
+                     priors=priors)
+    log.info("nnet3-am-train-transitions: %d alignments", n)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank23.py nnet3_chain_acc_lda_stats_tool.
+@tool("nnet3-chain-acc-lda-stats")
+def nnet3_chain_acc_lda_stats_tool(argv):
+    """LDA stats from chain egs (chainbin/nnet3-chain-acc-lda-stats.cc
+    — the LDA-like preconditioning transform at the network input):
+    class = the eg's numerator pdf at each subsampled frame, sample =
+    the frame's input features."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.am.transforms import LdaEstimate
+    from kaldi_tpu_torch.cli.tools_bank16 import write_lda_accs
+    po = ParseOptions("nnet3-chain-acc-lda-stats <trans-model> "
+                      "<egs-rspec> <lda-accs-out>")
+    args = po.read(argv)
+    tm, _ = read_mdl(args[0], device="cpu")
+    lda = None
+    n = 0
+    for _key, eg in SequentialTableReader(args[1], holder="ceg"):
+        sub = max(1, eg.feats.shape[0] // max(len(eg.pdf_ali), 1))
+        if lda is None:
+            lda = LdaEstimate(tm.num_pdfs, eg.feats.shape[1])
+        t_idx = np.minimum(np.arange(len(eg.pdf_ali)) * sub,
+                           eg.feats.shape[0] - 1)
+        mask = eg.mask.astype(bool)
+        lda.accumulate_batch(np.asarray(eg.feats)[t_idx][mask],
+                             np.asarray(eg.pdf_ali)[mask])
+        n += 1
+    if lda is None:
+        raise KaldiError("nnet3-chain-acc-lda-stats: no egs")
+    write_lda_accs(args[2], lda)
+    log.info("nnet3-chain-acc-lda-stats: %d egs", n)
     return 0
 
 

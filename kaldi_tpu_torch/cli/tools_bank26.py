@@ -1,7 +1,7 @@
 """Port of the nnet2 model, raw-net and decode tools of
 kaldi_tpu/cli/tools_bank26.py (parity targets nnet2bin/{nnet-init,
-nnet-to-raw-nnet, raw-nnet-copy, raw-nnet-info, raw-nnet-concat,
-nnet-am-compute, nnet-compute-prob, nnet-show-progress,
+nnet-to-raw-nnet, nnet1-to-raw-nnet, raw-nnet-copy, raw-nnet-info,
+raw-nnet-concat, nnet-am-compute, nnet-compute-prob, nnet-show-progress,
 nnet-train-transitions, nnet-adjust-priors, nnet-insert,
 nnet-replace-last-layers, nnet-am-widen, nnet-am-mixup,
 nnet-am-switch-preconditioning, nnet-align-compiled,
@@ -119,6 +119,22 @@ def nnet_to_raw_nnet_tool(argv):
     comps = from_nnet2(params, cfg)
     save_raw_nnet(args[1], comps)
     log.info("nnet-to-raw-nnet: %d components", len(comps))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank26.py nnet1_to_raw_nnet_tool.
+@tool("nnet1-to-raw-nnet")
+def nnet1_to_raw_nnet_tool(argv):
+    """Convert an nnet1 sigmoid DNN to a raw component stack
+    (nnet2bin/nnet1-to-raw-nnet.cc — the cross-framework bridge)."""
+    from kaldi_tpu_torch.am.nnet1 import load_nnet1
+    from kaldi_tpu_torch.am.raw_nnet import from_nnet1, save_raw_nnet
+    po = ParseOptions("nnet1-to-raw-nnet <nnet1-in> <raw-nnet-out>")
+    args = po.read(argv)
+    params, hid_dims, num_pdfs, _priors = load_nnet1(args[0])
+    comps = from_nnet1(params, hid_dims, num_pdfs)
+    save_raw_nnet(args[1], comps)
+    log.info("nnet1-to-raw-nnet: %d components", len(comps))
     return 0
 
 
@@ -563,8 +579,7 @@ def nnet_align_compiled_tool(argv):
     compiled training graphs (nnet2bin/nnet-align-compiled.cc): the
     network and ``DenseAligner`` on ``--device``."""
     from kaldi_tpu_torch.am.serialize import read_mdl
-    from kaldi_tpu_torch.decoder.align import (DenseAligner, in_degrees,
-                                               pack_dense_reverse)
+    from kaldi_tpu_torch.cli.tools_bank28 import align_compiled
     po = ParseOptions("nnet-align-compiled [opts] <trans-model> "
                       "<nnet2-in> <graphs-rspec> <feats-rspec> "
                       "<ali-wspec>")
@@ -574,28 +589,10 @@ def nnet_align_compiled_tool(argv):
     device = resolve_device(po["device"])
     tm, _ = read_mdl(args[0], device="cpu")
     model, _cfg, logpri = load_nnet2_scorer(args[1], device)
-    graphs = dict(SequentialTableReader(args[2], holder="fst"))
-    aligner = DenseAligner(tm.tid_to_pdf_array,
-                           acoustic_scale=po["acoustic-scale"],
-                           device=device)
-    ae = an = smax = 1
-    for g in graphs.values():
-        e, n = in_degrees(g)
-        ae, an = max(ae, e), max(an, n)
-        smax = max(smax, g.num_states)
-    n_done = 0
-    with TableWriter(args[4], holder="ivec") as w:
-        for key, m in SequentialTableReader(args[3], holder="mat"):
-            if key not in graphs:
-                log.warning("nnet-align-compiled: no graph for %s",
-                            key)
-                continue
-            g = pack_dense_reverse(graphs[key], smax, ae, an)
-            ll = nnet2_scores(model, m, device, logpri)
-            (tids, _cost), = aligner.align_batch([g], [ll])
-            w[key] = np.asarray(tids, np.int32)
-            n_done += 1
-    log.info("nnet-align-compiled: aligned %d utterances", n_done)
+    scored = ((key, nnet2_scores(model, m, device, logpri)) for key, m in
+              SequentialTableReader(args[3], holder="mat"))
+    align_compiled("nnet-align-compiled", tm.tid_to_pdf_array, args[2],
+                   scored, args[4], po["acoustic-scale"], device)
     return 0
 
 

@@ -4,16 +4,23 @@ chainbin/chain-make-den-fst.cc), registered in cli/tools.py's
 ``TOOLS``: host code, copied.  latgen-incremental-mapped
 (bin/latgen-incremental-mapped.cc) takes ``--device`` (default cuda):
 ``OnlineBeamDecoder`` advances over the log-likelihood matrices there.
+align-compiled-mapped (bin/align-compiled-mapped.cc) takes ``--device``:
+``DenseAligner`` aligns one utterance a call there, as the original
+does (``align_compiled``, which align-mapped, nnet3-align-compiled and
+nnet-align-compiled share).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from kaldi_tpu_torch.cli.tools import tool
+import numpy as np
+
+from kaldi_tpu_torch.cli.tools import _device_po, tool
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
-from kaldi_tpu_torch.core.table import SequentialTableReader
+from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.device import resolve_device
 
 log = get_logger(__name__)
 
@@ -105,12 +112,8 @@ def latgen_incremental_mapped_tool(argv):
     the online beam decoder consumes --chunk-frames at a time and the
     lattice is finalized incrementally, so peak memory is bounded by
     the chunk, not the utterance."""
-    import numpy as np
     import torch
-    from kaldi_tpu_torch.cli.tools import _device_po
     from kaldi_tpu_torch.cli.tools_bank31 import incremental_decoder
-    from kaldi_tpu_torch.core.table import TableWriter
-    from kaldi_tpu_torch.device import resolve_device
     po = ParseOptions("latgen-incremental-mapped [opts] <trans-model> "
                       "<fst> <loglikes-rspec> <lattice-wspec>")
     po.register("beam", float, 13.0, "decoding beam")
@@ -135,4 +138,63 @@ def latgen_incremental_mapped_tool(argv):
             n += 1
     log.info("latgen-incremental-mapped: %d utterances "
              "(chunk %d)", n, C)
+    return 0
+
+
+def align_compiled(name: str, tid_to_pdf: np.ndarray, graphs_rspec: str,
+                   scored, ali_wspec: str, acoustic_scale: float,
+                   device) -> int:
+    """The forced alignment of the original's mapped aligners: every
+    graph of ``graphs_rspec`` padded to the table's largest
+    (``pack_dense_reverse``), then one ``DenseAligner.align_batch`` call
+    an utterance on ``device`` over the (T, P) log-likelihoods that
+    ``scored`` yields as (key, matrix or tensor); the transition-id
+    alignments go to ``ali_wspec``.  → the number aligned."""
+    from kaldi_tpu_torch.decoder.align import (DenseAligner, in_degrees,
+                                               pack_dense_reverse)
+    graphs = dict(SequentialTableReader(graphs_rspec, holder="fst"))
+    aligner = DenseAligner(tid_to_pdf, acoustic_scale=acoustic_scale,
+                           device=device)
+    ae = an = smax = 1
+    for g in graphs.values():
+        e, nn = in_degrees(g)
+        ae, an = max(ae, e), max(an, nn)
+        smax = max(smax, g.num_states)
+    n = 0
+    with TableWriter(ali_wspec, holder="ivec") as w:
+        for key, ll in scored:
+            if key not in graphs:
+                log.warning("%s: no graph for %s", name, key)
+                continue
+            g = pack_dense_reverse(graphs[key], smax, ae, an)
+            (tids, _cost), = aligner.align_batch([g], [ll])
+            w[key] = np.asarray(tids, np.int32)
+            n += 1
+    log.info("%s: aligned %d utterances", name, n)
+    return n
+
+
+def mapped_loglikes(rspec: str):
+    """(key, float32 matrix) of a log-likelihood table."""
+    for key, ll in SequentialTableReader(rspec, holder="mat"):
+        yield key, np.asarray(ll, np.float32)
+
+
+# Port of kaldi_tpu/cli/tools_bank28.py align_compiled_mapped_tool.
+@tool("align-compiled-mapped")
+def align_compiled_mapped_tool(argv):
+    """Forced alignment from precomputed loglike matrices over
+    compiled graphs on ``--device`` (bin/align-compiled-mapped.cc; rows
+    are pdf loglikes, the transition model supplies tid→pdf)."""
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    po = ParseOptions("align-compiled-mapped [opts] <trans-model> "
+                      "<graphs-rspec> <loglikes-rspec> <ali-wspec>")
+    po.register("acoustic-scale", float, 1.0, "acoustic scale")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    tm, _ = read_mdl(args[0], device="cpu")
+    align_compiled("align-compiled-mapped", tm.tid_to_pdf_array, args[1],
+                   mapped_loglikes(args[2]), args[3], po["acoustic-scale"],
+                   device)
     return 0

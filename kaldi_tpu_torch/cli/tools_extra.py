@@ -1,11 +1,14 @@
 """compute-spectrogram-feats, apply-cmvn-sliding, the GMM estimation
-tools gmm-mixup, gmm-acc-stats-ali, gmm-sum-accs and gmm-est, and the
-lattice tools lattice-depth and lattice-lmrescore.
+tools gmm-mixup, gmm-acc-stats-ali, gmm-sum-accs and gmm-est, the
+lattice tools lattice-depth and lattice-lmrescore, and the host tools
+feat-to-dim, feat-to-len, nnet3-info and nnet3-copy.
 
 Port of those tools of kaldi_tpu/cli/tools_extra.py (parity targets
 featbin/compute-spectrogram-feats.cc, apply-cmvn-sliding.cc,
 gmmbin/gmm-mixup.cc, gmm-acc-stats-ali.cc, gmm-sum-accs.cc,
-gmm-est.cc, latbin/lattice-depth.cc, lattice-lmrescore.cc),
+gmm-est.cc, latbin/lattice-depth.cc, lattice-lmrescore.cc,
+featbin/feat-to-dim.cc, feat-to-len.cc, nnet3bin/nnet3-info.cc,
+nnet3-copy.cc),
 registered in cli/tools.py's ``TOOLS``, with the
 accumulator files' reader and writer.  The spectrogram runs the fbank
 kernel with one filter per DFT bin on ``--device`` (default cuda), and
@@ -273,4 +276,71 @@ def online2_wav_gmm_latgen_faster(argv):
     log.info("online2-wav-gmm-latgen-faster: fbank kernel launches %d, "
              "GMM kernel launches %d", mfcc.kernel.launches,
              am.device_params().launches)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_extra.py feat_to_dim.
+@tool("feat-to-dim")
+def feat_to_dim(argv):
+    po = ParseOptions("feat-to-dim <feats-rspec>")
+    args = po.read(argv)
+    for _, m in SequentialTableReader(args[0], holder="mat"):
+        print(np.asarray(m).shape[1])
+        return 0
+    raise KaldiError("feat-to-dim: empty table")
+
+
+# Copied from kaldi_tpu/cli/tools_extra.py feat_to_len.
+@tool("feat-to-len")
+def feat_to_len(argv):
+    po = ParseOptions("feat-to-len <feats-rspec> [<len-wspec>]")
+    args = po.read(argv)
+    w = TableWriter(args[1], holder="text") if len(args) > 1 else None
+    for key, m in SequentialTableReader(args[0], holder="mat"):
+        n = np.asarray(m).shape[0]
+        if w:
+            w[key] = [str(n)]
+        else:
+            print(key, n)
+    if w:
+        w.close()
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_extra.py _open_nnet3.
+def _open_nnet3(path: str):
+    from kaldi_tpu_torch.am.nnet3_io import read_nnet3
+    with open(path, "rb") as f:
+        if f.read(2) != b"\0B":
+            raise KaldiError(f"{path}: expected binary header \\0B")
+        return read_nnet3(f)
+
+
+# Port of kaldi_tpu/cli/tools_extra.py nnet3_info.
+@tool("nnet3-info")
+def nnet3_info(argv):
+    po = ParseOptions("nnet3-info <nnet3-file>")
+    args = po.read(argv)
+    model = _open_nnet3(args[0])
+    print(f"num-components {len(model.components)}")
+    for c in model.components:
+        dims = []
+        for k in ("InputDim", "OutputDim", "Dim"):
+            if k in c.fields:
+                dims.append(f"{k.lower()}={c.fields[k].as_int}")
+        print(f"component name={c.name} type={c.ctype} "
+              + " ".join(dims))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_extra.py nnet3_copy.
+@tool("nnet3-copy")
+def nnet3_copy(argv):
+    from kaldi_tpu_torch.am.nnet3_io import write_nnet3
+    po = ParseOptions("nnet3-copy <nnet3-in> <nnet3-out>")
+    args = po.read(argv)
+    model = _open_nnet3(args[0])
+    with open(args[1], "wb") as f:
+        f.write(b"\0B")
+        write_nnet3(f, model)
     return 0

@@ -349,7 +349,8 @@ def test_registry_holds_the_chain_loop():
     """The 13 tools are registered, each also a tool of the original
     (161 → 174 of the original's; 201 with the serving and regression-
     tree tools, tests/test_torch_serve_tools.py; 234 with the nnet2
-    tools, tests/test_torch_nnet2_tools.py)."""
+    tools, tests/test_torch_nnet2_tools.py; 277 with the nnet1 and nnet3
+    loop tools)."""
     loop = {"nnet3-get-egs-dense-targets", "nnet3-chain-merge-egs",
             "nnet3-chain-normalize-egs", "nnet3-chain-combine",
             "nnet3-chain-compute-post", "nnet3-am-adjust-priors",
@@ -358,7 +359,7 @@ def test_registry_holds_the_chain_loop():
             "chain-make-den-fst", "nnet3-am-copy"}
     assert len(loop) == 13
     assert loop <= set(ttools.TOOLS) and loop <= set(jtools.TOOLS)
-    assert len(ttools.TOOLS) == 234
+    assert len(ttools.TOOLS) == 277
 
 
 def test_checkpoint_module_names_its_original():

@@ -56,13 +56,18 @@ FORBIDDEN = ("kaldi_tpu", "jax", "flax", "optax", "msgpack", "tensorstore")
                                   "kaldi_tpu_torch/cli/tools_bank19.py",
                                   "kaldi_tpu_torch/cli/tools_bank25.py",
                                   "kaldi_tpu_torch/cli/tools_bank26.py",
-                                  "kaldi_tpu_torch/tools/nnet2_check.py"])
+                                  "kaldi_tpu_torch/tools/nnet2_check.py",
+                                  "kaldi_tpu_torch/am/nnet1.py",
+                                  "kaldi_tpu_torch/cli/tools_bank14.py",
+                                  "kaldi_tpu_torch/cli/tools_bank18.py",
+                                  "kaldi_tpu_torch/tools/nnet_loop_check.py"])
 def test_the_import_check_covers(path):
     """The RNNLM, its msgpack codec, the copied lattice modules, the
     tensor-parallel collectives, the orbax checkpoint reader, the
-    regression tree, the serving tools' new banks and the nnet2 modules,
-    tools and check script are among the files the import check
-    walks."""
+    regression tree, the serving tools' new banks, the nnet2 modules,
+    tools and check script, and the nnet1 module, the cross-entropy
+    loop's new banks and its check script are among the files the import
+    check walks."""
     assert path in PORT_FILES
 
 
@@ -490,9 +495,11 @@ def test_native_builds_under_a_per_process_name(tmp_path, monkeypatch):
     ["-m", "kaldi_tpu_torch.tools.profile_slice", "--den"],
     ["-m", "kaldi_tpu_torch.tools.profile_slice", "--features"],
     ["-m", "kaldi_tpu_torch.tools.flagship_spread"],
-    ["kaldi_tpu_torch/tools/nnet2_check.py"]],
+    ["kaldi_tpu_torch/tools/nnet2_check.py"],
+    ["kaldi_tpu_torch/tools/nnet_loop_check.py"]],
     ids=["chip_smoke", "profile_slice", "profile_slice-den",
-         "profile_slice-features", "flagship_spread", "nnet2_check"])
+         "profile_slice-features", "flagship_spread", "nnet2_check",
+         "nnet_loop_check"])
 def test_card_scripts_refuse_without_a_card(argv):
     """The scripts that measure on the card run their main, and without
     a card exit non-zero before printing any result."""
@@ -577,8 +584,9 @@ def test_sequence_slice_modules_name_their_originals(rel):
     assert marked and all(n in names for n in marked), marked
 
 
-# the tools of the host decoders, grammars and sequence training that
-# compute with tensors, each with an argument list it never reads
+# the tools of the host decoders, grammars, sequence training and the
+# cross-entropy recipes that compute with tensors, each with an argument
+# list it never reads
 SEQ_CARD_TOOLS = {
     "gmm-latgen-biglm-faster": ["--word-symbol-table=w"] + ["x"] * 6,
     "gmm-decode-biglm-faster": ["--word-symbol-table=w"] + ["x"] * 6,
@@ -589,7 +597,17 @@ SEQ_CARD_TOOLS = {
     "online2-wav-nnet3-latgen-grammar": ["x"] * 7,
     "nnet3-discriminative-train": ["x"] * 3,
     "nnet3-discriminative-compute-objf": ["x"] * 2,
-    "nnet3-discriminative-compute-from-egs": ["x"] * 3}
+    "nnet3-discriminative-compute-from-egs": ["x"] * 3,
+    # the cross-entropy recipes' tools: nnet3's loop and nnet1
+    "nnet3-compute-prob": ["x"] * 2, "nnet3-align-compiled": ["x"] * 5,
+    "nnet3-combine": ["x"] * 5, "align-mapped": ["x"] * 4,
+    "nnet3-compute-from-egs": ["x"] * 3, "nnet-forward": ["x"] * 3,
+    "rbm-train-cd1-frmshuff": ["x"] * 2, "nnet-train-frmshuff": ["x"] * 4,
+    "nnet-train-perutt": ["x"] * 4, "nnet-train-mmi-sequential": ["x"] * 6,
+    "nnet-train-mpe-sequential": ["x"] * 6,
+    "nnet-train-multistream": ["x"] * 4,
+    "nnet-train-multistream-perutt": ["x"] * 4,
+    "align-compiled-mapped": ["x"] * 4}
 
 
 @pytest.mark.parametrize("name", sorted(SEQ_CARD_TOOLS))

@@ -484,7 +484,7 @@ def test_the_port_registers_the_nine_rnnlm_tools_and_const_arpa():
     TTOOLS, JTOOLS = _tools()
     for name in RNNLM_TOOLS_9 + ["arpa-to-const-arpa", "const-arpa-to-arpa"]:
         assert name in TTOOLS and name in JTOOLS
-    assert len(TTOOLS) == 234       # with the nnet2 tools
+    assert len(TTOOLS) == 277       # with the nnet1 and nnet3 loop tools
 
 
 @pytest.mark.parametrize("name,opts", [

@@ -705,7 +705,7 @@ def test_registry_holds_the_slice():
     """The 24 tools are registered (137 → 161 of the original's; 174
     with the chain training loop's 13, tests/test_torch_chain_loop_tools.py;
     201 with the serving and regression-tree tools; 234 with the nnet2
-    tools)."""
+    tools; 277 with the nnet1 and nnet3 loop tools)."""
     from kaldi_tpu_torch.cli import TOOLS
     slice_tools = {
         "gmm-latgen-biglm-faster", "gmm-decode-biglm-faster",
@@ -718,4 +718,4 @@ def test_registry_holds_the_slice():
             "get-egs", "copy-egs", "shuffle-egs", "train", "compute-objf",
             "merge-egs", "subset-egs", "compute-from-egs"))}
     assert len(slice_tools) == 24 and slice_tools <= set(TOOLS)
-    assert len(TOOLS) == 234
+    assert len(TOOLS) == 277

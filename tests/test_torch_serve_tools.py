@@ -569,14 +569,15 @@ class _Stop(Exception):
 
 def test_registry_holds_the_serving_tools(monkeypatch):
     """The 27 tools are registered, each a tool of the original (174 →
-    201 of the original's; 234 since the nnet2 tools), and each that
+    201 of the original's; 234 since the nnet2 tools, 277 since the
+    nnet1 and nnet3 loop tools), and each that
     computes takes --device with the default cuda (its options read
     where it parses them)."""
     from kaldi_tpu_torch.core.options import ParseOptions
     assert len(set(SERVING_TOOLS)) == 27
     assert set(SERVING_TOOLS) <= set(ttools.TOOLS)
     assert set(SERVING_TOOLS) <= set(jtools.TOOLS)
-    assert len(ttools.TOOLS) == 234
+    assert len(ttools.TOOLS) == 277
     seen = {}
 
     def spy(self, argv=None):
