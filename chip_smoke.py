@@ -7285,6 +7285,10 @@ def main() -> int:
         # 22's worker, beside them: the cross-entropy DNN recipes as tools
         nloop = nnet_loop_start(nnet_loop_write(msys, m_wers), dev)
         atexit.register(_stop, nloop[0])
+        # 23's worker, beside them, on 22's inputs: the nnet2 training
+        # recipe as tools
+        n2t = nnet2_train_start(nloop[1], dev)
+        atexit.register(_stop, n2t[0])
         tri3b_training(dev, task300, tag)
         tool_gmm = gmm_tools_finish(dev, ysys, tools, tag)
     finally:
@@ -7436,6 +7440,8 @@ def main() -> int:
     # 22. the cross-entropy DNN recipes as tools (in the background since
     # 10b)
     nl_fb, nl_fb_err = nnet_loop_finish(nloop, tag)
+    # 23. the nnet2 training recipe as tools (in the background since 10b)
+    n2t_fb, n2t_fb_err = nnet2_train_finish(n2t, tag)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -7444,9 +7450,10 @@ def main() -> int:
         "replaces": "kaldi_tpu/ops/pallas_frontend.py:53",
         "launches": fbank_launches + b_fb + d_fb + s_fb + c_fb + t_fb
         + sp_fb + bf_fb + p_fb + cli_fb + y_fb + m_fb + f_fb + iv_fb
-        + seq_fb + sv_fb + n2_fb + nl_fb,
+        + seq_fb + sv_fb + n2_fb + nl_fb + n2t_fb,
         "max_abs_err": max(fb_err, wav_err, b_fb_err, s_err, bf_err,
-                           f_fb_err, sv_fb_err, n2_fb_err, nl_fb_err),
+                           f_fb_err, sv_fb_err, n2_fb_err, nl_fb_err,
+                           n2t_fb_err),
         "note": "max_abs_err over log-mel outputs; the one-bin filters of "
                 "the spectrogram are held to their own bar (phase 9a)",
         "ms": fb_ms, "plain_ms": fb_plain_ms,
@@ -10581,6 +10588,899 @@ def nnet_loop_finish(started, tag: str):
     return fb, rep["fbank_err"]
 
 
+# ---------------------------------------------------------------------------
+# 23. Kaldi's nnet2 training recipe as the port's tools
+# (steps/nnet2/train_pnorm_simple.sh and train_discriminative.sh run as
+# binaries, with utils/' data-directory scripts) on 10b's corpus from 22's
+# inputs, at the LibriSpeech online nnet2 network's width
+# ---------------------------------------------------------------------------
+
+N2T_DIR = os.path.join("build", "chip_smoke_nnet2_train")
+N2T_SPLICE = 4             # ±4 frames of 40 fbank bins: 360 inputs
+# nnet-am-init's input: 72 · 5 (its splice −2…2) = 360, so the network
+# takes the pre-spliced, transformed frames (and egs windows) as they are
+N2T_FEAT_DIM = 72
+N2T_JOBS = 4               # split-data's jobs, one nnet-train-simple each
+N2T_VALID_PER_SPK = 2      # subset-data-dir --per-spk: the validation set
+N2T_ITERS = 16             # iterations of the jobs and nnet-am-average
+N2T_LR = (0.07, 0.01)      # nnet-train-simple's rate, first and last
+# train_pnorm_simple.sh's add_layers_period: nnet-am-init makes one hidden
+# layer, nnet-insert adds one every N2T_ADD iterations up to NNET2_LAYERS
+N2T_ADD = 2
+N2T_CHUNK = 16             # frames a step of nnet-train-simple
+N2T_SRAND = 23
+N2T_SUBSET = 20            # egs in each diagnostic subset
+N2T_COMBINE = 3            # the last iterations' models combined
+N2T_WER_MAX = 30.0
+N2T_SEQ_UTTS = 4           # training utterances through sequence training
+N2T_SEQ_LR = 5e-5          # the discriminative trainers' default
+N2T_LAT = ("--beam=13", "--lattice-beam=3", "--acoustic-scale=0.1")
+N2T_GAP = 0.5              # seconds of silence at each join of 23b
+N2T_TOL = 1e-4             # card = CPU: leaves within this of the largest
+# card = CPU against the update, max |card − cpu| / max |cpu − start|: a
+# card that takes no step scores 1, one whose step points elsewhere ~2
+N2T_STEP_TOL = 1e-3        # the SGD trainers (and nnet-combine's weights)
+# The Adam trainers (23i, one step on one eg): Adam's first step is
+# −lr·g / (|g| + eps), ±lr wherever |g| ≫ eps, so a parameter whose
+# gradient is float noise (an output row of a pdf outside the lattice:
+# its gradient is softmax · (Σγ_num − Σγ_den), zero but for rounding)
+# moves ±lr on either side at random.  So the step is held only where the
+# CPU's gradient is at least N2T_NOISE of its leaf's largest (the card's
+# gradient, held within N2T_GRAD_TOL of it, cannot flip those signs), to
+# N2T_ADAM_STEP_TOL of the step: one float32 ulp of a parameter of 2 is
+# 2.4e-7, 0.5% of lr = 5e-5.  And the gradient itself, which Adam's
+# normalisation hides, card = CPU on every leaf.
+N2T_NOISE = 1e-3
+N2T_GRAD_TOL = 1e-3        # max |g_card − g_cpu| / max |g_cpu|, each leaf
+N2T_ADAM_STEP_TOL = 1e-2
+N2T_LIB_TOL = 1e-5         # tool = library on the same card
+N2T_JOIN = 900             # the main process's longest wait, seconds
+
+
+def nnet2_train_start(src: str, dev):
+    """23, started: ``python3 chip_smoke.py --nnet2-train <22's inputs>
+    <dir> <device>`` (``nnet2_train_worker``) in the background, two host
+    threads.  → (process, dir, start time)."""
+    import subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, N2T_DIR)
+    os.makedirs(d, exist_ok=True)
+    for stale in ("report.json", "worker.out", "worker.err"):
+        if os.path.exists(f"{d}/{stale}"):
+            os.remove(f"{d}/{stale}")
+    out = open(f"{d}/worker.out", "w")
+    err = open(f"{d}/worker.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--nnet2-train", src, d,
+         dev.type], cwd=repo, stdout=out, stderr=err,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    out.close()
+    err.close()
+    return proc, d, time.perf_counter()
+
+
+def _raw(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def n2t_datadir(T, held, d, src, dv, dev, rep):
+    """23a: 10b's training set as a data directory (wav-copy's scp, the
+    transcripts, the speakers); utt2spk-to-spk2utt and back;
+    validate-data-dir, a text line dropped, fix-data-dir; the validation
+    set by subset-data-dir --per-spk and the training set by --utt-list;
+    split-data into the jobs; sym2int / int2sym; wav-copy of the test
+    waves.  → (training utterances, validation utterances, the jobs'
+    utterances)."""
+    import shutil
+    from kaldi_tpu_torch.pipelines.datadir import (DataDir, _read_table,
+                                                   read_data_dir,
+                                                   write_data_dir)
+    data = f"{d}/data"
+    T("wav-copy", f"ark:{src}/wav_tr.ark",
+      f"ark,scp:{d}/wav_tr.ark,{d}/wav_tr.scp")
+    text = {k: list(v) for k, v in
+            _serve_read(f"ark:{src}/text_tr.ark", "text").items()}
+    write_data_dir(data, DataDir(wav_scp=_read_table(f"{d}/wav_tr.scp"),
+                                 text=text,
+                                 utt2spk=_read_table(f"{src}/utt2spk_tr")))
+    T("utt2spk-to-spk2utt", f"{data}/utt2spk", f"{d}/spk2utt.rt")
+    T("spk2utt-to-utt2spk", f"{d}/spk2utt.rt", f"{d}/utt2spk.rt")
+    n, spk = len(text), len(_read_table(f"{data}/spk2utt"))
+    held("utt2spk-to-spk2utt | spk2utt-to-utt2spk: there and back",
+         _raw(f"{d}/spk2utt.rt") == _raw(f"{data}/spk2utt")
+         and _raw(f"{d}/utt2spk.rt") == _raw(f"{data}/utt2spk"),
+         f"{n} utterances, {spk} speakers")
+    rcs = [T("validate-data-dir", data, rc_ok=(0, 1))[1]]
+    broken = f"{d}/broken"
+    shutil.rmtree(broken, ignore_errors=True)
+    shutil.copytree(data, broken)
+    with open(f"{broken}/text") as f:
+        lines = f.read().splitlines()
+    with open(f"{broken}/text", "w") as f:
+        f.write("\n".join(lines[:3] + lines[4:]) + "\n")
+    rcs.append(T("validate-data-dir", broken, rc_ok=(0, 1))[1])
+    T("fix-data-dir", broken)
+    rcs.append(T("validate-data-dir", broken, rc_ok=(0, 1))[1])
+    held("validate-data-dir 0; a text line dropped, 1; fix-data-dir, 0",
+         rcs == [0, 1, 0] and len(read_data_dir(broken).utt2spk) == n - 1,
+         f"exits {rcs}")
+    T("subset-data-dir", f"--per-spk={N2T_VALID_PER_SPK}", data,
+      f"{d}/valid")
+    valid = read_data_dir(f"{d}/valid").utts
+    train = [u for u in sorted(text) if u not in set(valid)]
+    with open(f"{d}/train.list", "w") as f:
+        f.write("\n".join(train) + "\n")
+    T("subset-data-dir", f"--utt-list={d}/train.list", data, f"{d}/train")
+    T("split-data", f"{d}/train", str(N2T_JOBS))
+    jobs = [read_data_dir(f"{d}/train/split{N2T_JOBS}/{j + 1}")
+            for j in range(N2T_JOBS)]
+    spks = [set(s.utt2spk.values()) for s in jobs]
+    held("subset-data-dir --per-spk / --utt-list | split-data: the jobs "
+         "cover the training set, each speaker in one job",
+         len(valid) == N2T_VALID_PER_SPK * spk
+         and sorted(u for s in jobs for u in s.utts) == train
+         and sum(len(s) for s in spks) == len(set().union(*spks)),
+         f"{len(train)} training, {len(valid)} validation utterances; "
+         f"jobs of {[len(s.utts) for s in jobs]}")
+    T("sym2int", f"{src}/words.txt", f"{data}/text", f"{d}/text.int")
+    T("int2sym", f"{src}/words.txt", f"{d}/text.int", f"{d}/text.sym")
+    with open(f"{d}/text.int") as f:
+        ints = [w for ln in f for w in ln.split()[1:]]
+    held("sym2int | int2sym: the transcripts there and back",
+         _raw(f"{d}/text.sym") == _raw(f"{data}/text")
+         and all(w.isdigit() for w in ints), f"{len(ints)} words")
+    T("wav-copy", f"ark:{src}/wav_te.ark", f"ark:{d}/wav_te.ark")
+    a = _serve_read(f"ark:{src}/wav_te.ark", "wav")
+    b = _serve_read(f"ark:{d}/wav_te.ark", "wav")
+    held("wav-copy: the test waves' samples equal",
+         sorted(a) == sorted(b) and all(
+             np.array_equal(a[k][0], b[k][0]) and a[k][1] == b[k][1]
+             for k in a), f"{len(a)} waves")
+    rep["utts"] = [len(train), len(valid), len(a)]
+    return train, valid, [s.utts for s in jobs]
+
+
+def n2t_long_audio(T, held, d, src, dv, dev, rep):
+    """23b: the 30 test waves joined into 3 recordings with 0.5 s of
+    silence at each join; segment-long-utterances; every utterance's span
+    inside one segment, within the padding."""
+    from kaldi_tpu_torch.core.table import TableWriter
+    from kaldi_tpu_torch.pipelines.segment import SegmentationOptions
+    waves = _serve_read(f"ark:{d}/wav_te.ark", "wav")
+    keys = sorted(waves)
+    rate = waves[keys[0]][1]
+    gap = np.zeros(int(N2T_GAP * rate), np.float32)
+    spans = []
+    with TableWriter(f"ark:{d}/long.ark", holder="wav") as w:
+        for r in range(3):
+            parts, n = [], 0
+            for k in keys[r::3]:
+                x = np.asarray(waves[k][0], np.float32)
+                if parts:
+                    parts.append(gap)
+                    n += len(gap)
+                spans.append((f"rec{r}", n / rate, (n + len(x)) / rate))
+                parts.append(x)
+                n += len(x)
+            w[f"rec{r}"] = (np.concatenate(parts).astype(np.int16), rate)
+    T("segment-long-utterances", dv, f"ark:{d}/long.ark", f"{d}/segments")
+    with open(f"{d}/segments") as f:
+        segs = [(ln.split()[1], float(ln.split()[2]), float(ln.split()[3]))
+                for ln in f if ln.strip()]
+    tol = SegmentationOptions().segment_padding + 0.01
+    inside = [any(r == sr and tb <= s + tol and te >= e - tol
+                  for sr, tb, te in segs) for r, s, e in spans]
+    held("segment-long-utterances: every utterance inside one segment "
+         "(within the padding)", all(inside),
+         f"{len(segs)} segments for {len(spans)} utterances, "
+         f"{sum(inside)} inside")
+    rep["segments"] = [len(segs), len(spans), sum(inside)]
+
+
+def n2t_features(T, held, d, src, dv, dev, rep, train, valid, jobs):
+    """23c: compute-fbank-feats (40 bins, 8 kHz) over the data
+    directory's wav.scp and the test waves, against Fbank; CMVN per
+    speaker; the ±4 splice; acc-lda on 10b's tri3b alignments;
+    nnet-get-feature-transform (= LdaEstimate) and -multi with one group a
+    context position (= LdaEstimate on each position's statistics, zero
+    off its diagonal blocks); the transform applied (transform-feats);
+    the sets' and jobs' subsets.  → the fbank computer and the test
+    waves."""
+    from kaldi_tpu_torch.am.transforms import LdaEstimate
+    from kaldi_tpu_torch.cli.tools_bank9 import read_lda_accs
+    from kaldi_tpu_torch.core import io as kio
+    from kaldi_tpu_torch.features import Fbank, FbankOptions, MelBanksOptions
+    from kaldi_tpu_torch.features.window import FrameExtractionOptions
+    fbank_opts = ("--sample-frequency=8000", "--dither=0",
+                  f"--num-mel-bins={NLOOP_BINS}")
+    T("compute-fbank-feats", dv, *fbank_opts, f"scp:{d}/data/wav.scp",
+      f"ark:{d}/fbank_tr.ark")
+    T("compute-fbank-feats", dv, *fbank_opts, f"ark:{d}/wav_te.ark",
+      f"ark:{d}/fbank_te.ark")
+    fb = Fbank(FbankOptions(
+        frame_opts=FrameExtractionOptions(samp_freq=8000.0, dither=0.0),
+        mel_opts=MelBanksOptions(num_bins=NLOOP_BINS)), device=dev)
+    waves = {k: np.asarray(w, np.float32) for k, (w, _r) in
+             _serve_read(f"ark:{d}/wav_te.ark", "wav").items()}
+    got = _serve_read(f"ark:{d}/fbank_te.ark", "mat")
+    err = max(_rel(got[k], fb.compute(w).cpu()) for k, w in waves.items())
+    held("compute-fbank-feats = Fbank (40 bins, 8 kHz)", err <= NLOOP_TOL,
+         f"{err:.2e}")
+    spk = {"tr": (f"{d}/data/spk2utt", f"{d}/data/utt2spk"),
+           "te": (f"{src}/spk2utt_te", f"{src}/utt2spk_te")}
+    ctx = (f"--left-context={N2T_SPLICE}", f"--right-context={N2T_SPLICE}")
+    for s in ("tr", "te"):
+        T("compute-cmvn-stats", dv, f"--spk2utt={spk[s][0]}",
+          f"ark:{d}/fbank_{s}.ark", f"ark:{d}/cmvn_{s}.ark")
+        T("apply-cmvn", dv, "--norm-vars=true", f"--utt2spk={spk[s][1]}",
+          f"ark:{d}/cmvn_{s}.ark", f"ark:{d}/fbank_{s}.ark",
+          f"ark:{d}/cmn_{s}.ark")
+        T("splice-feats", dv, *ctx, f"ark:{d}/cmn_{s}.ark",
+          f"ark:{d}/spl_{s}.ark")
+    T("ali-to-pdf", f"{src}/tri3b.mdl", f"ark:{src}/ali_tr.ark",
+      f"ark:{d}/pdf_tr.ark")
+    spl = _subset_ark(f"ark:{d}/spl_tr.ark", train, f"{d}/spl_train.ark")
+    T("ali-to-post", f"ark:{src}/ali_tr.ark", f"ark:{d}/post.ark")
+    T("acc-lda", f"{src}/tri3b.mdl", spl, f"ark:{d}/post.ark",
+      f"{d}/lda.acc")
+    T("nnet-get-feature-transform", f"{d}/lda.mat", f"{d}/lda.acc")
+    T("nnet-get-feature-transform-multi",
+      "--context-groups=" + ":".join(str(c) for c in
+                                     range(2 * N2T_SPLICE + 1)),
+      f"--feat-dim={NLOOP_BINS}", f"{d}/lda.acc", f"{d}/lda_multi.mat")
+    # the stats as each tool takes them: -multi as read (float32),
+    # nnet-get-feature-transform summed into float64
+    counts, first, second = read_lda_accs(f"{d}/lda.acc")
+    mats = {}
+    for name in ("lda", "lda_multi"):
+        with kio.open_rxfilename(f"{d}/{name}.mat") as f:
+            kio.init_kaldi_input_stream(f)
+            mats[name] = np.asarray(kio.read_matrix(f), np.float64)
+    lda = LdaEstimate(len(counts), first.shape[1])
+    lda.counts += counts
+    lda.first += first
+    lda.total_second += second
+    D = NLOOP_BINS * (2 * N2T_SPLICE + 1)
+    want = lda.estimate(D, within_class_factor=0.001)
+    multi, errs, off = mats["lda_multi"], [], 0.0
+    for c in range(2 * N2T_SPLICE + 1):
+        idx = np.arange(c * NLOOP_BINS, (c + 1) * NLOOP_BINS)
+        sub = LdaEstimate(len(counts), NLOOP_BINS)
+        sub.counts, sub.first = counts, first[:, idx]
+        sub.total_second = second[np.ix_(idx, idx)]
+        blk = sub.estimate(NLOOP_BINS, within_class_factor=0.001)
+        rows = multi[idx]
+        errs.append(max(_rel(rows[:, idx], blk[:, :-1]),
+                        _rel(rows[:, -1], blk[:, -1])))
+        off = max(off, float(np.abs(np.delete(rows[:, :-1], idx, 1)).max()))
+    held("nnet-get-feature-transform = LdaEstimate; -multi: each context "
+         "position's block = LdaEstimate of its statistics, zero off the "
+         "diagonal blocks, the single transform's shape",
+         _rel(mats["lda"], want) <= 1e-5 and max(errs) <= 1e-5
+         and off == 0.0 and multi.shape == mats["lda"].shape == (D, D + 1),
+         f"{mats['lda'].shape}, blocks {max(errs):.2e}")
+    for s in ("tr", "te"):
+        T("transform-feats", dv, f"{d}/lda.mat", f"ark:{d}/spl_{s}.ark",
+          f"ark:{d}/x_{s}.ark")
+    _subset_ark(f"ark:{d}/x_tr.ark", train, f"{d}/x_train.ark")
+    _subset_ark(f"ark:{d}/x_tr.ark", valid, f"{d}/x_valid.ark")
+    for j, utts in enumerate(jobs):
+        _subset_ark(f"ark:{d}/x_tr.ark", utts, f"{d}/x_job{j + 1}.ark")
+    rep["frames"] = sum(len(v) for v in _serve_read(
+        f"ark:{d}/pdf_tr.ark", "ivec").values())
+    return fb, list(waves.values())
+
+
+def n2t_egs(T, held, d, src, dv, dev, rep, train):
+    """23d: nnet-get-egs --provenance-keys=true (the transformed frames,
+    no further context) into one archive a job and one of the
+    validation set; nnet-copy-egs of the four into one; nnet-shuffle-egs;
+    nnet-subset-egs of the training and validation egs (the
+    diagnostics)."""
+    prov = ("--left-context=0", "--right-context=0",
+            "--provenance-keys=true")
+    pdf = f"ark:{d}/pdf_tr.ark"
+    for j in range(N2T_JOBS):
+        T("nnet-get-egs", *prov, f"ark:{d}/x_job{j + 1}.ark", pdf,
+          f"ark:{d}/egs.{j + 1}.ark")
+    T("nnet-get-egs", *prov, f"ark:{d}/x_valid.ark", pdf,
+      f"ark:{d}/egs_valid.ark")
+    jobs = " ".join(f"{d}/egs.{j + 1}.ark" for j in range(N2T_JOBS))
+    T("nnet-copy-egs", f"ark:cat {jobs} |", f"ark:{d}/egs_all.ark")
+    T("nnet-shuffle-egs", f"--srand={N2T_SRAND}", f"ark:{d}/egs_all.ark",
+      f"ark:{d}/egs_shuf.ark")
+    T("nnet-subset-egs", f"--n={N2T_SUBSET}", "--srand=1",
+      f"ark:{d}/egs_shuf.ark", f"ark:{d}/egs_diag.ark")
+    T("nnet-subset-egs", f"--n={N2T_SUBSET}", "--srand=2",
+      f"ark:{d}/egs_valid.ark", f"ark:{d}/egs_vdiag.ark")
+    egs = _serve_read(f"ark:{d}/egs_all.ark", "xeg")
+    shuf = _serve_read(f"ark:{d}/egs_shuf.ark", "xeg")
+    n_frames = sum(len(e.pdfs) for e in egs.values())
+    want = sum(len(v) for k, v in _serve_read(
+        f"ark:{d}/pdf_tr.ark", "ivec").items() if k in set(train))
+    held("nnet-get-egs a job | nnet-copy-egs | nnet-shuffle-egs | "
+         "nnet-subset-egs: every training frame once, (B, 1, 360) windows",
+         _raw(f"{d}/egs_all.ark") == b"".join(
+             _raw(f"{d}/egs.{j + 1}.ark") for j in range(N2T_JOBS))
+         and n_frames == want and sorted(shuf) == sorted(egs)
+         and list(shuf) != list(egs)
+         and len(_serve_read(f"ark:{d}/egs_diag.ark", "xeg")) == N2T_SUBSET
+         and all(e.feats.shape[1:] == (1, NLOOP_BINS * 9)
+                 for e in egs.values()),
+         f"{len(egs)} egs, {n_frames} frames")
+    rep["egs"] = [len(egs), n_frames]
+
+
+def _prob(T, dv, mdl, egs) -> float:
+    """nnet-compute-prob's average log-probability."""
+    return float(T("nnet-compute-prob", dv, mdl, egs).strip())
+
+
+def _n2_leaves_rel(a_path, b_path) -> float:
+    from kaldi_tpu_torch.am.nnet2 import load_nnet2
+    return _leaves_rel(load_nnet2(a_path)[0], load_nnet2(b_path)[0])
+
+
+def _n2_lib_rel(path, params) -> float:
+    from kaldi_tpu_torch.am.nnet2 import load_nnet2
+    return _leaves_rel(load_nnet2(path)[0], params)
+
+
+def _n2_step_rel(got, want, start) -> float:
+    """``_delta_rel`` of two nnet2 files from a start (a file or a
+    tree)."""
+    from kaldi_tpu_torch.am.nnet2 import load_nnet2
+    if isinstance(start, str):
+        start = load_nnet2(start)[0]
+    return _delta_rel(load_nnet2(got)[0], load_nnet2(want)[0], start)
+
+
+def n2t_train(T, held, d, src, dv, dev, rep, jobs, P):
+    """23e: nnet-am-init at the LibriSpeech online nnet2 width with one
+    hidden layer, nnet-insert adding one every N2T_ADD iterations up to
+    NNET2_LAYERS; iterations of N2T_JOBS nnet-train-simple jobs (one a
+    split-data shard, the rate decaying from N2T_LR[0] to [1]) each
+    followed by nnet-am-average, with
+    nnet-compute-prob on both diagnostic subsets between them;
+    nnet-modify-learning-rates before the last iteration (whose jobs read
+    the rates); nnet-combine-fast over the last iterations' models;
+    nnet-normalize-stddev of the combination (the same function).  Card =
+    CPU and tool = library for nnet-train-simple, nnet-combine-fast and
+    nnet-normalize-stddev.  → the final model's path."""
+    from kaldi_tpu_torch.am import nnet2 as n2
+    T("nnet-am-init", f"--feat-dim={N2T_FEAT_DIM}", f"--num-pdfs={P}",
+      "--num-hidden-layers=1", f"--pnorm-input-dim={NNET2_PNORM_IN}",
+      f"--pnorm-output-dim={NNET2_PNORM_OUT}", f"--srand={N2T_SRAND}",
+      f"{d}/0.mdl")
+    pdf = f"ark:{d}/pdf_tr.ark"
+    diag = [(_prob(T, dv, f"{d}/0.mdl", f"ark:{d}/egs_diag.ark"),
+             _prob(T, dv, f"{d}/0.mdl", f"ark:{d}/egs_vdiag.ark"))]
+    lrs = np.geomspace(N2T_LR[0], N2T_LR[1], N2T_ITERS)
+    cur, layers = f"{d}/0.mdl", 1
+    for it in range(1, N2T_ITERS + 1):
+        if it > 1 and (it - 1) % N2T_ADD == 0 and layers < NNET2_LAYERS:
+            T("nnet-insert", f"--srand={N2T_SRAND + it}", cur,
+              f"{d}/{it - 1}.ins.mdl")
+            cur, layers = f"{d}/{it - 1}.ins.mdl", layers + 1
+        if it == N2T_ITERS:
+            T("nnet-modify-learning-rates",
+              f"--average-learning-rate={lrs[it - 1]}", f"{d}/{it - 2}.mdl",
+              cur, f"{d}/{it - 1}.lr.mdl")
+            cur = f"{d}/{it - 1}.lr.mdl"
+        outs = []
+        for j in range(N2T_JOBS):
+            outs.append(f"{d}/{it}.{j + 1}.mdl")
+            T("nnet-train-simple", dv, f"--learning-rate={lrs[it - 1]}",
+              f"--chunk-size={N2T_CHUNK}", cur, f"ark:{d}/x_job{j + 1}.ark",
+              pdf, outs[-1])
+        T("nnet-am-average", f"{d}/{it}.mdl", *outs)
+        cur = f"{d}/{it}.mdl"
+        diag.append((_prob(T, dv, cur, f"ark:{d}/egs_diag.ark"),
+                     _prob(T, dv, cur, f"ark:{d}/egs_vdiag.ark")))
+        print(f"nnet2 train: 23e iteration {it}: {layers} hidden layers, "
+              f"lr {lrs[it - 1]:.4g}, train / valid log-prob "
+              f"{diag[-1][0]:.4f} / {diag[-1][1]:.4f}", flush=True)
+    info = T("nnet-am-info", cur)
+    _p, cfg_lr = n2.load_nnet2(f"{d}/{N2T_ITERS - 1}.lr.mdl")
+    held("nnet-am-init | nnet-insert | nnet-train-simple jobs | "
+         "nnet-am-average: the cross-entropy falls on both subsets; "
+         "nnet-modify-learning-rates set a rate a layer",
+         f"num-hidden-layers {NNET2_LAYERS}" in info
+         and diag[-1][0] > diag[0][0] and diag[-1][1] > diag[0][1]
+         and len(cfg_lr.learn_rates) == NNET2_LAYERS + 1,
+         " → ".join(f"{-a:.3f}/{-b:.3f}" for a, b in diag))
+    rep["xent"] = [[-a, -b] for a, b in diag]
+    # nnet-train-simple: card = CPU and tool = library, one utterance from
+    # the rates-carrying model
+    feats = _serve_read(f"ark:{d}/x_job1.ark", "mat")
+    pdfs = _serve_read(pdf, "ivec")
+    one = [sorted(feats)[0]]
+    _subset_ark(f"ark:{d}/x_job1.ark", one, f"{d}/x_one.ark")
+    for side in (dv, "--device=cpu"):
+        T("nnet-train-simple", side, f"--learning-rate={lrs[-1]}",
+          f"--chunk-size={N2T_CHUNK}", f"{d}/{N2T_ITERS - 1}.lr.mdl",
+          f"ark:{d}/x_one.ark", pdf, f"{d}/one.{side[9:]}.mdl")
+    p0, c0 = n2.load_nnet2(f"{d}/{N2T_ITERS - 1}.lr.mdl")
+    lib, _loss, _n = n2.train_simple(
+        p0, c0, n2.xent_chunks(((k, feats[k]) for k in one), pdfs,
+                               N2T_CHUNK, dev), float(lrs[-1]), dev)
+    cpu = _n2_leaves_rel(f"{d}/one.{dev.type}.mdl", f"{d}/one.cpu.mdl")
+    step = _n2_step_rel(f"{d}/one.{dev.type}.mdl", f"{d}/one.cpu.mdl", p0)
+    lib_err = _n2_lib_rel(f"{d}/one.{dev.type}.mdl", lib)
+    held("nnet-train-simple: card = CPU (leaves; the update); tool = "
+         "train_simple", cpu <= N2T_TOL and step <= N2T_STEP_TOL
+         and lib_err <= N2T_LIB_TOL,
+         f"{cpu:.2e}; {step:.2e} of the update / {lib_err:.2e}")
+    rep["card_cpu"] = {"nnet-train-simple": cpu}
+    rep["card_cpu_step"] = {"nnet-train-simple": step}
+    rep["lib"] = {"nnet-train-simple": lib_err}
+    # the combination of the last iterations, then its normalization
+    last = [f"{d}/{it}.mdl" for it in
+            range(N2T_ITERS - N2T_COMBINE + 1, N2T_ITERS + 1)]
+    T("nnet-combine-fast", dv, f"ark:{d}/x_valid.ark", pdf, *last,
+      f"{d}/comb.mdl")
+    from kaldi_tpu_torch.cli.tools_bank25 import valid_frames
+    X, y = valid_frames(f"ark:{d}/x_valid.ark", pdf)
+    lib, wts, loss = n2.combine([n2.load_nnet2(m)[0] for m in last], cfg_lr,
+                                X, y, device=dev)
+    lib_err = _n2_lib_rel(f"{d}/comb.mdl", lib)
+    comb = _prob(T, dv, f"{d}/comb.mdl", f"ark:{d}/egs_vdiag.ark")
+    held("nnet-combine-fast = combine (Adam over the weights' logits); "
+         "the combination no worse on the validation subset than the "
+         "models' best - 0.05", lib_err <= N2T_LIB_TOL
+         and comb >= max(a for _t, a in diag[-N2T_COMBINE:]) - 0.05,
+         f"weights {np.round(wts, 4).tolist()}, valid log-prob "
+         f"{comb:.4f}, {lib_err:.2e}")
+    rep["combine"] = {"weights": [float(w) for w in wts], "valid": comb,
+                      "xent": loss}
+    rep["lib"]["nnet-combine-fast"] = lib_err
+    T("nnet-normalize-stddev", dv, f"{d}/comb.mdl", f"ark:{d}/egs_diag.ark",
+      f"{d}/final.mdl")
+    T("nnet-normalize-stddev", "--device=cpu", f"{d}/comb.mdl",
+      f"ark:{d}/egs_diag.ark", f"{d}/final.cpu.mdl")
+    pc, cc, _ = n2.load_nnet2_full(f"{d}/comb.mdl")
+    x = np.concatenate([e.feats for e in _serve_read(
+        f"ark:{d}/egs_diag.ark", "xeg").values()])
+    lib, _before = n2.normalize_stddev(pc, cc, x, 1.0, dev)
+    cpu = _n2_leaves_rel(f"{d}/final.mdl", f"{d}/final.cpu.mdl")
+    step = _n2_step_rel(f"{d}/final.mdl", f"{d}/final.cpu.mdl", pc)
+    lib_err = _n2_lib_rel(f"{d}/final.mdl", lib)
+    after = _prob(T, dv, f"{d}/final.mdl", f"ark:{d}/egs_vdiag.ark")
+    held("nnet-normalize-stddev: the same function (valid log-prob); card "
+         "= CPU (leaves; the rescaling); tool = normalize_stddev",
+         abs(after - comb) <= 1e-4 and cpu <= N2T_TOL
+         and step <= N2T_STEP_TOL and lib_err <= N2T_LIB_TOL,
+         f"{after:.4f}; {cpu:.2e}; {step:.2e} of the rescaling / "
+         f"{lib_err:.2e}")
+    rep["card_cpu"]["nnet-normalize-stddev"] = cpu
+    rep["card_cpu_step"]["nnet-normalize-stddev"] = step
+    rep["lib"]["nnet-normalize-stddev"] = lib_err
+    return f"{d}/final.mdl"
+
+
+def _n2t_wer(T, d, src, dv, mdl, name) -> str:
+    """nnet-latgen-faster on the test set | lattice-best-path |
+    compute-wer."""
+    T("nnet-latgen-faster", dv, *N2T_LAT, f"{src}/tri3b.mdl", mdl,
+      f"{d}/HCLG.fst", f"ark:{d}/x_te.ark", f"ark:{d}/lat_{name}.ark")
+    T("lattice-best-path", f"--word-symbol-table={src}/words.txt",
+      f"ark:{d}/lat_{name}.ark", f"ark,t:{d}/hyp_{name}.txt")
+    return T("compute-wer", f"ark:{src}/text_te.ark",
+             f"ark,t:{d}/hyp_{name}.txt").strip()
+
+
+def n2t_decode(T, held, d, src, dv, dev, rep, final, tm):
+    """23f: nnet-train-transitions (the priors from 10b's alignments),
+    compile-graph, nnet-latgen-faster on the test set, the WER.  → the
+    model with priors."""
+    from kaldi_tpu_torch.am.serialize import write_transition_model
+    from kaldi_tpu_torch.core import io as kio
+    with kio.open_wxfilename(f"{d}/tri3b.tm") as f:
+        kio.init_kaldi_output_stream(f)
+        write_transition_model(f, tm)
+    T("nnet-train-transitions", f"{d}/tri3b.tm", f"ark:{src}/ali_tr.ark",
+      final, f"{d}/nnet2.tm", f"{d}/final.pri.mdl")
+    T("compile-graph", f"{src}/lexicon.txt", f"{src}/tri3b.mdl",
+      f"{src}/G.fst", f"{d}/HCLG.fst")
+    out = _n2t_wer(T, d, src, dv, f"{d}/final.pri.mdl", "final")
+    wer = _wer_of(out)
+    held(f"the nnet2 hybrid's WER ≤ {N2T_WER_MAX:g}", wer <= N2T_WER_MAX, out)
+    rep["wer"] = out
+    return f"{d}/final.pri.mdl"
+
+
+def n2t_realign(T, held, d, src, dv, dev, rep, mdl, tm):
+    """23g: compile-train-graphs | nnet-align-compiled | ali-to-pdf |
+    nnet-relabel-egs: the relabelled egs carry the new alignment at each
+    eg's provenance; the frames relabelled and the agreement with 10b's
+    tri3b alignment."""
+    T("compile-train-graphs", f"{src}/lexicon.txt", f"{src}/tri3b.mdl",
+      f"ark:{src}/text_tr.ark", f"ark:{d}/graphs_tr.ark")
+    T("nnet-align-compiled", dv, "--acoustic-scale=0.1", f"{src}/tri3b.mdl",
+      mdl, f"ark:{d}/graphs_tr.ark", f"ark:{d}/x_tr.ark",
+      f"ark:{d}/ali_nnet2.ark")
+    T("ali-to-pdf", f"{src}/tri3b.mdl", f"ark:{d}/ali_nnet2.ark",
+      f"ark:{d}/pdf_nnet2.ark")
+    T("nnet-relabel-egs", f"ark:{d}/pdf_nnet2.ark", f"ark:{d}/egs_all.ark",
+      f"ark:{d}/egs_relab.ark")
+    old = _serve_read(f"ark:{d}/egs_all.ark", "xeg")
+    new = _serve_read(f"ark:{d}/egs_relab.ark", "xeg")
+    pdfs = _serve_read(f"ark:{d}/pdf_nnet2.ark", "ivec")
+    ok, changed, n = sorted(old) == sorted(new), 0, 0
+    for k, e in new.items():
+        u, s = k.rsplit(":", 1)
+        B = len(e.pdfs)
+        ok = ok and np.array_equal(e.feats, old[k].feats) and np.array_equal(
+            e.pdfs[:, 0], np.asarray(pdfs[u][int(s):int(s) + B]))
+        changed += int((e.pdfs != old[k].pdfs).sum())
+        n += B
+    agree = _agreement(_serve_read(f"ark:{d}/ali_nnet2.ark", "ivec"),
+                       _serve_read(f"ark:{src}/ali_tr.ark", "ivec"),
+                       tm.tid_to_pdf_array)
+    held("nnet-align-compiled | nnet-relabel-egs: each eg's pdfs the new "
+         "alignment's at its provenance", ok,
+         f"{changed} of {n} frames relabelled; {100 * agree:.2f}% of "
+         "frames agree with tri3b's")
+    rep["relabelled"] = [changed, n]
+    rep["agree"] = agree
+
+
+def n2t_trainers(T, held, d, src, dv, dev, rep):
+    """23h: nnet-train-parallel with ``preconditioned`` off and on (from a
+    fresh NG-SGD state its one step is SGD's), nnet-train-ensemble on the
+    last two iterations' models, nnet-combine; each card = CPU and tool =
+    library."""
+    from kaldi_tpu_torch.am import nnet2 as n2
+    from kaldi_tpu_torch.cli.tools_bank25 import valid_frames
+    egs = f"ark:{d}/egs_diag.ark"
+    eg_list = list(_serve_read(egs, "xeg").values())
+    final = f"{d}/final.mdl"
+    T("nnet-am-switch-preconditioning", final, f"{d}/final.pc.mdl")
+    lr = "--learning-rate=0.01"
+    for name, mdl in (("par", final), ("par_pc", f"{d}/final.pc.mdl")):
+        for side in (dv, "--device=cpu"):
+            T("nnet-train-parallel", side, lr, mdl, egs,
+              f"{d}/{name}.{side[9:]}.mdl")
+        p, c = n2.load_nnet2(mdl)
+        lib, _l, _j, _n = n2.train_parallel(p, c, eg_list, 4, 0.01, dev)
+        cpu = _n2_leaves_rel(f"{d}/{name}.{dev.type}.mdl",
+                             f"{d}/{name}.cpu.mdl")
+        step = _n2_step_rel(f"{d}/{name}.{dev.type}.mdl",
+                            f"{d}/{name}.cpu.mdl", p)
+        lib_err = _n2_lib_rel(f"{d}/{name}.{dev.type}.mdl", lib)
+        held(f"nnet-train-parallel (preconditioned {c.preconditioned}): "
+             "card = CPU (leaves; the update); tool = train_parallel",
+             cpu <= N2T_TOL and step <= N2T_STEP_TOL
+             and lib_err <= N2T_LIB_TOL,
+             f"{cpu:.2e}; {step:.2e} of the update / {lib_err:.2e}")
+        rep["card_cpu"][f"nnet-train-parallel {c.preconditioned}"] = cpu
+        rep["card_cpu_step"][f"nnet-train-parallel {c.preconditioned}"] = \
+            step
+        rep["lib"][f"nnet-train-parallel {c.preconditioned}"] = lib_err
+    sgd_ng = _n2_leaves_rel(f"{d}/par.{dev.type}.mdl",
+                            f"{d}/par_pc.{dev.type}.mdl")
+    held("nnet-train-parallel: NG-SGD's first step = SGD's",
+         sgd_ng <= N2T_LIB_TOL, f"{sgd_ng:.2e}")
+    two = [f"{d}/{N2T_ITERS - 1}.mdl", f"{d}/{N2T_ITERS}.mdl"]
+    few = _subset_ark(egs, list(_serve_read(egs, "xeg"))[:8],
+                      f"{d}/egs_few.ark", holder="xeg")
+    for side in (dv, "--device=cpu"):
+        T("nnet-train-ensemble", side, lr, few, *two,
+          *[f"{d}/ens{i}.{side[9:]}.mdl" for i in (1, 2)])
+    models = [n2.load_nnet2(m) for m in two]
+    lib, _l, _n = n2.train_ensemble(
+        [p for p, _c in models], models[0][1],
+        list(_serve_read(few, "xeg").values()), 0.5, 0.01, dev)
+    cpu = max(_n2_leaves_rel(f"{d}/ens{i}.{dev.type}.mdl",
+                             f"{d}/ens{i}.cpu.mdl") for i in (1, 2))
+    step = max(_n2_step_rel(f"{d}/ens{i + 1}.{dev.type}.mdl",
+                            f"{d}/ens{i + 1}.cpu.mdl", models[i][0])
+               for i in (0, 1))
+    lib_err = max(_n2_lib_rel(f"{d}/ens{i + 1}.{dev.type}.mdl", lib[i])
+                  for i in (0, 1))
+    held("nnet-train-ensemble (2 models): card = CPU (leaves; the "
+         "update); tool = train_ensemble", cpu <= N2T_TOL
+         and step <= N2T_STEP_TOL and lib_err <= N2T_LIB_TOL,
+         f"{cpu:.2e}; {step:.2e} of the update / {lib_err:.2e}")
+    rep["card_cpu"]["nnet-train-ensemble"] = cpu
+    rep["card_cpu_step"]["nnet-train-ensemble"] = step
+    rep["lib"]["nnet-train-ensemble"] = lib_err
+    vfew = _subset_ark(f"ark:{d}/x_valid.ark",
+                       sorted(_serve_read(f"ark:{d}/x_valid.ark", "mat"))[:3],
+                       f"{d}/x_vfew.ark")
+    for side in (dv, "--device=cpu"):
+        T("nnet-combine", side, "--num-iters=10", vfew,
+          f"ark:{d}/pdf_tr.ark", *two, f"{d}/comb2.{side[9:]}.mdl")
+    X, y = valid_frames(vfew, f"ark:{d}/pdf_tr.ark")
+    lib, _w, _l = n2.combine([p for p, _c in models], models[0][1], X, y,
+                             10, device=dev)
+    # the start of its Adam steps: the weights' logits 0, the models' mean
+    uniform = n2.combine([p for p, _c in models], models[0][1], X, y, 0,
+                         device="cpu")[0]
+    cpu = _n2_leaves_rel(f"{d}/comb2.{dev.type}.mdl", f"{d}/comb2.cpu.mdl")
+    step = _n2_step_rel(f"{d}/comb2.{dev.type}.mdl", f"{d}/comb2.cpu.mdl",
+                        uniform)
+    lib_err = _n2_lib_rel(f"{d}/comb2.{dev.type}.mdl", lib)
+    held("nnet-combine (2 models, 10 steps): card = CPU (leaves; the move "
+         "from the models' mean); tool = combine", cpu <= N2T_TOL
+         and step <= N2T_STEP_TOL and lib_err <= N2T_LIB_TOL,
+         f"{cpu:.2e}; {step:.2e} of the move / {lib_err:.2e}")
+    rep["card_cpu"]["nnet-combine"] = cpu
+    rep["card_cpu_step"]["nnet-combine"] = step
+    rep["lib"]["nnet-combine"] = lib_err
+
+
+def _disc_grad(params, cfg, deg, crit, dev):
+    """The −objective of one deg at ``params`` on ``dev`` and its
+    gradient as a tree of flax's layout: what the discriminative
+    trainers' first Adam step reads."""
+    from kaldi_tpu_torch.am import nnet2 as n2
+    from kaldi_tpu_torch.pipelines.discriminative import eg_tensors
+    model = n2.nnet2_model(params, cfg, dev)
+    loss = n2.discriminative_loss(model, eg_tensors(deg, crit, dev), crit,
+                                  0.1)
+    loss.backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.grad)
+    return float(loss.detach()), n2.nnet2_params(model)
+
+
+def _adam_step_rel(got, want, start, grad):
+    """Card = CPU for one Adam step from ``start``: over the entries whose
+    gradient ``grad`` (the CPU's) is at least N2T_NOISE of its leaf's
+    largest, max |got − want| / max |want − start|.  → (that, the share
+    of entries held, the same over the others)."""
+    from kaldi_tpu_torch.am.nnet2 import tree_leaves
+    lg, lw, ls, gr = (dict(tree_leaves(t)) for t in (got, want, start,
+                                                      grad))
+    num = den = rest = 0.0
+    held = total = 0
+    for k in lw:
+        g = np.abs(np.asarray(gr[k], np.float64))
+        keep = g >= N2T_NOISE * g.max()
+        w = np.asarray(lw[k], np.float64)
+        diff = np.abs(np.asarray(lg[k], np.float64) - w)
+        num = max(num, float(diff[keep].max(initial=0.0)))
+        rest = max(rest, float(diff[~keep].max(initial=0.0)))
+        den = max(den, float(np.abs(w - np.asarray(ls[k], np.float64))
+                             [keep].max(initial=0.0)))
+        held, total = held + int(keep.sum()), total + keep.size
+    return num / max(den, 1e-30), held / total, rest / max(den, 1e-30)
+
+
+def n2t_sequence(T, held, d, src, dv, dev, rep, mdl, train):
+    """23i: train_discriminative.sh on a few training utterances:
+    nnet-latgen-faster's denominator lattices, nnet3-discriminative-get-
+    egs, nnet-train-discriminative-simple (sMBR) then -parallel (MMI), the
+    test set decoded again; each trainer's objective finite, tool =
+    library, and card = CPU: the objective and gradient at the start, and
+    one Adam step where the gradient is not float noise."""
+    from kaldi_tpu_torch.am import nnet2 as n2
+    seq = train[:N2T_SEQ_UTTS]
+    x = _subset_ark(f"ark:{d}/x_tr.ark", seq, f"{d}/x_seq.ark")
+    T("nnet-latgen-faster", dv, *N2T_LAT, f"{src}/tri3b.mdl", mdl,
+      f"{d}/HCLG.fst", x, f"ark:{d}/denlats.ark")
+    T("nnet3-discriminative-get-egs", f"{src}/tri3b.mdl", x,
+      f"ark:{d}/pdf_tr.ark", f"ark:{d}/denlats.ark", f"ark:{d}/degs.ark")
+    degs = list(_serve_read(f"ark:{d}/degs.ark", "deg").values())
+    one = _subset_ark(f"ark:{d}/degs.ark", [seq[0]], f"{d}/degs_one.ark",
+                      holder="deg")
+    steps = (("nnet-train-discriminative-simple", "smbr", mdl, None,
+              f"{d}/smbr"),
+             ("nnet-train-discriminative-parallel", "mmi", f"{d}/smbr.mdl",
+              2, f"{d}/seq"))
+    objf = {}
+    for name, crit, start, threads, out in steps:
+        opts = (f"--criterion={crit}", f"--learning-rate={N2T_SEQ_LR}",
+                *(() if threads is None else (f"--num-threads={threads}",)))
+        T(name, dv, *opts, start, f"ark:{d}/degs.ark", f"{out}.mdl")
+        for side in (dv, "--device=cpu"):
+            T(name, side, *opts, "--num-epochs=1", start, one,
+              f"{out}.one.{side[9:]}.mdl")
+        p, c = n2.load_nnet2(start)
+        if threads is None:
+            lib, loss = n2.train_discriminative(p, c, degs, crit, N2T_SEQ_LR,
+                                                0.1, 2, dev)
+        else:
+            lib, loss, _n = n2.train_discriminative_parallel(
+                p, c, degs, threads, crit, N2T_SEQ_LR, 0.1, 2, dev)
+        lib_err = _n2_lib_rel(f"{out}.mdl", lib)
+        cpu = _n2_leaves_rel(f"{out}.one.{dev.type}.mdl",
+                             f"{out}.one.cpu.mdl")
+        eg = _serve_read(one, "deg")[seq[0]]
+        f_card, g_card = _disc_grad(p, c, eg, crit, dev)
+        f_cpu, g_cpu = _disc_grad(p, c, eg, crit, torch.device("cpu"))
+        ferr = abs(f_card - f_cpu) / max(abs(f_cpu), 1e-30)
+        gerr = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                   for (_k, a), (_k2, b) in zip(n2.tree_leaves(g_card),
+                                                n2.tree_leaves(g_cpu)))
+        step, share, rest = _adam_step_rel(
+            n2.load_nnet2(f"{out}.one.{dev.type}.mdl")[0],
+            n2.load_nnet2(f"{out}.one.cpu.mdl")[0], p, g_cpu)
+        held(f"{name} ({crit}): objective finite; tool = "
+             "train_discriminative; card = CPU: the objective and gradient "
+             "at the start, one Adam step where the gradient is not noise",
+             np.isfinite(loss) and lib_err <= N2T_LIB_TOL
+             and ferr <= N2T_GRAD_TOL and gerr <= N2T_GRAD_TOL
+             and step <= N2T_ADAM_STEP_TOL,
+             f"-objf {loss:.4f}; {lib_err:.2e}; objective {ferr:.2e}, "
+             f"gradient {gerr:.2e}, step {step:.2e} on "
+             f"{100 * share:.2f}% of the entries ({rest:.2e} on the rest); "
+             f"leaves {cpu:.2e}")
+        objf[crit] = loss
+        rep["card_cpu"][name] = cpu
+        rep["card_cpu_step"][name] = step
+        rep["card_cpu_grad"] = {**rep.get("card_cpu_grad", {}),
+                                name: [ferr, gerr, share, rest]}
+        rep["lib"][name] = lib_err
+    rep["seq_objf"] = objf
+    rep["wer_seq"] = _n2t_wer(T, d, src, dv, f"{d}/seq.mdl", "seq")
+    rep["degs"] = len(degs)
+
+
+def nnet2_train_worker(argv) -> int:
+    """23's background process: 23a–23j in turn, every tool a call of the
+    port's registry in this process, each trainer held against the CPU and
+    against the library on the same card, the fbank kernel's count set to
+    0 before each call and read after it.  Writes ``report.json`` into
+    its directory; exits 1 if a check fails."""
+    import contextlib
+    import io
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import kaldi_tpu_torch.features  # noqa: F401  (before ops.fbank)
+    from kaldi_tpu_torch.am.serialize import read_mdl
+    from kaldi_tpu_torch.cli import TOOLS
+    from kaldi_tpu_torch.ops.fbank import CudaFbank
+    t_start = time.perf_counter()
+    src, d, dv_ = argv[0], argv[1], argv[2]
+    dev = torch.device(dv_, 0) if dv_ == "cuda" else torch.device(dv_)
+    dv = f"--device={dev.type}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the host's cores go to the main process first: this worker has
+    # until the join, after phase 22's, for its work
+    os.nice(10)
+    calls, checks, walls, rep, launches = [], [], {}, {}, {}
+
+    def T(name, *args, rc_ok=(0,)):
+        """Tool ``name``, its fbank launches counted and its wall added
+        up; → what it printed (and its exit code when ``rc_ok`` allows
+        more than 0)."""
+        out = io.StringIO()
+        CudaFbank.total_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = TOOLS[name]([str(a) for a in args])
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        launches[name] = launches.get(name, 0) + CudaFbank.total_launches
+        if rc not in rc_ok:
+            raise AssertionError(f"{name}: rc {rc}")
+        calls.append(name)
+        return (out.getvalue(), rc) if len(rc_ok) > 1 else out.getvalue()
+
+    def held(name, ok, detail):
+        checks.append((name, bool(ok), detail))
+
+    tm, _ = read_mdl(f"{src}/tri3b.mdl", device="cpu")
+    P = tm.num_pdfs
+    stages = {}
+
+    def stage(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(T, held, d, src, dv, dev, rep, *a)
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    train, valid, jobs = stage("23a data directory", n2t_datadir)
+    stage("23b long audio", n2t_long_audio)
+    fb, waves = stage("23c features", n2t_features, train, valid, jobs)
+    stage("23d egs", n2t_egs, train)
+    final = stage("23e training", n2t_train, jobs, P)
+    pri = stage("23f decode", n2t_decode, final, tm)
+    stage("23g realignment", n2t_realign, pri, tm)
+    stage("23h other trainers", n2t_trainers)
+    stage("23i sequence training", n2t_sequence, pri, train)
+    rep["fbank_err"] = check_path_fbank(fb, waves[:4], "nnet2 train: 23j")
+    with open(f"{src}/meta.json") as f:
+        rep["ladder_wers"] = json.load(f)["wers"]
+    with open(f"{d}/report.json", "w") as f:
+        json.dump({"walls": walls, "stages": stages, "checks": checks,
+                   "calls": len(calls), "tools": sorted(set(calls)),
+                   "launches": launches,
+                   "total": time.perf_counter() - t_start, **rep}, f,
+                  default=float)
+    bad = [c for c in checks if not c[1]]
+    if bad:
+        print(f"nnet2 train: {len(bad)} checks failed: {bad[:5]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def nnet2_train_finish(started, tag: str):
+    """23, joined before the kernels line: the worker's exit, its checks,
+    each tool's wall and fbank launches, the cross-entropy a iteration,
+    the combination's weights, the WERs before and after sequence
+    training beside 10b's, the realignment, card = CPU and tool =
+    library for each trainer, the worker's wall and the main process's
+    wait here.  → (fbank launches, the fbank kernel's max |diff| from its
+    plain version at 40 bins, 8 kHz)."""
+    proc, d, t0 = started
+    t_wait = time.perf_counter()
+    proc.wait(timeout=N2T_JOIN)
+    wait = time.perf_counter() - t_wait
+    wall = time.perf_counter() - t0
+    with open(f"{d}/worker.err") as f:
+        err = f.read()
+    # a worker whose checks failed still writes its report: print it
+    if not os.path.exists(f"{d}/report.json"):
+        raise AssertionError(f"nnet2 train failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    with open(f"{d}/report.json") as f:
+        rep = json.load(f)
+    fb = rep["launches"].get("compute-fbank-feats", 0)
+    a, v, t = rep["utts"]
+    print(f"nnet2 train: {rep['calls']} tool calls of {len(rep['tools'])} "
+          f"tools in one background process on 10b's {a} + {v} training "
+          f"(validation) and {t} test utterances, {rep['frames']} frames, "
+          f"{rep['egs'][0]} egs: {wall:.1f} s to the join "
+          f"({rep['total']:.1f} s of work after its imports); the main "
+          f"process waited {wait:.1f} s here {tag}")
+    for name, ok, detail in rep["checks"]:
+        print(f"nnet2 train:   {name}: {'held' if ok else 'FAILED'}"
+              + (f" ({detail})" if detail else ""))
+    print("nnet2 train: stages " + ", ".join(
+        f"{n} {s:.1f} s" for n, s in rep["stages"].items()))
+    print("nnet2 train: tool walls " + ", ".join(
+        f"{n} {s:.2f} s" for n, s in sorted(rep["walls"].items(),
+                                            key=lambda x: -x[1])))
+    print("nnet2 train: cross-entropy (train / valid subsets) a iteration "
+          + " → ".join(f"{x:.4f}/{y:.4f}" for x, y in rep["xent"]))
+    print(f"nnet2 train: nnet-combine-fast weights "
+          f"{np.round(rep['combine']['weights'], 4).tolist()}, valid "
+          f"log-prob {rep['combine']['valid']:.4f}")
+    wers = rep["ladder_wers"]
+    print(f"nnet2 train: the nnet2 hybrid {rep['wer']}; after sMBR + MMI "
+          f"on {rep['degs']} utterances {rep['wer_seq']} (objectives "
+          + ", ".join(f"{k} -objf {v:.4f}" for k, v in rep["seq_objf"].items())
+          + "; 10b: " + ", ".join(f"{k} {v:.2f}" for k, v in wers.items())
+          + f") {tag}")
+    print(f"nnet2 train: nnet-align-compiled agrees with 10b's tri3b "
+          f"alignment on {100 * rep['agree']:.2f}% of the frames' pdfs; "
+          f"nnet-relabel-egs relabelled {rep['relabelled'][0]} of "
+          f"{rep['relabelled'][1]} frames; segment-long-utterances "
+          f"{rep['segments'][0]} segments for {rep['segments'][1]} "
+          f"utterances")
+    print("nnet2 train: card = CPU, leaves " + ", ".join(
+        f"{n} {e:.2e}" for n, e in rep["card_cpu"].items())
+        + f" (bar {N2T_TOL:g} but the Adam trainers'); of the update "
+        + ", ".join(f"{n} {e:.2e}" for n, e in rep["card_cpu_step"].items())
+        + f" (bar {N2T_STEP_TOL:g}, the Adam trainers {N2T_ADAM_STEP_TOL:g} "
+        f"where |g| ≥ {N2T_NOISE:g} of its leaf's largest); the Adam "
+        "trainers' objective / gradient at the start " + ", ".join(
+            f"{n} {f:.2e} / {g:.2e}"
+            for n, (f, g, _s, _r) in rep["card_cpu_grad"].items())
+        + f" (bar {N2T_GRAD_TOL:g}); tool = library " + ", ".join(
+        f"{n} {e:.2e}" for n, e in rep["lib"].items())
+        + f" (bar {N2T_LIB_TOL:g})")
+    with open(f"{d}/worker.out") as f:      # 23j's kernel check
+        print("".join(ln for ln in f if ln.startswith("nnet2 train: 23")),
+              end="")
+    print(f"nnet2 train: fbank kernel launches {fb} (compute-fbank-feats); "
+          f"23j fbank kernel vs plain max |diff| {rep['fbank_err']:.3e} "
+          f"{tag}")
+    bad = [c for c in rep["checks"] if not c[1]]
+    if bad or proc.returncode != 0:
+        raise AssertionError(f"23: {len(bad)} checks failed: {bad[:3]} "
+                             f"(worker exit {proc.returncode})")
+    if fb <= 0:
+        raise AssertionError(f"23: fbank launches {rep['launches']}")
+    return fb, rep["fbank_err"]
+
+
 def _stop(proc) -> None:
     """Kill ``proc`` if it still runs (phase 17's and 18's workers, at
     exit)."""
@@ -10604,4 +11504,6 @@ if __name__ == "__main__":
         sys.exit(chain_loop_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--nnet-loop"]:
         sys.exit(nnet_loop_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nnet2-train"]:
+        sys.exit(nnet2_train_worker(sys.argv[2:]))
     sys.exit(main())

@@ -273,14 +273,10 @@ def train_parallel_averaging(cfg: Nnet2Config,
         nb = max(f.shape[0] // 8, 1)
         losses = []
         for i in range(nb):
-            fb, tb = f[i * 8:(i + 1) * 8], t[i * 8:(i + 1) * 8]
-            logp = job(fb)
-            loss = -torch.gather(logp, -1, tb[..., None]).mean()
             job.zero_grad()
+            loss = xent_loss(job, f[i * 8:(i + 1) * 8], t[i * 8:(i + 1) * 8])
             loss.backward()
-            with torch.no_grad():
-                for p in job.parameters():
-                    p -= learning_rate * p.grad
+            sgd_step(job, learning_rate)
             losses.append(loss.detach())
         return job.state_dict(), torch.stack(losses).mean()
 
@@ -288,10 +284,7 @@ def train_parallel_averaging(cfg: Nnet2Config,
     for it in range(num_iters):
         sds, job_losses = zip(*[job_pass(fshard[j], tshard[j])
                                 for j in range(num_jobs)])
-        with torch.no_grad():
-            model.load_state_dict({k: torch.stack([sd[k] for sd in sds]
-                                                  ).mean(dim=0)
-                                   for k in sds[0]})
+        _load_average(model, sds)
         loss = float(torch.stack(job_losses).mean())
         log.info("nnet2 iter %d: %d jobs averaged, xent %.4f", it,
                  num_jobs, loss)
@@ -393,3 +386,282 @@ def load_nnet2(path: str):
     """→ (params, Nnet2Config).  See load_nnet2_full for priors."""
     params, cfg, _priors = load_nnet2_full(path)
     return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# The trainers of the original's nnet2 tools (nnet-train-simple, -parallel,
+# -ensemble, -discriminative-*, nnet-combine-fast, nnet-normalize-stddev),
+# as functions on flax's parameter tree: each runs on ``device`` and
+# returns the tree (numpy) the tool writes.
+
+def xent_loss(model: Nnet2Model, feats: torch.Tensor,
+              pdfs: torch.Tensor) -> torch.Tensor:
+    """The mean over frames of −log p(pdf) under ``model``."""
+    logp = model(feats)
+    return -torch.gather(logp, -1, pdfs[..., None]).mean()
+
+
+def sgd_step(model: Nnet2Model, learning_rate: float,
+             cfg: Optional[Nnet2Config] = None) -> None:
+    """optax.sgd's update −lr·g of every parameter's ``.grad``, scaled per
+    layer by ``scale_updates_per_layer`` when ``cfg`` is given, added in
+    place."""
+    with torch.no_grad():
+        named = [(name.split(".", 1), p)
+                 for name, p in model.named_parameters()]
+        ups: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (top, rest), p in named:
+            ups.setdefault(top, {})[rest] = p.grad * (-learning_rate)
+        if cfg is not None:
+            ups = scale_updates_per_layer(ups, cfg, learning_rate)
+        for (top, rest), p in named:
+            p += ups[top][rest]
+
+
+def _load_average(model: Nnet2Model, sds) -> None:
+    """Load the mean of the workers' state dicts ``sds`` into ``model``
+    (nnet-am-average of jobs that started from one model)."""
+    with torch.no_grad():
+        model.load_state_dict({k: torch.stack([sd[k] for sd in sds])
+                               .mean(dim=0) for k in sds[0]})
+
+
+def xent_chunks(utts, pdfs, chunk_size: int, device):
+    """nnet-train-simple's chunks: each (key, (T, D) features) of
+    ``utts`` that ``pdfs`` (key → its pdf alignment) holds, cut into
+    ⌊T / chunk_size⌋ whole chunks, T the shorter of the two.  Yields
+    (1, C, D) float32 features and their (1, C) int64 pdfs on
+    ``device``."""
+    C = chunk_size
+    for key, m in utts:
+        if key not in pdfs:
+            continue
+        a = np.asarray(pdfs[key], np.int64)
+        T = min(len(m), len(a))
+        m = torch.from_numpy(np.asarray(m, np.float32)).to(device)
+        a = torch.from_numpy(a).to(device)
+        for i in range(T // C):
+            yield m[None, i * C:(i + 1) * C], a[None, i * C:(i + 1) * C]
+
+
+def _egs_tensors(egs, device):
+    """XentEgs → their feats (B, T, D) float32 and pdfs (B, T) int64 as
+    tensors on ``device``, concatenated along B."""
+    f = np.concatenate([np.asarray(e.feats, np.float32) for e in egs])
+    t = np.concatenate([np.asarray(e.pdfs, np.int64) for e in egs])
+    return torch.from_numpy(f).to(device), torch.from_numpy(t).to(device)
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py nnet_train_simple_tool's pass.
+def train_simple(params: Dict, cfg: Nnet2Config, chunks,
+                 learning_rate: float,
+                 device: torch.device | str = "cuda"):
+    """nnet-train-simple's pass: one SGD step a chunk (``chunks`` yields
+    (1, C, D) features and their (1, C) pdfs, numpy or tensors), its
+    update scaled per layer by ``cfg.learn_rates``.  → (params, the last
+    chunk's loss or None, chunks)."""
+    device = resolve_device(device)
+    model = nnet2_model(params, cfg, device).train()
+    loss, n = None, 0
+    for f, t in chunks:
+        f = torch.as_tensor(f, dtype=torch.float32).to(device)
+        t = torch.as_tensor(t).to(device, torch.int64)
+        model.zero_grad(set_to_none=True)
+        step_loss = xent_loss(model, f, t)
+        step_loss.backward()
+        sgd_step(model, learning_rate, cfg)
+        loss, n = step_loss.detach(), n + 1
+    return nnet2_params(model), None if loss is None else float(loss), n
+
+
+# Port of kaldi_tpu/cli/tools_bank26.py nnet_train_parallel_tool's workers.
+def train_parallel(params: Dict, cfg: Nnet2Config, egs, num_threads: int,
+                   learning_rate: float,
+                   device: torch.device | str = "cuda"):
+    """nnet-train-parallel's update: the egs split into J = min(threads,
+    egs) shards of ⌊egs / J⌋ in order, each worker ONE step from
+    ``params`` on its whole shard (NG-SGD when ``cfg.preconditioned``,
+    whose first step is the raw gradient's; else SGD; ``learn_rates``
+    unread), the result the workers' average.  → (params, the workers'
+    mean loss, J, egs a worker)."""
+    from kaldi_tpu_torch.ops.natural_gradient import NgSgd
+    device = resolve_device(device)
+    J = max(1, min(num_threads, len(egs)))
+    n_per = len(egs) // J
+    model = nnet2_model(params, cfg, device).train()
+    sds, losses = [], []
+    for j in range(J):
+        f, t = _egs_tensors(egs[j * n_per:(j + 1) * n_per], device)
+        job = copy.deepcopy(model)
+        loss = xent_loss(job, f, t)
+        loss.backward()
+        if cfg.preconditioned:
+            NgSgd(job.parameters(), learning_rate).step()
+        else:
+            sgd_step(job, learning_rate)
+        sds.append(job.state_dict())
+        losses.append(loss.detach())
+    _load_average(model, sds)
+    return (nnet2_params(model), float(torch.stack(losses).mean()), J,
+            n_per)
+
+
+# Port of kaldi_tpu/cli/tools_bank26.py nnet_train_ensemble_tool's steps.
+def train_ensemble(params_list, cfg: Nnet2Config, egs, beta: float,
+                   learning_rate: float,
+                   device: torch.device | str = "cuda"):
+    """nnet-train-ensemble: N models step jointly, one SGD step an eg, on
+    the mean over models and frames of −Σ target·log p, the target
+    (1 − β)·onehot + β·the models' mean posterior, which carries no
+    gradient.  → (the N trees, the last loss, steps)."""
+    device = resolve_device(device)
+    models = [nnet2_model(p, cfg, device).train() for p in params_list]
+    loss, n = None, 0
+    for eg in egs:
+        f, t = _egs_tensors([eg], device)
+        logp = torch.stack([m(f) for m in models])
+        pbar = torch.exp(logp.detach()).mean(dim=0)
+        onehot = torch.nn.functional.one_hot(t, cfg.num_pdfs).to(logp.dtype)
+        tgt = (1.0 - beta) * onehot + beta * pbar
+        step_loss = -torch.mean(torch.sum(tgt[None] * logp, dim=-1))
+        for m in models:
+            m.zero_grad(set_to_none=True)
+        step_loss.backward()
+        for m in models:
+            sgd_step(m, learning_rate)
+        loss, n = step_loss.detach(), n + 1
+    return ([nnet2_params(m) for m in models],
+            None if loss is None else float(loss), n)
+
+
+# Port of kaldi_tpu/cli/tools_bank25.py nnet_combine_fast_tool's search.
+def combine(params_list, cfg: Nnet2Config, feats, pdfs, num_iters: int = 30,
+            learning_rate: float = 0.2,
+            device: torch.device | str = "cuda"):
+    """nnet-combine-fast's optimization: every parameter of the combined
+    model is Σ_i softmax(w)_i · model_i's, and ``num_iters`` steps of
+    optax's Adam from w = 0 minimise the frame cross-entropy of ``feats``
+    (T, D), every validation utterance's frames in one sequence, against
+    ``pdfs`` (T,).  → (the combined tree, the weights, the loss before
+    the last step)."""
+    from kaldi_tpu_torch.pipelines.chain import _adam
+    device = resolve_device(device)
+    models = [nnet2_model(p, cfg, device) for p in params_list]
+    net = models[0]
+    stack = {k: torch.stack([dict(m.named_parameters())[k].detach()
+                             for m in models])
+             for k, _ in net.named_parameters()}
+    X = torch.as_tensor(np.asarray(feats, np.float32)).to(device)[None]
+    y = torch.as_tensor(np.asarray(pdfs, np.int64)).to(device)
+
+    def mix(logits):
+        wgt = torch.softmax(logits, dim=0)
+        return {k: torch.tensordot(wgt, s, dims=1) for k, s in stack.items()}
+
+    logits = torch.zeros(len(models), device=device)
+    adam = _adam(learning_rate)
+    loss = None
+    for _ in range(num_iters):
+        lg = logits.clone().requires_grad_(True)
+        logp = torch.func.functional_call(net, mix(lg), (X,))[0]
+        loss = -logp[torch.arange(y.shape[0], device=device), y].mean()
+        (g,) = torch.autograd.grad(loss, lg)
+        logits = logits + adam(g)
+    with torch.no_grad():
+        net.load_state_dict(mix(logits))
+    return (nnet2_params(net), torch.softmax(logits, 0).cpu().numpy(),
+            None if loss is None else float(loss.detach()))
+
+
+# Port of kaldi_tpu/cli/tools_bank31.py nnet_normalize_stddev_tool's pass.
+def normalize_stddev(params: Dict, cfg: Nnet2Config, feats,
+                     stddev: float = 1.0,
+                     device: torch.device | str = "cuda"):
+    """nnet-normalize-stddev: each hidden affine scaled so that its output
+    over ``feats`` (the egs' windows, (N, T, D)) has standard deviation
+    ``stddev``, the next layer's input the scaled layer's p-norm and
+    normalization.  The products run on ``device``, the kernels are
+    scaled on the host.  Windows of ``feat_dim`` are spliced by
+    ``cfg.splice`` over their own frames (the original's splice of a
+    4-D array raises).  → (a new tree, [(layer, stddev before)])."""
+    from kaldi_tpu_torch.am.tdnn import splice
+    device = resolve_device(device)
+    params = tree_map(lambda a: np.array(a), params)
+    h = torch.as_tensor(np.asarray(feats, np.float32)).to(device)
+    if h.shape[-1] == cfg.feat_dim and len(cfg.splice) > 1:
+        h = splice(h, cfg.splice)
+    before = []
+    with torch.no_grad():
+        for name in layer_names(cfg)[:-1]:
+            lay = params[name]["affine"]
+            pre = h @ torch.from_numpy(lay["kernel"]).to(device) \
+                + torch.from_numpy(lay["bias"]).to(device)
+            sd = float(pre.std(correction=0))
+            scale = stddev / max(sd, 1e-10)
+            lay["kernel"] = (lay["kernel"] * scale).astype(np.float32)
+            lay["bias"] = (lay["bias"] * scale).astype(np.float32)
+            before.append((name, sd))
+            h = normalize_rms(pnorm(pre * scale, cfg.pnorm_output_dim,
+                                    cfg.p))
+    return params, before
+
+
+def discriminative_loss(model: Nnet2Model, datum, criterion: str,
+                        kappa: float) -> torch.Tensor:
+    """−MMI or −sMBR of ``model``'s log-softmax (no log-priors, as the
+    original) over one eg's dense lattice; ``datum`` is the eg's
+    ``pipelines.discriminative.eg_tensors``."""
+    from kaldi_tpu_torch.pipelines.discriminative import sequence_objf
+    x, num, acc, lat = datum
+    return -sequence_objf(criterion, lat, model(x[None])[0], num, acc, kappa)
+
+
+# Port of kaldi_tpu/cli/tools_bank31.py _train_discriminative.
+def train_discriminative(params: Dict, cfg: Nnet2Config, degs,
+                         criterion: str, learning_rate: float, kappa: float,
+                         epochs: int, device: torch.device | str = "cuda"):
+    """nnet-train-discriminative-{simple,parallel}'s core: one Adam step
+    an eg (optax's update), for ``epochs`` passes over the DiscEgs, on
+    ``discriminative_loss``.  → (params, the mean −objf over the
+    steps)."""
+    from kaldi_tpu_torch.core.logging import KaldiError
+    from kaldi_tpu_torch.pipelines.discriminative import adam, eg_tensors
+    device = resolve_device(device)
+    model = nnet2_model(params, cfg, device)
+    opt = adam(model, learning_rate)
+    data = [eg_tensors(eg, criterion, device) for eg in degs]
+    tot, cnt = 0.0, 0
+    for _ in range(epochs):
+        for datum in data:
+            loss = discriminative_loss(model, datum, criterion, kappa)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            tot += float(loss.detach())
+            cnt += 1
+    if cnt == 0:
+        raise KaldiError("nnet2 discriminative training: no egs")
+    return nnet2_params(model), tot / cnt
+
+
+# Port of kaldi_tpu/cli/tools_bank31.py
+# nnet_train_discriminative_parallel_tool's shards.
+def train_discriminative_parallel(params: Dict, cfg: Nnet2Config, degs,
+                                  num_threads: int, criterion: str,
+                                  learning_rate: float, kappa: float,
+                                  epochs: int,
+                                  device: torch.device | str = "cuda"):
+    """nnet-train-discriminative-parallel: the degs dealt round-robin
+    into N = min(threads, degs) shards, ``train_discriminative`` of each
+    from ``params``, the trees' float64 average.  → (params, the
+    shards' mean −objf, N)."""
+    N = max(1, min(num_threads, len(degs)))
+    results, loss = [], 0.0
+    for i in range(N):
+        p, ls = train_discriminative(params, cfg, degs[i::N], criterion,
+                                     learning_rate, kappa, epochs, device)
+        results.append(p)
+        loss += ls / N
+    avg = tree_map(lambda *xs: sum(np.asarray(x, np.float64) for x in xs)
+                   .astype(np.float32) / len(xs), *results)
+    return avg, loss, N

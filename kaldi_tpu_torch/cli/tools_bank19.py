@@ -3,12 +3,13 @@
 rbm-train-cd1-frmshuff, rbm-convert-to-nnet, nnet-train-frmshuff,
 cmvn-to-nnet}.cc) and the nnet2 tools (nnet2bin/{nnet-am-info,
 nnet-am-init, nnet-am-copy, nnet-am-average, nnet-compute,
-nnet-latgen-faster}.cc), registered in cli/tools.py's ``TOOLS``:
-nnet-am-info, nnet-am-init, nnet2-am-copy, nnet-am-average, nnet2-compute
-and nnet-latgen-faster.  Where an upstream name collides with an nnet3
-tool the nnet2 variant keeps the original's 'nnet2-' prefix.  The model
-tools are host numpy on flax's parameter tree (am/nnet1.py,
-am/nnet2.py); nnet-forward, rbm-train-cd1-frmshuff, nnet-train-frmshuff,
+nnet-train-simple, nnet-latgen-faster}.cc), registered in cli/tools.py's
+``TOOLS``: nnet-am-info, nnet-am-init, nnet2-am-copy, nnet-am-average,
+nnet-train-simple, nnet2-compute and nnet-latgen-faster.  Where an
+upstream name collides with an nnet3 tool the nnet2 variant keeps the
+original's 'nnet2-' prefix.  The model tools are host numpy on flax's
+parameter tree (am/nnet1.py, am/nnet2.py); nnet-forward,
+rbm-train-cd1-frmshuff, nnet-train-frmshuff, nnet-train-simple,
 nnet2-compute and nnet-latgen-faster run the network (and the decoder)
 on ``--device`` (default cuda).  The nnet1 tools are the original's, as
 they are (its draws: ``np.random.default_rng``, and CD-1's uniforms from
@@ -170,6 +171,38 @@ def nnet_am_average_tool(argv):
         *[p for p, _c, _pr in models])
     save_nnet2(args[0], avg, cfg, priors=priors)
     log.info("nnet-am-average: %d models", len(models))
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank19.py nnet_train_simple_tool.
+@tool("nnet-train-simple")
+def nnet_train_simple_tool(argv):
+    """One SGD pass over feats+ali on ``--device``
+    (nnet2bin/nnet-train-simple.cc — the per-job worker the averaging
+    loop fans out): a step each ``--chunk-size`` frames of an utterance,
+    each layer's update scaled by the model's learning rates
+    (am/nnet2.py ``train_simple``).  The output has no priors, as the
+    original's."""
+    from kaldi_tpu_torch.am.nnet2 import (load_nnet2, save_nnet2, train_simple,
+                                          xent_chunks)
+    po = ParseOptions("nnet-train-simple [opts] <nnet2-in> "
+                      "<feats-rspec> <pdf-ali-rspec> <nnet2-out>")
+    po.register("learning-rate", float, 2e-3, "SGD lr")
+    po.register("chunk-size", int, 32, "frames per training chunk")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    params, cfg = load_nnet2(args[0])
+    chunks = xent_chunks(SequentialTableReader(args[1], holder="mat"),
+                         RandomAccessTableReader(args[2], holder="ivec"),
+                         po["chunk-size"], device)
+    params, loss, n_chunks = train_simple(params, cfg, chunks,
+                                          po["learning-rate"], device)
+    if loss is None:
+        raise KaldiError("nnet-train-simple: no training chunks")
+    save_nnet2(args[3], params, cfg)
+    log.info("nnet-train-simple: %d chunks, final xent %.4f",
+             n_chunks, loss)
     return 0
 
 

@@ -1,8 +1,9 @@
 """Port of kaldi_tpu/cli/tools_bank25.py's nnet1 ("Karel") tail (parity
 targets nnetbin/{nnet-initialize, transf-to-nnet, nnet-train-perutt,
 nnet-train-mmi-sequential, nnet-train-mpe-sequential}.cc) and its nnet2
-tools (nnet2bin/{nnet-am-copy, nnet-compute, nnet-am-fix}.cc),
-registered in cli/tools.py's ``TOOLS``.  nnet-initialize draws flax's
+tools (nnet2bin/{nnet-am-copy, nnet-compute, nnet-am-fix, nnet-get-egs,
+nnet-shuffle-egs, nnet-combine-fast}.cc), registered in cli/tools.py's
+``TOOLS``.  nnet-initialize draws flax's
 initializers' distributions (lecun_normal kernels, zero biases) from a
 ``torch.Generator`` seeded by ``--seed`` (the original's bits come from
 ``PRNGKey(seed)``); transf-to-nnet is host numpy; nnet-train-perutt and
@@ -10,8 +11,15 @@ the two sequence trainers run the sigmoid DNN (and the
 am/discriminative.py objectives) on ``--device`` (default cuda).  The
 nnet2 spellings nnet-am-copy and nnet-compute run the flows of bank
 19's nnet2-am-copy and nnet2-compute (nnet-compute takes ``--device``);
-nnet-am-fix is host numpy.  nnet-am-copy and nnet-am-fix carry the
-model's ``<Priors>``, which the originals drop (ported to intent).
+nnet-am-fix, nnet-get-egs and nnet-shuffle-egs are host numpy, copied
+(the shuffle's ``np.random.default_rng(srand)``, so their archives equal
+the original's).  nnet-combine-fast takes ``--device``: the models'
+forward and optax's Adam over the combination's softmax logits run
+there (am/nnet2.py ``combine``); it keeps the original's Adam where
+Kaldi runs L-BFGS, and reads feats plus alignments where Kaldi reads
+validation egs (ROADMAP, "Reference faults to port to intent").
+nnet-am-copy and nnet-am-fix carry the model's ``<Priors>``, which the
+originals drop (ported to intent).
 
 The sequence trainers keep two faults of the original (ROADMAP,
 "Reference faults to port to intent"): MMI and sMBR score the lattice
@@ -36,7 +44,7 @@ from kaldi_tpu_torch.cli.tools import _device_po, tool
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
 from kaldi_tpu_torch.core.table import (RandomAccessTableReader,
-                                        SequentialTableReader)
+                                        SequentialTableReader, TableWriter)
 from kaldi_tpu_torch.device import resolve_device
 
 log = get_logger(__name__)
@@ -284,3 +292,136 @@ def nnet_train_mpe_sequential_tool(argv):
     (nnetbin/nnet-train-mpe-sequential.cc; state-level accuracy =
     sMBR, the --do-smbr=true flavor)."""
     return _nnet1_sequential(argv, "nnet-train-mpe-sequential", "mpe")
+
+
+# ---------------------------------------------------------------------------
+# nnet2 egs and combination
+# ---------------------------------------------------------------------------
+
+# Port of kaldi_tpu/cli/tools_bank25.py nnet_get_egs_tool.
+@tool("nnet-get-egs")
+def nnet_get_egs_tool(argv):
+    """Cut aligned utterances into spliced-frame nnet2 training
+    examples (nnet2bin/nnet-get-egs.cc): each output chunk is a
+    minibatch of context windows + center-frame pdf targets, written
+    as xent egs (the nnet2 trainer consumes these)."""
+    po = ParseOptions("nnet-get-egs [opts] <feats-rspec> "
+                      "<pdf-ali-rspec> <egs-wspec>")
+    po.register("left-context", int, 4, "frames of left context")
+    po.register("right-context", int, 4, "frames of right context")
+    po.register("batch-size", int, 128, "windows per example")
+    po.register("provenance-keys", bool, False,
+                "key each example '<utt>:<start-frame>' and flush at "
+                "utterance boundaries so nnet-relabel-egs can map "
+                "examples back to alignments")
+    args = po.read(argv)
+    from kaldi_tpu_torch.features.functions import splice_frames
+    from kaldi_tpu_torch.pipelines.egs_io import XentEg
+    ali_r = RandomAccessTableReader(args[1], holder="ivec")
+    B = po["batch-size"]
+    prov = po["provenance-keys"]
+    xs, ys = [], []
+    n_eg = 0
+    cur = {"utt": "", "start": 0}
+    with TableWriter(args[2], holder="xeg") as w:
+        def flush():
+            nonlocal xs, ys, n_eg
+            if not xs:
+                return
+            feats = np.stack(xs)[:, None, :]        # (B, 1, D*)
+            pdfs = np.asarray(ys, np.int32)[:, None]
+            k = (f"{cur['utt']}:{cur['start']}" if prov
+                 else f"eg{n_eg}")
+            w[k] = XentEg(feats, pdfs)
+            n_eg += 1
+            cur["start"] += len(xs)
+            xs, ys = [], []
+
+        for key, feats in SequentialTableReader(args[0], holder="mat"):
+            if key not in ali_r:
+                continue
+            if prov:
+                flush()
+                cur["utt"], cur["start"] = key, 0
+            spl = splice_frames(
+                torch.from_numpy(np.asarray(feats, np.float32)),
+                po["left-context"], po["right-context"]).numpy()
+            ali = np.asarray(ali_r[key], np.int64)
+            T = min(len(spl), len(ali))
+            for t in range(T):
+                xs.append(spl[t])
+                ys.append(int(ali[t]))
+                if len(xs) == B:
+                    flush()
+        flush()
+    log.info("nnet-get-egs: %d examples of %d windows", n_eg, B)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank25.py nnet_shuffle_egs_tool.
+@tool("nnet-shuffle-egs")
+def nnet_shuffle_egs_tool(argv):
+    """Shuffle nnet2/xent egs (nnet2bin/nnet-shuffle-egs.cc)."""
+    po = ParseOptions("nnet-shuffle-egs [--srand=0] <egs-rspec> "
+                      "<egs-wspec>")
+    po.register("srand", int, 0, "shuffle seed")
+    args = po.read(argv)
+    entries = list(SequentialTableReader(args[0], holder="xeg"))
+    order = np.random.default_rng(po["srand"]).permutation(len(entries))
+    with TableWriter(args[1], holder="xeg") as w:
+        for i in order:
+            key, eg = entries[i]
+            w[key] = eg
+    log.info("nnet-shuffle-egs: %d examples", len(entries))
+    return 0
+
+
+def valid_frames(feats_rspec: str, ali_rspec: str):
+    """Every utterance of ``feats_rspec`` that ``ali_rspec`` aligns, its
+    frames cut to the alignment's length, in the table's order, as one
+    (T, D) float32 block and its (T,) pdfs (None, None when no utterance
+    matches)."""
+    ali_r = RandomAccessTableReader(ali_rspec, holder="ivec")
+    feats, targets = [], []
+    for key, f in SequentialTableReader(feats_rspec, holder="mat"):
+        if key in ali_r:
+            x = np.asarray(f, np.float32)
+            a = np.asarray(ali_r[key], np.int64)
+            T = min(len(x), len(a))
+            feats.append(x[:T])
+            targets.append(a[:T])
+    if not feats:
+        return None, None
+    return np.concatenate(feats), np.concatenate(targets)
+
+
+# Port of kaldi_tpu/cli/tools_bank25.py nnet_combine_fast_tool.
+@tool("nnet-combine-fast")
+def nnet_combine_fast_tool(argv):
+    """Combine nnet2 models by objective-optimized weights on
+    validation feats + alignments, on ``--device``
+    (nnet2bin/nnet-combine-fast.cc; Adam over the combination logits,
+    xent objective: am/nnet2.py ``combine``).  The output has no priors,
+    as the original's."""
+    from kaldi_tpu_torch.am.nnet2 import combine, load_nnet2, save_nnet2
+    po = ParseOptions("nnet-combine-fast [opts] <valid-feats-rspec> "
+                      "<valid-pdf-ali-rspec> <nnet2-in1> "
+                      "[<nnet2-in2> ...] <nnet2-out>")
+    po.register("num-iters", int, 30, "weight-optimization steps")
+    _device_po(po)
+    args = po.read(argv)
+    if len(args) < 4:
+        raise KaldiError("nnet-combine-fast: need >=1 input model")
+    device = resolve_device(po["device"])
+    loaded = [load_nnet2(p) for p in args[2:-1]]
+    cfg = loaded[0][1]
+    X, y = valid_frames(args[0], args[1])
+    if X is None:
+        raise KaldiError("nnet-combine-fast: no validation "
+                         "utterances")
+    params, wts, loss = combine([p for p, _c in loaded], cfg, X, y,
+                                po["num-iters"], device=device)
+    save_nnet2(args[-1], params, cfg)
+    log.info("nnet-combine-fast: %d models, weights %s, xent %.4f",
+             len(loaded), np.round(wts, 3), loss)
+    return 0

@@ -5,8 +5,9 @@ raw-nnet-concat, nnet-am-compute, nnet-compute-prob, nnet-show-progress,
 nnet-train-transitions, nnet-adjust-priors, nnet-insert,
 nnet-replace-last-layers, nnet-am-widen, nnet-am-mixup,
 nnet-am-switch-preconditioning, nnet-align-compiled,
-nnet-latgen-faster-parallel}.cc), registered in cli/tools.py's
-``TOOLS``.
+nnet-latgen-faster-parallel, nnet-copy-egs, nnet-subset-egs,
+nnet-relabel-egs, nnet-train-parallel, nnet-train-ensemble,
+nnet-combine}.cc), registered in cli/tools.py's ``TOOLS``.
 
 Models keep the repo convention of storing the TransitionModel in its
 own file (upstream bundles it into the am-nnet .mdl); tools that
@@ -15,8 +16,14 @@ tools are host numpy on flax's parameter tree (am/nnet2.py, draws from
 ``np.random.default_rng(srand)`` in the original's order, so their files
 equal the original's); nnet-init and nnet-replace-last-layers draw
 flax's initializers' distributions from a ``torch.Generator(srand)``.
+The egs tools are host numpy, copied (their draws
+``np.random.default_rng(srand)``), and write the original's archives.
 The tools that run the network, the aligner or the decoder take
-``--device`` (default cuda).
+``--device`` (default cuda); the trainers run there as am/nnet2.py's
+``train_parallel`` and ``train_ensemble``, and nnet-combine is
+nnet-combine-fast.  nnet-train-parallel keeps the original's one step a
+worker on its whole shard, and its ``learn_rates`` unread (ROADMAP,
+"Reference faults to port to intent").
 
 Ported to intent, not as they are:
 * nnet-align-compiled and nnet-latgen-faster-parallel subtract the
@@ -41,7 +48,8 @@ from kaldi_tpu_torch.cli.tools_bank19 import (_latgen_po, latgen_decoder,
                                               nnet2_scores)
 from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
-from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
+from kaldi_tpu_torch.core.table import (RandomAccessTableReader,
+                                        SequentialTableReader, TableWriter)
 from kaldi_tpu_torch.device import resolve_device
 
 log = get_logger(__name__)
@@ -633,3 +641,181 @@ def nnet_latgen_faster_parallel_tool(argv):
     log.info("nnet-latgen-faster-parallel: %d utterances on %d "
              "threads", len(results), po["num-threads"])
     return 0
+
+
+# ---------------------------------------------------------------------------
+# egs plumbing
+# ---------------------------------------------------------------------------
+
+# Copied from kaldi_tpu/cli/tools_bank26.py nnet_copy_egs_tool.
+@tool("nnet-copy-egs")
+def nnet_copy_egs_tool(argv):
+    """Copy egs to one or more outputs round-robin
+    (nnet2bin/nnet-copy-egs.cc — the job-splitting step)."""
+    po = ParseOptions("nnet-copy-egs [--srand=-1] <egs-rspec> "
+                      "<egs-wspec1> [<egs-wspec2> ...]")
+    po.register("srand", int, -1,
+                "if >=0, randomize the round-robin output choice")
+    args = po.read(argv)
+    writers = [TableWriter(ws, holder="xeg") for ws in args[1:]]
+    rng = (np.random.default_rng(po["srand"]) if po["srand"] >= 0
+           else None)
+    n = 0
+    counts = [0] * len(writers)
+    try:
+        for key, eg in SequentialTableReader(args[0], holder="xeg"):
+            j = (int(rng.integers(len(writers))) if rng is not None
+                 else n % len(writers))
+            writers[j][key] = eg
+            counts[j] += 1
+            n += 1
+    finally:
+        for w in writers:
+            w.close()
+    log.info("nnet-copy-egs: %d examples → %s", n, counts)
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank26.py nnet_subset_egs_tool.
+@tool("nnet-subset-egs")
+def nnet_subset_egs_tool(argv):
+    """Keep a subset of egs (nnet2bin/nnet-subset-egs.cc)."""
+    po = ParseOptions("nnet-subset-egs [opts] <egs-rspec> <egs-wspec>")
+    po.register("n", int, 10, "examples to keep")
+    po.register("randomize-order", bool, True,
+                "sample randomly rather than taking the head")
+    po.register("srand", int, 0, "sampling seed")
+    args = po.read(argv)
+    entries = list(SequentialTableReader(args[0], holder="xeg"))
+    if po["randomize-order"]:
+        order = np.random.default_rng(po["srand"]).permutation(
+            len(entries))[:po["n"]]
+    else:
+        order = np.arange(min(po["n"], len(entries)))
+    with TableWriter(args[1], holder="xeg") as w:
+        for i in order:
+            key, eg = entries[int(i)]
+            w[key] = eg
+    log.info("nnet-subset-egs: kept %d of %d", len(order),
+             len(entries))
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank26.py nnet_relabel_egs_tool.
+@tool("nnet-relabel-egs")
+def nnet_relabel_egs_tool(argv):
+    """Replace egs pdf targets with labels from new alignments — the
+    realignment step (nnet2bin/nnet-relabel-egs.cc).  Requires egs
+    written by nnet-get-egs --provenance-keys=true (keys
+    '<utt>:<start-frame>')."""
+    from kaldi_tpu_torch.pipelines.egs_io import XentEg
+    po = ParseOptions("nnet-relabel-egs <pdf-ali-rspec> <egs-rspec> "
+                      "<egs-wspec>")
+    args = po.read(argv)
+    ali_r = RandomAccessTableReader(args[0], holder="ivec")
+    n, n_relab, n_skip = 0, 0, 0
+    with TableWriter(args[2], holder="xeg") as w:
+        for key, eg in SequentialTableReader(args[1], holder="xeg"):
+            if ":" not in key:
+                raise KaldiError(
+                    "nnet-relabel-egs: eg key %r has no provenance; "
+                    "regenerate with nnet-get-egs "
+                    "--provenance-keys=true" % key)
+            utt, start_s = key.rsplit(":", 1)
+            start = int(start_s)
+            if utt not in ali_r:
+                n_skip += 1
+                continue
+            ali = np.asarray(ali_r[utt], np.int64)
+            B = eg.feats.shape[0]
+            if start + B > len(ali):
+                raise KaldiError(
+                    f"nnet-relabel-egs: {utt} alignment too short "
+                    f"({len(ali)} < {start + B})")
+            new_pdfs = ali[start:start + B].astype(np.int32)
+            n_relab += int((new_pdfs != eg.pdfs[:, 0]).sum())
+            w[key] = XentEg(eg.feats, new_pdfs[:, None])
+            n += 1
+    log.info("nnet-relabel-egs: %d egs, %d frames relabeled, "
+             "%d skipped (no alignment)", n, n_relab, n_skip)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# Port of kaldi_tpu/cli/tools_bank26.py nnet_train_parallel_tool.
+@tool("nnet-train-parallel")
+def nnet_train_parallel_tool(argv):
+    """Parallel SGD within one job: N workers step from the same start
+    over disjoint shards of the egs, the result is the parameter average
+    (nnet2bin/nnet-train-parallel.cc), on ``--device`` (am/nnet2.py
+    ``train_parallel``: NG-SGD when the model is preconditioned).  The
+    output has no priors, as the original's."""
+    from kaldi_tpu_torch.am.nnet2 import (load_nnet2, save_nnet2,
+                                          train_parallel)
+    po = ParseOptions("nnet-train-parallel [opts] <nnet2-in> "
+                      "<egs-rspec> <nnet2-out>")
+    po.register("num-threads", int, 4, "parallel workers")
+    po.register("learning-rate", float, 2e-3, "SGD lr")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    params, cfg = load_nnet2(args[0])
+    egs = [eg for _k, eg in SequentialTableReader(args[1], holder="xeg")]
+    if not egs:
+        raise KaldiError("nnet-train-parallel: no examples")
+    params, loss, J, n_per = train_parallel(
+        params, cfg, egs, po["num-threads"], po["learning-rate"], device)
+    save_nnet2(args[2], params, cfg)
+    log.info("nnet-train-parallel: %d workers × %d egs, xent %.4f",
+             J, n_per, loss)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank26.py nnet_train_ensemble_tool.
+@tool("nnet-train-ensemble")
+def nnet_train_ensemble_tool(argv):
+    """Train N nets jointly with targets interpolated toward the
+    ensemble-average posterior (nnet2bin/nnet-train-ensemble.cc):
+    target = (1-beta)·onehot + beta·mean_posterior, on ``--device``
+    (am/nnet2.py ``train_ensemble``)."""
+    from kaldi_tpu_torch.am.nnet2 import (load_nnet2, save_nnet2,
+                                          train_ensemble)
+    po = ParseOptions("nnet-train-ensemble [opts] <egs-rspec> "
+                      "<nnet2-in1> [<nnet2-in2> ...] <nnet2-out1> "
+                      "[<nnet2-out2> ...]")
+    po.register("beta", float, 0.5, "ensemble-target interpolation")
+    po.register("learning-rate", float, 2e-3, "SGD lr")
+    _device_po(po)
+    args = po.read(argv)
+    if len(args) < 3 or (len(args) - 1) % 2:
+        raise KaldiError("nnet-train-ensemble: need egs + N inputs + "
+                         "N outputs")
+    device = resolve_device(po["device"])
+    N = (len(args) - 1) // 2
+    loaded = [load_nnet2(p) for p in args[1:1 + N]]
+    cfg = loaded[0][1]
+    egs = (eg for _k, eg in SequentialTableReader(args[0], holder="xeg"))
+    trained, loss, n_mb = train_ensemble(
+        [p for p, _c in loaded], cfg, egs, po["beta"],
+        po["learning-rate"], device)
+    if loss is None:
+        raise KaldiError("nnet-train-ensemble: no examples")
+    for i in range(N):
+        save_nnet2(args[1 + N + i], trained[i], cfg)
+    log.info("nnet-train-ensemble: %d nets, %d minibatches, "
+             "objf %.4f", N, n_mb, -loss)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank26.py nnet_combine_tool.
+@tool("nnet-combine")
+def nnet_combine_tool(argv):
+    """Combine nnet2 models by validation-optimized weights
+    (nnet2bin/nnet-combine.cc; same objective as nnet-combine-fast —
+    both optimize the combination weights on validation data, the
+    upstream pair differing only in optimizer)."""
+    from kaldi_tpu_torch.cli.tools_bank25 import nnet_combine_fast_tool
+    return nnet_combine_fast_tool(argv)

@@ -1,15 +1,25 @@
 """Port of kaldi_tpu/cli/tools_bank31.py nnet3-latgen-incremental (parity
 target nnet3bin/nnet3-latgen-incremental.cc) and of its nnet2 tools
 (nnet2bin/{nnet-am-limit-rank, nnet-am-reinitialize,
-nnet-compute-from-egs, nnet-modify-learning-rates}.cc), registered in
-cli/tools.py's ``TOOLS``.  nnet3-latgen-incremental takes ``--device``
+nnet-compute-from-egs, nnet-modify-learning-rates,
+nnet-get-feature-transform, nnet-get-feature-transform-multi,
+nnet-normalize-stddev, nnet-train-discriminative-simple,
+nnet-train-discriminative-parallel}.cc), registered in cli/tools.py's
+``TOOLS``.  nnet3-latgen-incremental takes ``--device``
 (default cuda): the raw TDNN-F scores each utterance there, and
 ``OnlineBeamDecoder`` (decoder/online_beam.py) advances over the scores
 there ``--chunk-frames`` at a time, its lattice finalized at the
 utterance's end.  nnet-compute-from-egs forwards the egs on
 ``--device``; the three model tools are host numpy on flax's parameter
 tree (nnet-am-reinitialize draws from ``np.random.default_rng(srand)``
-as the original does).
+as the original does), and so are the two feature-transform tools
+(``LdaEstimate`` over ``<LDAACCS>`` files, copied, so their matrices
+equal the original's).  nnet-normalize-stddev and the two
+discriminative trainers take ``--device``: the layers' products, and
+the model, the MMI / sMBR frame loop (am/discriminative.py) and Adam,
+run there (am/nnet2.py ``normalize_stddev``, ``train_discriminative``).
+The trainers keep the original's scores, log-softmax with no log-priors
+(ROADMAP, "Reference faults to port to intent").
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch.cli.tools import _device_po, tool
-from kaldi_tpu_torch.core.logging import get_logger
+from kaldi_tpu_torch.core.logging import KaldiError, get_logger
 from kaldi_tpu_torch.core.options import ParseOptions
 from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
 from kaldi_tpu_torch.device import resolve_device
@@ -260,4 +270,213 @@ def nnet_modify_learning_rates_tool(argv):
     for name, rc, lr in zip(names, rel, lrs):
         log.info("nnet-modify-learning-rates: %s rel-change %.3e "
                  "→ lr %.3e", name, rc, lr)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the nnet2 input feature transform
+# ---------------------------------------------------------------------------
+
+# Copied from kaldi_tpu/cli/tools_bank31.py nnet_get_feature_transform_tool.
+@tool("nnet-get-feature-transform")
+def nnet_get_feature_transform_tool(argv):
+    """Compute the nnet2 input feature transform from LDA-style stats
+    (nnet2bin/nnet-get-feature-transform.cc): a NON-dimension-reducing
+    LDA whose within-class variance is scaled by
+    --within-class-factor, so directions with low discrimination are
+    shrunk rather than dropped."""
+    from kaldi_tpu_torch.am.transforms import LdaEstimate
+    from kaldi_tpu_torch.cli.tools_bank9 import read_lda_accs
+    from kaldi_tpu_torch.core import io as kio
+    po = ParseOptions("nnet-get-feature-transform [opts] <mat-out> "
+                      "<lda-acc1> [<lda-acc2> ...]")
+    po.register("dim", int, 0, "output dim (0 ⇒ full input dim)")
+    po.register("within-class-factor", float, 0.001,
+                "scale on the within-class variance")
+    args = po.read(argv)
+    lda = None
+    for acc_path in args[1:]:
+        counts, first, second = read_lda_accs(acc_path)
+        if lda is None:
+            lda = LdaEstimate(len(counts), first.shape[1])
+        lda.counts += counts
+        lda.first += first
+        lda.total_second += second
+    if lda is None:
+        raise KaldiError("nnet-get-feature-transform: no accs")
+    dim = po["dim"] or lda.first.shape[1]
+    mat = lda.estimate(dim, within_class_factor=po[
+        "within-class-factor"])
+    with kio.open_wxfilename(args[0]) as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_matrix(f, mat.astype(np.float32))
+    log.info("nnet-get-feature-transform: %s transform "
+             "(within-class-factor %g)", mat.shape,
+             po["within-class-factor"])
+    return 0
+
+
+# Copied from kaldi_tpu/cli/tools_bank31.py
+# nnet_get_feature_transform_multi_tool.
+@tool("nnet-get-feature-transform-multi")
+def nnet_get_feature_transform_multi_tool(argv):
+    """Block version for multi-context inputs
+    (nnet2bin/nnet-get-feature-transform-multi.cc role): the LDA acc
+    is over D·N-dim spliced features; --context-groups partitions the
+    N context positions (colon-separated groups of comma-separated
+    indexes) and one transform is estimated per group on its own
+    sub-blocks, stacked block-diagonally."""
+    from kaldi_tpu_torch.am.transforms import LdaEstimate
+    from kaldi_tpu_torch.cli.tools_bank9 import read_lda_accs
+    from kaldi_tpu_torch.core import io as kio
+    po = ParseOptions("nnet-get-feature-transform-multi [opts] "
+                      "<lda-acc> <mat-out>")
+    po.register("context-groups", str, "", "e.g. 0,1,2:3,4 "
+                "(REQUIRED) — groups of context positions")
+    po.register("feat-dim", int, 0, "per-context feature dim "
+                "(REQUIRED)")
+    po.register("within-class-factor", float, 0.001,
+                "scale on the within-class variance")
+    args = po.read(argv)
+    if not po["context-groups"] or po["feat-dim"] <= 0:
+        raise KaldiError("nnet-get-feature-transform-multi: "
+                         "--context-groups and --feat-dim required")
+    D = po["feat-dim"]
+    counts, first, second = read_lda_accs(args[0])
+    total = first.shape[1]
+    if total % D:
+        raise KaldiError(f"acc dim {total} not a multiple of "
+                         f"--feat-dim {D}")
+    groups = [[int(i) for i in g.split(",") if i != ""]
+              for g in po["context-groups"].split(":")]
+    blocks = []
+    for g in groups:
+        idx = np.concatenate([np.arange(c * D, (c + 1) * D)
+                              for c in g])
+        sub = LdaEstimate(len(counts), len(idx))
+        sub.counts = counts.copy()
+        sub.first = first[:, idx]
+        sub.total_second = second[np.ix_(idx, idx)]
+        # estimate() appends a mean-offset column; keep the linear part
+        mat = sub.estimate(len(idx), within_class_factor=po[
+            "within-class-factor"])
+        blocks.append((mat, list(idx)))
+    out_dim = sum(b.shape[0] for b, _ in blocks)
+    full = np.zeros((out_dim, total + 1), np.float64)
+    r = 0
+    for mat, idx in blocks:
+        rows = slice(r, r + mat.shape[0])
+        full[rows, -1] = mat[:, -1]            # offset column
+        for j, col in enumerate(idx):
+            full[rows, col] = mat[:, j]
+        r += mat.shape[0]
+    with kio.open_wxfilename(args[1]) as f:
+        kio.init_kaldi_output_stream(f)
+        kio.write_matrix(f, full.astype(np.float32))
+    log.info("nnet-get-feature-transform-multi: %d groups → "
+             "%s block transform", len(groups), full.shape)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank31.py nnet_normalize_stddev_tool.
+@tool("nnet-normalize-stddev")
+def nnet_normalize_stddev_tool(argv):
+    """Rescale each hidden affine so its pre-pnorm output stddev over
+    a set of egs equals --stddev (nnet2bin/nnet-normalize-stddev.cc), on
+    ``--device`` (am/nnet2.py ``normalize_stddev``).  Valid because
+    pnorm is scale-equivariant and the following NormalizeComponent
+    cancels the scale downstream — only the layer's own dynamic range
+    changes, exactly the reference's rationale."""
+    from kaldi_tpu_torch.am.nnet2 import (load_nnet2_full,
+                                          normalize_stddev, save_nnet2)
+    po = ParseOptions("nnet-normalize-stddev [opts] <nnet2-in> "
+                      "<egs-rspec> <nnet2-out>")
+    po.register("stddev", float, 1.0, "target output stddev")
+    _device_po(po)
+    args = po.read(argv)
+    device = resolve_device(po["device"])
+    params, cfg, priors = load_nnet2_full(args[0])
+    xs = [np.asarray(eg.feats, np.float32) for _key, eg in
+          SequentialTableReader(args[1], holder="xeg")]
+    if not xs:
+        raise KaldiError("nnet-normalize-stddev: no egs")
+    params, before = normalize_stddev(params, cfg, np.concatenate(xs),
+                                      po["stddev"], device)
+    for name, sd in before:
+        log.info("nnet-normalize-stddev: %s stddev %.3f → %.3f",
+                 name, sd, po["stddev"])
+    save_nnet2(args[2], params, cfg, priors)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# nnet2 discriminative (sequence) training
+# ---------------------------------------------------------------------------
+
+def _disc_po(po: ParseOptions) -> None:
+    po.register("criterion", str, "smbr", "smbr|mmi")
+    po.register("learning-rate", float, 5e-5, "adam lr")
+    po.register("acoustic-scale", float, 0.1, "kappa")
+    po.register("num-epochs", int, 2, "epochs over the egs")
+    _device_po(po)
+
+
+def _disc_read(po: ParseOptions, args):
+    if po["criterion"] not in ("smbr", "mmi"):
+        raise KaldiError(f"unknown criterion {po['criterion']}")
+    from kaldi_tpu_torch.am.nnet2 import load_nnet2_full
+    device = resolve_device(po["device"])
+    params, cfg, priors = load_nnet2_full(args[0])
+    degs = [eg for _k, eg in SequentialTableReader(args[1],
+                                                   holder="deg")]
+    return device, params, cfg, priors, degs
+
+
+# Port of kaldi_tpu/cli/tools_bank31.py
+# nnet_train_discriminative_simple_tool.
+@tool("nnet-train-discriminative-simple")
+def nnet_train_discriminative_simple_tool(argv):
+    """MMI/sMBR sequence training of an nnet2 model from
+    discriminative egs (nnet2bin/nnet-train-discriminative-simple.cc),
+    on ``--device``.  Degs are the same dense-lattice records the nnet3
+    pipeline uses (nnet3-discriminative-get-egs)."""
+    from kaldi_tpu_torch.am.nnet2 import save_nnet2, train_discriminative
+    po = ParseOptions("nnet-train-discriminative-simple [opts] "
+                      "<nnet2-in> <degs-rspec> <nnet2-out>")
+    _disc_po(po)
+    args = po.read(argv)
+    device, params, cfg, priors, degs = _disc_read(po, args)
+    params, mean_loss = train_discriminative(
+        params, cfg, degs, po["criterion"], po["learning-rate"],
+        po["acoustic-scale"], po["num-epochs"], device)
+    save_nnet2(args[2], params, cfg, priors)
+    log.info("nnet-train-discriminative-simple: %d egs, mean "
+             "-objf %.4f", len(degs), mean_loss)
+    return 0
+
+
+# Port of kaldi_tpu/cli/tools_bank31.py
+# nnet_train_discriminative_parallel_tool.
+@tool("nnet-train-discriminative-parallel")
+def nnet_train_discriminative_parallel_tool(argv):
+    """Parallel variant: the degs are sharded --num-threads ways, each
+    shard trains a copy from the common start, and the result is the
+    parameter average (nnet2bin/nnet-train-discriminative-parallel.cc
+    — its threads update one model without locks; averaging shards
+    is the deterministic equivalent of that race), on ``--device``."""
+    from kaldi_tpu_torch.am.nnet2 import (save_nnet2,
+                                          train_discriminative_parallel)
+    po = ParseOptions("nnet-train-discriminative-parallel [opts] "
+                      "<nnet2-in> <degs-rspec> <nnet2-out>")
+    _disc_po(po)
+    po.register("num-threads", int, 2, "shards to train + average")
+    args = po.read(argv)
+    device, params, cfg, priors, degs = _disc_read(po, args)
+    avg, loss, N = train_discriminative_parallel(
+        params, cfg, degs, po["num-threads"], po["criterion"],
+        po["learning-rate"], po["acoustic-scale"], po["num-epochs"],
+        device)
+    save_nnet2(args[2], avg, cfg, priors)
+    log.info("nnet-train-discriminative-parallel: %d egs over %d "
+             "shards, mean -objf %.4f", len(degs), N, loss)
     return 0

@@ -24,6 +24,7 @@ import kaldi_tpu_torch.cli  # noqa: F401  (registers the port's tools)
 from kaldi_tpu.cli import tools as jtools
 from kaldi_tpu_torch.cli import tools as ttools
 from kaldi_tpu_torch.core.table import SequentialTableReader
+from torch_registry import TOOL_COUNT
 
 torch.set_num_threads(1)
 
@@ -350,7 +351,7 @@ def test_registry_holds_the_chain_loop():
     (161 → 174 of the original's; 201 with the serving and regression-
     tree tools, tests/test_torch_serve_tools.py; 234 with the nnet2
     tools, tests/test_torch_nnet2_tools.py; 277 with the nnet1 and nnet3
-    loop tools)."""
+    loop tools; the whole count is tests/torch_registry.py's)."""
     loop = {"nnet3-get-egs-dense-targets", "nnet3-chain-merge-egs",
             "nnet3-chain-normalize-egs", "nnet3-chain-combine",
             "nnet3-chain-compute-post", "nnet3-am-adjust-priors",
@@ -359,7 +360,7 @@ def test_registry_holds_the_chain_loop():
             "chain-make-den-fst", "nnet3-am-copy"}
     assert len(loop) == 13
     assert loop <= set(ttools.TOOLS) and loop <= set(jtools.TOOLS)
-    assert len(ttools.TOOLS) == 277
+    assert len(ttools.TOOLS) == TOOL_COUNT
 
 
 def test_checkpoint_module_names_its_original():

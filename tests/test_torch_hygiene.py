@@ -60,13 +60,17 @@ FORBIDDEN = ("kaldi_tpu", "jax", "flax", "optax", "msgpack", "tensorstore")
                                   "kaldi_tpu_torch/am/nnet1.py",
                                   "kaldi_tpu_torch/cli/tools_bank14.py",
                                   "kaldi_tpu_torch/cli/tools_bank18.py",
-                                  "kaldi_tpu_torch/tools/nnet_loop_check.py"])
+                                  "kaldi_tpu_torch/tools/nnet_loop_check.py",
+                                  "kaldi_tpu_torch/pipelines/segment.py",
+                                  "kaldi_tpu_torch/cli/tools_bank4.py",
+                                  "kaldi_tpu_torch/tools/nnet2_train_check.py"])
 def test_the_import_check_covers(path):
     """The RNNLM, its msgpack codec, the copied lattice modules, the
     tensor-parallel collectives, the orbax checkpoint reader, the
     regression tree, the serving tools' new banks, the nnet2 modules,
     tools and check script, and the nnet1 module, the cross-entropy
-    loop's new banks and its check script are among the files the import
+    loop's new banks and its check script, and the nnet2 training slice's
+    segmenter, bank 4 and check script are among the files the import
     check walks."""
     assert path in PORT_FILES
 
@@ -124,7 +128,8 @@ COPIED = {
     "fst/context.py", "lattice/functions.py", "decoder/training_graph.py",
     "lattice/rescore.py", "lattice/ops.py", "lattice/word_align.py",
     "lattice/phone_align.py", "lattice/ctm.py", "pipelines/datadir.py",
-    "decoder/simple.py", "decoder/biglm.py", "fst/grammar.py", "kws.py"}
+    "decoder/simple.py", "decoder/biglm.py", "fst/grammar.py", "kws.py",
+    "pipelines/segment.py"}
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -297,13 +302,21 @@ def test_without_a_card_construction_raises(monkeypatch):
             call()
 
 
-# the tensor-computing tools of the tri3b stack, full GMMs and EBW, with
-# their positional argument counts
+# the tensor-computing tools of the tri3b stack, full GMMs, EBW, the nnet2
+# trainers and the long-audio segmenter, with their positional argument
+# counts
 CARD_TOOLS = {"gmm-acc-mllt": 4, "gmm-est-fmllr": 4,
               "gmm-acc-stats-twofeats": 5, "gmm-acc-stats": 4,
               "gmm-compute-likes": 3, "gmm-adapt-map": 4,
               "fgmm-global-acc-stats": 3, "fgmm-global-get-frame-likes": 3,
-              "fgmm-gselect": 3}
+              "fgmm-gselect": 3,
+              # the nnet2 trainers and segment-long-utterances' VAD
+              "nnet-train-simple": 4, "nnet-train-parallel": 3,
+              "nnet-train-ensemble": 5, "nnet-combine-fast": 5,
+              "nnet-combine": 5, "nnet-normalize-stddev": 3,
+              "nnet-train-discriminative-simple": 3,
+              "nnet-train-discriminative-parallel": 3,
+              "segment-long-utterances": 2}
 
 
 @pytest.mark.parametrize("name", sorted(CARD_TOOLS))
@@ -496,10 +509,11 @@ def test_native_builds_under_a_per_process_name(tmp_path, monkeypatch):
     ["-m", "kaldi_tpu_torch.tools.profile_slice", "--features"],
     ["-m", "kaldi_tpu_torch.tools.flagship_spread"],
     ["kaldi_tpu_torch/tools/nnet2_check.py"],
-    ["kaldi_tpu_torch/tools/nnet_loop_check.py"]],
+    ["kaldi_tpu_torch/tools/nnet_loop_check.py"],
+    ["kaldi_tpu_torch/tools/nnet2_train_check.py"]],
     ids=["chip_smoke", "profile_slice", "profile_slice-den",
          "profile_slice-features", "flagship_spread", "nnet2_check",
-         "nnet_loop_check"])
+         "nnet_loop_check", "nnet2_train_check"])
 def test_card_scripts_refuse_without_a_card(argv):
     """The scripts that measure on the card run their main, and without
     a card exit non-zero before printing any result."""

@@ -34,6 +34,7 @@ from kaldi_tpu.lm import rnnlm as J
 from kaldi_tpu_torch.core import msgpack
 from kaldi_tpu_torch.fst.fst import SymbolTable
 from kaldi_tpu_torch.lm import rnnlm as T
+from torch_registry import TOOL_COUNT
 
 torch.set_num_threads(1)
 
@@ -484,7 +485,7 @@ def test_the_port_registers_the_nine_rnnlm_tools_and_const_arpa():
     TTOOLS, JTOOLS = _tools()
     for name in RNNLM_TOOLS_9 + ["arpa-to-const-arpa", "const-arpa-to-arpa"]:
         assert name in TTOOLS and name in JTOOLS
-    assert len(TTOOLS) == 277       # with the nnet1 and nnet3 loop tools
+    assert len(TTOOLS) == TOOL_COUNT
 
 
 @pytest.mark.parametrize("name,opts", [

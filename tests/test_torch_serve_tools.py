@@ -41,6 +41,7 @@ from kaldi_tpu_torch.core.table import SequentialTableReader, TableWriter
 from kaldi_tpu_torch.fst.openfst_io import write_fst_path
 from test_torch_beam import PORT, yesno_graph
 from test_torch_online_nnet import numpy_state
+from torch_registry import TOOL_COUNT
 
 torch.set_num_threads(1)
 
@@ -570,14 +571,15 @@ class _Stop(Exception):
 def test_registry_holds_the_serving_tools(monkeypatch):
     """The 27 tools are registered, each a tool of the original (174 →
     201 of the original's; 234 since the nnet2 tools, 277 since the
-    nnet1 and nnet3 loop tools), and each that
+    nnet1 and nnet3 loop tools; the whole count is
+    tests/torch_registry.py's), and each that
     computes takes --device with the default cuda (its options read
     where it parses them)."""
     from kaldi_tpu_torch.core.options import ParseOptions
     assert len(set(SERVING_TOOLS)) == 27
     assert set(SERVING_TOOLS) <= set(ttools.TOOLS)
     assert set(SERVING_TOOLS) <= set(jtools.TOOLS)
-    assert len(ttools.TOOLS) == 277
+    assert len(ttools.TOOLS) == TOOL_COUNT
     seen = {}
 
     def spy(self, argv=None):
